@@ -11,3 +11,7 @@ def pytest_configure(config):
         "markers",
         "slow: long-running integration test (subprocess compiles on a "
         "512-device host mesh); deselect with -m 'not slow'")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU (the port's CUDA kernels); skips "
+        "without one")
