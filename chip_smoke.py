@@ -13,10 +13,20 @@
    counts are zeroed just before and read just after; each kernel must have
    run. Fused and dense top-k must agree (ids equal up to near-ties), and two
    GPU solves must give identical labels.
-3. Holds each kernel against its plain PyTorch version on the card, at the
-   main path's shapes and on edge cases (exact on integer-valued inputs),
-   and times kernel, plain version and one PyTorch library call.
-4. Profiles a few requests (device time per kernel, idle share), and checks
+3. Drives the embedding layer's entry points (``repro_torch.embedding``) at
+   the same width, on the main path's sketch (K_u 8,878 with H=2, K_v 17,136
+   with H=1) and d=64 codebooks from ``init_params(seed=0)``: the codebook
+   readout ``fused_topk(sketch=...)`` over items and users (B 1..512, f32
+   and int8, mask, exclusions from the training edges), every user's bag of
+   training items (sum and mean, forward and backward; also in a random
+   order, with no sortedness declared), and the gradient of
+   the base embeddings through the "cuda" backend, twice, against the
+   "gather" backend. Its kernels' launch counts are zeroed just before and
+   read just after; each must have run.
+4. Holds each kernel against its plain PyTorch version on the card, at the
+   paths' shapes and on edge cases (exact on integer-valued inputs, NaN
+   scores), and times kernel, plain version and one PyTorch library call.
+5. Profiles a few requests (device time per kernel, idle share), and checks
    the port end to end on a small input against itself on the CPU.
 
 Prints a ``kernels`` JSON line, the ``nvidia-smi`` name/power line, and as
@@ -161,6 +171,25 @@ def sync(device: str) -> None:
         torch.cuda.synchronize()
 
 
+def counted_kernels() -> dict:
+    """Each kernel's wrapper, whose ``launches`` counts its launches, by
+    the name the ``kernels`` line gives the kernel."""
+    from repro_torch.kernels import (codebook_lookup, csr_gather_sum,
+                                     fused_topk, fused_topk_codebook)
+    return {"codebook_lookup": codebook_lookup, "fused_topk": fused_topk,
+            "fused_topk_codebook": fused_topk_codebook,
+            "embedding_bag": csr_gather_sum}
+
+
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in counted_kernels().items()}
+
+
+def zero_counts() -> None:
+    for fn in counted_kernels().values():
+        fn.launches = 0
+
+
 def main_path(workdir: str, dataset: str = "amazonbook",
               device: str = "cuda") -> dict:
     """The serving main path (``device="cpu"`` and a small dataset make a
@@ -171,7 +200,6 @@ def main_path(workdir: str, dataset: str = "amazonbook",
     from repro_torch.core import ClusterEngine, make_weights
     from repro_torch.data import paperlike_dataset
     from repro_torch.embedding import dequantize_params
-    from repro_torch.kernels import codebook_lookup, fused_topk
     from repro_torch.models import lightgcn as L
     from repro_torch.models.lightgcn import (edge_norms, from_sketch,
                                              init_params)
@@ -184,8 +212,7 @@ def main_path(workdir: str, dataset: str = "amazonbook",
     log(f"dataset {dataset}: {train.n_users} users, {train.n_items} items, "
         f"{train.n_edges} train edges ({t_data:.1f} s on the host)")
 
-    codebook_lookup.launches = 0
-    fused_topk.launches = 0
+    zero_counts()
 
     engine = ClusterEngine(device=device)
     t0 = time.perf_counter()
@@ -254,8 +281,9 @@ def main_path(workdir: str, dataset: str = "amazonbook",
                            "p50_ms": st["p50_ms"], "p99_ms": st["p99_ms"]}
     sync(device)
     t_serve = time.perf_counter() - t0
-    launches = {"codebook_lookup": codebook_lookup.launches,
-                "fused_topk": fused_topk.launches}
+    counts = launch_counts()
+    launches = {name: counts[name]
+                for name in ("codebook_lookup", "fused_topk")}
     n_requests = sum(v["requests"] for v in serve.values())
     log(f"served {n_requests} requests in {t_serve:.1f} s: {serve}")
     log(f"kernel launches on the main path: {launches}")
@@ -283,7 +311,198 @@ def main_path(workdir: str, dataset: str = "amazonbook",
 
 
 # ---------------------------------------------------------------------------
-# phase 3: each kernel against its plain version
+# phase 3: the embedding layer's entry points
+# ---------------------------------------------------------------------------
+def embedding_inputs(run: dict, device: str) -> dict:
+    """The main path's codebooks (init_params(seed=0)), sketch and
+    training bags as tensors on ``device``, int8 codebooks beside them."""
+    import torch
+
+    from repro_torch.embedding import quantize_int8_rows
+
+    train, sketch = run["train"], run["sketch"]
+    params = run["loaded"].params
+
+    def t(a, dtype=None):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    out = {}
+    for side, table, idx in (("items", "item_table", sketch.item_idx),
+                             ("users", "user_table", sketch.user_idx)):
+        q, scale = quantize_int8_rows(params[table])
+        out[side] = {"z": t(params[table]), "sketch": t(idx, torch.int32),
+                     "q": t(q), "scale": t(scale)}
+    out["values"] = t(train.edge_v, torch.int32)        # user-sorted edges
+    out["segments"] = t(train.edge_u, torch.int64)
+    out["n_users"], out["n_items"] = train.n_users, train.n_items
+    return out
+
+
+def readout_cases(emb: dict, side: str, b: int, device: str):
+    """(u, kwargs) cases of the codebook readout of ``side`` for the
+    first ``b`` users: f32 and int8, bare, with a mask (-inf on every
+    97th item) and with exclusions (each user's training items; on the
+    users side, the user itself)."""
+    import torch
+
+    from repro_torch.embedding import EmbeddingEngine, EmbeddingSpec
+
+    us = emb["users"]
+    n_users = emb["n_users"]
+    u0 = EmbeddingEngine(EmbeddingSpec(n_users, 64, k_rows=us["z"].shape[0],
+                                       n_hot=2)).codebook_lookup(
+        us["z"], us["sketch"], torch.arange(b, device=device))
+    tab = emb[side]
+    n = int(tab["sketch"].shape[0])
+    mask = torch.zeros(n, device=device)
+    mask[::97] = float("-inf")
+    if side == "items":
+        sel = emb["segments"] < b
+        excl = (emb["segments"][sel], emb["values"][sel])
+    else:
+        excl = (torch.arange(b, device=device),
+                torch.arange(b, device=device))
+    for quant in (False, True):
+        base = ({"items": tab["q"], "scale": tab["scale"]} if quant
+                else {"items": tab["z"]})
+        for extra in ({}, {"mask": mask}, {"exclude": excl}):
+            yield u0, {**base, "sketch": tab["sketch"], **extra}
+
+
+def embedding_path(run: dict, device: str = "cuda") -> dict:
+    """Drives ``repro_torch.embedding`` at full width (``device="cpu"``
+    on a small dataset rehearses the same code without a GPU)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.embedding import (EmbeddingEngine, EmbeddingSpec,
+                                       embedding_bag, fused_topk)
+    from repro_torch.kernels import ref
+    from repro_torch.models import lightgcn as L
+
+    emb = embedding_inputs(run, device)
+    k = 20
+    t0 = time.perf_counter()
+    zero_counts()
+    # the codebook readout, against the plain version
+    n_cases, n_diff = 0, 0
+    for side in ("items", "users"):
+        for b in (1, 8, 64, 512):
+            for u, kw in readout_cases(emb, side, b, device):
+                items = kw.pop("items")
+                got_v, got_i = fused_topk(u, items, k, **kw)
+                want_v, want_i = ref.fused_topk(u, items, k, **kw)
+                sync(device)
+                exp = ref.expand_items(items, kw.get("scale"), kw["sketch"])
+                n_diff += topk_agree(got_v.cpu(), got_i.cpu(), want_v.cpu(),
+                                     want_i.cpu(),
+                                     pair_scorer(u, exp, mask=kw.get("mask")))
+                n_cases += 1
+    log(f"codebook readout: {n_cases} cases (items N={emb['n_items']} H=1, "
+        f"users N={emb['n_users']} H=2; B 1..512; f32/int8; mask; "
+        f"exclusions) agree with the plain version ({n_diff} ids differ "
+        f"at near-ties)")
+    # exact on integer-valued codebooks, at the same shapes
+    g = torch.Generator(device="cpu").manual_seed(2)
+    for side in ("items", "users"):
+        tab = emb[side]
+        zi = torch.randint(-2, 3, tuple(tab["z"].shape), generator=g)
+        zi = zi.float().to(device)
+        ui = torch.randint(-2, 3, (512, 64), generator=g).float().to(device)
+        got = fused_topk(ui, zi, k, sketch=tab["sketch"])
+        want = ref.fused_topk(ui, zi, k, sketch=tab["sketch"])
+        require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                f"codebook readout ({side}) not exact on integer inputs")
+    log("codebook readout on integer-valued codebooks: exact (items, users)")
+
+    # every user's bag of training items, over the expanded item table
+    items = emb["items"]
+    v0 = EmbeddingEngine(EmbeddingSpec(emb["n_items"], 64,
+                                       k_rows=items["z"].shape[0])) \
+        .codebook_lookup(items["z"], items["sketch"])
+    vals, segs, n_users = emb["values"], emb["segments"], emb["n_users"]
+    plain_sum = ref.embedding_bag(v0, vals, segs, n_users)
+    cnt = torch.bincount(segs, minlength=n_users).clamp(min=1).float()
+    for mode, want in (("sum", plain_sum),
+                       ("mean", plain_sum / cnt[:, None])):
+        got = embedding_bag(v0, vals, segs, n_users, mode=mode)
+        require(torch.equal(got, want),
+                f"bag lookup ({mode}) is not bitwise the plain version")
+    # empty and single-value bags; the same bags with their values in a
+    # random order (unsorted segment ids, no declaration)
+    keep = (segs % 3 != 1) & (segs < 5000)
+    first = torch.ones_like(keep)
+    first[1:] = segs[1:] != segs[:-1]
+    shuffled = torch.randperm(vals.numel(), generator=g).to(device)
+    for name, sel in (("empty bags", keep), ("single values", first),
+                      ("unsorted", shuffled)):
+        got = embedding_bag(v0, vals[sel], segs[sel], n_users)
+        want = ref.embedding_bag(v0, vals[sel], segs[sel], n_users)
+        require(torch.equal(got, want), f"bag lookup ({name}) differs")
+    log(f"bags: {vals.numel()} values in {n_users} bags over "
+        f"[{emb['n_items']}, 64], sum and mean, empty and single-value "
+        f"bags, unsorted bags: bitwise the plain version")
+    # the bag backward
+    w = torch.randn(n_users, 64, generator=g).to(device)
+
+    def bag_grad(backend, mode):
+        t = v0.detach().clone().requires_grad_(True)
+        out = embedding_bag(t, vals, segs, n_users, mode=mode, via=backend)
+        return torch.autograd.grad((out * w).sum(), t)[0]
+
+    plain_grad = ref.embedding_bag(w, segs, vals, emb["n_items"])
+    require(torch.equal(bag_grad("cuda", "sum"), plain_grad),
+            "bag backward is not bitwise the plain backward")
+    for mode in ("sum", "mean"):
+        a, b_ = bag_grad("cuda", mode), bag_grad("cuda", mode)
+        require(torch.equal(a, b_), f"bag backward ({mode}) not "
+                f"deterministic")
+        gat = bag_grad("gather", mode)
+        require(torch.allclose(a, gat, rtol=1e-5, atol=1e-5),
+                f"bag backward ({mode}) differs from the gather backend: "
+                f"max |diff| {float((a - gat).abs().max())}")
+    log("bag backward: bitwise the plain backward (sum), two runs bitwise "
+        "equal, within 1e-5 of the gather backend (sum, mean)")
+
+    # the base embeddings' gradient through each backend
+    loaded = run["loaded"]
+    statics = {"sketch_u": emb["users"]["sketch"],
+               "sketch_v": emb["items"]["sketch"]}
+    wu = torch.randn(emb["n_users"], 64, generator=g).to(device)
+    wv = torch.randn(emb["n_items"], 64, generator=g).to(device)
+
+    def base_grad(backend):
+        cfg = dataclasses.replace(loaded.mcfg(), lookup_backend=backend)
+        p = {kk: torch.as_tensor(vv, device=device).requires_grad_(True)
+             for kk, vv in loaded.params.items()}
+        u, v = L._base_embeddings(p, statics, cfg)
+        loss = (u * wu).sum() + (v * wv).sum()
+        return torch.autograd.grad(loss, [p["user_table"], p["item_table"]])
+
+    a, b_, gat = base_grad("cuda"), base_grad("cuda"), base_grad("gather")
+    for name, x, y, z in zip(("user_table", "item_table"), a, b_, gat):
+        require(torch.equal(x, y), f"d/d{name} not deterministic")
+        require(torch.allclose(x, z, rtol=1e-5, atol=1e-5),
+                f"d/d{name} differs from the gather backend: max |diff| "
+                f"{float((x - z).abs().max())}")
+    log("base-embedding gradients (user and item codebooks): two cuda runs "
+        "bitwise equal, within 1e-5 of the gather backend")
+    sync(device)
+    launches = launch_counts()
+    log(f"embedding layer: {time.perf_counter() - t0:.1f} s; kernel "
+        f"launches {launches}")
+    for name in ("codebook_lookup", "fused_topk_codebook", "embedding_bag"):
+        require(launches[name] > 0, f"{name} never ran on the embedding "
+                f"layer's path")
+    return {"emb": emb, "v0": v0, "launches": launches,
+            "readout_cases": n_cases, "near_tie_ids": n_diff,
+            "seconds": time.perf_counter() - t0}
+
+
+# ---------------------------------------------------------------------------
+# phase 4: each kernel against its plain version
 # ---------------------------------------------------------------------------
 def check_codebook_lookup(run: dict) -> dict:
     import torch
@@ -435,8 +654,9 @@ def check_fused_topk(run: dict) -> dict:
         raise SmokeFailure("fused_topk accepted k above its cap")
     except ValueError:
         pass
-    log("fused_topk edge cases (ties, <k finite, exclusions, int8, k cap): "
-        "pass")
+    check_nan_order(ui, vi)
+    log("fused_topk edge cases (ties, <k finite, exclusions, int8, k cap, "
+        "NaN scores): pass")
     main = per_b[512]
     return {"name": "fused_topk", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/fused_topk.cu",
@@ -447,6 +667,130 @@ def check_fused_topk(run: dict) -> dict:
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
             "shape": f"B=512 N={n} d={d} k={k}",
             "by_batch": {str(b): per_b[b] for b in per_b}}
+
+
+def check_nan_order(u, items, sketch=None) -> None:
+    """NaN scores (a NaN query row, NaN item rows) rank first, lowest id
+    first, in the kernel as in the plain version."""
+    import torch
+
+    from repro_torch.kernels import fused_topk, ref
+
+    u = u.clone()
+    items = items.clone()
+    u[3] = float("nan")
+    nan_rows = [7, 123, items.shape[0] - 1]
+    items[nan_rows] = float("nan")
+    if sketch is not None:                 # items that expand NaN rows
+        sketch = sketch.clone()
+        sketch[[5, 50, sketch.shape[0] - 1], 0] = torch.tensor(
+            nan_rows, dtype=torch.int32, device=sketch.device)
+    got = fused_topk(u, items, 20, sketch=sketch, block=61)
+    want = ref.fused_topk(u, items, 20, sketch=sketch)
+    require(torch.equal(got[1], want[1]) and torch.equal(
+        torch.isnan(got[0]), torch.isnan(want[0])) and torch.equal(
+        got[0].nan_to_num(), want[0].nan_to_num()),
+        f"fused_topk ({'codebook' if sketch is not None else 'dense'}) "
+        f"orders NaN scores unlike the plain version")
+    require(bool(torch.isnan(got[0][:, 0]).all()), "NaN does not rank first")
+
+
+def check_fused_topk_codebook(run: dict, emb_run: dict) -> dict:
+    import torch
+
+    from repro_torch.kernels import fused_topk_codebook, ref
+
+    emb = emb_run["emb"]
+    dev = emb["values"].device
+    k = 20
+    max_err = 0.0
+    rows = {}
+    g = torch.Generator(device="cpu").manual_seed(3)
+    for side in ("items", "users"):
+        tab = emb[side]
+        sk = tab["sketch"]
+        n, h = sk.shape
+        kz, d = tab["z"].shape
+        mask = torch.zeros(n, device=dev)
+        per_b = {}
+        for b in (1, 8, 64, 512):
+            for quant in (False, True):
+                z = tab["q"] if quant else tab["z"]
+                scale = tab["scale"] if quant else None
+                u = torch.randn(b, d, generator=g).to(dev)
+                got = fused_topk_codebook(u, z, sk, k, scale=scale, mask=mask)
+                want = ref.fused_topk(u, z, k, sketch=sk, scale=scale,
+                                      mask=mask)
+                exp = ref.expand_items(z, scale, sk)
+                topk_agree(got[0].cpu(), got[1].cpu(), want[0].cpu(),
+                           want[1].cpu(), pair_scorer(u, exp, mask=mask))
+                max_err = max(max_err,
+                              float((got[0] - want[0]).abs().max()))
+                if quant:
+                    continue
+                z_bytes = z.numel() * z.element_size()
+                bytes_moved = (4 * u.numel() + z_bytes + 4 * sk.numel()
+                               + 4 * n + 8 * b * k)
+                bms, by = bound(bytes_moved, 2.0 * b * n * d + n * h * d)
+                per_b[b] = {
+                    "ms": time_ms(lambda: fused_topk_codebook(
+                        u, z, sk, k, mask=mask)),
+                    "plain_ms": time_ms(lambda: ref.fused_topk(
+                        u, z, k, sketch=sk, mask=mask), iters=10),
+                    "library_ms": time_ms(lambda: torch.topk(
+                        u @ ref.expand_items(z, None, sk).T + mask, k)),
+                    "bound_ms": bms, "bound_by": by}
+                log(f"fused_topk_codebook {side} B={b} N={n} K={kz} H={h} "
+                    f"d={d} k={k}: agrees (f32, int8); {per_b[b]}")
+        rows[side] = {"shape": f"B=512 N={n} K={kz} H={h} d={d} k={k}",
+                      "by_batch": {str(b): per_b[b] for b in per_b}}
+        int_u = torch.randint(-2, 3, (64, 64), generator=g).float().to(dev)
+        check_nan_order(int_u, tab["z"][:5000].contiguous(), sk[:3000] % 5000)
+    log("fused_topk_codebook NaN scores: same order as the plain version")
+    main = rows["items"]["by_batch"]["512"]
+    return {"name": "fused_topk_codebook", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/fused_topk.cu",
+            "replaces": "src/repro/kernels/fused_topk.py:347",
+            "launches": emb_run["launches"]["fused_topk_codebook"],
+            "max_abs_err": max_err, "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            "shape": rows["items"]["shape"], "by_side": rows}
+
+
+def check_embedding_bag(run: dict, emb_run: dict) -> dict:
+    import torch
+
+    from repro_torch.kernels import csr_gather_sum, ref
+
+    emb = emb_run["emb"]
+    table = emb_run["v0"]
+    vals, segs = emb["values"], emb["segments"]
+    n_seg = emb["n_users"]
+    ptr = torch.searchsorted(segs, torch.arange(n_seg + 1, device=segs.device))
+    got = csr_gather_sum(table, vals, ptr)
+    want = ref.csr_gather_sum(table, vals, ptr)
+    require(torch.equal(got, want),
+            "embedding_bag kernel is not bitwise its plain version")
+    n, d = table.shape
+    nnz = vals.numel()
+    bytes_moved = 4 * table.numel() + 4 * nnz + 8 * (n_seg + 1) + 4 * n_seg * d
+    bms, by = bound(bytes_moved, nnz * d)
+    seg = segs.long()
+    row = {"ms": time_ms(lambda: csr_gather_sum(table, vals, ptr)),
+           "plain_ms": time_ms(lambda: ref.csr_gather_sum(table, vals, ptr),
+                               iters=5),
+           "library_ms": time_ms(lambda: torch.zeros(
+               n_seg, d, device=table.device).index_add_(
+               0, seg, table[vals])),
+           "bound_ms": bms, "bound_by": by}
+    log(f"embedding_bag nnz={nnz} S={n_seg} N={n} d={d}: bitwise; {row}")
+    return {"name": "embedding_bag", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/embedding_bag.cu",
+            "replaces": "src/repro/kernels/embedding_bag.py:56",
+            "launches": emb_run["launches"]["embedding_bag"],
+            "max_abs_err": float((got - want).abs().max()), **row,
+            "shape": f"nnz={nnz} S={n_seg} N={n} d={d}"}
 
 
 # ---------------------------------------------------------------------------
@@ -491,7 +835,7 @@ def profile_requests(run: dict, batch: int = 64, n: int = 5) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 4: small input, GPU against the port's own CPU (plain) path
+# phase 5: small input, GPU against the port's own CPU (plain) path
 # ---------------------------------------------------------------------------
 def small_reference() -> None:
     import numpy as np
@@ -566,7 +910,10 @@ def main() -> int:
         with tempfile.TemporaryDirectory(dir=os.path.join(
                 ROOT, "build")) as workdir:
             run = main_path(workdir)
-            kernels = [check_codebook_lookup(run), check_fused_topk(run)]
+            emb_run = embedding_path(run)
+            kernels = [check_codebook_lookup(run), check_fused_topk(run),
+                       check_fused_topk_codebook(run, emb_run),
+                       check_embedding_bag(run, emb_run)]
             prof = profile_requests(run)
         small_reference()
     except (SmokeFailure, RuntimeError, ValueError, AssertionError) as e:
@@ -577,6 +924,10 @@ def main() -> int:
         "cluster_s": run["cluster_s"], "cluster": run["cluster"],
         "solver_stats": run["stats"], "serve": run["serve"],
         "profile": prof}}))
+    print(json.dumps({"embedding_path": {
+        "seconds": emb_run["seconds"], "launches": emb_run["launches"],
+        "readout_cases": emb_run["readout_cases"],
+        "near_tie_ids": emb_run["near_tie_ids"]}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels.ref import segment_sum
 
 from .graph import BipartiteGraph
 
@@ -81,35 +82,13 @@ def segment_sum_ordered(values: torch.Tensor, segment_ids: torch.Tensor,
                         stats: Optional[dict] = None) -> torch.Tensor:
     """f32 sum of ``values`` per segment, each a left fold in index
     order — bitwise ``jax.ops.segment_sum`` on the CPU (a serial
-    scatter-add) — and deterministic on a GPU.
-
-    A stable sort groups each segment's entries in index order; step j
-    then adds every segment's j-th entry at once. A step adds at most one
-    value to each segment, so the order of additions is fixed even where
-    ``index_add_`` uses atomics. The loop runs as many steps as the
-    largest segment has entries; reading that depth is one sync.
+    scatter-add) — and deterministic on a GPU (``kernels.ref.segment_sum``:
+    one step per rank within a segment, so no step adds two values into
+    one sum). Reading the loop's depth is one sync.
     """
-    out = torch.zeros(num_segments, dtype=torch.float32,
-                      device=values.device)
-    n = int(segment_ids.shape[0])
-    if n == 0:
-        return out
-    order = torch.sort(segment_ids, stable=True).indices
-    seg = segment_ids[order]
-    pos = torch.arange(n, device=values.device)
-    first = torch.ones(n, dtype=torch.bool, device=values.device)
-    first[1:] = seg[1:] != seg[:-1]
-    rank = pos - torch.cummax(torch.where(first, pos, 0), 0).values
-    by_rank = torch.sort(rank, stable=True).indices
-    seg = seg[by_rank]
-    val = values[order[by_rank]]
-    counts = torch.bincount(rank).tolist()
-    _bump(stats, "host_syncs")
-    lo = 0
-    for c in counts:
-        out.index_add_(0, seg[lo:lo + c], val[lo:lo + c])
-        lo += c
-    return out
+    if segment_ids.shape[0]:
+        _bump(stats, "host_syncs")
+    return segment_sum(values, segment_ids, num_segments)
 
 
 def _half_step(node_of_edge, cand_lab_of_edge, w_self, w_other_by_label,

@@ -27,7 +27,7 @@ __all__ = ["KERNELS", "CSRC", "BUILD_DIR", "build", "load", "nvcc_path",
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("codebook_lookup", "fused_topk")
+KERNELS = ("codebook_lookup", "embedding_bag", "fused_topk")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
