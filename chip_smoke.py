@@ -23,10 +23,25 @@
    the base embeddings through the "cuda" backend, twice, against the
    "gather" backend. Its kernels' launch counts are zeroed just before and
    read just after; each must have run.
-4. Holds each kernel against its plain PyTorch version on the card, at the
+4. Drives the path of DLRM's dot interaction and flash attention, the
+   port's kernel bench (``repro_torch.launch.kernel_bench``): ``run(fast=
+   False)`` (the four classic ops at the bench's full shapes, with the
+   attention's max error against ``ref.mha``) and its JSON sweep (every
+   lookup backend, the fused scorer against the dense path). Launch counts
+   are zeroed just before and read just after; both kernels must have run.
+5. Holds each kernel against its plain PyTorch version on the card, at the
    paths' shapes and on edge cases (exact on integer-valued inputs, NaN
    scores), and times kernel, plain version and one PyTorch library call.
-5. Profiles a few requests (device time per kernel, idle share), and checks
+   dot_interaction at dlrm-mlperf's width (F 27, d 128) and its training
+   batch (B 65,536), f32 and bf16, and at B 2,048 and 512; flash_attention
+   at one layer of qwen1.5-32b (H 40, d 128) at S 4,096, bf16, causal, and
+   at the bench's full shape (B 2, H 8, S 2,048, d 128, f32, causal and
+   not). Tolerances: f32 rtol 2e-4 / atol 2e-5; bf16 and f16 one rounding
+   step of the type (rtol 1.5 x its eps, atol 1e-4); dot_interaction
+   bitwise on integer inputs. Bounds charge products of two bf16 or f16
+   values at the bf16/f16 tensor rate and all other operations at the
+   f32 rate.
+6. Profiles a few requests (device time per kernel, idle share), and checks
    the port end to end on a small input against itself on the CPU.
 
 Prints a ``kernels`` JSON line, the ``nvidia-smi`` name/power line, and as
@@ -38,6 +53,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -46,10 +62,12 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-# published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and the f32
-# rate outside the tensor cores, used for each kernel's bound
+# published H100 SXM peaks (NVIDIA data sheet, dense): HBM bandwidth, the
+# f32 rate outside the tensor cores, and the bf16/f16 tensor-core rate with
+# f32 accumulation, used for each kernel's bound
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+F16_OPS_PER_S = 989e12
 # the JAX package's values on this dataset and seed (CPU run)
 JAX_REFERENCE = {"k_users": 8878, "k_items": 17136, "gamma": 0.0078125,
                  "iters": 1}
@@ -100,11 +118,13 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return ms[len(ms) // 2]
 
 
-def bound(bytes_moved: float, ops: float):
+def bound(bytes_moved: float, ops: float, ops16: float = 0.0):
     """(bound_ms, bound_by): the larger of bytes over HBM bandwidth and
-    operations over the f32 rate."""
+    operations over their type's rate: ``ops`` at the f32 rate, ``ops16``
+    (products of two bf16 or f16 values, exact in f32, summed in f32) at
+    the bf16/f16 tensor rate."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = (ops / F32_OPS_PER_S + ops16 / F16_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -175,10 +195,13 @@ def counted_kernels() -> dict:
     """Each kernel's wrapper, whose ``launches`` counts its launches, by
     the name the ``kernels`` line gives the kernel."""
     from repro_torch.kernels import (codebook_lookup, csr_gather_sum,
+                                     dot_interaction, flash_attention,
                                      fused_topk, fused_topk_codebook)
     return {"codebook_lookup": codebook_lookup, "fused_topk": fused_topk,
             "fused_topk_codebook": fused_topk_codebook,
-            "embedding_bag": csr_gather_sum}
+            "embedding_bag": csr_gather_sum,
+            "dot_interaction": dot_interaction,
+            "flash_attention": flash_attention}
 
 
 def launch_counts() -> dict:
@@ -502,7 +525,46 @@ def embedding_path(run: dict, device: str = "cuda") -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 4: each kernel against its plain version
+# phase 4: the kernel bench (dot_interaction's and flash_attention's path)
+# ---------------------------------------------------------------------------
+def bench_path(device: str = "cuda", fast: bool = False) -> dict:
+    """Drives ``repro_torch.launch.kernel_bench`` as a user would
+    (``device="cpu"`` with ``fast=True`` rehearses it without a GPU)."""
+    from repro_torch.launch import kernel_bench
+
+    t0 = time.perf_counter()
+    zero_counts()
+    rows = kernel_bench.run(fast=fast, device=device)
+    lookup = kernel_bench.bench_backends(device=device)
+    fused = kernel_bench.bench_fused(device=device)
+    sync(device)
+    launches = launch_counts()
+    seconds = time.perf_counter() - t0
+    metrics = kernel_bench.sweep_metrics(lookup, fused)
+    log(f"kernel bench: {seconds:.1f} s; kernel launches {launches}")
+    err = float(dict(kv.split("=") for kv in rows[-1][2].split(";"))[
+        "max_abs_err"])
+    require(rows[-1][0] == "kernel/flash_attention_maxerr" and err < 1e-4,
+            f"kernel bench: flash_attention differs from ref.mha by {err}")
+    require(metrics["lookup_errors"]["value"] == 0,
+            "kernel bench: a lookup backend failed")
+    # the one refusal expected: the fused kernels' k cap, on the card
+    for r in fused:
+        cap = re.search(r"k <= (\d+), got k=(\d+)", r.get("error", ""))
+        require("error" not in r or (
+            device == "cuda" and r["variant"].startswith("fused")
+            and cap is not None and int(cap[2]) > int(cap[1])),
+            f"kernel bench: the fused sweep failed: {r}")
+    for name in ("dot_interaction", "flash_attention"):
+        require(launches[name] > 0, f"{name} never ran on the kernel "
+                f"bench's path")
+    return {"rows": [{"name": n, "us_per_call": us, "derived": d}
+                     for n, us, d in rows],
+            "metrics": metrics, "launches": launches, "seconds": seconds}
+
+
+# ---------------------------------------------------------------------------
+# phase 5: each kernel against its plain version
 # ---------------------------------------------------------------------------
 def check_codebook_lookup(run: dict) -> dict:
     import torch
@@ -793,6 +855,161 @@ def check_embedding_bag(run: dict, emb_run: dict) -> dict:
             "shape": f"nnz={nnz} S={n_seg} N={n} d={d}"}
 
 
+def check_close(got, want, dtype, what: str) -> float:
+    """Kernel output against its plain version at the stated tolerance;
+    returns max |err|. f32: rtol 2e-4 / atol 2e-5. bf16 and f16: both
+    sides compute in f32 and round once, so they may differ by one step
+    of the type's rounding: rtol 1.5 x its eps (bf16 1.17e-2, f16
+    1.46e-3) and atol 1e-4."""
+    import torch
+    tol = ({"rtol": 2e-4, "atol": 2e-5} if dtype == torch.float32
+           else {"rtol": 1.5 * torch.finfo(dtype).eps, "atol": 1e-4})
+    require(got.dtype == want.dtype and got.shape == want.shape,
+            f"{what}: dtype or shape differs from the plain version")
+    g, w = got.float(), want.float()
+    err = float((g - w).abs().max())
+    require(bool(torch.isfinite(g).all()) and torch.allclose(g, w, **tol),
+            f"{what}: differs from the plain version, max |err| {err}")
+    return err
+
+
+# (B, F, d, dtype): dlrm-mlperf (26 sparse fields + the bottom-MLP vector,
+# d 128) at its training batch in f32 (the row of the kernels line) and
+# bf16; the kernel bench's --full batch; serve_p99's batch; an f16 check
+DOT_SHAPES = [(65536, 27, 128, "float32"), (65536, 27, 128, "bfloat16"),
+              (2048, 27, 128, "float32"), (512, 27, 128, "float32"),
+              (2048, 27, 128, "float16")]
+
+
+def check_dot_interaction(bench_run: dict, device: str = "cuda") -> dict:
+    import torch
+
+    from repro_torch.kernels import dot_interaction, ref
+
+    g = torch.Generator(device=device).manual_seed(4)
+    rows, max_err = {}, 0.0
+    for b, f, d, dtype in DOT_SHAPES:
+        dt = getattr(torch, dtype)
+        shape = f"B={b} F={f} d={d} {dtype}"
+        x = torch.randn(b, f, d, generator=g, device=device).to(dt)
+        err = check_close(dot_interaction(x), ref.dot_interaction(x), dt,
+                          f"dot_interaction {shape}")
+        max_err = max(max_err, err)
+        xi = torch.randint(-3, 4, (b, f, d), generator=g,
+                           device=device).to(dt)
+        require(torch.equal(dot_interaction(xi), ref.dot_interaction(xi)),
+                f"dot_interaction {shape} not exact on integer inputs")
+        p = f * (f - 1) // 2
+        ops = 2.0 * b * p * d
+        bms, by = (bound((x.numel() + b * p) * x.element_size(), ops)
+                   if dt == torch.float32 else
+                   bound((x.numel() + b * p) * x.element_size(), 0.0, ops))
+        i, j = torch.tril_indices(f, f, -1, device=x.device)
+        rows[shape] = {
+            "ms": time_ms(lambda: dot_interaction(x)),
+            "plain_ms": time_ms(lambda: ref.dot_interaction(x), iters=10),
+            "library_ms": time_ms(
+                lambda: torch.bmm(x, x.transpose(1, 2))[:, i, j]),
+            "bound_ms": bms, "bound_by": by, "max_abs_err": err}
+        log(f"dot_interaction {shape}: agrees, exact on integer inputs; "
+            f"{rows[shape]}")
+    xs = torch.randint(-3, 4, (27, 512, 128), generator=g,
+                       device=device).float().transpose(0, 1)
+    require(torch.equal(dot_interaction(xs), ref.dot_interaction(xs)),
+            "dot_interaction differs on a strided input")
+    if device == "cuda":                 # the plain version has no cap
+        try:
+            dot_interaction(torch.zeros(2, 500, 128, device=device))
+            raise SmokeFailure("dot_interaction accepted a tile beyond "
+                               "shared memory")
+        except ValueError:
+            pass
+    log("dot_interaction edge cases (strided input, tile cap): pass")
+    main_shape = next(iter(rows))
+    main = rows[main_shape]
+    return {"name": "dot_interaction", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/dot_interaction.cu",
+            "replaces": "src/repro/kernels/dot_interaction.py:45",
+            "launches": bench_run["launches"]["dot_interaction"],
+            "max_abs_err": max_err, "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            "shape": main_shape, "by_shape": rows}
+
+
+# (B, H, Sq, Skv, d, dtype, causal, timed): one layer of qwen1.5-32b (40
+# heads of 128) at train_4k's sequence, batch 1 (the row of the kernels
+# line); the kernel bench's --full shape, causal and not; SASRec's d 50
+# with Sq != Skv, and f16, checked only
+FLASH_SHAPES = [(1, 40, 4096, 4096, 128, "bfloat16", True, True),
+                (2, 8, 2048, 2048, 128, "float32", True, True),
+                (2, 8, 2048, 2048, 128, "float32", False, True),
+                (4, 2, 200, 328, 50, "float32", True, False),
+                (1, 8, 1024, 1024, 128, "float16", True, False)]
+
+
+def attention_ops(b, h, sq, skv, d, causal) -> float:
+    """Multiply-adds x 2 of q·kᵀ and P·V over the (query, key) pairs the
+    mask keeps (key position <= query position when causal)."""
+    pairs = (sum(min(i + 1, skv) for i in range(sq)) if causal
+             else sq * skv)
+    return 4.0 * b * h * pairs * d
+
+
+def check_flash_attention(bench_run: dict, device: str = "cuda") -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention, ref
+
+    g = torch.Generator(device=device).manual_seed(5)
+    rows, max_err = {}, 0.0
+    for b, h, sq, skv, d, dtype, causal, timed in FLASH_SHAPES:
+        dt = getattr(torch, dtype)
+        shape = (f"B={b} H={h} Sq={sq} Skv={skv} d={d} {dtype} "
+                 f"{'causal' if causal else 'full'}")
+        q, k, v = (torch.randn(b, h, s, d, generator=g, device=device).to(dt)
+                   for s in (sq, skv, skv))
+        err = check_close(flash_attention(q, k, v, causal=causal),
+                          ref.flash_attention(q, k, v, causal=causal), dt,
+                          f"flash_attention {shape}")
+        max_err = max(max_err, err)
+        if not timed:
+            log(f"flash_attention {shape}: agrees, max |err| {err}")
+            continue
+        # q·kᵀ multiplies two input values; P·V multiplies the f32 P
+        ops = attention_ops(b, h, sq, skv, d, causal)
+        bms, by = (bound(4 * q.numel() * q.element_size(), ops)
+                   if dt == torch.float32 else
+                   bound(4 * q.numel() * q.element_size(), ops / 2, ops / 2))
+        rows[shape] = {
+            "ms": time_ms(lambda: flash_attention(q, k, v, causal=causal)),
+            "plain_ms": time_ms(lambda: ref.flash_attention(
+                q, k, v, causal=causal), iters=5, warmup=1),
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal)),
+            "bound_ms": bms, "bound_by": by, "max_abs_err": err}
+        log(f"flash_attention {shape}: agrees; {rows[shape]}")
+    # strided [B, S, H, d] views, as a model's layout passes them
+    qs, ks, vs = (torch.randn(2, 256, 4, 64, generator=g,
+                              device=device).transpose(1, 2)
+                  for _ in range(3))
+    max_err = max(max_err, check_close(
+        flash_attention(qs, ks, vs), ref.flash_attention(qs, ks, vs),
+        torch.float32, "flash_attention on strided inputs"))
+    log("flash_attention edge cases (d=50, Sq != Skv, f16, strided): pass")
+    main_shape = next(iter(rows))
+    main = rows[main_shape]
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:87",
+            "launches": bench_run["launches"]["flash_attention"],
+            "max_abs_err": max_err, "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            "shape": main_shape, "by_shape": rows}
+
+
 # ---------------------------------------------------------------------------
 # where a request's device time goes (torch.profiler, fused scorer, B=64)
 # ---------------------------------------------------------------------------
@@ -835,7 +1052,7 @@ def profile_requests(run: dict, batch: int = 64, n: int = 5) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 5: small input, GPU against the port's own CPU (plain) path
+# phase 6: small input, GPU against the port's own CPU (plain) path
 # ---------------------------------------------------------------------------
 def small_reference() -> None:
     import numpy as np
@@ -911,9 +1128,12 @@ def main() -> int:
                 ROOT, "build")) as workdir:
             run = main_path(workdir)
             emb_run = embedding_path(run)
+            bench_run = bench_path()
             kernels = [check_codebook_lookup(run), check_fused_topk(run),
                        check_fused_topk_codebook(run, emb_run),
-                       check_embedding_bag(run, emb_run)]
+                       check_embedding_bag(run, emb_run),
+                       check_dot_interaction(bench_run),
+                       check_flash_attention(bench_run)]
             prof = profile_requests(run)
         small_reference()
     except (SmokeFailure, RuntimeError, ValueError, AssertionError) as e:
@@ -928,6 +1148,7 @@ def main() -> int:
         "seconds": emb_run["seconds"], "launches": emb_run["launches"],
         "readout_cases": emb_run["readout_cases"],
         "near_tie_ids": emb_run["near_tie_ids"]}}))
+    print(json.dumps({"kernel_bench": bench_run}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,12 @@
-"""The kernels' binding into the embedding layer.
+"""The kernels' public entry points and their binding into the embedding
+layer.
 
-Importing this module registers the "cuda" lookup backend and the
+``dot_interaction`` and ``flash_attention`` are the ports of the
+reference's ``repro.kernels.ops`` entry points of the same names, with
+its arguments, defaults and shape checks; the block arguments set
+nothing else (the CUDA kernels choose their own tiling).
+
+Importing this module also registers the "cuda" lookup backend and the
 "cuda" fused scorer into ``repro_torch.embedding.engine`` (the engine
 defers this import until a lookup or scorer is first asked for). Both
 launch the hand-written kernels for CUDA tensors and run the kernels'
@@ -23,11 +29,42 @@ from repro_torch.embedding.engine import (LookupBackend, bag_combine,
                                           register_backend, register_scorer)
 
 from .codebook_lookup import codebook_lookup
+from .dot_interaction import dot_interaction as _dot_interaction
 from .embedding_bag import embedding_bag, scatter_rows
+from .flash_attention import flash_attention as _flash_attention
 from .fused_topk import fused_topk
 from .ref import dedup_keep_mask
 
-__all__ = ["CudaBackend"]
+__all__ = ["CudaBackend", "dot_interaction", "flash_attention"]
+
+
+def _check_tiles(name, *sizes_and_blocks):
+    """The reference's assertion that each size divides into its tile,
+    ``min(block, size)`` (``dot_interaction.py:41``,
+    ``flash_attention.py:82``), as a ValueError."""
+    for what, size, block in sizes_and_blocks:
+        tile = min(int(block), int(size))
+        if tile <= 0 or size % tile:
+            raise ValueError(f"{name}: {what} {size} is not divisible by its "
+                             f"tile {tile}")
+
+
+def dot_interaction(x, *, block_b=128):
+    """x [B, F, d] -> [B, F(F-1)/2]: per example the strictly-lower
+    triangle of X·Xᵀ (``np.tril_indices(F, -1)`` order), f32 sums, in
+    x's dtype. B must divide into ``min(block_b, B)``."""
+    _check_tiles("dot_interaction", ("batch", x.shape[0], block_b))
+    return _dot_interaction(x)
+
+
+def flash_attention(q, k, v, *, causal=True, block_q=128, block_k=128):
+    """q/k/v [B, H, S, d] -> [B, H, Sq, d] in q's dtype: attention with
+    scale 1/√d, f32 softmax, causal fill -1e30 (top-left aligned). Sq and
+    Skv must divide into ``min(block_q, Sq)`` and ``min(block_k, Skv)``.
+    Non-contiguous inputs (a transposed [B, S, H, d] view) are copied."""
+    _check_tiles("flash_attention", ("Sq", q.shape[2], block_q),
+                 ("Skv", k.shape[2], block_k))
+    return _flash_attention(q, k, v, causal=causal)
 
 
 class _CodebookSum(torch.autograd.Function):

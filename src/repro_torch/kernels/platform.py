@@ -5,8 +5,9 @@ shared library with a plain C interface, at first use, and loaded with
 ``ctypes``. Nothing is compiled or loaded when this module is imported:
 the CPU tests import every module, and the CPU has no ``nvcc``.
 
-The library name carries a digest of its source, so an edited kernel is
-never served from a stale build. Builds go to ``build/kernels`` at the
+The library name carries a digest of its source and of the shared
+headers (``csrc/*.cuh``), so an edited kernel is never served from a
+stale build. Builds go to ``build/kernels`` at the
 repository root (listed in ``.gitignore``). :func:`build` starts one
 ``nvcc`` per source, all at once, and waits for all of them.
 """
@@ -20,15 +21,21 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
+import torch
+
 from repro_torch.obs import clock
 
-__all__ = ["KERNELS", "CSRC", "BUILD_DIR", "build", "load", "nvcc_path",
-           "check"]
+__all__ = ["KERNELS", "CSRC", "BUILD_DIR", "DTYPES", "build", "load",
+           "nvcc_path", "check"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("codebook_lookup", "embedding_bag", "fused_topk")
+KERNELS = ("codebook_lookup", "dot_interaction", "embedding_bag",
+           "flash_attention", "fused_topk")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+# the dtype code of the launches that take f32, bf16 or f16
+# (``csrc/f32_convert.cuh``)
+DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -47,8 +54,10 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
+    h = hashlib.sha256()
+    for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(src.read_bytes())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -8,11 +8,15 @@ the CPU; the tests hold them against the JAX reference, and
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 __all__ = ["dedup_keep_mask", "codebook_lookup", "codebook_lookup_dedup",
            "segment_sum", "embedding_bag", "csr_gather_sum", "expand_items",
-           "topk", "fused_topk"]
+           "topk", "fused_topk", "dot_interaction", "attention_scale",
+           "flash_attention", "mha"]
+
+NEG_INF = -1e30         # the attention mask's fill (finite, as in the TPU kernel)
 
 
 def dedup_keep_mask(rows_idx: torch.Tensor) -> torch.Tensor:
@@ -160,3 +164,56 @@ def fused_topk(u, items, k, *, sketch=None, scale=None, mask=None,
         ok = (rows >= 0) & (rows < s.shape[0]) & (cols >= 0) & (cols < n)
         s[rows[ok], cols[ok]] = float("-inf")
     return topk(s, k)
+
+
+def dot_interaction(x: torch.Tensor) -> torch.Tensor:
+    """x [B, F, d] -> [B, F(F-1)/2]: per example the strictly-lower
+    triangle of X·Xᵀ in ``np.tril_indices(F, -1)`` order ((1,0), (2,0),
+    (2,1), ...). Products and sums in f32, one rounding to x's dtype."""
+    xf = x.float()
+    z = torch.bmm(xf, xf.transpose(1, 2))
+    i, j = torch.tril_indices(x.shape[1], x.shape[1], -1, device=x.device)
+    return z[:, i, j].to(x.dtype)
+
+
+def attention_scale(d: int) -> float:
+    """The f32 value of 1/√d that both attention functions multiply by."""
+    return float(np.float32(1.0 / np.sqrt(d)))
+
+
+def _causal_fill(s: torch.Tensor) -> torch.Tensor:
+    """Scores at key positions after the query position (absolute
+    positions from 0, also when Sq != Skv) become ``NEG_INF``."""
+    sq, sk = s.shape[-2:]
+    keep = (torch.arange(sq, device=s.device)[:, None]
+            >= torch.arange(sk, device=s.device)[None, :])
+    return torch.where(keep, s, NEG_INF)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """q [B, H, Sq, d], k/v [B, H, Skv, d] -> [B, H, Sq, d] in q's dtype:
+    what the blocked kernel computes, in one pass. Scores q·kᵀ in f32
+    times the f32 ``attention_scale(d)``; the causal fill; an f32 softmax
+    whose denominator is clamped at 1e-30; P·V in f32; one cast."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    s = s * attention_scale(q.shape[-1])
+    if causal:
+        s = _causal_fill(s)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    denom = p.sum(-1, keepdim=True).clamp_min(1e-30)
+    return (torch.matmul(p, v.float()) / denom).to(q.dtype)
+
+
+def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+        causal: bool = True) -> torch.Tensor:
+    """Port of ``repro.kernels.ref.mha``, the bench's oracle: f32 scores
+    divided by √d, the causal fill, an f32 softmax, then P cast to q's
+    dtype before P·V in that dtype."""
+    d = q.shape[-1]
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    s = s / float(np.float32(np.sqrt(d)))
+    if causal:
+        s = _causal_fill(s)
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    return torch.matmul(p, v)

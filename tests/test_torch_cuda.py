@@ -7,6 +7,10 @@ the codebook lookup and the bag sums are bitwise on any input (same
 additions, same order); NaN scores rank first, lowest id first, in both
 the kernel and the plain version; the lookups' kernel gradients are
 bitwise equal across runs and within 1e-5 of the gather backend's.
+dot_interaction is bitwise on integer inputs and within 2e-4 / 2e-5 (f32;
+2e-2 in bf16 and f16, one rounding of sums in another order) elsewhere;
+flash_attention (an online softmax against the one-pass plain version)
+within 2e-4 / 2e-5 in f32 and 2e-2 in bf16 and f16.
 """
 import numpy as np
 import pytest
@@ -16,7 +20,8 @@ from repro_torch.embedding import (EmbeddingEngine, EmbeddingSpec,
                                    embed_lookup)
 from repro_torch.embedding import embedding_bag as te_embedding_bag
 from repro_torch.kernels import (codebook_lookup, csr_gather_sum,
-                                 embedding_bag, fused_topk,
+                                 dot_interaction, embedding_bag,
+                                 flash_attention, fused_topk,
                                  fused_topk_codebook, ref)
 
 pytestmark = pytest.mark.cuda
@@ -237,3 +242,70 @@ def test_kernel_gradients_deterministic(dev, kind):
     assert csr_gather_sum.launches >= before + 2
     assert torch.equal(a, b)
     torch.testing.assert_close(a, grad("gather"), rtol=1e-5, atol=1e-5)
+
+
+FLOATS = {"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16}
+
+
+def _close(got, want, dtype):
+    tol = (dict(rtol=2e-4, atol=2e-5) if dtype == "f32"
+           else dict(rtol=2e-2, atol=2e-2))
+    assert got.dtype == want.dtype
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "f16"])
+@pytest.mark.parametrize("b,f,d", [(1000, 27, 128), (37, 41, 16),
+                                   (9, 2, 50), (300, 100, 256)])
+def test_dot_interaction_kernel(dev, dtype, b, f, d):
+    g = torch.Generator().manual_seed(b + f + d)
+    x = (torch.randn(b, f, d, generator=g) / d ** 0.5).to(FLOATS[dtype])
+    x = x.to(dev)
+    before = dot_interaction.launches
+    got = dot_interaction(x)
+    assert dot_interaction.launches == before + 1
+    assert got.shape == (b, f * (f - 1) // 2)
+    _close(got, ref.dot_interaction(x), dtype)
+    # integer-valued inputs: every sum is exact, one rounding at the store
+    xi = torch.randint(-3, 4, (b, f, d), generator=g).to(FLOATS[dtype])
+    xi = xi.to(dev)
+    assert torch.equal(dot_interaction(xi), ref.dot_interaction(xi))
+
+
+def test_dot_interaction_kernel_strided_input_and_tile_cap(dev):
+    g = torch.Generator().manual_seed(0)
+    x = torch.randint(-3, 4, (27, 513, 64), generator=g).float().to(dev)
+    xt = x.transpose(0, 1)                       # [B, F, d], not contiguous
+    assert not xt.is_contiguous()
+    assert torch.equal(dot_interaction(xt), ref.dot_interaction(xt))
+    with pytest.raises(ValueError, match="shared memory"):
+        dot_interaction(torch.zeros(2, 500, 128, device=dev))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "f16"])
+@pytest.mark.parametrize("d", [32, 50, 128, 256])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,skv", [(200, 328), (256, 256), (64, 1)])
+def test_flash_attention_kernel(dev, dtype, d, causal, sq, skv):
+    g = torch.Generator().manual_seed(d + sq + skv)
+    q, k, v = (torch.randn(2, 3, s, d, generator=g).to(FLOATS[dtype]).to(dev)
+               for s in (sq, skv, skv))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    assert flash_attention.launches == before + 1
+    assert got.shape == q.shape
+    _close(got, ref.flash_attention(q, k, v, causal=causal), dtype)
+
+
+def test_flash_attention_kernel_strided_inputs_and_refusals(dev):
+    g = torch.Generator().manual_seed(1)
+    q, k, v = (torch.randn(2, 130, 4, 64, generator=g).to(dev)
+               for _ in range(3))                # [B, S, H, d]
+    args = [a.transpose(1, 2) for a in (q, k, v)]
+    assert not args[0].is_contiguous()
+    _close(flash_attention(*args), ref.flash_attention(*args), "f32")
+    with pytest.raises(ValueError, match="d=300"):
+        flash_attention(*(torch.zeros(1, 1, 8, 300, device=dev)
+                          for _ in range(3)))
+    with pytest.raises(TypeError):
+        flash_attention(args[0].half(), *args[1:])
