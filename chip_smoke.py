@@ -27,8 +27,11 @@
    port's kernel bench (``repro_torch.launch.kernel_bench``): ``run(fast=
    False)`` (the four classic ops at the bench's full shapes, with the
    attention's max error against ``ref.mha``) and its JSON sweep (every
-   lookup backend, the fused scorer against the dense path). Launch counts
-   are zeroed just before and read just after; both kernels must have run.
+   lookup backend, the fused scorer against the dense path), plus one
+   bf16 qwen1.5-32b layer (H 40, S 4,096, d 128) through
+   ``ops.flash_attention``. Launch counts are zeroed just before and read
+   just after; both kernels, and both of flash_attention's routes (f32 on
+   the CUDA cores, bf16 on the tensor cores), must have run.
 5. Holds each kernel against its plain PyTorch version on the card, at the
    paths' shapes and on edge cases (exact on integer-valued inputs, NaN
    scores), and times kernel, plain version and one PyTorch library call.
@@ -36,11 +39,15 @@
    batch (B 65,536), f32 and bf16, and at B 2,048 and 512; flash_attention
    at one layer of qwen1.5-32b (H 40, d 128) at S 4,096, bf16, causal, and
    at the bench's full shape (B 2, H 8, S 2,048, d 128, f32, causal and
-   not). Tolerances: f32 rtol 2e-4 / atol 2e-5; bf16 and f16 one rounding
-   step of the type (rtol 1.5 x its eps, atol 1e-4); dot_interaction
-   bitwise on integer inputs. Bounds charge products of two bf16 or f16
-   values at the bf16/f16 tensor rate and all other operations at the
-   f32 rate.
+   not), and checks that each shape ran the route its dtype and d choose
+   (tensor cores for bf16/f16 at d <= 128). Tolerances: f32 rtol 2e-4 /
+   atol 2e-5; bf16 and f16 one rounding step of the type (rtol 1.5 x its
+   eps, atol 1e-4); dot_interaction bitwise on integer inputs. Bounds
+   charge products of two bf16 or f16 values at the bf16/f16 tensor rate
+   and all other operations at the f32 rate; the 16-bit attention rows
+   count every product at the tensor rate (their P·V runs on the tensor
+   cores). fused_topk and its codebook variant also repeat bitwise over
+   two calls.
 6. Profiles a few requests (device time per kernel, idle share), and checks
    the port end to end on a small input against itself on the CPU.
 
@@ -211,6 +218,14 @@ def launch_counts() -> dict:
 def zero_counts() -> None:
     for fn in counted_kernels().values():
         fn.launches = 0
+    fa = counted_kernels()["flash_attention"]
+    fa.launches_tc = fa.launches_cc = 0
+
+
+def flash_routes() -> dict:
+    """flash_attention's launches by route: tensor cores, CUDA cores."""
+    fa = counted_kernels()["flash_attention"]
+    return {"tc": fa.launches_tc, "cc": fa.launches_cc}
 
 
 def main_path(workdir: str, dataset: str = "amazonbook",
@@ -292,7 +307,12 @@ def main_path(workdir: str, dataset: str = "amazonbook",
                                                   device=device)
             disp = BatchDispatcher(session, (1, 8, 64, 512))
             disp.warmup()
-            outs = [disp(b) for b in batches]
+            outs, b512_ms = [], None
+            for b in batches:
+                t_req = time.perf_counter()
+                outs.append(disp(b))
+                if b.size == 512 and b512_ms is None:
+                    b512_ms = (time.perf_counter() - t_req) * 1e3
             for vals, ids in outs:
                 require(np.isfinite(vals).all(), "non-finite top-k values")
                 require(ids.min() >= 0 and ids.max() < train.n_items,
@@ -301,7 +321,8 @@ def main_path(workdir: str, dataset: str = "amazonbook",
             outputs[name] = outs
             st = disp.stats()
             serve[name] = {"requests": st["requests"],
-                           "p50_ms": st["p50_ms"], "p99_ms": st["p99_ms"]}
+                           "p50_ms": st["p50_ms"], "p99_ms": st["p99_ms"],
+                           "b512_ms": b512_ms}
     sync(device)
     t_serve = time.perf_counter() - t0
     counts = launch_counts()
@@ -530,6 +551,9 @@ def embedding_path(run: dict, device: str = "cuda") -> dict:
 def bench_path(device: str = "cuda", fast: bool = False) -> dict:
     """Drives ``repro_torch.launch.kernel_bench`` as a user would
     (``device="cpu"`` with ``fast=True`` rehearses it without a GPU)."""
+    import torch
+
+    from repro_torch.kernels import ops
     from repro_torch.launch import kernel_bench
 
     t0 = time.perf_counter()
@@ -537,11 +561,22 @@ def bench_path(device: str = "cuda", fast: bool = False) -> dict:
     rows = kernel_bench.run(fast=fast, device=device)
     lookup = kernel_bench.bench_backends(device=device)
     fused = kernel_bench.bench_fused(device=device)
+    # the bench's attention is f32 (the CUDA-core route); a qwen1.5-32b
+    # layer's prefill attention in its bf16 takes the tensor-core route
+    b, h, s, d = (1, 40, 4096, 128) if not fast else (1, 2, 256, 128)
+    g = torch.Generator(device=device).manual_seed(6)
+    q, k, v = (torch.randn(b, h, s, d, generator=g, device=device)
+               .to(torch.bfloat16) for _ in range(3))
+    out = ops.flash_attention(q, k, v, causal=True)
+    require(out.shape == q.shape and bool(torch.isfinite(out).all()),
+            "kernel bench: bf16 attention gave non-finite values")
     sync(device)
     launches = launch_counts()
+    routes = flash_routes()
     seconds = time.perf_counter() - t0
     metrics = kernel_bench.sweep_metrics(lookup, fused)
-    log(f"kernel bench: {seconds:.1f} s; kernel launches {launches}")
+    log(f"kernel bench: {seconds:.1f} s; kernel launches {launches}; "
+        f"flash_attention by route {routes}")
     err = float(dict(kv.split("=") for kv in rows[-1][2].split(";"))[
         "max_abs_err"])
     require(rows[-1][0] == "kernel/flash_attention_maxerr" and err < 1e-4,
@@ -558,9 +593,13 @@ def bench_path(device: str = "cuda", fast: bool = False) -> dict:
     for name in ("dot_interaction", "flash_attention"):
         require(launches[name] > 0, f"{name} never ran on the kernel "
                 f"bench's path")
+    for name, n in routes.items():
+        require(device != "cuda" or n > 0, f"flash_attention's {name} route "
+                f"never ran on the kernel bench's path")
     return {"rows": [{"name": n, "us_per_call": us, "derived": d}
                      for n, us, d in rows],
-            "metrics": metrics, "launches": launches, "seconds": seconds}
+            "metrics": metrics, "launches": launches,
+            "flash_routes": routes, "seconds": seconds}
 
 
 # ---------------------------------------------------------------------------
@@ -667,6 +706,9 @@ def check_fused_topk(run: dict) -> dict:
     for b in (1, 8, 64, 512):
         u = u_all[:b].contiguous()
         compare(u, v_all)
+        one, two = fused_topk(u, v_all, k), fused_topk(u, v_all, k)
+        require(torch.equal(one[0], two[0]) and torch.equal(one[1], two[1]),
+                f"fused_topk B={b}: two calls differ")
         bytes_moved = 4 * (u.numel() + v_all.numel() + 2 * b * k)
         bms, by = bound(bytes_moved, 2.0 * b * n * d)
         zeros = torch.zeros(n, device=dev)
@@ -781,6 +823,11 @@ def check_fused_topk_codebook(run: dict, emb_run: dict) -> dict:
                 scale = tab["scale"] if quant else None
                 u = torch.randn(b, d, generator=g).to(dev)
                 got = fused_topk_codebook(u, z, sk, k, scale=scale, mask=mask)
+                again = fused_topk_codebook(u, z, sk, k, scale=scale,
+                                            mask=mask)
+                require(torch.equal(got[0], again[0])
+                        and torch.equal(got[1], again[1]),
+                        f"fused_topk_codebook {side} B={b}: two calls differ")
                 want = ref.fused_topk(u, z, k, sketch=sk, scale=scale,
                                       mask=mask)
                 exp = ref.expand_items(z, scale, sk)
@@ -940,12 +987,15 @@ def check_dot_interaction(bench_run: dict, device: str = "cuda") -> dict:
 # (B, H, Sq, Skv, d, dtype, causal, timed): one layer of qwen1.5-32b (40
 # heads of 128) at train_4k's sequence, batch 1 (the row of the kernels
 # line); the kernel bench's --full shape, causal and not; SASRec's d 50
-# with Sq != Skv, and f16, checked only
+# with Sq != Skv, f16, and bf16 at d 256 (the CUDA-core route), checked
+# only
 FLASH_SHAPES = [(1, 40, 4096, 4096, 128, "bfloat16", True, True),
                 (2, 8, 2048, 2048, 128, "float32", True, True),
                 (2, 8, 2048, 2048, 128, "float32", False, True),
                 (4, 2, 200, 328, 50, "float32", True, False),
-                (1, 8, 1024, 1024, 128, "float16", True, False)]
+                (1, 8, 1024, 1024, 128, "float16", True, False),
+                (2, 4, 200, 328, 50, "bfloat16", True, False),
+                (1, 4, 512, 512, 256, "bfloat16", True, False)]
 
 
 def attention_ops(b, h, sq, skv, d, causal) -> float:
@@ -961,6 +1011,7 @@ def check_flash_attention(bench_run: dict, device: str = "cuda") -> dict:
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention, ref
+    from repro_torch.kernels.flash_attention import route
 
     g = torch.Generator(device=device).manual_seed(5)
     rows, max_err = {}, 0.0
@@ -970,19 +1021,29 @@ def check_flash_attention(bench_run: dict, device: str = "cuda") -> dict:
                  f"{'causal' if causal else 'full'}")
         q, k, v = (torch.randn(b, h, s, d, generator=g, device=device).to(dt)
                    for s in (sq, skv, skv))
-        err = check_close(flash_attention(q, k, v, causal=causal),
-                          ref.flash_attention(q, k, v, causal=causal), dt,
-                          f"flash_attention {shape}")
+        before = flash_routes()
+        got = flash_attention(q, k, v, causal=causal)
+        ran = [r for r, n in flash_routes().items() if n > before[r]]
+        want_route = route(dt, d)
+        require(device != "cuda" or ran == [want_route],
+                f"flash_attention {shape}: ran route {ran}, not "
+                f"{want_route}")
+        err = check_close(got, ref.flash_attention(q, k, v, causal=causal),
+                          dt, f"flash_attention {shape}")
         max_err = max(max_err, err)
         if not timed:
-            log(f"flash_attention {shape}: agrees, max |err| {err}")
+            log(f"flash_attention {shape}: route {want_route}, agrees, max "
+                f"|err| {err}")
             continue
-        # q·kᵀ multiplies two input values; P·V multiplies the f32 P
+        # f32: every operation at the f32 rate; 16-bit: every product at
+        # the tensor rate (q·kᵀ multiplies two inputs, and the kernel runs
+        # P·V on the tensor cores too, P split in two 16-bit halves)
         ops = attention_ops(b, h, sq, skv, d, causal)
         bms, by = (bound(4 * q.numel() * q.element_size(), ops)
                    if dt == torch.float32 else
-                   bound(4 * q.numel() * q.element_size(), ops / 2, ops / 2))
+                   bound(4 * q.numel() * q.element_size(), 0.0, ops))
         rows[shape] = {
+            "route": want_route,
             "ms": time_ms(lambda: flash_attention(q, k, v, causal=causal)),
             "plain_ms": time_ms(lambda: ref.flash_attention(
                 q, k, v, causal=causal), iters=5, warmup=1),
@@ -997,7 +1058,8 @@ def check_flash_attention(bench_run: dict, device: str = "cuda") -> dict:
     max_err = max(max_err, check_close(
         flash_attention(qs, ks, vs), ref.flash_attention(qs, ks, vs),
         torch.float32, "flash_attention on strided inputs"))
-    log("flash_attention edge cases (d=50, Sq != Skv, f16, strided): pass")
+    log("flash_attention edge cases (d=50, Sq != Skv, f16, bf16 d=256, "
+        "strided): pass")
     main_shape = next(iter(rows))
     main = rows[main_shape]
     return {"name": "flash_attention", "route": "cuda",
@@ -1136,7 +1198,8 @@ def main() -> int:
                        check_flash_attention(bench_run)]
             prof = profile_requests(run)
         small_reference()
-    except (SmokeFailure, RuntimeError, ValueError, AssertionError) as e:
+    except (SmokeFailure, RuntimeError, ValueError, AssertionError,
+            subprocess.CalledProcessError) as e:
         log(f"FAIL: {type(e).__name__}: {e}")
         return 1
     print(json.dumps({"kernels": kernels}))

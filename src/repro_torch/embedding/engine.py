@@ -157,7 +157,7 @@ def available_scorers():
 
 
 def fused_topk(u, items, k, *, sketch=None, scale=None, mask=None,
-               exclude=None, block=1024):
+               exclude=None, block=None):
     """One-pass (gather ->) score -> top-k over the item axis.
 
     Returns ``(values [B, k] f32, ids [B, k] int32)`` equal to the top-k

@@ -19,34 +19,48 @@
 // equal values compare by IEEE equality (so -0.0 ties +0.0, the
 // reference's carve-out). NaN ranks above every number, lowest id first
 // among NaNs (lax.top_k's order for a NaN with a clear sign bit).
-// k <= kMaxK and d <= kMaxDim, compile-time caps.
+// k <= kMaxK and d <= kMaxDim, compile-time caps. Each score is
+// fmaf(u[c], v[c], s) over c = 0..d-1 from +0.0, then + mask: the same
+// chain in every version of this kernel, so values repeat bit for bit.
 //
 // What bounds it on the H100: operations. At the serving shapes (N = 91,599
 // items, d = 64, B up to 512) the scores cost 2*B*N*d f32 operations
-// (6.0 GFLOP at B = 512, ~90 us at 67 TFLOP/s without tensor cores), while
-// the bytes are the item table once (23 MB, ~7 us at 3.35 TB/s). At B = 1
-// neither bound is reached and the time is the launch and the merge. The
-// codebook variant reads the codebook (4.4 MB for K = 17,136 at f32) and
-// the sketch instead of the item table; it is bound the same way.
+// (6.0 GFLOP at B = 512, ~90 us at 67 TFLOP/s). They stay on the CUDA
+// cores: TF32 would round u and v to 10 bits and move scores far outside
+// the near-tie band. The bytes are the item table once (23 MB, ~7 us at
+// 3.35 TB/s), which bounds B = 1 and 8. The codebook variant reads the
+// codebook (4.4 MB for K = 17,136 at f32) and the sketch instead.
 //
-// Design (simple first; wgmma and TMA come later):
-//  * score_chunks_kernel: grid (item chunks, row groups of kRows). The
-//    block's kRows query rows sit in shared memory; the chunk's items are
-//    staged kTile rows at a time by the loader (dequantized and, in the
-//    codebook variant, expanded through the sketch on the way in; rows
-//    padded to d + 1 floats so lane j reading item j hits distinct banks);
-//    warp w scores row w against the tile, one item per lane, and keeps a
-//    per-lane sorted top-k in registers/local memory. A warp then merges its
-//    32 lane lists by k rounds of a shuffle arg-max and writes the chunk's
-//    top-k.
-//    The item table is read from device memory about once and from L2 once
-//    per row group; the scores never leave the SM.
-//  * merge_chunks_kernel: one warp per row merges the chunks' lists.
+// Design:
+//  * score_chunks_kernel: grid (item chunks, groups of kRows = 64 query
+//    rows), 256 threads. The block's query rows sit in shared memory; the
+//    chunk's items are staged kItems = 64 at a time, kSlice = 32 columns
+//    per step, double-buffered (cp.async for dense f32 rows; the int8 and
+//    codebook loaders dequantize and expand on the way in). Each thread
+//    holds a 4 rows x 4 items register tile: per 4 columns it reads 4 + 4
+//    float4 from shared memory for 64 FMAs.
+//    Selection: a candidate is an order key, value and id in one 64-bit
+//    integer whose integer order is the total order below. Each row keeps
+//    its best 32 keys, sorted, and its k-th key as a threshold. A score
+//    below the threshold's value is dropped with one float compare, one
+//    whose key does not beat the threshold with one more; a survivor goes
+//    to the row's candidate buffer (a shared-memory atomic counter). Once a
+//    row holds more than kCap - kItems candidates, and at the chunk's end,
+//    a warp merges the buffer into the row's list, one key per lane: up to
+//    kInsertMax survivors of a batch of 32 one at a time (a ballot finds
+//    the slot, one shuffle shifts the tail), more as a bitonic sort of the
+//    32 on registers, a max against the reversed list and a bitonic merge.
+//    No runtime-indexed local arrays. The chunk's top-k goes to scratch.
+//  * merge_chunks_kernel: one block per row; each warp filters and merges a
+//    share of the chunks' lists the same way, then warp 0 merges the
+//    warps' lists.
 //  Candidates are ordered by (NaN first, value desc, id asc), a total order
-//  on distinct ids, so the result does not depend on block scheduling: it
-//  is deterministic.
-//  Exclusions arrive as a per-row sorted id list (CSR); a lane tests its
+//  on distinct ids, so the result does not depend on arrival order or block
+//  scheduling: it is deterministic.
+//  Exclusions arrive as a per-row sorted id list (CSR); a thread tests its
 //  item with a binary search.
+//  The caller picks the chunk size (kernels/fused_topk.py::plan_chunk)
+//  from the tiling and occupancy that fused_topk_tiling reports.
 //
 // C interface (loaded with ctypes): the launch runs on the caller's stream,
 // allocates nothing (the caller passes the chunk scratch), and returns
@@ -59,57 +73,91 @@ namespace {
 
 constexpr int kMaxK = 32;
 constexpr int kMaxDim = 256;
-constexpr int kRows = 8;            // query rows per block, one warp each
-constexpr int kTile = 32;           // items staged per step, one per lane
-constexpr int kThreads = kRows * 32;
+constexpr int kRows = 64;           // query rows per block
+constexpr int kItems = 64;          // items per tile
+constexpr int kSlice = 32;          // columns staged per step
+constexpr int kThreads = 256;       // 16 x 16, 4 rows x 4 items each
+constexpr int kCap = 96;            // candidate slots per row
+constexpr int kMergeAt = kCap - kItems;   // merge a row holding more
+constexpr int kVLd = kSlice + 4;    // staged item row stride (floats)
+constexpr int kInsertMax = 12;      // survivors inserted one at a time
 constexpr int32_t kNoId = 0x7fffffff;
 constexpr unsigned kFull = 0xffffffffu;
 
-// (av, ai) ranks before (bv, bi): a total order, NaN first.
-__device__ __forceinline__ bool better(float av, int32_t ai, float bv,
-                                       int32_t bi) {
-  const bool an = isnan(av), bn = isnan(bv);
-  if (an || bn) return an && (!bn || ai < bi);
-  return av > bv || (av == bv && ai < bi);
+// The total order as one integer: a larger key ranks first. NaN above every
+// number, then the value (IEEE equality: -0.0 ties +0.0), then the lower
+// id. kNone is (-inf, kNoId): below every item.
+__device__ __forceinline__ uint64_t key_of(float v, int32_t id) {
+  uint32_t b = __float_as_uint(v == 0.0f ? 0.0f : v);
+  b = isnan(v) ? 0xffffffffu : (b >> 31 ? ~b : b | 0x80000000u);
+  return (static_cast<uint64_t>(b) << 32) | static_cast<uint32_t>(~id);
+}
+__device__ __forceinline__ float value_of(uint64_t key) {
+  const uint32_t b = static_cast<uint32_t>(key >> 32);
+  if (b == 0xffffffffu) return __uint_as_float(0x7fffffffu);
+  return __uint_as_float(b >> 31 ? b & 0x7fffffffu : ~b);
+}
+__device__ __forceinline__ int32_t id_of(uint64_t key) {
+  return ~static_cast<int32_t>(static_cast<uint32_t>(key));
+}
+constexpr uint64_t kNone = (static_cast<uint64_t>(0x007fffffu) << 32) |
+                           static_cast<uint32_t>(~kNoId);
+
+// Compare-exchange with the lane at distance j: keep the larger key when
+// keep_larger, else the smaller. Keys of distinct ids differ; equal keys
+// are both kNone.
+__device__ __forceinline__ void cas(uint64_t& x, int j, bool keep_larger) {
+  const uint64_t o = __shfl_xor_sync(kFull, x, j);
+  if ((o > x) == keep_larger) x = o;
 }
 
-// Insert (v, id) into a lane's list sorted best-first (length k).
-__device__ __forceinline__ void insert(float* lv, int32_t* li, int k, float v,
-                                       int32_t id) {
-  if (!better(v, id, lv[k - 1], li[k - 1])) return;
-  int j = k - 1;
-  while (j > 0 && better(v, id, lv[j - 1], li[j - 1])) {
-    lv[j] = lv[j - 1];
-    li[j] = li[j - 1];
-    --j;
-  }
-  lv[j] = v;
-  li[j] = id;
+// Sort the warp's 32 keys, one per lane, largest first.
+__device__ __forceinline__ void bitonic_sort(uint64_t& x, int lane) {
+#pragma unroll
+  for (int size = 2; size <= 32; size <<= 1)
+#pragma unroll
+    for (int j = size >> 1; j > 0; j >>= 1)
+      cas(x, j, ((lane & size) == 0) == ((lane & j) == 0));
 }
 
-// Merge the warp's 32 sorted lane lists into the k best; lane 0 writes.
-// Real candidates have distinct ids, so exactly one lane owns each winner.
-__device__ void warp_merge(const float* lv, const int32_t* li, int k,
-                           float* out_v, int32_t* out_i, int lane) {
-  int head = 0;
-  for (int r = 0; r < k; ++r) {
-    const float v = head < k ? lv[head] : -INFINITY;
-    const int32_t id = head < k ? li[head] : kNoId;
-    float bv = v;
-    int32_t bi = id;
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_xor_sync(kFull, bv, off);
-      const int32_t oi = __shfl_xor_sync(kFull, bi, off);
-      if (better(ov, oi, bv, bi)) {
-        bv = ov;
-        bi = oi;
+// list: 32 keys sorted largest first, one per lane. Merge the 32 keys c
+// into it, keeping the largest 32 of the union, sorted.
+__device__ __forceinline__ void merge_into(uint64_t& list, uint64_t c,
+                                           int lane) {
+  bitonic_sort(c, lane);
+  const uint64_t o = __shfl_sync(kFull, c, 31 - lane);
+  if (o > list) list = o;             // max of list[i], c[31 - i]: the
+#pragma unroll                        // largest 32, a bitonic sequence
+  for (int j = 16; j > 0; j >>= 1) cas(list, j, (lane & j) == 0);
+}
+
+// Insert the key x (the same in every lane) into the sorted list.
+__device__ __forceinline__ void insert(uint64_t& list, uint64_t x, int lane) {
+  const int pos = __popc(__ballot_sync(kFull, list > x));
+  const uint64_t prev = __shfl_up_sync(kFull, list, 1);
+  if (lane > pos) list = prev;
+  else if (lane == pos) list = x;
+}
+
+// Take the keys c (one per lane, kNone where absent) that beat thr, the
+// list's k-th key, into the list: one by one when few survive, else as one
+// bitonic merge. thr follows the list.
+__device__ __forceinline__ void absorb(uint64_t& list, uint64_t& thr,
+                                       uint64_t c, int k, int lane) {
+  unsigned m = __ballot_sync(kFull, c > thr);
+  if (m == 0) return;
+  if (__popc(m) <= kInsertMax) {
+    while (m != 0) {
+      const uint64_t x = __shfl_sync(kFull, c, __ffs(m) - 1);
+      m &= m - 1;
+      if (x > thr) {
+        insert(list, x, lane);
+        thr = __shfl_sync(kFull, list, k - 1);
       }
     }
-    if (lane == 0) {
-      out_v[r] = bv;
-      out_i[r] = bi;
-    }
-    if (head < k && id == bi) ++head;   // ids identify (NaN != NaN)
+  } else {
+    merge_into(list, c > thr ? c : kNone, lane);
+    thr = __shfl_sync(kFull, list, k - 1);
   }
 }
 
@@ -124,129 +172,347 @@ __device__ __forceinline__ bool excluded(const int32_t* ids, int lo, int hi,
   return false;
 }
 
-// Item-row loaders: element (item it, column col) of the f32 item matrix.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Item-row loaders: columns col..col+3 of item it of the f32 item matrix
+// (zero past d). kAsync: the rows are f32 in device memory and may be
+// copied with cp.async when vec (d % 4 == 0, 16-byte aligned).
 struct DenseRows {
+  static constexpr bool kAsync = true;
   const float* items;
-  __device__ __forceinline__ float operator()(int it, int col, int d) const {
-    return items[static_cast<int64_t>(it) * d + col];
+  int vec;
+  __device__ __forceinline__ void load4(int it, int col, int d,
+                                        float (&o)[4]) const {
+    const float* r = items + static_cast<int64_t>(it) * d;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) o[j] = col + j < d ? r[col + j] : 0.0f;
   }
 };
 
 struct DenseRowsInt8 {
+  static constexpr bool kAsync = false;
   const int8_t* items;
   const float* scale;                  // [N]
-  __device__ __forceinline__ float operator()(int it, int col, int d) const {
-    return static_cast<float>(items[static_cast<int64_t>(it) * d + col]) *
-           scale[it];
+  __device__ __forceinline__ void load4(int it, int col, int d,
+                                        float (&o)[4]) const {
+    const int8_t* r = items + static_cast<int64_t>(it) * d;
+    const float s = scale[it];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      o[j] = col + j < d ? static_cast<float>(r[col + j]) * s : 0.0f;
   }
 };
 
 template <bool kQuant>
 struct CodebookRows {
+  static constexpr bool kAsync = false;
   const void* codebook;                // f32 or int8 [K, d]
   const float* scale;                  // [K] when kQuant
   const int32_t* sketch;               // [N, n_hot]
   int n_hot;
-  __device__ __forceinline__ float operator()(int it, int col, int d) const {
+  __device__ __forceinline__ void load4(int it, int col, int d,
+                                        float (&o)[4]) const {
     const int32_t* r = sketch + static_cast<int64_t>(it) * n_hot;
-    float acc = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) o[j] = 0.0f;
     for (int h = 0; h < n_hot; ++h) {
       const int32_t cur = r[h];
       bool dup = false;
       for (int j = 0; j < h; ++j) dup = dup || (r[j] == cur);
       if (dup) continue;
-      const int64_t at = static_cast<int64_t>(cur) * d + col;
-      const float x =
-          kQuant ? __fmul_rn(static_cast<float>(
-                                 static_cast<const int8_t*>(codebook)[at]),
-                             scale[cur])
-                 : static_cast<const float*>(codebook)[at];
-      acc = __fadd_rn(acc, x);
+      const int64_t at = static_cast<int64_t>(cur) * d;
+      const float s = kQuant ? scale[cur] : 0.0f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (col + j >= d) continue;
+        const float x =
+            kQuant ? __fmul_rn(static_cast<float>(
+                                   static_cast<const int8_t*>(codebook)[at +
+                                                                        col +
+                                                                        j]),
+                               s)
+                   : static_cast<const float*>(codebook)[at + col + j];
+        o[j] = __fadd_rn(o[j], x);
+      }
     }
-    return acc;
   }
 };
 
+// Stage columns [c0, c0 + kSlice) of items [base, base + kItems) (zeros
+// past hi and past d) into vs [kItems][kVLd].
 template <class Rows>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void stage(const Rows& load, float* vs, int base,
+                                      int hi, int c0, int d, int tid) {
+  constexpr int kGroups = kItems * (kSlice / 4);
+#pragma unroll
+  for (int e = tid; e < kGroups; e += kThreads) {
+    const int j = e / (kSlice / 4);
+    const int col = c0 + 4 * (e % (kSlice / 4));
+    float* dst = vs + j * kVLd + (col - c0);
+    const int it = base + j;
+    if constexpr (Rows::kAsync) {
+      if (load.vec) {
+        const bool in = it < hi && col < d;
+        cp_async16(dst, in ? load.items + static_cast<int64_t>(it) * d + col
+                           : load.items,
+                   in ? 16 : 0);
+        continue;
+      }
+    }
+    float o[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if (it < hi && col < d) load.load4(it, col, d, o);
+    *reinterpret_cast<float4*>(dst) = make_float4(o[0], o[1], o[2], o[3]);
+  }
+}
+
+// One warp merges a row's candidate buffer into its list and refreshes its
+// threshold (the list's k-th key).
+__device__ __forceinline__ void merge_row(uint64_t* list, const uint64_t* cand,
+                                          int cnt, int k, uint64_t* thr,
+                                          int lane) {
+  uint64_t l = list[lane];
+  uint64_t t = *thr;
+  for (int base = 0; base < cnt; base += 32)
+    absorb(l, t, base + lane < cnt ? cand[base + lane] : kNone, k, lane);
+  list[lane] = l;
+  if (lane == 0) *thr = t;
+}
+
+struct Smem {
+  float* us;        // [kRows][ud]
+  float* vs;        // [2][kItems][kVLd]
+  uint64_t* cand;   // [kRows][kCap]
+  uint64_t* list;   // [kRows][32]
+  uint64_t* thr;    // [kRows]
+  int* cnt;         // [kRows]
+};
+
+__host__ __device__ constexpr int padded_dim(int d) {
+  return (d + kSlice - 1) / kSlice * kSlice;
+}
+
+__host__ __device__ inline size_t smem_bytes(int d) {
+  const int ud = padded_dim(d) + 4;
+  return sizeof(float) * (static_cast<size_t>(kRows) * ud +
+                          2 * kItems * kVLd) +
+         sizeof(uint64_t) * kRows * (kCap + 32 + 1) + sizeof(int) * kRows;
+}
+
+template <class Rows>
+__global__ void __launch_bounds__(kThreads, 2)
 score_chunks_kernel(const float* __restrict__ u, const Rows load,
                     const float* __restrict__ mask,
                     const int32_t* __restrict__ ex_ptr,
                     const int32_t* __restrict__ ex_ids, int rows, int n, int d,
                     int k, int chunk, int n_chunks, float* __restrict__ part_v,
                     int32_t* __restrict__ part_i) {
-  extern __shared__ float smem[];
-  float* us = smem;                    // [kRows][d]
-  float* vs = smem + kRows * d;        // [kTile][d + 1]
-  const int ld = d + 1;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int row = blockIdx.y * kRows + warp;
+  extern __shared__ __align__(16) float smem[];
+  const int dp = padded_dim(d);
+  const int ud = dp + 4;
+  Smem sm;
+  sm.us = smem;
+  sm.vs = sm.us + kRows * ud;
+  sm.cand = reinterpret_cast<uint64_t*>(sm.vs + 2 * kItems * kVLd);
+  sm.list = sm.cand + kRows * kCap;
+  sm.thr = sm.list + kRows * 32;
+  sm.cnt = reinterpret_cast<int*>(sm.thr + kRows);
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int ty = tid / 16, tx = tid % 16;
+  const int row0 = blockIdx.y * kRows;
   const int c = blockIdx.x;
   const int lo = c * chunk;
   const int hi = min(n, lo + chunk);
+  const int n_slices = dp / kSlice;
+  const int n_steps = (hi - lo + kItems - 1) / kItems * n_slices;
 
-  for (int t = threadIdx.x; t < kRows * d; t += kThreads) {
-    const int r = blockIdx.y * kRows + t / d;
-    us[t] = r < rows ? u[static_cast<int64_t>(r) * d + t % d] : 0.0f;
+  for (int t = tid; t < kRows * ud; t += kThreads) {
+    const int r = t / ud, col = t % ud;
+    sm.us[t] = (row0 + r < rows && col < d)
+                   ? u[static_cast<int64_t>(row0 + r) * d + col]
+                   : 0.0f;
   }
-  float lv[kMaxK];
-  int32_t li[kMaxK];
-  for (int j = 0; j < kMaxK; ++j) {
-    lv[j] = -INFINITY;
-    li[j] = kNoId;
+  for (int t = tid; t < kRows * 32; t += kThreads) sm.list[t] = kNone;
+  if (tid < kRows) {
+    sm.thr[tid] = kNone;
+    sm.cnt[tid] = 0;
   }
-  int ex_lo = 0, ex_hi = 0;
-  if (ex_ptr != nullptr && row < rows) {
-    ex_lo = ex_ptr[row];
-    ex_hi = ex_ptr[row + 1];
-  }
-  const float* ur = us + warp * d;
-
-  for (int base = lo; base < hi; base += kTile) {
-    __syncthreads();                   // previous tile consumed
-    for (int t = threadIdx.x; t < kTile * d; t += kThreads) {
-      const int j = t / d, col = t % d;
-      const int it = base + j;
-      vs[j * ld + col] = it < hi ? load(it, col, d) : 0.0f;
+  // this thread's rows ty + 16 i and items tx + 16 j of each tile; each
+  // row's threshold as a key and as a value (for a one-compare reject)
+  uint64_t tk[4];
+  float tv[4];
+  int ex_lo[4], ex_hi[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    tk[i] = kNone;
+    tv[i] = -INFINITY;
+    const int row = row0 + ty + 16 * i;
+    ex_lo[i] = ex_hi[i] = 0;
+    if (ex_ptr != nullptr && row < rows) {
+      ex_lo[i] = ex_ptr[row];
+      ex_hi[i] = ex_ptr[row + 1];
     }
+  }
+
+  float acc[4][4];
+  if (n_steps > 0) stage(load, sm.vs, lo, hi, 0, d, tid);
+  cp_async_commit();
+  for (int step = 0; step < n_steps; ++step) {
+    const int tile = step / n_slices, slice = step % n_slices;
+    const int base = lo + tile * kItems;
+    if (step + 1 < n_steps) {
+      const int nt = (step + 1) / n_slices, ns = (step + 1) % n_slices;
+      stage(load, sm.vs + ((step + 1) & 1) * kItems * kVLd,
+            lo + nt * kItems, hi, ns * kSlice, d, tid);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
     __syncthreads();
-    const int it = base + lane;
-    if (row < rows && it < hi) {
-      const float* vr = vs + lane * ld;
-      float s = 0.0f;
-      for (int col = 0; col < d; ++col) s = fmaf(ur[col], vr[col], s);
-      if (mask != nullptr) s = __fadd_rn(s, mask[it]);
-      if (ex_hi > ex_lo && excluded(ex_ids, ex_lo, ex_hi, it)) s = -INFINITY;
-      insert(lv, li, k, s, it);
+    if (slice == 0) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+    }
+    const float* vs = sm.vs + (step & 1) * kItems * kVLd;
+    const float* ur = sm.us + slice * kSlice;
+#pragma unroll
+    for (int kk = 0; kk < kSlice; kk += 4) {
+      float4 a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        a[i] = *reinterpret_cast<const float4*>(ur + (ty + 16 * i) * ud + kk);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        b[j] = *reinterpret_cast<const float4*>(vs + (tx + 16 * j) * kVLd +
+                                                kk);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          acc[i][j] = fmaf(a[i].x, b[j].x, acc[i][j]);
+          acc[i][j] = fmaf(a[i].y, b[j].y, acc[i][j]);
+          acc[i][j] = fmaf(a[i].z, b[j].z, acc[i][j]);
+          acc[i][j] = fmaf(a[i].w, b[j].w, acc[i][j]);
+        }
+    }
+    const bool last_slice = slice == n_slices - 1;
+    if (last_slice) {                  // the tile's scores are complete
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int it = base + tx + 16 * j;
+        if (it >= hi) continue;
+        const float mk = mask != nullptr ? mask[it] : 0.0f;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = ty + 16 * i;
+          if (row0 + r >= rows) continue;
+          float s = acc[i][j];
+          if (mask != nullptr) s = __fadd_rn(s, mk);
+          if (ex_hi[i] > ex_lo[i] && excluded(ex_ids, ex_lo[i], ex_hi[i], it))
+            s = -INFINITY;
+          if (!(s < tv[i])) {
+            const uint64_t key = key_of(s, it);
+            if (key > tk[i]) sm.cand[r * kCap + atomicAdd(sm.cnt + r, 1)] = key;
+          }
+        }
+      }
+    }
+    __syncthreads();                   // the stage is spent; pushes landed
+    if (last_slice) {
+      const bool final_tile = step == n_steps - 1;
+      for (int r = warp; r < kRows; r += kThreads / 32) {
+        const int cnt = sm.cnt[r];
+        if (cnt > kMergeAt || (final_tile && cnt > 0)) {
+          merge_row(sm.list + r * 32, sm.cand + r * kCap, cnt, k, sm.thr + r,
+                    lane);
+          if (lane == 0) sm.cnt[r] = 0;
+        }
+      }
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        tk[i] = sm.thr[ty + 16 * i];
+        tv[i] = value_of(tk[i]);
+      }
     }
   }
-  if (row < rows) {                    // warp-uniform
-    const int64_t off = (static_cast<int64_t>(row) * n_chunks + c) * k;
-    warp_merge(lv, li, k, part_v + off, part_i + off, lane);
+  cp_async_wait<0>();
+  __syncthreads();
+  for (int t = tid; t < kRows * k; t += kThreads) {
+    const int r = t / k, j = t % k;
+    if (row0 + r >= rows) continue;
+    const int64_t off = (static_cast<int64_t>(row0 + r) * n_chunks + c) * k;
+    const uint64_t key = sm.list[r * 32 + j];
+    part_v[off + j] = value_of(key);
+    part_i[off + j] = id_of(key);
   }
 }
 
+// One block per row: each warp filters and merges a strided share of the
+// row's n_cand chunk candidates, then warp 0 merges the warps' lists.
 __global__ void __launch_bounds__(kThreads)
 merge_chunks_kernel(const float* __restrict__ part_v,
-                    const int32_t* __restrict__ part_i, int rows, int n_cand,
-                    int k, float* __restrict__ out_v,
-                    int32_t* __restrict__ out_i) {
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int row = blockIdx.x * kRows + warp;
-  if (row >= rows) return;             // warp-uniform; no block barrier
-  float lv[kMaxK];
-  int32_t li[kMaxK];
-  for (int j = 0; j < kMaxK; ++j) {
-    lv[j] = -INFINITY;
-    li[j] = kNoId;
+                    const int32_t* __restrict__ part_i, int n_cand, int k,
+                    float* __restrict__ out_v, int32_t* __restrict__ out_i) {
+  constexpr int kWarps = kThreads / 32;
+  constexpr int kAhead = 4;            // batches loaded before filtering
+  __shared__ uint64_t lists[kWarps * 32];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int64_t row = blockIdx.x;
+  const float* pv = part_v + row * n_cand;
+  const int32_t* pi = part_i + row * n_cand;
+  uint64_t list = kNone, thr = kNone;
+  for (int base = warp * 32; base < n_cand; base += kAhead * kThreads) {
+    uint64_t c[kAhead];
+#pragma unroll
+    for (int a = 0; a < kAhead; ++a) {
+      const int j = base + a * kThreads + lane;
+      c[a] = j < n_cand ? key_of(pv[j], pi[j]) : kNone;
+    }
+#pragma unroll
+    for (int a = 0; a < kAhead; ++a) absorb(list, thr, c[a], k, lane);
   }
-  const float* pv = part_v + static_cast<int64_t>(row) * n_cand;
-  const int32_t* pi = part_i + static_cast<int64_t>(row) * n_cand;
-  for (int j = lane; j < n_cand; j += 32) insert(lv, li, k, pv[j], pi[j]);
-  warp_merge(lv, li, k, out_v + static_cast<int64_t>(row) * k,
-             out_i + static_cast<int64_t>(row) * k, lane);
+  lists[warp * 32 + lane] = list;
+  __syncthreads();
+  if (warp != 0) return;
+  for (int w = 1; w < kWarps; ++w)
+    absorb(list, thr, lists[w * 32 + lane], k, lane);
+  if (lane < k) {
+    out_v[row * k + lane] = value_of(list);
+    out_i[row * k + lane] = id_of(list);
+  }
+}
+
+// Lets score_chunks_kernel<Rows> take its shared memory at width d.
+template <class Rows>
+cudaError_t allow_smem(int d) {
+  return cudaFuncSetAttribute(score_chunks_kernel<Rows>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem_bytes(d)));
+}
+
+// The score blocks of loader Rows one multiprocessor holds at width d.
+template <class Rows>
+int blocks_per_sm(int d, int* blocks) {
+  cudaError_t err = allow_smem<Rows>(d);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, score_chunks_kernel<Rows>, kThreads, smem_bytes(d));
+  return static_cast<int>(err);
 }
 
 template <class Rows>
@@ -260,14 +526,15 @@ int launch(const float* u, const Rows& load, const float* mask,
   if (rows == 0) return static_cast<int>(cudaGetLastError());
   const int n_chunks = (n + chunk - 1) / chunk;
   const dim3 grid(n_chunks, (rows + kRows - 1) / kRows);
-  const size_t smem = sizeof(float) * (kRows * d + kTile * (d + 1));
-  score_chunks_kernel<Rows><<<grid, kThreads, smem, stream>>>(
+  cudaError_t err = allow_smem<Rows>(d);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  score_chunks_kernel<Rows><<<grid, kThreads, smem_bytes(d), stream>>>(
       u, load, mask, ex_ptr, ex_ids, rows, n, d, k, chunk, n_chunks, part_v,
       part_i);
-  cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  merge_chunks_kernel<<<(rows + kRows - 1) / kRows, kThreads, 0, stream>>>(
-      part_v, part_i, rows, n_chunks * k, k, out_v, out_i);
+  merge_chunks_kernel<<<rows, kThreads, 0, stream>>>(
+      part_v, part_i, n_chunks * k, k, out_v, out_i);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -275,6 +542,23 @@ int launch(const float* u, const Rows& load, const float* mask,
 
 extern "C" int fused_topk_max_k() { return kMaxK; }
 extern "C" int fused_topk_max_dim() { return kMaxDim; }
+
+// What the caller's chunk plan needs (kernels/fused_topk.py::plan_chunk):
+// the query rows of one score block (grid.y = ceil(rows / rows_per_block)),
+// the items of one tile, and the score blocks one multiprocessor of the
+// current device holds at width d with the loader of (codebook, quantized).
+extern "C" int fused_topk_tiling(int d, int codebook, int quantized,
+                                 int* rows_per_block, int* items_per_tile,
+                                 int* blocks) {
+  if (d < 1 || d > kMaxDim) return static_cast<int>(cudaErrorInvalidValue);
+  *rows_per_block = kRows;
+  *items_per_tile = kItems;
+  if (codebook)
+    return quantized ? blocks_per_sm<CodebookRows<true>>(d, blocks)
+                     : blocks_per_sm<CodebookRows<false>>(d, blocks);
+  return quantized ? blocks_per_sm<DenseRowsInt8>(d, blocks)
+                   : blocks_per_sm<DenseRows>(d, blocks);
+}
 
 // u f32 [rows, d]; items f32 or int8 [n, d] (quantized != 0: int8 with
 // scale f32 [n]); mask f32 [n] or null; ex_ptr int32 [rows + 1] and ex_ids
@@ -292,7 +576,8 @@ extern "C" int fused_topk_launch(const float* u, const void* items,
     return launch(u, load, mask, ex_ptr, ex_ids, rows, n, d, k, chunk,
                   part_v, part_i, out_v, out_i, stream);
   }
-  const DenseRows load{static_cast<const float*>(items)};
+  const int vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(items) % 16 == 0;
+  const DenseRows load{static_cast<const float*>(items), vec};
   return launch(u, load, mask, ex_ptr, ex_ids, rows, n, d, k, chunk, part_v,
                 part_i, out_v, out_i, stream);
 }

@@ -1,11 +1,17 @@
 """Blocked online-softmax attention kernel (``csrc/flash_attention.cu``).
 
 Replaces ``repro/kernels/flash_attention.py::flash_attention_pallas``
-(forward only): softmax(q·kᵀ·scale + causal fill)·v in f32 without the
-[Sq, Skv] score matrix. On a CUDA tensor the wrapper launches the kernel
-(or raises); on a CPU tensor it runs the plain version,
-``ref.flash_attention``. ``flash_attention.launches`` counts kernel
-launches.
+(forward only): softmax(q·kᵀ·scale + causal fill)·v with an f32 softmax,
+without the [Sq, Skv] score matrix. On a CUDA tensor the wrapper
+launches one of the kernel's two routes (or raises); on a CPU tensor it
+runs the plain version, ``ref.flash_attention``.
+
+The route follows from dtype and d before the launch (:func:`route`):
+bf16 or f16 inputs with d <= 128 run on the tensor cores (``wgmma``
+on the 16-bit values, f32 accumulation, P split in two 16-bit halves);
+f32 inputs, and 16-bit inputs with 128 < d <= 256, run on the CUDA cores
+in f32. ``flash_attention.launches`` counts launches of both routes,
+``launches_tc`` and ``launches_cc`` each route's own.
 """
 from __future__ import annotations
 
@@ -15,14 +21,24 @@ import torch
 
 from . import platform, ref
 
-__all__ = ["flash_attention"]
+__all__ = ["flash_attention", "route"]
 
 _NAME = "flash_attention"
 _MAX_DIM = 256                  # the largest of the kernel's d instances
+_TC_DTYPES = (torch.bfloat16, torch.float16)
+_TC_MAX_DIM = 128               # the tensor-core route's largest instance
 
 
-def _launch():
-    fn = platform.load(_NAME).flash_attention_launch
+def route(dtype: torch.dtype, d: int) -> str:
+    """The kernel route that q of ``dtype`` and head width ``d`` take on
+    the card: "tc" (tensor cores) or "cc" (CUDA cores, f32)."""
+    return "tc" if dtype in _TC_DTYPES and d <= _TC_MAX_DIM else "cc"
+
+
+def _launch(which: str):
+    lib = platform.load(_NAME)
+    fn = (lib.flash_attention_tc_launch if which == "tc"
+          else lib.flash_attention_launch)
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int64]
                    + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int,
@@ -56,16 +72,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if d > _MAX_DIM:
         raise ValueError(f"flash_attention: d={d} exceeds the kernel's "
                          f"{_MAX_DIM}")
+    which = route(q.dtype, d)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
-    status = _launch()(
+    status = _launch(which)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, sq,
         skv, d, int(bool(causal)), ref.attention_scale(d),
         platform.DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     platform.check(status, _NAME)
     flash_attention.launches += 1
+    if which == "tc":
+        flash_attention.launches_tc += 1
+    else:
+        flash_attention.launches_cc += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_tc = 0
+flash_attention.launches_cc = 0

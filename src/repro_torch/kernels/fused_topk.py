@@ -21,34 +21,58 @@ import torch
 
 from . import platform, ref
 
-__all__ = ["fused_topk", "fused_topk_codebook", "exclusion_csr"]
+__all__ = ["fused_topk", "fused_topk_codebook", "exclusion_csr",
+           "plan_chunk"]
 
 _NAME = "fused_topk"
-_MAX_ROWS = 65535 * 8           # grid.y = ceil(rows / 8) <= 65535
+_MIN_CHUNK = 256
+_MAX_GRID_Y = 65535
+_ENTRIES: dict = {}             # the loaded library's caps and entry points
+# (device index, d, codebook, quantized) -> (rows per block, items per
+# tile, score blocks the card holds at once)
+_TILING: dict = {}
 
 
-def _lib():
-    """(library, k cap, d cap); the caps are compile-time constants of
-    the kernel source."""
-    lib = platform.load(_NAME)
-    return lib, lib.fused_topk_max_k(), lib.fused_topk_max_dim()
+def _entries() -> dict:
+    """{"max_k", "max_dim", "dense", "codebook", "tiling"} of the build of
+    ``csrc/fused_topk.cu``, loaded on first use: its caps (compile-time
+    constants of the source) and its C entry points."""
+    if not _ENTRIES:
+        lib = platform.load(_NAME)
+        dense = lib.fused_topk_launch
+        dense.restype = ctypes.c_int
+        dense.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+                          + [ctypes.c_void_p] * 5)
+        codebook = lib.fused_topk_codebook_launch
+        codebook.restype = ctypes.c_int
+        codebook.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int]
+                             + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+                             + [ctypes.c_void_p] * 5)
+        tiling = lib.fused_topk_tiling
+        tiling.restype = ctypes.c_int
+        tiling.argtypes = ([ctypes.c_int] * 3
+                           + [ctypes.POINTER(ctypes.c_int)] * 3)
+        _ENTRIES.update(max_k=lib.fused_topk_max_k(),
+                        max_dim=lib.fused_topk_max_dim(), dense=dense,
+                        codebook=codebook, tiling=tiling)
+    return _ENTRIES
 
 
-def _dense_entry(lib):
-    fn = lib.fused_topk_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-                   + [ctypes.c_void_p] * 5)
-    return fn
-
-
-def _codebook_entry(lib):
-    fn = lib.fused_topk_codebook_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int]
-                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
-                   + [ctypes.c_void_p] * 5)
-    return fn
+def _tiling(dev, d: int, codebook: bool, quantized: bool) -> tuple:
+    """(query rows per block, items per tile, score blocks the card holds
+    at once) of the kernel instance for this call, as the build reports
+    them (its tiling, and its occupancy at width d times the card's
+    multiprocessors); asked once per device, d and loader."""
+    i = dev.index if dev.index is not None else torch.cuda.current_device()
+    key = (i, int(d), bool(codebook), bool(quantized))
+    if key not in _TILING:
+        out = [ctypes.c_int() for _ in range(3)]
+        with torch.cuda.device(i):
+            platform.check(_entries()["tiling"](
+                *key[1:], *map(ctypes.byref, out)), _NAME)
+        sms = torch.cuda.get_device_properties(i).multi_processor_count
+        _TILING[key] = (out[0].value, out[1].value, out[2].value * sms)
+    return _TILING[key]
 
 
 def exclusion_csr(exclude, rows: int, n: int, device):
@@ -64,19 +88,36 @@ def exclusion_csr(exclude, rows: int, n: int, device):
     return ptr.to(torch.int32), (key % n).to(torch.int32)
 
 
+def plan_chunk(rows: int, n: int, *, rows_per_block: int,
+               items_per_tile: int, slots: int, block=None) -> int:
+    """Items one thread block scores (its chunk). ``block``, when given,
+    is the caller's choice. Otherwise the chunks are sized so that the
+    grid (chunks x groups of ``rows_per_block`` rows) fills the ``slots``
+    blocks the card holds at once, in whole tiles of ``items_per_tile``
+    and at least 256 items: small batches spread over the card, and large
+    ones keep few chunk lists to merge."""
+    if block is not None:
+        return max(1, int(block))
+    groups = -(-int(rows) // rows_per_block)
+    want = max(1, -(-int(slots) // groups))
+    chunk = -(-int(n) // want)
+    chunk = -(-chunk // items_per_tile) * items_per_tile
+    return max(_MIN_CHUNK, chunk)
+
+
 def _check(u, items, k, n, scale, mask, scale_rows):
-    """Validate a CUDA call; returns the loaded library."""
+    """Validate a CUDA call."""
     dev = u.device
     if dev.type != "cuda" or items.device != dev:
         raise ValueError(f"fused_topk needs u and items on one CUDA device, "
                          f"got {u.device} and {items.device}")
-    lib, max_k, max_dim = _lib()
-    rows, d = u.shape
+    lib = _entries()
+    max_k, max_dim = lib["max_k"], lib["max_dim"]
+    d = u.shape[1]
     if not 1 <= k <= max_k:
         raise ValueError(f"fused_topk takes 1 <= k <= {max_k}, got k={k}")
-    if d > max_dim or rows > _MAX_ROWS:
-        raise ValueError(f"fused_topk takes d <= {max_dim} and at most "
-                         f"{_MAX_ROWS} rows, got d={d}, rows={rows}")
+    if d > max_dim:
+        raise ValueError(f"fused_topk takes d <= {max_dim}, got d={d}")
     if u.dtype != torch.float32:
         raise TypeError(f"u must be f32, got {u.dtype}")
     quantized = scale is not None
@@ -89,19 +130,24 @@ def _check(u, items, k, n, scale, mask, scale_rows):
         if t is not None and (t.device != dev or t.dtype != torch.float32
                               or tuple(t.shape) != (size,)):
             raise ValueError(f"{name} must be f32 [{size}] on {dev}")
-    return lib
 
 
-def _run(launch, lead, u, k, n, scale, mask, exclude, block):
-    """Allocate the outputs and the chunk scratch, launch, check.
-    ``lead`` are the variant's item arguments (contiguous tensors, None
-    or ints) that come after ``u`` in its C entry point."""
+def _run(variant, lead, u, k, n, scale, mask, exclude, block):
+    """Plan the chunks, allocate the outputs and the chunk scratch, launch
+    the ``variant`` ("dense" or "codebook") entry point, check. ``lead``
+    are the variant's item arguments that come after ``u`` in it."""
     dev = u.device
-    rows = u.shape[0]
+    rows, d = u.shape
+    per_block, per_tile, slots = _tiling(dev, d, variant == "codebook",
+                                         scale is not None)
+    if rows > _MAX_GRID_Y * per_block:
+        raise ValueError(f"fused_topk takes at most {_MAX_GRID_Y * per_block}"
+                         f" rows, got {rows}")
     ex_ptr = ex_ids = None
     if exclude is not None and len(exclude[0]):
         ex_ptr, ex_ids = exclusion_csr(exclude, rows, n, dev)
-    chunk = max(1, int(block))
+    chunk = plan_chunk(rows, n, rows_per_block=per_block,
+                       items_per_tile=per_tile, slots=slots, block=block)
     n_chunks = -(-n // chunk)
     part_v = torch.empty(rows, n_chunks, k, dtype=torch.float32, device=dev)
     part_i = torch.empty(rows, n_chunks, k, dtype=torch.int32, device=dev)
@@ -113,8 +159,8 @@ def _run(launch, lead, u, k, n, scale, mask, exclude, block):
     def arg(a):
         return a.data_ptr() if isinstance(a, torch.Tensor) else a
 
-    status = launch(
-        *map(arg, args), rows, n, u.shape[1], k, chunk,
+    status = _entries()[variant](
+        *map(arg, args), rows, n, d, k, chunk,
         int(scale is not None), part_v.data_ptr(), part_i.data_ptr(),
         out_v.data_ptr(), out_i.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
@@ -158,14 +204,15 @@ def _shapes(u, items, k, n):
 
 
 def fused_topk(u: torch.Tensor, items: torch.Tensor, k: int, *, sketch=None,
-               scale=None, mask=None, exclude=None, block: int = 1024):
+               scale=None, mask=None, exclude=None, block=None):
     """``top-k(u @ items.T + mask)`` -> (values f32 [B, k], ids int32 [B, k]).
 
     u f32 [B, d]; items f32 [N, d], or int8 with ``scale`` f32 [N]
     (dequantized in the kernel); ``mask`` f32 [N] is added to every row;
     ``exclude`` is a (rows, cols) pair of int arrays whose items score
     -inf in those rows (and remain candidates). ``block`` is the number
-    of items one thread block scores before its partial top-k is merged.
+    of items one thread block scores before its partial top-k is merged
+    (default: :func:`plan_chunk`'s choice for the batch and the card).
     k must not exceed N nor the kernel's cap (32); d must not exceed 256.
     With ``sketch`` int32 [N, H], ``items`` is a codebook and the call
     goes to :func:`fused_topk_codebook`.
@@ -179,11 +226,10 @@ def fused_topk(u: torch.Tensor, items: torch.Tensor, k: int, *, sketch=None,
     if u.device.type == "cpu":
         return ref.fused_topk(u, items, k, scale=scale, mask=mask,
                               exclude=exclude)
-    lib = _check(u, items, k, n, scale, mask, n)
+    _check(u, items, k, n, scale, mask, n)
     lead = (items.contiguous(),
             None if scale is None else scale.contiguous())
-    out = _run(_dense_entry(lib), lead, u, k, n, scale, mask, exclude,
-               block)
+    out = _run("dense", lead, u, k, n, scale, mask, exclude, block)
     fused_topk.launches += 1
     return out
 
@@ -193,7 +239,7 @@ fused_topk.launches = 0
 
 def fused_topk_codebook(u: torch.Tensor, codebook: torch.Tensor,
                         sketch: torch.Tensor, k: int, *, scale=None,
-                        mask=None, exclude=None, block: int = 1024):
+                        mask=None, exclude=None, block=None):
     """``top-k(u @ V.T + mask)`` with V [N, d] implicit: item i is
     Σ_h Z[sketch[i, h]] under the binary-Y rule (a repeated index in a
     sketch row counts once), each codebook row dequantized first.
@@ -213,7 +259,7 @@ def fused_topk_codebook(u: torch.Tensor, codebook: torch.Tensor,
     if u.device.type == "cpu":
         return ref.fused_topk(u, codebook, k, sketch=sketch, scale=scale,
                               mask=mask, exclude=exclude)
-    lib = _check(u, codebook, k, n, scale, mask, int(codebook.shape[0]))
+    _check(u, codebook, k, n, scale, mask, int(codebook.shape[0]))
     if sketch.device != u.device or sketch.dtype != torch.int32:
         raise TypeError(f"sketch must be int32 on {u.device}, got "
                         f"{sketch.dtype} on {sketch.device}")
@@ -221,8 +267,7 @@ def fused_topk_codebook(u: torch.Tensor, codebook: torch.Tensor,
     lead = (codebook.contiguous(),
             None if scale is None else scale.contiguous(),
             sketch.contiguous(), int(sketch.shape[1]))
-    out = _run(_codebook_entry(lib), lead, u, k, n, scale, mask, exclude,
-               block)
+    out = _run("codebook", lead, u, k, n, scale, mask, exclude, block)
     fused_topk_codebook.launches += 1
     return out
 

@@ -10,7 +10,14 @@ bitwise equal across runs and within 1e-5 of the gather backend's.
 dot_interaction is bitwise on integer inputs and within 2e-4 / 2e-5 (f32;
 2e-2 in bf16 and f16, one rounding of sums in another order) elsewhere;
 flash_attention (an online softmax against the one-pass plain version)
-within 2e-4 / 2e-5 in f32 and 2e-2 in bf16 and f16.
+within 2e-4 / 2e-5 in f32 and 2e-2 in bf16 and f16, and its tensor-core
+route at a long causal sequence within one rounding step of the type
+(rtol 1.5 x eps, atol 1e-4). The fused top-k redesign is held bitwise
+(values and ids) on integer-valued inputs over k, row counts either side
+of its 64-row block, ragged item counts and several widths; on items in
+ascending score order (every score beats the running threshold); on
+all-equal scores; and two calls repeat bitwise. Its chunk plan takes the
+tiling and occupancy the build reports.
 """
 import numpy as np
 import pytest
@@ -23,6 +30,7 @@ from repro_torch.kernels import (codebook_lookup, csr_gather_sum,
                                  dot_interaction, embedding_bag,
                                  flash_attention, fused_topk,
                                  fused_topk_codebook, ref)
+from repro_torch.kernels.flash_attention import route
 
 pytestmark = pytest.mark.cuda
 
@@ -309,3 +317,120 @@ def test_flash_attention_kernel_strided_inputs_and_refusals(dev):
                           for _ in range(3)))
     with pytest.raises(TypeError):
         flash_attention(args[0].half(), *args[1:])
+
+
+@pytest.mark.parametrize("dtype,d,want", [
+    ("bf16", 128, "tc"), ("f16", 128, "tc"), ("bf16", 50, "tc"),
+    ("f16", 64, "tc"), ("f32", 128, "cc"), ("f32", 50, "cc"),
+    ("bf16", 256, "cc"), ("f16", 200, "cc")])
+def test_flash_attention_route_counts(dev, dtype, d, want):
+    g = torch.Generator().manual_seed(d)
+    q, k, v = (torch.randn(1, 2, 96, d, generator=g).to(FLOATS[dtype])
+               .to(dev) for _ in range(3))
+    assert route(q.dtype, d) == want
+    before = (flash_attention.launches, flash_attention.launches_tc,
+              flash_attention.launches_cc)
+    got = flash_attention(q, k, v)
+    after = (flash_attention.launches, flash_attention.launches_tc,
+             flash_attention.launches_cc)
+    assert after == (before[0] + 1, before[1] + (want == "tc"),
+                     before[2] + (want == "cc"))
+    _close(got, ref.flash_attention(q, k, v), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "f16"])
+def test_flash_attention_tensor_cores_long_causal(dev, dtype):
+    g = torch.Generator().manual_seed(11)
+    q, k, v = (torch.randn(1, 6, 1024, 128, generator=g).to(FLOATS[dtype])
+               .to(dev) for _ in range(3))
+    before = flash_attention.launches_tc
+    got = flash_attention(q, k, v, causal=True)
+    assert flash_attention.launches_tc == before + 1
+    want = ref.flash_attention(q, k, v, causal=True)
+    eps = torch.finfo(FLOATS[dtype]).eps
+    torch.testing.assert_close(got.float(), want.float(), rtol=1.5 * eps,
+                               atol=1e-4)
+
+
+def _topk_case(variant, rows, n, d, g):
+    """(u, items, kwargs) with integer-valued inputs, so every score is
+    exact and the plain version is the exact answer."""
+    u = torch.randint(-2, 3, (rows, d), generator=g).float()
+    kw = {}
+    if variant == "int8":
+        items = torch.randint(-127, 128, (n, d), generator=g,
+                              dtype=torch.int8)
+        kw["scale"] = 2.0 ** torch.randint(-3, 2, (n,), generator=g).float()
+    elif variant == "codebook":
+        items = torch.randint(-2, 3, (211, d), generator=g).float()
+        kw["sketch"] = _sketch(n, 211, 2, g)
+    else:
+        items = torch.randint(-2, 3, (n, d), generator=g).float()
+    return u, items, kw
+
+
+@pytest.mark.parametrize("variant", ["dense", "int8", "codebook"])
+@pytest.mark.parametrize("k", [1, 20, 32])
+@pytest.mark.parametrize("rows", [1, 63, 65, 513])
+@pytest.mark.parametrize("d", [50, 64, 256])
+def test_fused_topk_redesign_exact(dev, variant, k, rows, d):
+    g = torch.Generator().manual_seed(rows * 7 + k + d)
+    u, items, kw = _topk_case(variant, rows, 3001, d, g)
+    u, items = u.to(dev), items.to(dev)
+    kw = {key: val.to(dev) for key, val in kw.items()}
+    got = fused_topk(u, items, k, **kw)
+    want = ref.fused_topk(u, items, k, **kw)
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[0], want[0])
+    again = fused_topk(u, items, k, **kw)
+    assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
+
+
+@pytest.mark.parametrize("codebook", [False, True])
+@pytest.mark.parametrize("quantized", [False, True])
+def test_fused_topk_tiling_from_the_build(dev, codebook, quantized):
+    """The chunk plan's inputs come from the build: 64-row blocks of
+    64-item tiles, two blocks per SM at d 64 and one at d 256 (its
+    shared memory, ~148 KB, leaves room for one)."""
+    from repro_torch.kernels.fused_topk import _tiling
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert _tiling(dev, 64, codebook, quantized) == (64, 64, 2 * sms)
+    assert _tiling(dev, 256, codebook, quantized) == (64, 64, sms)
+
+
+@pytest.mark.parametrize("variant", ["dense", "codebook"])
+@pytest.mark.parametrize("block", [None, 61, 1024])
+def test_fused_topk_ascending_scores(dev, variant, block):
+    """Item i scores i (exact): each new score beats every kept one, so
+    every candidate passes the threshold filter."""
+    n, d = 5003, 64
+    u = torch.zeros(70, d)
+    u[:, 0] = 1.0
+    u[1::2, 0] = -1.0                     # odd rows: descending scores
+    table = torch.zeros(n, d)
+    table[:, 0] = torch.arange(n, dtype=torch.float32)
+    kw = {}
+    if variant == "codebook":
+        kw["sketch"] = torch.arange(n, dtype=torch.int32)[:, None].to(dev)
+    u, table = u.to(dev), table.to(dev)
+    got = fused_topk(u, table, 32, block=block, **kw)
+    want = ref.fused_topk(u, table, 32, **kw)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+    assert torch.equal(got[1][0].cpu(), torch.arange(n - 1, n - 33, -1,
+                                                     dtype=torch.int32))
+
+
+@pytest.mark.parametrize("variant", ["dense", "int8", "codebook"])
+@pytest.mark.parametrize("k", [1, 20, 32])
+def test_fused_topk_all_equal_scores(dev, variant, k):
+    """Every score 0: ties everywhere, the lowest ids win, in order."""
+    g = torch.Generator().manual_seed(k)
+    u, items, kw = _topk_case(variant, 130, 4099, 64, g)
+    u = torch.zeros_like(u).to(dev)
+    items = items.to(dev)
+    kw = {key: val.to(dev) for key, val in kw.items()}
+    got = fused_topk(u, items, k, **kw)
+    want = ref.fused_topk(u, items, k, **kw)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+    assert torch.equal(got[1].cpu(), torch.arange(k, dtype=torch.int32)
+                       .expand(130, k))

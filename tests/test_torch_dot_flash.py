@@ -10,7 +10,8 @@ the same values). Tolerances, as the reference's own tests
 (``tests/test_kernels.py``): dot_interaction f32 rtol/atol 1e-4, bf16
 rtol 5e-2 / atol 5e-1 (one bf16 rounding of sums up to ~50); attention
 f32 rtol 2e-4 / atol 2e-5 (an online softmax against a one-pass one),
-bf16 2e-2.
+bf16 2e-2. The tensor-core route's rounding, emulated in plain torch, is
+held at one rounding step of the type (rtol 1.5 x eps, atol 1e-4).
 """
 import json
 
@@ -26,6 +27,7 @@ from repro.models.transformer import chunked_attention
 from repro_torch.kernels import dot_interaction as dot_kernel
 from repro_torch.kernels import flash_attention as flash_kernel
 from repro_torch.kernels import ops, platform, ref
+from repro_torch.kernels.flash_attention import route
 from repro_torch.launch import kernel_bench
 
 DTYPES = {"f32": (jnp.float32, torch.float32),
@@ -143,6 +145,100 @@ def test_flash_attention_matches_model_path():
                               block_k=64)
     np.testing.assert_allclose(got.transpose(1, 2).numpy(),
                                np.asarray(model), rtol=2e-4, atol=2e-5)
+
+
+def _tensor_core_emulation(q, k, v, causal, split=True):
+    """What the tensor-core route computes, in plain torch on the CPU: f32
+    scores of the 16-bit inputs over 64-key tiles with the online rescale
+    (running max from -1e30, the -1e30 causal fill, keys past Skv at
+    weight 0), P split into hi = T(P) and lo = T(P - hi) in the input type
+    T, P·V as f32 sums of exact products, the denominator clamped at
+    1e-30, one rounding at the store. ``split=False`` rounds P once to T
+    instead (the route the kernel did not take)."""
+    dt = q.dtype
+    qf, kf, vf = q.float(), k.float(), v.float()
+    sq, skv = q.shape[2], k.shape[2]
+    scale = ref.attention_scale(q.shape[-1])
+    m = torch.full((*q.shape[:3], 1), ref.NEG_INF)
+    l = torch.zeros((*q.shape[:3], 1))
+    acc = torch.zeros(qf.shape)
+    qpos = torch.arange(sq)[:, None]
+    for k0 in range(0, skv, 64):
+        kt, vt = kf[:, :, k0:k0 + 64], vf[:, :, k0:k0 + 64]
+        s = (qf @ kt.transpose(-1, -2)) * scale
+        if causal:
+            kpos = torch.arange(k0, k0 + kt.shape[2])[None, :]
+            s = torch.where(kpos > qpos, torch.tensor(ref.NEG_INF), s)
+        m_cur = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_cur)
+        p = torch.exp(s - m_cur)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        hi = p.to(dt).float()
+        acc = acc * alpha + hi @ vt
+        if split:
+            acc = acc + (p - hi).to(dt).float() @ vt
+        m = m_cur
+    return (acc / l.clamp_min(1e-30)).to(dt)
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "f16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d,s,blk", [(128, 256, 128), (50, 192, 64)])
+def test_flash_attention_tensor_core_rounding(dtype, causal, d, s, blk):
+    """The tensor-core route's rounding (emulated) against the Pallas
+    kernel in interpret mode, at the unchanged 16-bit tolerance."""
+    jd, td = {"bf16": (jnp.bfloat16, torch.bfloat16),
+              "f16": (jnp.float16, torch.float16)}[dtype]
+    arrays = _qkv(d + s + causal, 1, 3, s, s, d)
+    qt, kt, vt = (torch.as_tensor(a).to(td) for a in arrays)
+    qj, kj, vj = (jnp.asarray(a, jd) for a in arrays)
+    assert route(td, d) == "tc"
+    got = _tensor_core_emulation(qt, kt, vt, causal)
+    want = jops.flash_attention(qj, kj, vj, causal=causal, block_q=blk,
+                                block_k=blk, interpret=True)
+    eps = float(torch.finfo(td).eps)
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=1.5 * eps,
+                               atol=1e-4)
+    np.testing.assert_allclose(
+        _f32(got), _f32(ref.flash_attention(qt, kt, vt, causal=causal)),
+        rtol=1.5 * eps, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "f16"])
+@pytest.mark.parametrize("d,s,blk", [(128, 256, 128), (50, 192, 64),
+                                     (128, 1024, 128), (128, 2048, 128)])
+def test_flash_attention_single_rounding_of_p_misses_the_tolerance(
+        dtype, d, s, blk):
+    """Why the tensor-core route splits P: rounding P once to the input
+    type (``ref.mha``'s rounding) misses one rounding step of the type
+    against both the Pallas kernel (interpret mode) and the f32 plain
+    version at causal shapes, where the split holds it. Prints the max
+    |err| of each (``pytest -s``)."""
+    jd, td = {"bf16": (jnp.bfloat16, torch.bfloat16),
+              "f16": (jnp.float16, torch.float16)}[dtype]
+    arrays = _qkv(d + s, 1, 2, s, s, d)
+    qt, kt, vt = (torch.as_tensor(a).to(td) for a in arrays)
+    qj, kj, vj = (jnp.asarray(a, jd) for a in arrays)
+    wants = {"pallas": torch.as_tensor(_f32(jops.flash_attention(
+                 qj, kj, vj, causal=True, block_q=blk, block_k=blk,
+                 interpret=True))),
+             "plain": ref.flash_attention(qt, kt, vt, causal=True).float()}
+    tol = {"rtol": 1.5 * float(torch.finfo(td).eps), "atol": 1e-4}
+    for split in (True, False):
+        got = _tensor_core_emulation(qt, kt, vt, True, split=split).float()
+        for name, want in wants.items():
+            err = float((got - want).abs().max())
+            print(f"{dtype} d={d} S={s} causal split={split} vs {name}: "
+                  f"max |err| {err:.3e}")
+            assert torch.allclose(got, want, **tol) == split, (split, name)
+
+
+@pytest.mark.parametrize("dtype,d,want", [
+    (torch.bfloat16, 128, "tc"), (torch.float16, 64, "tc"),
+    (torch.bfloat16, 32, "tc"), (torch.float32, 128, "cc"),
+    (torch.bfloat16, 129, "cc"), (torch.float16, 256, "cc")])
+def test_flash_attention_route_from_dtype_and_width(dtype, d, want):
+    assert route(dtype, d) == want
 
 
 # ---------------------------------------------------------------------------

@@ -24,7 +24,7 @@ from repro_torch.core import solver_torch
 from repro_torch.embedding import (EmbeddingEngine, EmbeddingSpec,
                                    quantize_int8_rows)
 from repro_torch.kernels import codebook_lookup, fused_topk
-from repro_torch.kernels.fused_topk import exclusion_csr
+from repro_torch.kernels.fused_topk import exclusion_csr, plan_chunk
 
 
 def _idx(b, h, k, seed, dup_every=3):
@@ -147,6 +147,25 @@ def test_fused_topk_random_floats():
 def test_fused_topk_rejects_k_above_n():
     with pytest.raises(ValueError):
         fused_topk(torch.zeros(2, 4), torch.zeros(3, 4), 4)
+
+
+@pytest.mark.parametrize("rows,want", [(1, 384), (8, 384), (64, 384),
+                                       (65, 704), (512, 2816)])
+def test_plan_chunk_covers_the_card(rows, want):
+    """Chunks of whole 64-item tiles that fill the card's 2 x 132 block
+    slots (132 SMs, two 64-row blocks each) at the serving shape
+    (N 91,599), or its 132 at one block per SM; the caller's block wins."""
+    n = 91599
+    tile = {"rows_per_block": 64, "items_per_tile": 64}
+    chunk = plan_chunk(rows, n, **tile, slots=2 * 132)
+    assert chunk == want and chunk % 64 == 0
+    blocks = -(-n // chunk) * -(-rows // 64)
+    assert 2 * 132 - 64 <= blocks <= 2 * 132
+    groups = -(-rows // 64)             # want = ceil(slots / groups)
+    one = plan_chunk(rows, n, **tile, slots=132)
+    assert 132 - 64 <= -(-n // one) * groups < 132 + groups
+    assert plan_chunk(rows, n, **tile, slots=264, block=61) == 61
+    assert plan_chunk(1, 300, **tile, slots=264) == 256   # >= 256 items
 
 
 def test_exclusion_csr_rows_sorted_and_filtered():
