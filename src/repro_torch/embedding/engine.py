@@ -27,7 +27,8 @@ bags; the CUDA bag kernel's wrapper sorts them.
 
 Fused scorers (registry, same dispatch one level up): "cuda", the
 fused_topk kernel with its codebook variant, is the one scorer. ``topk``
-is the dense readout's top-k, in ``lax.top_k``'s order.
+is the dense readout's top-k: ``lax.top_k``'s order over the f32 bits
+(``ref.topk_total_order``), as the reference's dense scorers use it.
 """
 from __future__ import annotations
 
@@ -36,7 +37,8 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from repro_torch.kernels.ref import dedup_keep_mask, segment_sum, topk
+from repro_torch.kernels.ref import dedup_keep_mask, segment_sum
+from repro_torch.kernels.ref import topk_total_order as topk
 
 __all__ = ["EmbeddingSpec", "EmbeddingEngine", "LookupBackend",
            "register_backend", "get_backend", "available_backends",

@@ -95,10 +95,11 @@ def plan_chunk(rows: int, n: int, *, rows_per_block: int,
     grid (chunks x groups of ``rows_per_block`` rows) fills the ``slots``
     blocks the card holds at once, in whole tiles of ``items_per_tile``
     and at least 256 items: small batches spread over the card, and large
-    ones keep few chunk lists to merge."""
+    ones keep few chunk lists to merge. An empty batch (``rows`` 0) is
+    planned as one group; its call launches nothing."""
     if block is not None:
         return max(1, int(block))
-    groups = -(-int(rows) // rows_per_block)
+    groups = max(1, -(-int(rows) // rows_per_block))
     want = max(1, -(-int(slots) // groups))
     chunk = -(-int(n) // want)
     chunk = -(-chunk // items_per_tile) * items_per_tile
@@ -195,6 +196,13 @@ def _check_sketch(sketch: torch.Tensor, k_rows: int) -> None:
         raise ValueError(f"sketch entries must lie in [0, {k_rows})")
 
 
+def _empty(u, k):
+    """The result of an empty batch, as the plain version gives it:
+    values f32 [0, k] and ids int32 [0, k]; no kernel is launched."""
+    return (torch.empty(0, k, dtype=torch.float32, device=u.device),
+            torch.empty(0, k, dtype=torch.int32, device=u.device))
+
+
 def _shapes(u, items, k, n):
     if u.dim() != 2 or items.dim() != 2 or u.shape[1] != items.shape[1]:
         raise ValueError(f"u [B, d] and items [N, d] expected, got "
@@ -227,6 +235,8 @@ def fused_topk(u: torch.Tensor, items: torch.Tensor, k: int, *, sketch=None,
         return ref.fused_topk(u, items, k, scale=scale, mask=mask,
                               exclude=exclude)
     _check(u, items, k, n, scale, mask, n)
+    if u.shape[0] == 0:
+        return _empty(u, k)
     lead = (items.contiguous(),
             None if scale is None else scale.contiguous())
     out = _run("dense", lead, u, k, n, scale, mask, exclude, block)
@@ -264,6 +274,8 @@ def fused_topk_codebook(u: torch.Tensor, codebook: torch.Tensor,
         raise TypeError(f"sketch must be int32 on {u.device}, got "
                         f"{sketch.dtype} on {sketch.device}")
     _check_sketch(sketch, int(codebook.shape[0]))
+    if u.shape[0] == 0:
+        return _empty(u, k)
     lead = (codebook.contiguous(),
             None if scale is None else scale.contiguous(),
             sketch.contiguous(), int(sketch.shape[1]))

@@ -13,7 +13,7 @@ import torch
 
 __all__ = ["dedup_keep_mask", "codebook_lookup", "codebook_lookup_dedup",
            "segment_sum", "embedding_bag", "csr_gather_sum", "expand_items",
-           "topk", "fused_topk", "dot_interaction", "attention_scale",
+           "topk", "topk_total_order", "fused_topk", "dot_interaction", "attention_scale",
            "flash_attention", "mha"]
 
 NEG_INF = -1e30         # the attention mask's fill (finite, as in the TPU kernel)
@@ -135,9 +135,25 @@ def topk(scores: torch.Tensor, k: int):
     above every number, lowest index first among NaNs, as in
     ``lax.top_k`` for a NaN with a clear sign bit (``lax.top_k`` ranks a
     NaN with the sign bit set below -inf; this order ranks every NaN
-    first, as the CUDA selection does)."""
+    first, as the CUDA selection does). It is the plain version of the
+    fused kernels only: the dense scorer ranks with
+    :func:`topk_total_order`."""
     vals, ids = torch.sort(scores, dim=1, descending=True, stable=True)
     return vals[:, :k], ids[:, :k].to(torch.int32)
+
+
+def topk_total_order(scores: torch.Tensor, k: int):
+    """Row-wise top-k in ``lax.top_k``'s order over f32 bits: ranked by
+    the total-order key ``b ^ ((b >> 31) & 0x7fffffff)`` of the int32
+    view ``b``, descending and stable, so -NaN < -inf < ... < -0.0 <
+    +0.0 < ... < +inf < +NaN and the lowest index wins among equal keys.
+    Returns (values f32 [B, k], ids int32 [B, k]) as :func:`topk` does;
+    the dense scorer's top-k."""
+    s = scores.float().contiguous()
+    b = s.view(torch.int32)
+    key = b ^ ((b >> 31) & 0x7FFFFFFF)
+    ids = torch.sort(key, dim=1, descending=True, stable=True).indices[:, :k]
+    return torch.gather(s, 1, ids), ids.to(torch.int32)
 
 
 def fused_topk(u, items, k, *, sketch=None, scale=None, mask=None,

@@ -29,7 +29,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.embedding import (dequantize_params, fused_topk,
                                    normalize_backend, params_quantized)
-from repro_torch.embedding.engine import topk
+from repro_torch.kernels.ref import topk_total_order
 from repro_torch.models import lightgcn as L
 from repro_torch.obs import LatencyRecorder, clock
 
@@ -98,7 +98,7 @@ class RecsysSession:
         scores = L.score_all_items(params, self.statics, self.mcfg, user_ids)
         if mask is not None:
             scores = scores + mask[None, :]
-        return topk(scores, self.k)
+        return topk_total_order(scores, self.k)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":

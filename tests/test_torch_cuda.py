@@ -8,7 +8,10 @@ additions, same order); NaN scores rank first, lowest id first, in both
 the kernel and the plain version; the lookups' kernel gradients are
 bitwise equal across runs and within 1e-5 of the gather backend's.
 dot_interaction is bitwise on integer inputs and within 2e-4 / 2e-5 (f32;
-2e-2 in bf16 and f16, one rounding of sums in another order) elsewhere;
+2e-2 in bf16 and f16, one rounding of sums in another order) elsewhere,
+over F (every F mod 4, one tile per lane and lanes looping) and d (scalar
+tails, 16-byte staging); an input not 16-byte aligned gives the aligned
+copy's results bitwise; its shared-memory cap comes from the build;
 flash_attention (an online softmax against the one-pass plain version)
 within 2e-4 / 2e-5 in f32 and 2e-2 in bf16 and f16, and its tensor-core
 route at a long causal sequence within one rounding step of the type
@@ -17,7 +20,7 @@ route at a long causal sequence within one rounding step of the type
 of its 64-row block, ragged item counts and several widths; on items in
 ascending score order (every score beats the running threshold); on
 all-equal scores; and two calls repeat bitwise. Its chunk plan takes the
-tiling and occupancy the build reports.
+tiling and occupancy the build reports. An empty batch launches nothing.
 """
 import numpy as np
 import pytest
@@ -262,9 +265,17 @@ def _close(got, want, dtype):
     torch.testing.assert_close(got.float(), want.float(), **tol)
 
 
+# every F mod 4, one tile per lane (F <= 28) and lanes looping over tiles
+# (F > 28); the scalar tails of d and the 16-byte staging path; B = 37 is
+# not a multiple of a block's 4 examples
+DOT_FS = [2, 3, 4, 5, 8, 27, 28, 29, 33, 41, 100]
+DOT_DS = [1, 3, 50, 128, 129, 256]
+DOT_CASES = ([(1000, 27, 128), (37, 41, 16), (9, 2, 50), (300, 100, 256)]
+             + [(37, f, d) for f in DOT_FS for d in DOT_DS])
+
+
 @pytest.mark.parametrize("dtype", ["f32", "bf16", "f16"])
-@pytest.mark.parametrize("b,f,d", [(1000, 27, 128), (37, 41, 16),
-                                   (9, 2, 50), (300, 100, 256)])
+@pytest.mark.parametrize("b,f,d", DOT_CASES)
 def test_dot_interaction_kernel(dev, dtype, b, f, d):
     g = torch.Generator().manual_seed(b + f + d)
     x = (torch.randn(b, f, d, generator=g) / d ** 0.5).to(FLOATS[dtype])
@@ -288,6 +299,64 @@ def test_dot_interaction_kernel_strided_input_and_tile_cap(dev):
     assert torch.equal(dot_interaction(xt), ref.dot_interaction(xt))
     with pytest.raises(ValueError, match="shared memory"):
         dot_interaction(torch.zeros(2, 500, 128, device=dev))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "f16"])
+@pytest.mark.parametrize("b,f,d", [(6, 5, 3), (9, 27, 128), (5, 33, 64)])
+def test_dot_interaction_kernel_unaligned_input(dev, dtype, b, f, d):
+    """A view whose data pointer is not 16-byte aligned takes the 4-byte
+    (f32) or register (16-bit) staging path: the same results, bitwise,
+    as an aligned copy (each output is the same fmaf chain), and the
+    plain version's. ``x[1:]`` at F 5, d 3 starts 60 bytes in."""
+    g = torch.Generator().manual_seed(f * d)
+    full = torch.randn(b + 1, f, d, generator=g).to(FLOATS[dtype]).to(dev)
+    x = full[1:]
+    if x.data_ptr() % 16 == 0:           # shift by one element instead
+        flat = torch.empty(full.numel() + 1, dtype=full.dtype, device=dev)
+        flat[1:].copy_(full.reshape(-1))
+        x = flat[1:1 + x.numel()].view(b, f, d)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    got = dot_interaction(x)
+    assert torch.equal(got, dot_interaction(x.clone()))
+    _close(got, ref.dot_interaction(x), dtype)
+    xi = torch.randint(-3, 4, (b + 1, f, d), generator=g).to(
+        FLOATS[dtype]).to(dev)[1:]
+    assert torch.equal(dot_interaction(xi), ref.dot_interaction(xi))
+
+
+def test_dot_interaction_smem_cap_from_the_build(dev):
+    """The wrapper's refusal comes from the build's plan and cap: the
+    dlrm-mlperf plan (4 warps, one 27 x 132-float slot each) leaves room
+    for four blocks per SM; (300, 100, 256) runs on a smaller plan;
+    (2, 500, 128) does not fit one example's rows."""
+    from repro_torch.kernels.dot_interaction import max_smem, smem_bytes
+    cap = max_smem()
+    assert cap == 232448
+    for dt in FLOATS.values():
+        assert smem_bytes(27, 128, dt) == 4 * 27 * 132 * 4
+        assert 4 * (smem_bytes(27, 128, dt) + 1024) <= 233472
+        assert smem_bytes(100, 256, dt) <= cap
+        assert smem_bytes(500, 128, dt) > cap
+    x = torch.randint(-3, 4, (300, 100, 256)).float().to(dev)
+    assert torch.equal(dot_interaction(x), ref.dot_interaction(x))
+    with pytest.raises(ValueError, match="shared memory"):
+        dot_interaction(torch.zeros(2, 500, 128, device=dev))
+
+
+@pytest.mark.parametrize("variant", ["dense", "codebook"])
+def test_fused_topk_empty_batch_launches_nothing(dev, variant):
+    g = torch.Generator().manual_seed(2)
+    items = torch.randn(300, 64, generator=g).to(dev)
+    kw = {}
+    if variant == "codebook":
+        kw["sketch"] = _sketch(500, 300, 2, g).to(dev)
+    fn = fused_topk_codebook if variant == "codebook" else fused_topk
+    before = fn.launches
+    vals, ids = fused_topk(torch.zeros(0, 64, device=dev), items, 20, **kw)
+    assert fn.launches == before
+    assert vals.shape == ids.shape == (0, 20)
+    assert vals.dtype == torch.float32 and ids.dtype == torch.int32
+    assert vals.device == ids.device == items.device
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16", "f16"])

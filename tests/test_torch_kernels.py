@@ -168,6 +168,32 @@ def test_plan_chunk_covers_the_card(rows, want):
     assert plan_chunk(1, 300, **tile, slots=264) == 256   # >= 256 items
 
 
+@pytest.mark.parametrize("slots", [132, 264])
+def test_plan_chunk_empty_batch(slots):
+    """rows 0 plans like one group (no division by zero)."""
+    tile = {"rows_per_block": 64, "items_per_tile": 64}
+    assert (plan_chunk(0, 91599, **tile, slots=slots)
+            == plan_chunk(1, 91599, **tile, slots=slots))
+
+
+@pytest.mark.parametrize("variant", ["dense", "int8", "codebook"])
+def test_fused_topk_empty_batch(variant):
+    """B = 0 gives values f32 [0, k] and ids int32 [0, k]."""
+    rng = np.random.default_rng(8)
+    items = torch.as_tensor(rng.standard_normal((40, 16)).astype(np.float32))
+    kw = {}
+    if variant == "int8":
+        items = torch.as_tensor(rng.integers(-127, 128, (40, 16))
+                                .astype(np.int8))
+        kw["scale"] = torch.full((40,), 0.01)
+    elif variant == "codebook":
+        kw["sketch"] = torch.as_tensor(rng.integers(0, 40, (90, 2))
+                                       .astype(np.int32))
+    vals, ids = fused_topk(torch.zeros(0, 16), items, 5, **kw)
+    assert vals.shape == ids.shape == (0, 5)
+    assert vals.dtype == torch.float32 and ids.dtype == torch.int32
+
+
 def test_exclusion_csr_rows_sorted_and_filtered():
     ptr, ids = exclusion_csr((np.array([2, 0, 2, 2, 5, -1]),
                               np.array([9, 4, 1, 7, 0, 3])), 3, 8, "cpu")

@@ -14,7 +14,10 @@ quantization is lossless; unit edge weights; one layer), so scores agree
 bit for bit and exact ties (there are many) test the tie order. The
 ``seeded`` artifact (random codebooks, true edge norms) checks the
 realistic case: ids equal except where two scores are within 1e-5.
+The dense scorer ranks in ``lax.top_k``'s total order of f32 bits
+(±0 and ±NaN apart), checked against JAX on planted scores.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -28,6 +31,8 @@ from repro.serve.dispatch import chunk_plan as jax_chunk_plan
 
 from repro_torch.core import ClusterEngine
 from repro_torch.data import planted_coclusters
+from repro_torch.kernels import ref
+from repro_torch.kernels.ref import topk_total_order
 from repro_torch.models.lightgcn import edge_norms, from_sketch, init_params
 from repro_torch.serve import (BatchDispatcher, CompressedArtifact,
                                RecsysSession, chunk_plan)
@@ -138,6 +143,66 @@ def test_topk_ids_equal_up_to_near_ties_seeded(tmp_path, seeded_artifact,
     diff = gi != wi
     assert diff.mean() < 0.02
     np.testing.assert_allclose(gv[diff], wv[diff], rtol=1e-5)
+
+
+def _planted_scores(n_users, n_items, seed):
+    """Seeded f32 scores [n_users, n_items] with ±0, ±NaN, ±inf and
+    exact ties planted in every row; row 0 starts with the probe row
+    [+0, -0, 1, -inf, NaN, -NaN, +0, -0]."""
+    rng = np.random.default_rng(seed)
+    s = rng.integers(-3, 4, (n_users, n_items)).astype(np.float32)
+    special = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, np.nan],
+                       np.float32)
+    cells = rng.random((n_users, n_items)) < 0.4
+    s[cells] = rng.choice(special, int(cells.sum()))
+    neg_nan = rng.random((n_users, n_items)) < 0.1
+    bits = s.view(np.uint32)
+    bits[neg_nan] = 0xFFC00000                  # NaN with the sign bit set
+    probe = np.array([0.0, -0.0, 1.0, -np.inf, np.nan, 0.0, 0.0, -0.0],
+                     np.float32)
+    probe.view(np.uint32)[5] = 0xFFC00000
+    s[0, :8] = probe
+    return s
+
+
+@pytest.mark.parametrize("row", ["probe", "seeded"])
+def test_dense_topk_total_order_matches_lax_top_k(row):
+    """The dense scorer's top-k against ``jax.lax.top_k``, ids and value
+    bits: +NaN first, +0 above -0, a sign-bit NaN last."""
+    s = _planted_scores(7, 53, seed=5)
+    if row == "probe":
+        s = s[:1, :8]
+    for k in (1, 3, s.shape[1]):
+        want_v, want_i = jax.lax.top_k(jnp.asarray(s), k)
+        got_v, got_i = topk_total_order(torch.as_tensor(s), k)
+        assert got_i.dtype == torch.int32 and got_v.dtype == torch.float32
+        np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+        np.testing.assert_array_equal(got_v.numpy().view(np.uint32),
+                                      np.asarray(want_v).view(np.uint32))
+    if row == "probe":
+        assert got_i.tolist() == [[4, 2, 0, 6, 1, 7, 3, 5]]
+
+
+def test_dense_session_ranks_like_lax_top_k(monkeypatch, tmp_path,
+                                            jax_artifact):
+    """Both packages' dense sessions over the same planted scores (each
+    package's ``score_all_items`` replaced by a lookup of one table):
+    ids and value bits equal, where the fused kernels' order differs."""
+    import repro.models.lightgcn as jax_lightgcn
+    import repro_torch.models.lightgcn as torch_lightgcn
+
+    n_items = jax_artifact.model["n_items"]
+    table = _planted_scores(jax_artifact.model["n_users"], n_items, seed=9)
+    monkeypatch.setattr(jax_lightgcn, "score_all_items",
+                        lambda p, st, c, ids: jnp.asarray(table)[ids])
+    monkeypatch.setattr(torch_lightgcn, "score_all_items",
+                        lambda p, st, c, ids: torch.as_tensor(table)[ids])
+    ids = np.arange(40, dtype=np.int32)
+    (wv, wi), (gv, gi) = _both_sessions(tmp_path, jax_artifact, "dense", ids)
+    np.testing.assert_array_equal(gi, wi)
+    np.testing.assert_array_equal(gv.view(np.uint32), wv.view(np.uint32))
+    _, fused_order = ref.topk(torch.as_tensor(table[ids]), K)
+    assert not np.array_equal(fused_order.numpy(), gi)
 
 
 def test_chunk_plan_matches_reference():
