@@ -47,12 +47,19 @@
    and all other operations at the f32 rate; the 16-bit attention rows
    count every product at the tensor rate (their P·V runs on the tensor
    cores). fused_topk and its codebook variant also repeat bitwise over
-   two calls.
+   two calls. The CSR gather-sum (embedding_bag) is held bitwise and
+   timed at the bag forward, the bag backward and both codebook
+   gradients (``backward`` in its entry), and on skewed bags (4,000
+   values beside 0-3-value and empty bags) at d 1..600; codebook_lookup
+   at H 1..5 and 40, d 1..129, on unaligned codebooks. Every timing
+   enqueues a ~0.1 ms device spin before its start event, so it times
+   the device and not the host's enqueue; the timer's floor (a
+   one-element add) is printed once.
 6. Profiles a few requests (device time per kernel, idle share), and checks
    the port end to end on a small input against itself on the CPU.
 
-Prints a ``kernels`` JSON line, the ``nvidia-smi`` name/power line, and as
-its last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
+Prints a ``kernels`` JSON line, a ``timer`` line (the timer's floor), the
+``nvidia-smi`` name/power line, and as its last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
 result, if there is no CUDA device, if ``repro_torch`` is missing, or if any
 phase fails. It imports nothing of JAX.
 """
@@ -104,16 +111,41 @@ def gpu_line() -> str:
 # ---------------------------------------------------------------------------
 # timing helpers (CUDA events, L2 flushed before every launch)
 # ---------------------------------------------------------------------------
+_SPIN = {}
+
+
+def spin_cycles(us: float = 100.0) -> int:
+    """Cycles of ``torch.cuda._sleep`` that keep the card busy for about
+    ``us`` microseconds (calibrated once per process with CUDA events)."""
+    import torch
+    if "per_us" not in _SPIN:
+        cycles = 1_000_000
+        torch.cuda._sleep(cycles)                 # warm-up
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        torch.cuda._sleep(cycles)
+        b.record()
+        torch.cuda.synchronize()
+        _SPIN["per_us"] = cycles / (a.elapsed_time(b) * 1e3)
+    return int(us * _SPIN["per_us"])
+
+
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Median device time of ``fn`` in ms over ``iters`` launches, each
-    started with a cold L2 (a 64 MB buffer is rewritten before it)."""
+    started with a cold L2 (a 64 MB buffer is rewritten before it). A
+    ~0.1 ms device spin sits between the flush and the start event, so
+    the card is still busy while the host enqueues ``fn``'s work: the
+    events time the device, not the host's enqueue."""
     import torch
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    spin = spin_cycles()
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(iters):
         flush.zero_()
+        torch.cuda._sleep(spin)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -123,6 +155,14 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     torch.cuda.synchronize()
     ms = sorted(a.elapsed_time(b) for a, b in times)
     return ms[len(ms) // 2]
+
+
+def timer_floor_ms() -> float:
+    """:func:`time_ms` around a one-element add: the least time it can
+    report for one launch."""
+    import torch
+    x = torch.zeros(1, device="cuda")
+    return time_ms(lambda: x.add_(1.0))
 
 
 def bound(bytes_moved: float, ops: float, ops16: float = 0.0):
@@ -638,22 +678,33 @@ def check_codebook_lookup(run: dict) -> dict:
             "bound_ms": bms, "bound_by": by}
         log(f"codebook_lookup {side} {rows[side]['shape']}: bitwise equal; "
             f"{rows[side]}")
-    # edge cases: duplicates within rows, H = 1..3, binary on and off,
-    # integer-valued codebooks (so every sum is exact)
+    # edge cases: duplicates within rows, H = 1..5 and 40 (a row of more
+    # than 32 indices), binary on and off, widths with scalar and float2 /
+    # float4 lanes, a codebook not 16-byte aligned, B not a multiple of a
+    # strip, B = 0
     g = torch.Generator(device="cpu").manual_seed(0)
-    for h in (1, 2, 3):
-        z = torch.randint(-8, 9, (97, 64), generator=g).float().to(dev)
-        ix = torch.randint(0, 97, (1000, h), generator=g, dtype=torch.int32)
-        if h > 1:
-            ix[::3, 1] = ix[::3, 0]                 # forced duplicates
-        ix = ix.to(dev)
-        for binary in (False, True):
-            got = codebook_lookup(z, ix, binary=binary)
-            want = ref.codebook_lookup(z, ix, binary=binary)
-            require(torch.equal(got, want),
-                    f"codebook_lookup H={h} binary={binary} differs")
-    log("codebook_lookup edge cases (H=1..3, duplicates, binary on/off): "
-        "bitwise equal")
+    n_cases = 0
+    for h in (1, 2, 3, 5, 40):
+        for d in (1, 3, 64, 129):
+            flat = torch.randn(97 * d + 1, generator=g).to(dev)
+            ix = torch.randint(0, 97, (1001, h), generator=g,
+                               dtype=torch.int32)
+            if h > 1:
+                ix[::3, h - 1] = ix[::3, 0]           # forced duplicates
+            ix = ix.to(dev)
+            for z in (flat[:97 * d].view(97, d), flat[1:].view(97, d)):
+                for binary in (False, True):
+                    got = codebook_lookup(z, ix, binary=binary)
+                    want = ref.codebook_lookup(z, ix, binary=binary)
+                    require(torch.equal(got, want),
+                            f"codebook_lookup H={h} d={d} binary={binary} "
+                            f"differs")
+                    n_cases += 1
+    empty = codebook_lookup(z, ix[:0], binary=True)
+    require(empty.shape == (0, z.shape[1]), "codebook_lookup B=0")
+    log(f"codebook_lookup edge cases ({n_cases}: H 1..5 and 40, d 1..129, "
+        f"duplicates, binary on/off, unaligned codebook, B=0): bitwise "
+        f"equal")
     main = rows["users"]
     return {"name": "codebook_lookup", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/codebook_lookup.cu",
@@ -867,39 +918,158 @@ def check_fused_topk_codebook(run: dict, emb_run: dict) -> dict:
             "shape": rows["items"]["shape"], "by_side": rows}
 
 
-def check_embedding_bag(run: dict, emb_run: dict) -> dict:
+def csr_ptr(sorted_rows, n: int):
+    """int64 [n + 1] CSR boundaries of the runs of 0..n-1 in
+    ``sorted_rows`` (what the bag and scatter wrappers build)."""
+    import torch
+    return torch.searchsorted(sorted_rows,
+                              torch.arange(n + 1, device=sorted_rows.device))
+
+
+def csr_cases(emb: dict, table, seed: int = 11) -> dict:
+    """The CSR gather-sum's (src, idx, ptr) as the embedding path hands
+    them to the kernel: the bag forward (every user's bag of training
+    items over ``table``), the bag backward (``scatter_rows`` into the
+    item rows) and the codebook gradients of both sides (``scatter_rows``
+    into K_u and K_v rows, binary-Y duplicates dropped), with seeded
+    normal cotangents."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    dev = table.device
+    d = table.shape[1]
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    vals, segs = emb["values"], emb["segments"]
+    n_users, n_items = emb["n_users"], emb["n_items"]
+    cases = {"forward": (table, vals, csr_ptr(segs, n_users))}
+    w = torch.randn(n_users, d, generator=g).to(dev)
+    dest, perm = torch.sort(vals.long(), stable=True)
+    cases["bag_backward"] = (w, segs[perm].int(), csr_ptr(dest, n_items))
+    for side in ("users", "items"):
+        sk = emb[side]["sketch"]
+        b, h = sk.shape
+        k_rows = emb[side]["z"].shape[0]
+        cot = torch.randn(b, d, generator=g).to(dev)
+        dest = sk.reshape(-1).long()
+        src = torch.arange(b * h, device=dev) // h
+        if h > 1:
+            keep = ref.dedup_keep_mask(sk).reshape(-1)
+            dest, src = dest[keep], src[keep]
+        dest, perm = torch.sort(dest, stable=True)
+        cases[f"codebook_{side}"] = (cot, src[perm].int(),
+                                     csr_ptr(dest, k_rows))
+    return cases
+
+
+def skewed_csr(rows: int, n_src: int, g, device, longest: int = 4000,
+               mid: int = 200):
+    """(idx int32, ptr int64) of power-law-like bags over ``n_src``
+    source rows: ``longest`` values in the first and the last bag,
+    ``mid`` bags of 300-600 values at random rows, the rest 0-3 values."""
+    import torch
+    lens = torch.randint(0, 4, (rows,), generator=g)
+    pos = torch.randperm(rows - 2, generator=g)[:mid] + 1
+    lens[pos] = torch.randint(300, 601, (len(pos),), generator=g)
+    lens[0] = lens[-1] = longest
+    ptr = torch.zeros(rows + 1, dtype=torch.int64)
+    ptr[1:] = torch.cumsum(lens, 0)
+    idx = torch.randint(0, n_src, (int(ptr[-1]),), generator=g,
+                        dtype=torch.int32)
+    return idx.to(device), ptr.to(device)
+
+
+def csr_row(src, idx, ptr) -> dict:
+    """Times and bound of one CSR gather-sum call; the library call is
+    ``zeros(S, d).index_add_(0, row_of_each_value, src[idx])``."""
     import torch
 
     from repro_torch.kernels import csr_gather_sum, ref
 
-    emb = emb_run["emb"]
-    table = emb_run["v0"]
-    vals, segs = emb["values"], emb["segments"]
-    n_seg = emb["n_users"]
-    ptr = torch.searchsorted(segs, torch.arange(n_seg + 1, device=segs.device))
-    got = csr_gather_sum(table, vals, ptr)
-    want = ref.csr_gather_sum(table, vals, ptr)
-    require(torch.equal(got, want),
-            "embedding_bag kernel is not bitwise its plain version")
-    n, d = table.shape
-    nnz = vals.numel()
-    bytes_moved = 4 * table.numel() + 4 * nnz + 8 * (n_seg + 1) + 4 * n_seg * d
+    n_seg = ptr.numel() - 1
+    n, d = src.shape
+    nnz = idx.numel()
+    bytes_moved = 4 * src.numel() + 4 * nnz + 8 * (n_seg + 1) + 4 * n_seg * d
     bms, by = bound(bytes_moved, nnz * d)
-    seg = segs.long()
-    row = {"ms": time_ms(lambda: csr_gather_sum(table, vals, ptr)),
-           "plain_ms": time_ms(lambda: ref.csr_gather_sum(table, vals, ptr),
-                               iters=5),
-           "library_ms": time_ms(lambda: torch.zeros(
-               n_seg, d, device=table.device).index_add_(
-               0, seg, table[vals])),
-           "bound_ms": bms, "bound_by": by}
-    log(f"embedding_bag nnz={nnz} S={n_seg} N={n} d={d}: bitwise; {row}")
+    seg = torch.repeat_interleave(torch.arange(n_seg, device=src.device),
+                                  ptr[1:] - ptr[:-1])
+    idl = idx.long()
+    lens = ptr[1:] - ptr[:-1]
+    return {"shape": f"nnz={nnz} S={n_seg} N={n} d={d} "
+                     f"longest={int(lens.max())}",
+            "ms": time_ms(lambda: csr_gather_sum(src, idx, ptr)),
+            "plain_ms": time_ms(lambda: ref.csr_gather_sum(src, idx, ptr),
+                                iters=5),
+            "library_ms": time_ms(lambda: torch.zeros(
+                n_seg, d, device=src.device).index_add_(0, seg, src[idl])),
+            "bound_ms": bms, "bound_by": by}
+
+
+def check_embedding_bag(run: dict, emb_run: dict) -> dict:
+    import torch
+
+    from repro_torch.kernels import csr_gather_sum, ref
+    from repro_torch.kernels.embedding_bag import scatter_rows
+
+    emb = emb_run["emb"]
+    cases = csr_cases(emb, emb_run["v0"])
+    max_err = 0.0
+    rows = {}
+    for name, (src, idx, ptr) in cases.items():
+        got = csr_gather_sum(src, idx, ptr)
+        want = ref.csr_gather_sum(src, idx, ptr)
+        require(torch.equal(got, want),
+                f"embedding_bag kernel ({name}) is not bitwise its plain "
+                f"version")
+        require(torch.equal(got, csr_gather_sum(src, idx, ptr)),
+                f"embedding_bag kernel ({name}): two calls differ")
+        max_err = max(max_err, float((got - want).abs().max()))
+        rows[name] = csr_row(src, idx, ptr)
+        log(f"embedding_bag {name} {rows[name]['shape']}: bitwise; "
+            f"{rows[name]}")
+    # the backward case is what scatter_rows hands the kernel
+    w = cases["bag_backward"][0]
+    require(torch.equal(scatter_rows(w, emb["values"], emb["segments"],
+                                     emb["n_items"]),
+                        ref.embedding_bag(w, emb["segments"], emb["values"],
+                                          emb["n_items"])),
+            "scatter_rows is not bitwise the plain bag backward")
+    # edge cases: skewed bags (4,000 values at the first and last rows,
+    # 200 of 300-600, the rest 0-3), widths with scalar and float2 /
+    # float4 lanes and column tiles, a source not 16-byte aligned, all
+    # bags empty, no rows
+    dev = torch.device("cuda")
+    g = torch.Generator(device="cpu").manual_seed(4)
+    n_cases = 0
+    for d in (1, 3, 50, 64, 129, 256, 600):
+        idx, ptr = skewed_csr(3000, 1000, g, dev)
+        flat = torch.randn(1000 * d + 1, generator=g).to(dev)
+        for src in (flat[:1000 * d].view(1000, d),
+                    flat[1:].view(1000, d)):          # 4 bytes off
+            got = csr_gather_sum(src, idx, ptr)
+            require(torch.equal(got, ref.csr_gather_sum(src, idx, ptr)),
+                    f"embedding_bag skewed bags d={d} differ")
+            n_cases += 1
+    src = torch.randn(10, 64, device=dev)
+    for idx, ptr in ((torch.zeros(0, dtype=torch.int32, device=dev),
+                      torch.zeros(7, dtype=torch.int64, device=dev)),
+                     (torch.zeros(0, dtype=torch.int32, device=dev),
+                      torch.zeros(1, dtype=torch.int64, device=dev))):
+        got = csr_gather_sum(src, idx, ptr)
+        require(got.shape == (ptr.numel() - 1, 64) and not got.any(),
+                "embedding_bag: empty bags are not zero rows")
+        n_cases += 1
+    log(f"embedding_bag edge cases ({n_cases}: skewed bags, d 1..600, "
+        f"unaligned source, empty bags, no rows): bitwise equal")
+    main = rows["forward"]
     return {"name": "embedding_bag", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/embedding_bag.cu",
             "replaces": "src/repro/kernels/embedding_bag.py:56",
             "launches": emb_run["launches"]["embedding_bag"],
-            "max_abs_err": float((got - want).abs().max()), **row,
-            "shape": f"nnz={nnz} S={n_seg} N={n} d={d}"}
+            "max_abs_err": max_err,
+            **{k: main[k] for k in ("ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms", "shape")},
+            "backward": {k: rows[k] for k in rows if k != "forward"}}
 
 
 def check_close(got, want, dtype, what: str) -> float:
@@ -1191,6 +1361,8 @@ def main() -> int:
             run = main_path(workdir)
             emb_run = embedding_path(run)
             bench_run = bench_path()
+            floor = timer_floor_ms()
+            log(f"kernel timer floor (one-element add): {floor:.5f} ms")
             kernels = [check_codebook_lookup(run), check_fused_topk(run),
                        check_fused_topk_codebook(run, emb_run),
                        check_embedding_bag(run, emb_run),
@@ -1203,6 +1375,8 @@ def main() -> int:
         log(f"FAIL: {type(e).__name__}: {e}")
         return 1
     print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"timer": {"floor_ms": floor,
+                                "spin_cycles": spin_cycles()}}))
     print(json.dumps({"main_path": {
         "cluster_s": run["cluster_s"], "cluster": run["cluster"],
         "solver_stats": run["stats"], "serve": run["serve"],

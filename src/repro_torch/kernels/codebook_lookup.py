@@ -9,6 +9,7 @@ launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -19,7 +20,9 @@ __all__ = ["codebook_lookup"]
 _NAME = "codebook_lookup"
 
 
+@functools.cache
 def _entry():
+    """The C entry point, bound once per process."""
     fn = platform.load(_NAME).codebook_lookup_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,

@@ -17,48 +17,395 @@
 // (built by the wrapper with searchsorted) and every output row is
 // independent.
 //
-// What bounds it on the H100: bytes. Each value moves one d-float row
-// (256 bytes at d = 64) for d adds. At the amazonbook bags (547,067
-// values in 52,643 bags over a [91,599, 64] table) the inputs and the
-// output are ~40 MB, ~12 us at 3.35 TB/s; the gathered rows themselves
-// (140 MB) mostly hit L2, which holds the 23 MB table.
+// What bounds it on the H100: bytes, and the latency of dependent loads.
+// Each value moves one d-float row (256 bytes at d = 64) for d adds. At
+// the amazonbook bags (547,067 values in 52,643 bags over a [91,599, 64]
+// table) the inputs and the output are ~40 MB, ~12 us at 3.35 TB/s; the
+// 140 MB of gathered rows mostly come from L2, which holds the 23 MB
+// table. The bags are power-law: median 1 value, longest 1,812, and the
+// 2,048 bags of more than 32 values hold 76% of the values (the backward
+// rows, items, reach 3,541). A warp that walks one bag value by value is
+// a chain of dependent loads as long as the bag, and the longest such
+// chain was the whole time of the first port (0.32 ms on an H100 80GB
+// HBM3 at 700 W).
 //
-// Design: one warp per output row. Lanes walk the d columns, so each
-// gathered row and each output row is a coalesced access; the warp reads
-// its ptr pair and each idx[j] as broadcast loads. Each lane adds its
-// column's rows in j order starting from +0.0f with __fadd_rn (no
-// contraction), the order of the plain version (kernels/ref.py), so the
-// result equals it bit for bit. An empty row writes zeros. Nothing is
-// staged in shared memory: a gather has no reuse to stage.
+// Design: every output column is one __fadd_rn fold in j order from
+// +0.0f (no contraction, no atomics), the order of the plain version
+// (kernels/ref.py), so the result equals it bit for bit; only the loads
+// and the scheduling are free. One grid, no host sync, no sort:
+// - Short rows (at most kLongRow values): a warp takes a strip of
+//   kRowsPerWarp consecutive rows. It reads their pointers in one load,
+//   then walks the strip's values in batches of 32: one coalesced index
+//   load, broadcast with __shfl_sync, then gathered rows in steps of
+//   kStepFloats / V per lane, all of a step's loads in flight before
+//   they are folded. A lane owns V consecutive columns (float4 / float2 /
+//   float, gather::vec_width; d = 64 reads a whole row per warp-wide
+//   load). Row boundaries inside a batch close one sum and open the next;
+//   empty rows write zeros. Long rows in the strip are skipped.
+// - Long rows: the first kLongBlocksPerSm x SMs blocks of the grid (so
+//   they start first) each take every row r = b mod (their count) with
+//   more than kLongRow values. A block streams all its long rows through
+//   two rings in shared memory as one sequence of stages (a stage: up to
+//   kStageFloats / d values of one row): the stage's indices are copied
+//   kStages - 1 stages ahead of its gathered rows, and those kStages - 1
+//   stages ahead of their fold, all with cp.async (4 bytes for an index,
+//   16 / 8 / 4 for a row piece, gather::copy_width), one wait and one
+//   barrier per stage, so one row's tail overlaps the next row's head.
+//   Threads that each own one column fold the staged rows in j order.
+//   A whole block's memory parallelism goes to its long rows while each
+//   column's fold stays serial, as parity requires.
+// Rows wider than 512 floats are done in column tiles. The strip, the
+// threshold, the ring's depth and size and the long-row blocks per SM
+// were chosen by sweeps on an H100 80GB HBM3 at 700 W (PERF.md).
 //
 // C interface (loaded with ctypes): the launch runs on the caller's
 // stream, allocates nothing, and returns cudaGetLastError().
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "gather.cuh"
+
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
+using gather::kFull;
+using gather::lesser;
+using gather::vadd;
+using gather::vzero;
 
-__global__ void csr_gather_sum_kernel(const float* __restrict__ src,
-                                      const int32_t* __restrict__ idx,
-                                      const int64_t* __restrict__ ptr,
-                                      float* __restrict__ out, int64_t rows,
-                                      int dim) {
-  const int64_t row =
-      static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + threadIdx.x / 32;
-  if (row >= rows) return;
-  const int lane = threadIdx.x % 32;
-  const int64_t lo = ptr[row];
-  const int64_t hi = ptr[row + 1];
-  float* o = out + row * dim;
-  for (int c = lane; c < dim; c += 32) {
-    float acc = 0.0f;
-    for (int64_t j = lo; j < hi; ++j) {
-      acc = __fadd_rn(acc, src[static_cast<int64_t>(idx[j]) * dim + c]);
-    }
-    o[c] = acc;
+constexpr int kWarps = 8;                          // short-row blocks
+constexpr int kThreads = kWarps * 32;
+constexpr int kLongThreads = kThreads;             // long-row blocks
+constexpr int kRowsPerWarp = 4;                    // at most 31
+constexpr int64_t kLongRow = 32;                   // values
+constexpr int kStages = 4;
+constexpr int kLongBlocksPerSm = 8;
+constexpr int kStageFloats = 4096;                 // floats a stage
+constexpr int kMaxTile = 512;                      // floats of a column tile
+constexpr int kMaxPer = kLongThreads;              // values a stage
+constexpr int kSmemBytes = kStages * (kStageFloats + kMaxPer) * 4;
+
+static_assert(kRowsPerWarp >= 1 && kRowsPerWarp <= 31, "strip of 1..31 rows");
+static_assert(kStages >= 2, "a ring of at least two stages");
+static_assert(kMaxTile % kLongThreads == 0 && kMaxTile <= kStageFloats,
+              "a column tile of whole columns per thread that fits a stage");
+static_assert(kStageFloats % (4 * kLongThreads) == 0,
+              "whole copies per thread");
+
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  if constexpr (BYTES == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                 "l"(gmem));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
+                 "l"(gmem), "n"(BYTES));
   }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// One warp: the short rows of the strip [r0, r0 + kRowsPerWarp).
+template <int V>
+__device__ void warp_strip(const float* __restrict__ src,
+                           const int32_t* __restrict__ idx,
+                           const int64_t* __restrict__ ptr,
+                           float* __restrict__ out, int64_t rows, int dim,
+                           int64_t r0, int lane) {
+  using vec = typename gather::Vec<V>::T;
+  constexpr int kStep = gather::kStepFloats / V;   // row loads per step
+  const int nr = static_cast<int>(
+      lesser<int64_t>(kRowsPerWarp, rows - r0));
+  // lane k holds [p, pn) = the values of row r0 + k (k < nr)
+  const int64_t p = ptr[r0 + lesser(lane, nr)];
+  const int64_t pn = __shfl_down_sync(kFull, p, 1);
+  const bool is_long = lane < nr && pn - p > kLongRow;
+  const unsigned long_rows = __ballot_sync(kFull, is_long);
+  const int64_t beg = __shfl_sync(kFull, p, 0);
+  const int64_t end = __shfl_sync(kFull, p, nr);
+  const int cols = dim / V;
+  const vec* s = reinterpret_cast<const vec*>(src);
+  vec* o = reinterpret_cast<vec*>(out);
+  for (int c0 = 0; c0 < cols; c0 += 32) {
+    const int c = c0 + lane;
+    const bool active = c < cols;
+    vec acc = vzero(vec());
+    int cur = 0;                                  // the row acc sums
+    int64_t cur_end = __shfl_sync(kFull, pn, 0);
+    // close every row that ends at or before value j (warp-uniform):
+    // write its sum (zeros for an empty row; a long row is a block's)
+    auto close_to = [&](int64_t j) {
+      while (cur < nr && cur_end <= j) {
+        if (active && !((long_rows >> cur) & 1u)) {
+          o[(r0 + cur) * cols + c] = acc;
+        }
+        acc = vzero(vec());
+        ++cur;
+        cur_end = __shfl_sync(kFull, pn, cur & 31);
+      }
+    };
+    int64_t j0 = beg;
+    while (j0 < end) {
+      const unsigned in_long =
+          __ballot_sync(kFull, is_long && p <= j0 && j0 < pn);
+      if (in_long) {                              // a block sums this row
+        j0 = __shfl_sync(kFull, pn, __ffs(in_long) - 1);
+        continue;
+      }
+      const unsigned ahead = __ballot_sync(kFull, is_long && p > j0);
+      const int64_t stop =
+          ahead ? __shfl_sync(kFull, p, __ffs(ahead) - 1) : end;
+      const int n = static_cast<int>(lesser<int64_t>(32, stop - j0));
+      const int32_t ix = lane < n ? idx[j0 + lane] : 0;
+      for (int t0 = 0; t0 < n; t0 += kStep) {
+        vec buf[kStep];
+#pragma unroll
+        for (int u = 0; u < kStep; ++u) {
+          const int32_t r = __shfl_sync(kFull, ix, (t0 + u) & 31);
+          buf[u] = (active && t0 + u < n)
+                       ? s[static_cast<int64_t>(r) * cols + c]
+                       : vzero(vec());
+        }
+#pragma unroll
+        for (int u = 0; u < kStep; ++u) {
+          if (t0 + u < n) {
+            close_to(j0 + t0 + u);
+            acc = vadd(acc, buf[u]);
+          }
+        }
+      }
+      j0 += n;
+    }
+    close_to(end);
+  }
+}
+
+// A block's long rows, as one stream of stages: stage s holds up to
+// `per` consecutive values of one row. Each thread walks the stream with
+// its own copy of a cursor (all copies agree); a cursor keeps its row's
+// first value and length in registers.
+struct Cursor {
+  int k = 0;          // row in the block's list
+  int64_t off = 0;    // first value of the stage within the row
+  int64_t lo = 0;     // the row's first value in idx
+  int64_t len = 0;    // the row's length
+  __device__ void start(const int64_t* row_lo, const int64_t* row_len) {
+    lo = row_lo[0];
+    len = row_len[0];
+  }
+  __device__ int count(int per) const {
+    return static_cast<int>(lesser<int64_t>(per, len - off));
+  }
+  __device__ void next(const int64_t* row_lo, const int64_t* row_len,
+                       int n, int per) {
+    off += per;
+    if (off >= len) {
+      off = 0;
+      if (++k < n) {
+        lo = row_lo[k];
+        len = row_len[k];
+      }
+    }
+  }
+};
+
+// The whole block: columns [col0, col0 + w) of the n long rows listed in
+// shared memory (row ids, first values, lengths). Three stages are in
+// flight at once for each stage folded: the indices of stage it are
+// copied A = kStages - 1 iterations before its gathered rows, and those
+// A iterations before they are folded, so one cp.async.wait_group and
+// one barrier per stage serve both rings, and one row's tail overlaps
+// the next row's head.
+template <int VL>
+__device__ void block_stream(const float* __restrict__ src,
+                             const int32_t* __restrict__ idx,
+                             float* __restrict__ out, int dim,
+                             const int64_t* row_id, const int64_t* row_lo,
+                             const int64_t* row_len, int n, int col0, int w) {
+  constexpr int V = VL;
+  constexpr int A = kStages - 1;
+  constexpr int kEpt = kStageFloats / V / kLongThreads;   // copies a thread
+  constexpr int kCpt = kMaxTile / kLongThreads;           // its columns
+  extern __shared__ __align__(16) float smem[];
+  float* ring = smem;
+  int32_t* iring = reinterpret_cast<int32_t*>(smem + kStages * kStageFloats);
+  const int tid = threadIdx.x;
+  const int wv = w / V;                               // w is a multiple of V
+  const int per = lesser(kStageFloats / w, kMaxPer);  // values a stage
+  int64_t stages = 0;
+  for (int k = 0; k < n; ++k) stages += (row_len[k] + per - 1) / per;
+  // this thread's copies of a stage: value val[i], vector vk[i]
+  int val[kEpt];
+  int vk[kEpt];
+#pragma unroll
+  for (int i = 0; i < kEpt; ++i) {
+    const int e = tid + i * kLongThreads;
+    val[i] = e < per * wv ? e / wv : -1;
+    vk[i] = e % wv;
+  }
+  float acc[kCpt];
+#pragma unroll
+  for (int c = 0; c < kCpt; ++c) acc[c] = 0.0f;
+  Cursor ci, cd, cf;          // index copies, row copies, fold
+  ci.start(row_lo, row_len);
+  cd.start(row_lo, row_len);
+  cf.start(row_lo, row_len);
+  for (int64_t it = 0; it < stages + 2 * A; ++it) {
+    if (it >= A) {
+      cp_async_wait<A - 1>();
+      __syncthreads();        // stage it - A's indices and stage it - 2A's
+    }                         // rows landed; the slots they reuse are free
+    if (it < stages) {        // indices of stage it
+      if (tid < ci.count(per)) {
+        cp_async<4>(iring + (it % kStages) * kMaxPer + tid,
+                    idx + ci.lo + ci.off + tid);
+      }
+      ci.next(row_lo, row_len, n, per);
+    }
+    const int64_t d = it - A;
+    if (d >= 0 && d < stages) {   // gathered rows of stage d
+      const int cnt = cd.count(per);
+      const int32_t* si = iring + (d % kStages) * kMaxPer;
+      float* slot = ring + (d % kStages) * kStageFloats;
+#pragma unroll
+      for (int i = 0; i < kEpt; ++i) {
+        if (val[i] >= 0 && val[i] < cnt) {
+          cp_async<4 * V>(slot + val[i] * w + vk[i] * V,
+                          src + static_cast<int64_t>(si[val[i]]) * dim +
+                              col0 + vk[i] * V);
+        }
+      }
+      cd.next(row_lo, row_len, n, per);
+    }
+    cp_async_commit();
+    const int64_t f = it - 2 * A;
+    if (f >= 0) {                 // fold stage f, in value order
+      const int cnt = cf.count(per);
+      const float* fs = ring + (f % kStages) * kStageFloats;
+#pragma unroll
+      for (int c = 0; c < kCpt; ++c) {
+        const int col = tid + c * kLongThreads;
+        if (col < w) {
+          float a = acc[c];
+#pragma unroll 16
+          for (int v = 0; v < cnt; ++v) a = __fadd_rn(a, fs[v * w + col]);
+          acc[c] = a;
+        }
+      }
+      if (cf.off + per >= cf.len) {   // the row's last stage
+#pragma unroll
+        for (int c = 0; c < kCpt; ++c) {
+          const int col = tid + c * kLongThreads;
+          if (col < w) out[row_id[cf.k] * dim + col0 + col] = acc[c];
+          acc[c] = 0.0f;
+        }
+      }
+      cf.next(row_lo, row_len, n, per);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();              // the rings are free again
+}
+
+// Long-row block b of nb: the rows r = b mod nb with more than kLongRow
+// values, listed kLongThreads candidates at a time and streamed through
+// the block's rings, a column tile of up to kMaxTile floats at a time.
+template <int VL>
+__device__ void long_rows(const float* __restrict__ src,
+                          const int32_t* __restrict__ idx,
+                          const int64_t* __restrict__ ptr,
+                          float* __restrict__ out, int64_t rows, int dim,
+                          int nb) {
+  __shared__ int64_t row_id[kLongThreads];
+  __shared__ int64_t row_lo[kLongThreads];
+  __shared__ int64_t row_len[kLongThreads];
+  __shared__ int count;
+  const int64_t stride = static_cast<int64_t>(kLongThreads) * nb;
+  for (int64_t base = blockIdx.x; base < rows; base += stride) {
+    const int64_t r = base + static_cast<int64_t>(threadIdx.x) * nb;
+    int64_t lo = 0;
+    int64_t len = 0;
+    if (r < rows) {
+      lo = ptr[r];
+      len = ptr[r + 1] - lo;
+    }
+    if (threadIdx.x == 0) count = 0;
+    __syncthreads();
+    if (len > kLongRow) {
+      const int k = atomicAdd(&count, 1);
+      row_id[k] = r;
+      row_lo[k] = lo;
+      row_len[k] = len;
+    }
+    __syncthreads();
+    const int n = count;
+    if (n > 0) {
+      for (int col0 = 0; col0 < dim; col0 += kMaxTile) {
+        block_stream<VL>(src, idx, out, dim, row_id, row_lo, row_len, n,
+                         col0, lesser(kMaxTile, dim - col0));
+      }
+    }
+    __syncthreads();              // the list is rewritten next
+  }
+}
+
+// One grid: the first long_blocks blocks take the long rows (so they
+// start first), the rest give each warp a strip of kRowsPerWarp rows.
+// V: floats per lane of the short rows' loads; VL: floats per cp.async
+// of the long rows' copies.
+template <int V, int VL>
+__global__ void __launch_bounds__(kThreads)
+    csr_gather_sum_kernel(const float* __restrict__ src,
+                          const int32_t* __restrict__ idx,
+                          const int64_t* __restrict__ ptr,
+                          float* __restrict__ out, int64_t rows, int dim,
+                          int long_blocks) {
+  if (static_cast<int>(blockIdx.x) < long_blocks) {
+    long_rows<VL>(src, idx, ptr, out, rows, dim, long_blocks);
+    return;
+  }
+  const int64_t strip =
+      static_cast<int64_t>(blockIdx.x - long_blocks) * kWarps +
+      threadIdx.x / 32;
+  const int64_t r0 = strip * kRowsPerWarp;
+  if (r0 < rows) {
+    warp_strip<V>(src, idx, ptr, out, rows, dim, r0, threadIdx.x % 32);
+  }
+}
+
+template <int V, int VL>
+void launch(const float* src, const int32_t* idx, const int64_t* ptr,
+            float* out, int64_t rows, int dim, int sms, int dev,
+            cudaStream_t stream) {
+  static bool sized[64] = {false};   // the shared-memory limit, by device
+  if (!sized[dev & 63]) {
+    cudaFuncSetAttribute(csr_gather_sum_kernel<V, VL>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         kSmemBytes);
+    sized[dev & 63] = true;
+  }
+  const int long_blocks = static_cast<int>(
+      lesser<int64_t>(rows, static_cast<int64_t>(kLongBlocksPerSm) * sms));
+  const int64_t per_block = static_cast<int64_t>(kWarps) * kRowsPerWarp;
+  const int64_t blocks = long_blocks + (rows + per_block - 1) / per_block;
+  csr_gather_sum_kernel<V, VL><<<static_cast<unsigned>(blocks), kThreads,
+                                 kSmemBytes, stream>>>(src, idx, ptr, out,
+                                                       rows, dim,
+                                                       long_blocks);
+}
+
+int sm_count(int dev) {
+  static int cached[64] = {0};
+  int& n = cached[dev & 63];
+  if (n == 0) cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  return n > 0 ? n : 1;
 }
 
 }  // namespace
@@ -70,10 +417,31 @@ extern "C" int csr_gather_sum_launch(const float* src, const int32_t* idx,
                                      int64_t rows, int dim,
                                      cudaStream_t stream) {
   if (rows > 0 && dim > 0) {
-    const int64_t blocks = (rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
-    csr_gather_sum_kernel<<<static_cast<unsigned>(blocks),
-                            kWarpsPerBlock * 32, 0, stream>>>(
-        src, idx, ptr, out, rows, dim);
+    int dev = 0;
+    cudaGetDevice(&dev);
+    const int sms = sm_count(dev);
+    const uintptr_t bits = reinterpret_cast<uintptr_t>(src) |
+                           reinterpret_cast<uintptr_t>(out);
+    const int v = gather::vec_width(dim, bits);
+    switch (gather::copy_width(dim, bits) * 10 + v) {
+      case 44:
+        launch<4, 4>(src, idx, ptr, out, rows, dim, sms, dev, stream);
+        break;
+      case 42:
+        launch<2, 4>(src, idx, ptr, out, rows, dim, sms, dev, stream);
+        break;
+      case 41:
+        launch<1, 4>(src, idx, ptr, out, rows, dim, sms, dev, stream);
+        break;
+      case 22:
+        launch<2, 2>(src, idx, ptr, out, rows, dim, sms, dev, stream);
+        break;
+      case 21:
+        launch<1, 2>(src, idx, ptr, out, rows, dim, sms, dev, stream);
+        break;
+      default:
+        launch<1, 1>(src, idx, ptr, out, rows, dim, sms, dev, stream);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

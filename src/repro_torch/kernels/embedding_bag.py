@@ -12,6 +12,7 @@ kernel launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -22,7 +23,9 @@ __all__ = ["csr_gather_sum", "embedding_bag", "scatter_rows"]
 _NAME = "embedding_bag"
 
 
+@functools.cache
 def _entry():
+    """The C entry point, bound once per process."""
     fn = platform.load(_NAME).csr_gather_sum_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_int,

@@ -4,7 +4,10 @@ Marked ``cuda``: they skip without an NVIDIA GPU (run them there with
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``).
 Exact on integer-valued inputs (every sum exact, so any order agrees);
 the codebook lookup and the bag sums are bitwise on any input (same
-additions, same order); NaN scores rank first, lowest id first, in both
+additions, same order), also at widths read by scalar, float2 and
+float4 lanes, from tables 4 bytes off 16-byte alignment, on skewed bags
+(4,000 values beside 300-600-value, 0-3-value and empty bags), with no
+values and no rows, and two calls repeat bitwise; NaN scores rank first, lowest id first, in both
 the kernel and the plain version; the lookups' kernel gradients are
 bitwise equal across runs and within 1e-5 of the gather backend's.
 dot_interaction is bitwise on integer inputs and within 2e-4 / 2e-5 (f32;
@@ -22,6 +25,9 @@ ascending score order (every score beats the running threshold); on
 all-equal scores; and two calls repeat bitwise. Its chunk plan takes the
 tiling and occupancy the build reports. An empty batch launches nothing.
 """
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -45,11 +51,17 @@ def dev():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("h", [1, 2, 3])
+@pytest.mark.parametrize("h", [1, 2, 3, 5])
+@pytest.mark.parametrize("d", [1, 3, 50, 64, 129, 256])
 @pytest.mark.parametrize("binary", [False, True])
-def test_codebook_lookup_kernel_bitwise(dev, h, binary):
-    g = torch.Generator().manual_seed(h)
-    z = torch.randn(501, 64, generator=g).to(dev)
+@pytest.mark.parametrize("aligned", [True, False])
+def test_codebook_lookup_kernel_bitwise(dev, h, d, binary, aligned):
+    # scalar, float2 and float4 lanes; a codebook 4 bytes off 16-byte
+    # alignment; B not a multiple of a warp's strip; B = 0
+    g = torch.Generator().manual_seed(h * 1000 + d)
+    flat = torch.randn(501 * d + 1, generator=g).to(dev)
+    z = flat[:501 * d] if aligned else flat[1:]
+    z = z.view(501, d)
     idx = torch.randint(0, 501, (4099, h), generator=g, dtype=torch.int32)
     if h > 1:
         idx[::2, -1] = idx[::2, 0]
@@ -58,6 +70,9 @@ def test_codebook_lookup_kernel_bitwise(dev, h, binary):
     got = codebook_lookup(z, idx, binary=binary)
     assert codebook_lookup.launches == before + 1
     assert torch.equal(got, ref.codebook_lookup(z, idx, binary=binary))
+    assert torch.equal(got, codebook_lookup(z, idx, binary=binary))
+    empty = codebook_lookup(z, idx[:0], binary=binary)
+    assert empty.shape == (0, d)
 
 
 @pytest.mark.parametrize("case", ["ties", "mask", "exclude", "int8", "block"])
@@ -173,26 +188,57 @@ def test_fused_topk_kernel_nan_first(dev, variant):
     assert torch.isnan(got[0][:, 0]).all()
 
 
-def test_embedding_bag_kernel_bitwise(dev):
-    g = torch.Generator().manual_seed(7)
-    table = torch.randn(5003, 64, generator=g).to(dev)
-    nnz, nseg = 40000, 4099
-    values = torch.randint(0, 5003, (nnz,), generator=g,
-                           dtype=torch.int32).to(dev)
-    segs = torch.sort(torch.randint(0, nseg, (nnz,), generator=g)).values
-    segs[(segs % 97) == 5] = 4                    # empty bags
-    segs = torch.sort(segs).values.to(dev)
+def _skewed_csr(rows, n_src, g):
+    """``chip_smoke.skewed_csr``: 4,000 values in the first and the last
+    bag, 200 bags of 300-600 values, the rest 0-3 values."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke.skewed_csr(rows, n_src, g, "cpu")
+
+
+@pytest.mark.parametrize("case", ["random", "skewed", "all_empty",
+                                  "no_values", "no_rows"])
+@pytest.mark.parametrize("d", [1, 3, 50, 64, 128, 129, 256])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_embedding_bag_kernel_bitwise(dev, case, d, aligned):
+    g = torch.Generator().manual_seed(7 + d)
+    flat = torch.randn(5003 * d + 1, generator=g).to(dev)
+    table = (flat[:5003 * d] if aligned else flat[1:]).view(5003, d)
+    if case == "random":
+        nnz, nseg = 40000, 4099
+        values = torch.randint(0, 5003, (nnz,), generator=g,
+                               dtype=torch.int32).to(dev)
+        segs = torch.sort(torch.randint(0, nseg, (nnz,), generator=g)).values
+        segs[(segs % 97) == 5] = 4                # empty bags
+        segs = torch.sort(segs).values.to(dev)
+        before = csr_gather_sum.launches
+        got = embedding_bag(table, values, segs, nseg)
+        assert csr_gather_sum.launches == before + 1
+        assert torch.equal(got, ref.embedding_bag(table, values, segs, nseg))
+        assert not got[(torch.bincount(segs, minlength=nseg) == 0)].any()
+        # unsorted bags: sorted stably in the wrapper, then the same kernel
+        perm = torch.randperm(nnz, generator=g).to(dev)
+        got = embedding_bag(table, values[perm], segs[perm], nseg)
+        assert csr_gather_sum.launches == before + 2
+        assert torch.equal(got, ref.embedding_bag(table, values[perm],
+                                                  segs[perm], nseg))
+        return
+    if case == "skewed":
+        idx, ptr = _skewed_csr(3000, 5003, g)
+    else:
+        rows = {"all_empty": 700, "no_values": 1, "no_rows": 0}[case]
+        idx = torch.zeros(0, dtype=torch.int32)
+        ptr = torch.zeros(rows + 1, dtype=torch.int64)
+    idx, ptr = idx.to(dev), ptr.to(dev)
     before = csr_gather_sum.launches
-    got = embedding_bag(table, values, segs, nseg)
+    got = csr_gather_sum(table, idx, ptr)
     assert csr_gather_sum.launches == before + 1
-    assert torch.equal(got, ref.embedding_bag(table, values, segs, nseg))
-    assert not got[(torch.bincount(segs, minlength=nseg) == 0)].any()
-    # unsorted bags: sorted stably in the wrapper, then the same kernel
-    perm = torch.randperm(nnz, generator=g).to(dev)
-    got = embedding_bag(table, values[perm], segs[perm], nseg)
+    assert got.shape == (ptr.numel() - 1, d)
+    assert torch.equal(got, ref.csr_gather_sum(table, idx, ptr))
+    assert torch.equal(got, csr_gather_sum(table, idx, ptr))
     assert csr_gather_sum.launches == before + 2
-    assert torch.equal(got, ref.embedding_bag(table, values[perm],
-                                              segs[perm], nseg))
 
 
 @pytest.mark.parametrize("mode", ["sum", "mean"])

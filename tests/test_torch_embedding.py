@@ -25,12 +25,14 @@ import torch
 
 import repro.embedding as JE
 from repro.configs.lightgcn_baco import smoke_config
+from repro.kernels import ref as jref
 from repro.kernels.embedding_bag import embedding_bag_pallas
 from repro.kernels.fused_topk import fused_topk_codebook_pallas
 from repro.models import lightgcn as JL
 
 import repro_torch.embedding as TE
 from repro_torch.embedding.engine import EmbeddingEngine as TEngine
+from repro_torch.kernels.embedding_bag import scatter_rows
 from repro_torch.kernels import (csr_gather_sum, embedding_bag,
                                  fused_topk_codebook, platform, ref)
 from repro_torch.kernels.fused_topk import _check_sketch
@@ -105,6 +107,50 @@ def test_csr_gather_sum_is_the_bag_of_its_pointers():
     want = np.asarray(JE.embedding_bag(jnp.asarray(table), jnp.asarray(vals),
                                        jnp.asarray(segs), 11))
     np.testing.assert_array_equal(got, want)
+
+
+def _skewed(seed, longest, rows=40, n=50, d=16):
+    """table f32 [n, d], values int32, sorted segment ids int32 [nnz]:
+    one bag of ``longest`` values (at row rows // 3) among single-value
+    and empty bags, the shape of the power-law bags the CUDA kernel
+    hands to a whole block."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(0, 2, rows)
+    lens[rows // 3] = longest
+    table = rng.standard_normal((n, d)).astype(np.float32)
+    segs = np.repeat(np.arange(rows), lens).astype(np.int32)
+    vals = rng.integers(0, n, segs.size).astype(np.int32)
+    return table, vals, segs
+
+
+@pytest.mark.parametrize("d", [1, 3, 64])
+def test_skewed_bags_and_scatter_bitwise_jax_ref(d):
+    table, vals, segs = _skewed(3, 2000, d=d)
+    want = np.asarray(jref.embedding_bag(jnp.asarray(table),
+                                         jnp.asarray(vals),
+                                         jnp.asarray(segs), 40))
+    got = embedding_bag(_t(table), _t(vals), _t(segs), 40).numpy()
+    np.testing.assert_array_equal(got, want)
+    ptr = np.searchsorted(segs, np.arange(41)).astype(np.int64)
+    np.testing.assert_array_equal(
+        csr_gather_sum(_t(table), _t(vals), _t(ptr)).numpy(), want)
+    # the bag's backward: the cotangent rows of each bag's values summed
+    # into the table rows, in value order
+    g = np.random.default_rng(4).standard_normal((40, d)).astype(np.float32)
+    want_t = np.asarray(jref.embedding_bag(jnp.asarray(g), jnp.asarray(segs),
+                                           jnp.asarray(vals), 50))
+    got_t = scatter_rows(_t(g), _t(vals), _t(segs), 50).numpy()
+    np.testing.assert_array_equal(got_t, want_t)
+
+
+def test_long_bag_matches_pallas():
+    table, vals, segs = _skewed(5, 300)
+    pallas = np.asarray(embedding_bag_pallas(
+        jnp.asarray(table), jnp.asarray(vals), jnp.asarray(segs),
+        num_segments=40, interpret=True))
+    got = embedding_bag(_t(table), _t(vals), _t(segs), 40).numpy()
+    np.testing.assert_array_equal(got, pallas)
+    assert not got[np.bincount(segs, minlength=40) == 0].any()
 
 
 def test_bag_wrapper_refuses_what_the_kernel_does_not_take():

@@ -53,6 +53,21 @@ def test_codebook_lookup_matches_pallas(h, binary):
     np.testing.assert_array_equal(got, np.asarray(oracle))
 
 
+@pytest.mark.parametrize("h,d", [(3, 1), (5, 3), (2, 50), (40, 8)])
+@pytest.mark.parametrize("binary", [False, True])
+def test_codebook_lookup_widths_and_hot_counts_match_pallas(h, d, binary):
+    # widths the CUDA kernel reads with scalar lanes, and a row of more
+    # than 32 indices (its first-occurrence rule then looks back through
+    # memory)
+    z = np.random.default_rng(1).standard_normal((37, d)).astype(np.float32)
+    idx = _idx(41, h, 37, seed=h, dup_every=2)
+    want = np.asarray(codebook_lookup_pallas(jnp.asarray(z), jnp.asarray(idx),
+                                             binary=binary, interpret=True))
+    got = codebook_lookup(torch.as_tensor(z), torch.as_tensor(idx),
+                          binary=binary).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
 def test_engine_backends_agree_and_dedup():
     z = np.random.default_rng(1).standard_normal((29, 16)).astype(np.float32)
     sketch = _idx(50, 2, 29, seed=5, dup_every=2)

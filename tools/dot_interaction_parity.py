@@ -23,13 +23,13 @@ from __future__ import annotations
 import ctypes
 import json
 import os
-import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 import chip_smoke  # noqa: E402  (puts src/ on the path)
+import parity_build  # noqa: E402
 
 DTYPES = ("float32", "bfloat16", "float16")
 FS = (2, 3, 4, 5, 8, 27, 28, 29, 33, 41, 100)
@@ -44,15 +44,6 @@ def cases():
     out += [(37, f, d, False) for f in FS for d in DS]
     out += [(6, 5, 3, True), (9, 27, 128, True), (5, 33, 64, True)]
     return list(dict.fromkeys(out))
-
-
-def bind(path: str):
-    """The launch entry point of the library at ``path``."""
-    fn = ctypes.CDLL(path).dot_interaction_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    return fn
 
 
 def inputs(b, f, d, dtype, unaligned, g):
@@ -73,13 +64,11 @@ def main(src: str) -> int:
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 1
-    out = os.path.join(ROOT, "build", "parity", "libdot_interaction_other.so")
-    os.makedirs(os.path.dirname(out), exist_ok=True)
-    subprocess.run([platform.nvcc_path(), *platform.ARCH_FLAGS, "-std=c++17",
-                    "-O3", "-shared", "-Xcompiler", "-fPIC",
-                    "-I", str(platform.CSRC), "-o", out, src],
-                   check=True, capture_output=True, timeout=600)
-    other = bind(out)
+    other = parity_build.entry(
+        parity_build.build(src, "dot_interaction_other"),
+        "dot_interaction_launch",
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+         ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 
     def theirs(x):
         y = torch.empty(x.shape[0], x.shape[1] * (x.shape[1] - 1) // 2,

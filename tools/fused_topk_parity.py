@@ -20,7 +20,6 @@ from __future__ import annotations
 import ctypes
 import json
 import os
-import subprocess
 import sys
 import tempfile
 
@@ -28,21 +27,20 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 import chip_smoke  # noqa: E402  (puts src/ on the path)
+import parity_build  # noqa: E402
 
 
 def bind(path: str) -> dict:
     """The two C entry points of the library at ``path``."""
-    lib = ctypes.CDLL(path)
-    dense = lib.fused_topk_launch
-    dense.restype = ctypes.c_int
-    dense.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-                      + [ctypes.c_void_p] * 5)
-    codebook = lib.fused_topk_codebook_launch
-    codebook.restype = ctypes.c_int
-    codebook.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int]
-                         + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
-                         + [ctypes.c_void_p] * 5)
-    return {"dense": dense, "codebook": codebook}
+    return {"dense": parity_build.entry(
+                path, "fused_topk_launch",
+                [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+                + [ctypes.c_void_p] * 5),
+            "codebook": parity_build.entry(
+                path, "fused_topk_codebook_launch",
+                [ctypes.c_void_p] * 4 + [ctypes.c_int]
+                + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+                + [ctypes.c_void_p] * 5)}
 
 
 def run(launch, lead, u, k, n, scale, mask, exclude, chunk=1024):
@@ -75,18 +73,13 @@ def main(src: str) -> int:
     import torch
 
     from repro_torch.embedding import dequantize_params
-    from repro_torch.kernels import fused_topk, platform
+    from repro_torch.kernels import fused_topk
     from repro_torch.models import lightgcn as L
 
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 1
-    out = os.path.join(ROOT, "build", "parity", "libfused_topk_other.so")
-    os.makedirs(os.path.dirname(out), exist_ok=True)
-    subprocess.run([platform.nvcc_path(), *platform.ARCH_FLAGS, "-std=c++17",
-                    "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", out, src],
-                   check=True, capture_output=True, timeout=600)
-    other = bind(out)
+    other = bind(parity_build.build(src, "fused_topk_other"))
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as wd:
         main_run = chip_smoke.main_path(wd)
     dev = torch.device("cuda")
