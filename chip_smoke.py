@@ -5,17 +5,27 @@
 
 1. Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
    (one nvcc per source, in parallel) and prints the build seconds.
-2. Drives the serving main path at the full width of the ``lightgcn-baco``
-   config: ``paperlike_dataset("amazonbook")`` -> ``ClusterEngine().build(
-   d=64, ratio=0.25)`` on the GPU -> seeded codebooks -> artifact save/load
-   -> ``RecsysSession`` (fused and dense, fp32 and int8) behind
-   ``BatchDispatcher((1, 8, 64, 512))`` -> 52 requests. The kernels' launch
-   counts are zeroed just before and read just after; each kernel must have
-   run. Fused and dense top-k must agree (ids equal up to near-ties), and two
-   GPU solves must give identical labels.
+2. Drives the main path at the full width of the ``lightgcn-baco`` config:
+   ``paperlike_dataset("amazonbook")`` -> ``ClusterEngine().build(d=64,
+   ratio=0.25)`` on the GPU -> training: ``Trainer`` with the launcher's
+   defaults (fused backend, 600 steps of batch 2,048, lr 5e-3, chunks of
+   16), ms per step (median of the chunks after the first), first and
+   last loss, Recall/NDCG@20 on the test split (4,096 users, "block" and
+   "fused" top-k) of the untrained ``init_params(0)`` and the trained
+   codebooks, one warm chunk under ``torch.cuda.set_sync_debug_mode(
+   "error")`` -> ``Trainer.export`` -> artifact load -> ``RecsysSession``
+   (fused and dense, fp32 and int8) over the trained codebooks behind
+   ``BatchDispatcher((1, 8, 64, 512))`` -> 52 requests. Training and
+   serving each zero the kernels' launch counts just before and read them
+   just after; each kernel of the path must have run. Training must lower
+   the loss and raise Recall@20. Off the timed path: 32 steps of ``host``
+   with the device sampler bitwise equal to ``fused``, and a kill at step
+   32 and resume from its checkpoint bitwise equal to 64 uninterrupted
+   steps. Fused and dense top-k must agree (ids equal up to near-ties),
+   and two GPU solves must give identical labels.
 3. Drives the embedding layer's entry points (``repro_torch.embedding``) at
    the same width, on the main path's sketch (K_u 8,878 with H=2, K_v 17,136
-   with H=1) and d=64 codebooks from ``init_params(seed=0)``: the codebook
+   with H=1) and its trained d=64 codebooks: the codebook
    readout ``fused_topk(sketch=...)`` over items and users (B 1..512, f32
    and int8, mask, exclusions from the training edges), every user's bag of
    training items (sum and mean, forward and backward; also in a random
@@ -50,13 +60,19 @@
    two calls. The CSR gather-sum (embedding_bag) is held bitwise and
    timed at the bag forward, the bag backward and both codebook
    gradients (``backward`` in its entry), and on skewed bags (4,000
-   values beside 0-3-value and empty bags) at d 1..600; codebook_lookup
+   values beside 0-3-value and empty bags) at d 1..600; its weighted
+   instantiation (the LightGCN propagation, ``weighted`` in its entry)
+   bitwise at the propagation's two shapes, through ``_Propagate``
+   forward and backward, and on edge cases (zero, -0.0 and negative
+   weights, skewed bags, one row of 100,000 values), timed beside
+   ``index_add_`` and the previous cumsum route; codebook_lookup
    at H 1..5 and 40, d 1..129, on unaligned codebooks. Every timing
    enqueues a ~0.1 ms device spin before its start event, so it times
    the device and not the host's enqueue; the timer's floor (a
    one-element add) is printed once.
 6. Profiles a few requests (device time per kernel, idle share), and checks
-   the port end to end on a small input against itself on the CPU.
+   the port end to end on a small input against itself on the CPU,
+   serving and 20 training steps (losses to rtol 1e-5).
 
 Prints a ``kernels`` JSON line, a ``timer`` line (the timer's floor), the
 ``nvidia-smi`` name/power line, and as its last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -65,6 +81,7 @@ phase fails. It imports nothing of JAX.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -260,6 +277,7 @@ def zero_counts() -> None:
         fn.launches = 0
     fa = counted_kernels()["flash_attention"]
     fa.launches_tc = fa.launches_cc = 0
+    counted_kernels()["embedding_bag"].launches_weighted = 0
 
 
 def flash_routes() -> dict:
@@ -269,9 +287,10 @@ def flash_routes() -> dict:
 
 
 def main_path(workdir: str, dataset: str = "amazonbook",
-              device: str = "cuda") -> dict:
-    """The serving main path (``device="cpu"`` and a small dataset make a
-    rehearsal of the same code on a machine without a GPU)."""
+              device: str = "cuda", train_steps: int = 600) -> dict:
+    """The main path: BACO, training (:func:`train_path`), export, and
+    serving the exported codebooks (``device="cpu"`` and a small dataset
+    make a rehearsal of the same code on a machine without a GPU)."""
     import numpy as np
     import torch
 
@@ -279,13 +298,11 @@ def main_path(workdir: str, dataset: str = "amazonbook",
     from repro_torch.data import paperlike_dataset
     from repro_torch.embedding import dequantize_params
     from repro_torch.models import lightgcn as L
-    from repro_torch.models.lightgcn import (edge_norms, from_sketch,
-                                             init_params)
     from repro_torch.serve import (BatchDispatcher, CompressedArtifact,
                                    RecsysSession)
 
     t0 = time.perf_counter()
-    _, _, _, train, _ = paperlike_dataset(dataset, seed=0)
+    _, _, _, train, test = paperlike_dataset(dataset, seed=0)
     t_data = time.perf_counter() - t0
     log(f"dataset {dataset}: {train.n_users} users, {train.n_items} items, "
         f"{train.n_edges} train edges ({t_data:.1f} s on the host)")
@@ -321,24 +338,25 @@ def main_path(workdir: str, dataset: str = "amazonbook",
     log(f"determinism: two GPU solves at gamma={meta['gamma']} give "
         f"identical labels ({it_a} sweeps each)")
 
+    trained = train_path(train, test, sketch, workdir, device,
+                         steps=train_steps)
+    art = trained["artifact"]
     t0 = time.perf_counter()
-    mcfg = from_sketch(train, sketch, dim=64, n_layers=3)
-    art = CompressedArtifact.from_parts(
-        init_params(0, mcfg), {"edge_u": train.edge_u,
-                               "edge_v": train.edge_v,
-                               "edge_norm": edge_norms(train)},
-        sketch, mcfg, {"params": "init_params(seed=0)"})
-    path = art.save(os.path.join(workdir, "artifact"))
-    loaded = CompressedArtifact.load(path)
+    loaded = CompressedArtifact.load(trained["path"])
     require(loaded.content_id() == art.content_id(),
             "artifact content_id changed across save/load")
+    require(loaded.provenance.get("train_steps") == train_steps,
+            "the served artifact is not the trained export")
     t_artifact = time.perf_counter() - t0
-    log(f"artifact {art.content_id()} saved and loaded ({t_artifact:.1f} s)")
+    log(f"serving the trained export {art.content_id()} "
+        f"({t_artifact:.1f} s to load)")
+
+    zero_counts()
 
     rng = np.random.default_rng(0)
     sizes = [1, 8, 64, 512] + [int(s) for s in rng.integers(1, 513, 9)]
     batches = [rng.integers(0, train.n_users, s) for s in sizes]
-    outputs, serve = {}, {}
+    outputs, serve, n_warmups = {}, {}, 0
     t0 = time.perf_counter()
     for quant in (False, True):
         src = loaded.quantize() if quant else loaded
@@ -347,6 +365,7 @@ def main_path(workdir: str, dataset: str = "amazonbook",
                                                   device=device)
             disp = BatchDispatcher(session, (1, 8, 64, 512))
             disp.warmup()
+            n_warmups += len(disp.buckets)
             outs, b512_ms = [], None
             for b in batches:
                 t_req = time.perf_counter()
@@ -367,12 +386,16 @@ def main_path(workdir: str, dataset: str = "amazonbook",
     t_serve = time.perf_counter() - t0
     counts = launch_counts()
     launches = {name: counts[name]
-                for name in ("codebook_lookup", "fused_topk")}
+                for name in ("codebook_lookup", "fused_topk", "embedding_bag")}
     n_requests = sum(v["requests"] for v in serve.values())
+    # every session call, the dispatchers' warm-up calls included
+    n_calls = n_requests + n_warmups
+    weighted_per_request = weighted_launches() / n_calls
     log(f"served {n_requests} requests in {t_serve:.1f} s: {serve}")
-    log(f"kernel launches on the main path: {launches}")
-    require(launches["codebook_lookup"] > 0, "codebook_lookup never ran")
-    require(launches["fused_topk"] > 0, "fused_topk never ran")
+    log(f"kernel launches on the serving path: {launches} (weighted CSR "
+        f"gather-sum: {weighted_per_request:g} a request)")
+    for name in launches:
+        require(launches[name] > 0, f"{name} never ran on the serving path")
     for prec, src in (("fp32", loaded), ("int8", loaded.quantize())):
         params = {kk: torch.as_tensor(vv, device=device)
                   for kk, vv in src.serving_params().items()}
@@ -391,15 +414,151 @@ def main_path(workdir: str, dataset: str = "amazonbook",
 
     return {"train": train, "sketch": sketch, "loaded": loaded,
             "launches": launches, "serve": serve, "cluster_s": t_cluster,
-            "cluster": got, "stats": build_stats}
+            "cluster": got, "stats": build_stats, "training": trained,
+            "weighted_per_request": weighted_per_request}
+
+
+def weighted_launches() -> int:
+    from repro_torch.kernels import csr_gather_sum
+    return csr_gather_sum.launches_weighted
+
+
+def sync_free_chunk(trainer, n: int, device: str):
+    """One fused chunk of ``n`` steps with every synchronizing call made
+    an error (``torch.cuda.set_sync_debug_mode("error")``): the chunk
+    only enqueues work. Returns its losses (host list)."""
+    import torch
+    if device != "cuda":
+        return trainer.backend.chunk(trainer, n).tolist()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        losses = trainer.backend.chunk(trainer, n)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return losses.tolist()
+
+
+def train_path(train, test, sketch, workdir: str, device: str = "cuda",
+               steps: int = 600, chunk: int = 16) -> dict:
+    """LightGCN + BPR on the main path's sketch with the launcher's
+    defaults (``python -m repro_torch.launch.train``: fused backend, batch
+    2,048, lr 5e-3, seed 0, chunks of 16), Recall/NDCG@20 on the test
+    split before and after (top-k by "block" and "fused"), one warm chunk
+    under sync-debug "error", and the export the sessions then serve.
+    Then, off the timed path: ``host`` with the device sampler bitwise
+    equal to ``fused`` over 32 steps, and a kill at step 32 and resume
+    from its checkpoint bitwise equal to 64 uninterrupted steps."""
+    import math
+    import statistics
+
+    import torch
+
+    from repro_torch.training import TrainConfig, Trainer
+
+    cfg = TrainConfig(steps=steps, batch_size=2048, lr=5e-3, seed=0,
+                      backend="fused", chunk_size=chunk)
+    tr = Trainer(train, sketch, cfg, device=device)
+
+    def evaluate():
+        t0 = time.perf_counter()
+        out = {b: tr.evaluate(test, max_users=4096, topk_backend=b)
+               for b in ("block", "fused")}
+        sync(device)
+        require(abs(out["block"]["recall"] - out["fused"]["recall"]) <= 5e-3
+                and abs(out["block"]["ndcg"] - out["fused"]["ndcg"]) <= 5e-3,
+                f"block and fused top-k disagree on Recall/NDCG: {out}")
+        return out, time.perf_counter() - t0
+
+    untrained, _ = evaluate()
+    log(f"untrained init_params(0) codebooks: {untrained}")
+
+    zero_counts()
+    sync(device)
+    losses, per_step_ms = [], []
+    t_train = time.perf_counter()
+    while tr.step < steps:
+        t0 = time.perf_counter()
+        losses += tr.run(steps=min(tr.step + chunk, steps), log_every=0)
+        per_step_ms.append((time.perf_counter() - t0) * 1e3 / chunk)
+        if tr.step == chunk and steps >= 2 * chunk:
+            losses += sync_free_chunk(tr, chunk, device)
+            log(f"a warm chunk of {chunk} steps ran under sync-debug "
+                f"'error': no host sync")
+    sync(device)
+    t_train = time.perf_counter() - t_train
+    weighted_per_step = weighted_launches() / steps
+    require(len(losses) == steps and all(math.isfinite(x) for x in losses),
+            "training losses are not finite")
+    require(losses[-1] < losses[0], f"the loss did not fall: {losses[0]} -> "
+            f"{losses[-1]}")
+    ms_step = statistics.median(per_step_ms[1:] or per_step_ms)
+    trained, eval_s = evaluate()
+    ratio = trained["block"]["recall"] / max(untrained["block"]["recall"],
+                                             1e-12)
+    log(f"trained {steps} steps in {t_train:.2f} s: {ms_step:.4f} ms a step "
+        f"(median of chunks after the first), loss {losses[0]:.5f} -> "
+        f"{losses[-1]:.5f}; Recall/NDCG@20 {trained} ({eval_s:.2f} s); "
+        f"recall {ratio:.3f}x the untrained codebooks'")
+    require(trained["block"]["recall"] > untrained["block"]["recall"],
+            "training did not raise Recall@20 above the untrained codebooks'")
+    counts = launch_counts()
+    launches = {n: counts[n] for n in ("codebook_lookup", "embedding_bag")}
+    log(f"kernel launches on the training path: {launches} (weighted CSR "
+        f"gather-sum: {weighted_per_step:g} a step)")
+    for name in launches:
+        require(launches[name] > 0, f"{name} never ran on the training path")
+    path = os.path.join(workdir, "artifact")
+    art = tr.export(path)
+
+    # parity, off the timed path
+    def tables(t):
+        return {k: v.detach().clone() for k, v in t.params.items()}
+
+    short = TrainConfig(steps=32, batch_size=2048, lr=5e-3, seed=0,
+                        chunk_size=chunk, sampler="device")
+    runs = {}
+    for backend in ("host", "fused"):
+        t = Trainer(train, sketch, dataclasses.replace(short, backend=backend),
+                    device=device)
+        runs[backend] = (t.run(log_every=0), tables(t))
+    require(runs["host"][0] == runs["fused"][0] and all(
+        torch.equal(runs["host"][1][k], v)
+        for k, v in runs["fused"][1].items()),
+        "fused is not bitwise the host backend with the device sampler")
+    ck = dataclasses.replace(short, backend="fused", steps=64,
+                             ckpt_every=32,
+                             ckpt_dir=os.path.join(workdir, "ckpt"))
+    whole = Trainer(train, sketch, dataclasses.replace(ck, ckpt_dir=None),
+                    device=device)
+    whole_losses = whole.run(log_every=0)
+    killed = Trainer(train, sketch, ck, device=device)
+    first = killed.run(steps=32, log_every=0)
+    resumed = Trainer(train, sketch, ck, device=device)
+    require(resumed.maybe_resume() and resumed.step == 32,
+            "no checkpoint at step 32 to resume from")
+    rest = resumed.run(log_every=0)
+    require(first + rest == whole_losses and all(
+        torch.equal(resumed.params[k], v) for k, v in tables(whole).items()),
+        "kill and resume is not bitwise the uninterrupted run")
+    log("parity: 32 steps of host (device sampler) bitwise equal to fused; "
+        "kill at 32 and resume bitwise equal to 64 uninterrupted steps")
+    prof = profile_chunk(whole, chunk) if device == "cuda" else None
+    return {"artifact": art, "path": path, "steps": steps,
+            "ms_per_step": ms_step, "ms_per_step_chunks": per_step_ms,
+            "seconds": t_train, "loss_first": losses[0],
+            "loss_last": losses[-1], "untrained": untrained,
+            "trained": trained, "recall_ratio": ratio,
+            "launches": launches, "weighted_per_step": weighted_per_step,
+            "profile": prof}
 
 
 # ---------------------------------------------------------------------------
 # phase 3: the embedding layer's entry points
 # ---------------------------------------------------------------------------
 def embedding_inputs(run: dict, device: str) -> dict:
-    """The main path's codebooks (init_params(seed=0)), sketch and
-    training bags as tensors on ``device``, int8 codebooks beside them."""
+    """The main path's trained codebooks, sketch and training bags as
+    tensors on ``device``, int8 codebooks beside them."""
     import torch
 
     from repro_torch.embedding import quantize_int8_rows
@@ -456,8 +615,6 @@ def readout_cases(emb: dict, side: str, b: int, device: str):
 def embedding_path(run: dict, device: str = "cuda") -> dict:
     """Drives ``repro_torch.embedding`` at full width (``device="cpu"``
     on a small dataset rehearses the same code without a GPU)."""
-    import dataclasses
-
     import numpy as np
     import torch
 
@@ -709,7 +866,11 @@ def check_codebook_lookup(run: dict) -> dict:
     return {"name": "codebook_lookup", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/codebook_lookup.cu",
             "replaces": "src/repro/kernels/codebook_lookup.py:98",
-            "launches": run["launches"]["codebook_lookup"],
+            "launches": (run["launches"]["codebook_lookup"]
+                         + run["training"]["launches"]["codebook_lookup"]),
+            "launches_by_path": {
+                "serving": run["launches"]["codebook_lookup"],
+                "training": run["training"]["launches"]["codebook_lookup"]},
             "max_abs_err": max_err, "ms": main["ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
@@ -1061,15 +1222,149 @@ def check_embedding_bag(run: dict, emb_run: dict) -> dict:
         n_cases += 1
     log(f"embedding_bag edge cases ({n_cases}: skewed bags, d 1..600, "
         f"unaligned source, empty bags, no rows): bitwise equal")
+    weighted = check_weighted(run)
     main = rows["forward"]
+    path_launches = {
+        "serving": run["launches"]["embedding_bag"],
+        "training": run["training"]["launches"]["embedding_bag"],
+        "embedding_layer": emb_run["launches"]["embedding_bag"]}
     return {"name": "embedding_bag", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/embedding_bag.cu",
             "replaces": "src/repro/kernels/embedding_bag.py:56",
-            "launches": emb_run["launches"]["embedding_bag"],
+            "launches": sum(path_launches.values()),
+            "launches_by_path": path_launches,
+            "weighted_per_train_step": run["training"]["weighted_per_step"],
+            "weighted_per_request": run["weighted_per_request"],
             "max_abs_err": max_err,
             **{k: main[k] for k in ("ms", "plain_ms", "bound_ms",
                                     "bound_by", "library_ms", "shape")},
-            "backward": {k: rows[k] for k in rows if k != "forward"}}
+            "backward": {k: rows[k] for k in rows if k != "forward"},
+            "weighted": weighted}
+
+
+def cumsum_route(src_t, idx, w, ptr):
+    """The propagation's segment sum as the port computed it before the
+    weighted kernel (a yardstick only): layers kept as [d, n], the edge
+    rows gathered and weighted as columns, a cumsum along the edges and a
+    boundary difference."""
+    import torch
+    c = torch.cumsum(torch.nn.functional.pad(src_t[:, idx] * w, (1, 0)),
+                     dim=1)
+    return c[:, ptr[1:]] - c[:, ptr[:-1]]
+
+
+def weighted_row(src, idx, w, ptr) -> dict:
+    """Times and bound of one weighted CSR gather-sum call: the bound
+    reads the source table once, idx, w and ptr, and writes out; the
+    library call is ``zeros(S, d).index_add_(0, seg, src[idx] * w)``, and
+    ``cumsum_ms`` the previous cumsum route."""
+    import torch
+
+    from repro_torch.kernels import csr_gather_sum, ref
+
+    n_seg = ptr.numel() - 1
+    n, d = src.shape
+    nnz = idx.numel()
+    bytes_moved = (4 * src.numel() + 8 * nnz + 8 * (n_seg + 1)
+                   + 4 * n_seg * d)
+    bms, by = bound(bytes_moved, 2 * nnz * d)
+    seg = torch.repeat_interleave(torch.arange(n_seg, device=src.device),
+                                  ptr[1:] - ptr[:-1])
+    idl = idx.long()
+    src_t = src.T.contiguous()
+    lens = ptr[1:] - ptr[:-1]
+    return {"shape": f"nnz={nnz} S={n_seg} N={n} d={d} "
+                     f"longest={int(lens.max())} weighted",
+            "ms": time_ms(lambda: csr_gather_sum(src, idx, ptr, w)),
+            "plain_ms": time_ms(
+                lambda: ref.csr_gather_sum(src, idx, ptr, w), iters=5),
+            "library_ms": time_ms(lambda: torch.zeros(
+                n_seg, d, device=src.device).index_add_(
+                0, seg, src[idl] * w[:, None])),
+            "cumsum_ms": time_ms(lambda: cumsum_route(src_t, idl, w, ptr)),
+            "bound_ms": bms, "bound_by": by}
+
+
+def check_weighted(run: dict, device: str = "cuda") -> dict:
+    """The weighted CSR gather-sum (the LightGCN propagation) bitwise
+    against its plain version at the propagation's two shapes, through
+    ``_Propagate`` forward and backward, and on edge cases; timed at both
+    shapes."""
+    import torch
+
+    from repro_torch.kernels import csr_gather_sum, ref
+    from repro_torch.models import lightgcn as L
+
+    dev = torch.device(device)
+    train = run["train"]
+    statics = run["loaded"].statics(dev)
+    user_side, item_side = L._kernel_edges(statics)
+    g = torch.Generator(device="cpu").manual_seed(12)
+    cu = torch.randn(train.n_users, 64, generator=g).to(dev)
+    cv = torch.randn(train.n_items, 64, generator=g).to(dev)
+    rows = {}
+    for name, src, (idx, w, ptr) in (("user_side", cv, user_side),
+                                     ("item_side", cu, item_side)):
+        got = csr_gather_sum(src, idx, ptr, w)
+        require(torch.equal(got, ref.csr_gather_sum(src, idx, ptr, w)),
+                f"weighted CSR gather-sum ({name}) is not bitwise its plain "
+                f"version")
+        require(torch.equal(got, csr_gather_sum(src, idx, ptr, w)),
+                f"weighted CSR gather-sum ({name}): two calls differ")
+        rows[name] = weighted_row(src, idx, w, ptr)
+        log(f"embedding_bag weighted {name} {rows[name]['shape']}: bitwise; "
+            f"{rows[name]}")
+    # through the propagation's autograd function, forward and backward
+    a, b = cu.clone().requires_grad_(True), cv.clone().requires_grad_(True)
+    nu, nv = L._Propagate.apply(a, b, statics)
+    gu = torch.randn(nu.shape, generator=g).to(dev)
+    gv = torch.randn(nv.shape, generator=g).to(dev)
+    d_cu, d_cv = torch.autograd.grad((nu * gu).sum() + (nv * gv).sum(),
+                                     [a, b])
+    plain = {"nu": ref.csr_gather_sum(cv, *user_side[:1], user_side[2],
+                                      user_side[1]),
+             "nv": ref.csr_gather_sum(cu, item_side[0], item_side[2],
+                                      item_side[1]),
+             "d_cv": ref.csr_gather_sum(gu, item_side[0], item_side[2],
+                                        item_side[1]),
+             "d_cu": ref.csr_gather_sum(gv, user_side[0], user_side[2],
+                                        user_side[1])}
+    for name, got in (("nu", nu), ("nv", nv), ("d_cu", d_cu),
+                      ("d_cv", d_cv)):
+        require(torch.equal(got, plain[name]),
+                f"_Propagate {name} is not bitwise the plain version")
+    log("_Propagate forward and backward at full width: bitwise the plain "
+        "version")
+    # edge cases: empty rows, w = 0 and -0.0, negative weights, rows of
+    # more than 32 values, one row of 100,000 values; widths of scalar,
+    # float2 and float4 lanes, and a column tile
+    n_cases = 0
+    for d in (1, 3, 64, 129, 600):
+        idx, ptr = skewed_csr(3000, 1000, g, dev)
+        w = torch.randn(idx.numel(), generator=g)
+        w[::5] = 0.0
+        w[::7] = -0.0
+        w = w.to(dev)
+        src = torch.randn(1000, d, generator=g).to(dev)
+        require(torch.equal(csr_gather_sum(src, idx, ptr, w),
+                            ref.csr_gather_sum(src, idx, ptr, w)),
+                f"weighted skewed bags d={d} differ")
+        n_cases += 1
+    src = torch.randn(1000, 64, generator=g).to(dev)
+    idx = torch.randint(0, 1000, (100_000,), generator=g,
+                        dtype=torch.int32).to(dev)
+    w = torch.randn(100_000, generator=g).to(dev)
+    ptr = torch.tensor([0, 100_000, 100_000], device=dev)
+    require(torch.equal(csr_gather_sum(src, idx, ptr, w),
+                        ref.csr_gather_sum(src, idx, ptr, w)),
+            "weighted row of 100,000 values differs")
+    zero = csr_gather_sum(src, idx, ptr, torch.full_like(w, -0.0))
+    require(not zero.any() and not zero.signbit().any(),
+            "-0.0 weights do not sum to +0.0")
+    log(f"weighted edge cases ({n_cases + 2}: skewed bags with zero, -0.0 "
+        f"and negative weights, d 1..600, one row of 100,000 values, "
+        f"all -0.0 weights): bitwise equal")
+    return rows
 
 
 def check_close(got, want, dtype, what: str) -> float:
@@ -1245,6 +1540,49 @@ def check_flash_attention(bench_run: dict, device: str = "cuda") -> dict:
 # ---------------------------------------------------------------------------
 # where a request's device time goes (torch.profiler, fused scorer, B=64)
 # ---------------------------------------------------------------------------
+def device_times(prof, n: int) -> dict:
+    """ms of device time per unit (request, step) by kernel name, from a
+    ``torch.profiler`` run over ``n`` units. Only kernels count: the
+    ranges of the autograd functions (``_Propagate``, ``_CodebookSum``),
+    which the profiler also gives device time, would count their
+    kernels twice."""
+    from torch.autograd import DeviceType
+    per_kernel = {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total",
+                    getattr(e, "self_cuda_time_total", 0.0))
+        if (t > 0 and e.device_type == DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)
+                and not e.key.startswith(("aten::", "cuda"))):
+            per_kernel[e.key[:70]] = t / 1e3 / n
+    return per_kernel
+
+
+def profile_chunk(trainer, n: int) -> dict:
+    """One fused chunk of ``n`` training steps under ``torch.profiler``:
+    device time per step by kernel, wall time per step, idle share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.backend.chunk(trainer, n).tolist()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    per_kernel = device_times(prof, n)
+    busy = sum(per_kernel.values())
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:10]
+    log(f"profile (training, {n} fused steps): device busy {busy:.3f} ms of "
+        f"{wall_ms / n:.3f} ms a step")
+    for name, ms in top:
+        log(f"  {ms:8.4f} ms  {100 * ms / busy:5.1f}%  {name}")
+    return {"steps": n, "device_ms_per_step": busy,
+            "wall_ms_per_step": wall_ms / n,
+            "idle_share": 1.0 - busy / (wall_ms / n),
+            "top_kernels_ms": dict(top)}
+
+
 def profile_requests(run: dict, batch: int = 64, n: int = 5) -> dict:
     import numpy as np
     import torch
@@ -1263,12 +1601,7 @@ def profile_requests(run: dict, batch: int = 64, n: int = 5) -> dict:
         for _ in range(n):
             session(ids)                  # each ends in a synchronize
         wall_ms = (time.perf_counter() - t0) * 1e3
-    per_kernel = {}
-    for e in prof.key_averages():
-        t = getattr(e, "self_device_time_total",
-                    getattr(e, "self_cuda_time_total", 0.0))
-        if t > 0 and not e.key.startswith(("aten::", "cuda")):
-            per_kernel[e.key[:70]] = t / 1e3 / n           # ms per request
+    per_kernel = device_times(prof, n)                 # ms per request
     busy = sum(per_kernel.values())
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
     out = {"batch": batch, "requests": n,
@@ -1298,6 +1631,7 @@ def small_reference() -> None:
     from repro_torch.models.lightgcn import (edge_norms, from_sketch,
                                              init_params)
     from repro_torch.serve import CompressedArtifact
+    from repro_torch.training import TrainConfig, Trainer
 
     _, _, _, train, _ = paperlike_dataset("gowalla_s", seed=0)
     sk = {dev: ClusterEngine(device=dev).build(train, d=64, ratio=0.25)
@@ -1325,6 +1659,17 @@ def small_reference() -> None:
     log(f"gowalla_s: GPU sketch == CPU sketch (K_u={sk['cuda'].k_users}, "
         f"K_v={sk['cuda'].k_items}); GPU fused top-k == CPU top-k for "
         f"{ids.size} users ({n_diff} ids differ at near-ties)")
+    # 20 training steps on the GPU and on the port's CPU path: the same
+    # numpy batches and init; losses agree to rtol 1e-5 (reductions such
+    # as the batch mean add in another order on the two devices)
+    cfg = TrainConfig(steps=20, batch_size=2048, lr=5e-3, seed=0,
+                      backend="host", sampler="numpy")
+    losses = {dev: Trainer(train, sk["cuda"], cfg, device=dev).run(
+        log_every=0) for dev in ("cuda", "cpu")}
+    require(np.allclose(losses["cuda"], losses["cpu"], rtol=1e-5, atol=0),
+            f"GPU and CPU training losses differ: {losses}")
+    log(f"gowalla_s: 20 training steps, GPU losses == CPU losses to rtol "
+        f"1e-5 (last {losses['cuda'][-1]:.6f} / {losses['cpu'][-1]:.6f})")
 
 
 def main() -> int:
@@ -1377,10 +1722,16 @@ def main() -> int:
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"timer": {"floor_ms": floor,
                                 "spin_cycles": spin_cycles()}}))
+    tr = run["training"]
     print(json.dumps({"main_path": {
         "cluster_s": run["cluster_s"], "cluster": run["cluster"],
         "solver_stats": run["stats"], "serve": run["serve"],
-        "profile": prof}}))
+        "profile": prof,
+        "training": {k: tr[k] for k in (
+            "steps", "ms_per_step", "ms_per_step_chunks", "seconds",
+            "loss_first", "loss_last", "untrained", "trained",
+            "recall_ratio", "launches", "weighted_per_step",
+            "profile")}}}))
     print(json.dumps({"embedding_path": {
         "seconds": emb_run["seconds"], "launches": emb_run["launches"],
         "readout_cases": emb_run["readout_cases"],

@@ -174,6 +174,19 @@ def fused_topk(u, items, k, *, sketch=None, scale=None, mask=None,
                               mask=mask, exclude=exclude, block=block)
 
 
+def _take(table, ids):
+    """table[ids] with a backward that adds repeated rows in a fixed
+    order on its device: on the CPU ``index_select`` (backward
+    ``index_add_``, serial in index order; the backward of ``table[ids]``,
+    an accumulating ``index_put_``, adds in no fixed order on a
+    multi-threaded CPU), on a GPU ``table[ids]`` (its backward sorts the
+    indices; ``index_add_`` there adds with atomics)."""
+    if table.device.type != "cpu":
+        return table[ids]
+    return table.index_select(0, ids.reshape(-1)).reshape(
+        *ids.shape, *table.shape[1:])
+
+
 class GatherBackend(LookupBackend):
     """Plain tensor indexing — the safe default on every device. Bags sum
     each segment in value order (``kernels.ref.segment_sum``), as the
@@ -181,16 +194,16 @@ class GatherBackend(LookupBackend):
     name = "gather"
 
     def full(self, table, ids):
-        return table[ids]
+        return _take(table, ids)
 
     def codebook_sum(self, codebook, rows_idx):
         keep = dedup_keep_mask(rows_idx)
-        rows = codebook[rows_idx]                          # [..., H, d]
+        rows = _take(codebook, rows_idx)                   # [..., H, d]
         return torch.where(keep[..., None], rows, 0.0).sum(dim=-2)
 
     def bag(self, table, values, segment_ids, num_segments, mode="sum",
             weights=None):
-        rows = table[values]
+        rows = _take(table, values)
         if weights is not None:
             rows = rows * weights[:, None]
         out = segment_sum(rows, segment_ids, num_segments)

@@ -1,5 +1,6 @@
-// CSR gather-sum for Hopper (sm_90a):
-//   out[s] = sum_{j in [ptr[s], ptr[s+1])} src[idx[j]]        (rows of d floats)
+// CSR gather-sum for Hopper (sm_90a), plain and weighted:
+//   out[s] = sum_{j in [ptr[s], ptr[s+1])} src[idx[j]]          (rows of d floats)
+//   out[s] = sum_{j in [ptr[s], ptr[s+1])} w[j] * src[idx[j]]   (weighted)
 //
 // Replaces the TPU kernel src/repro/kernels/embedding_bag.py::
 // embedding_bag_pallas (pl.pallas_call at :56): the EmbeddingBag forward
@@ -9,7 +10,14 @@
 // :96-119 and :145-168): the cotangent rows are gathered (src = g) and
 // summed into each table row, the entries having been stably sorted by
 // table row, so that no float atomics are needed and two runs are
-// bitwise equal.
+// bitwise equal. The weighted instantiation is the LightGCN propagation
+// (src/repro/models/lightgcn.py:154-183, jnp): one layer of one side is
+// out = segment sum over the sorted edges of edge_norm[j] * rows[idx[j]],
+// forward and backward (the adjoint is the same sum under the other
+// side's edge order), 12 calls a training step at 3 layers. Each product
+// is one __fmul_rn, each sum one __fadd_rn (no FMA contraction), so the
+// weighted result equals (src[idx] * w[:, None]) folded in j order bit
+// for bit.
 //
 // The Pallas kernel walks the sorted values as a sequential grid and keeps
 // revisiting one output block until its segment id changes. Hopper has no
@@ -24,7 +32,10 @@
 // 140 MB of gathered rows mostly come from L2, which holds the 23 MB
 // table. The bags are power-law: median 1 value, longest 1,812, and the
 // 2,048 bags of more than 32 values hold 76% of the values (the backward
-// rows, items, reach 3,541). A warp that walks one bag value by value is
+// rows, items, reach 3,541). The propagation has the same shapes: the
+// user side sums 547,067 weighted edges into 52,643 rows (longest 1,812),
+// the item side into 91,599 rows (longest 3,541); its bound adds the
+// 2.2 MB of weights, ~0.012 ms for each side at d = 64. A warp that walks one bag value by value is
 // a chain of dependent loads as long as the bag, and the longest such
 // chain was the whole time of the first port (0.32 ms on an H100 80GB
 // HBM3 at 700 W).
@@ -52,6 +63,10 @@
 //   16 / 8 / 4 for a row piece, gather::copy_width), one wait and one
 //   barrier per stage, so one row's tail overlaps the next row's head.
 //   Threads that each own one column fold the staged rows in j order.
+//   The weighted kernel copies a stage's weights with its gathered rows
+//   (4 bytes a value, into a third ring of kStages x kMaxPer floats,
+//   4 KB), so they land and are freed with the rows; the short rows load
+//   a batch's 32 weights beside its 32 indices and broadcast both.
 //   A whole block's memory parallelism goes to its long rows while each
 //   column's fold stays serial, as parity requires.
 // Rows wider than 512 floats are done in column tiles. The strip, the
@@ -82,7 +97,9 @@ constexpr int kLongBlocksPerSm = 8;
 constexpr int kStageFloats = 4096;                 // floats a stage
 constexpr int kMaxTile = 512;                      // floats of a column tile
 constexpr int kMaxPer = kLongThreads;              // values a stage
-constexpr int kSmemBytes = kStages * (kStageFloats + kMaxPer) * 4;
+// the rows' and the indices' rings, and the weighted kernel's weights
+template <bool W>
+constexpr int kSmemBytes = kStages * (kStageFloats + (W ? 2 : 1) * kMaxPer) * 4;
 
 static_assert(kRowsPerWarp >= 1 && kRowsPerWarp <= 31, "strip of 1..31 rows");
 static_assert(kStages >= 2, "a ring of at least two stages");
@@ -112,10 +129,23 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// the weighted product, rounded on its own (never contracted into an FMA)
+__device__ __forceinline__ float vscale(float a, float s) {
+  return __fmul_rn(a, s);
+}
+__device__ __forceinline__ float2 vscale(float2 a, float s) {
+  return make_float2(__fmul_rn(a.x, s), __fmul_rn(a.y, s));
+}
+__device__ __forceinline__ float4 vscale(float4 a, float s) {
+  return make_float4(__fmul_rn(a.x, s), __fmul_rn(a.y, s),
+                     __fmul_rn(a.z, s), __fmul_rn(a.w, s));
+}
+
 // One warp: the short rows of the strip [r0, r0 + kRowsPerWarp).
-template <int V>
+template <int V, bool W>
 __device__ void warp_strip(const float* __restrict__ src,
                            const int32_t* __restrict__ idx,
+                           const float* __restrict__ wt,
                            const int64_t* __restrict__ ptr,
                            float* __restrict__ out, int64_t rows, int dim,
                            int64_t r0, int lane) {
@@ -164,11 +194,15 @@ __device__ void warp_strip(const float* __restrict__ src,
           ahead ? __shfl_sync(kFull, p, __ffs(ahead) - 1) : end;
       const int n = static_cast<int>(lesser<int64_t>(32, stop - j0));
       const int32_t ix = lane < n ? idx[j0 + lane] : 0;
+      float wl = 0.0f;
+      if constexpr (W) wl = lane < n ? wt[j0 + lane] : 0.0f;
       for (int t0 = 0; t0 < n; t0 += kStep) {
         vec buf[kStep];
+        float wb[W ? kStep : 1];
 #pragma unroll
         for (int u = 0; u < kStep; ++u) {
           const int32_t r = __shfl_sync(kFull, ix, (t0 + u) & 31);
+          if constexpr (W) wb[u] = __shfl_sync(kFull, wl, (t0 + u) & 31);
           buf[u] = (active && t0 + u < n)
                        ? s[static_cast<int64_t>(r) * cols + c]
                        : vzero(vec());
@@ -177,7 +211,11 @@ __device__ void warp_strip(const float* __restrict__ src,
         for (int u = 0; u < kStep; ++u) {
           if (t0 + u < n) {
             close_to(j0 + t0 + u);
-            acc = vadd(acc, buf[u]);
+            if constexpr (W) {
+              acc = vadd(acc, vscale(buf[u], wb[u]));
+            } else {
+              acc = vadd(acc, buf[u]);
+            }
           }
         }
       }
@@ -223,9 +261,10 @@ struct Cursor {
 // A iterations before they are folded, so one cp.async.wait_group and
 // one barrier per stage serve both rings, and one row's tail overlaps
 // the next row's head.
-template <int VL>
+template <int VL, bool W>
 __device__ void block_stream(const float* __restrict__ src,
                              const int32_t* __restrict__ idx,
+                             const float* __restrict__ wt,
                              float* __restrict__ out, int dim,
                              const int64_t* row_id, const int64_t* row_lo,
                              const int64_t* row_len, int n, int col0, int w) {
@@ -236,6 +275,9 @@ __device__ void block_stream(const float* __restrict__ src,
   extern __shared__ __align__(16) float smem[];
   float* ring = smem;
   int32_t* iring = reinterpret_cast<int32_t*>(smem + kStages * kStageFloats);
+  // the weighted kernel's weights: stage d's in slot d mod kStages,
+  // copied with its rows
+  float* wring = smem + kStages * (kStageFloats + kMaxPer);
   const int tid = threadIdx.x;
   const int wv = w / V;                               // w is a multiple of V
   const int per = lesser(kStageFloats / w, kMaxPer);  // values a stage
@@ -274,6 +316,12 @@ __device__ void block_stream(const float* __restrict__ src,
       const int cnt = cd.count(per);
       const int32_t* si = iring + (d % kStages) * kMaxPer;
       float* slot = ring + (d % kStages) * kStageFloats;
+      if constexpr (W) {
+        if (tid < cnt) {
+          cp_async<4>(wring + (d % kStages) * kMaxPer + tid,
+                      wt + cd.lo + cd.off + tid);
+        }
+      }
 #pragma unroll
       for (int i = 0; i < kEpt; ++i) {
         if (val[i] >= 0 && val[i] < cnt) {
@@ -289,13 +337,21 @@ __device__ void block_stream(const float* __restrict__ src,
     if (f >= 0) {                 // fold stage f, in value order
       const int cnt = cf.count(per);
       const float* fs = ring + (f % kStages) * kStageFloats;
+      const float* ws = wring + (f % kStages) * kMaxPer;
 #pragma unroll
       for (int c = 0; c < kCpt; ++c) {
         const int col = tid + c * kLongThreads;
         if (col < w) {
           float a = acc[c];
+          if constexpr (W) {
 #pragma unroll 16
-          for (int v = 0; v < cnt; ++v) a = __fadd_rn(a, fs[v * w + col]);
+            for (int v = 0; v < cnt; ++v) {
+              a = __fadd_rn(a, __fmul_rn(fs[v * w + col], ws[v]));
+            }
+          } else {
+#pragma unroll 16
+            for (int v = 0; v < cnt; ++v) a = __fadd_rn(a, fs[v * w + col]);
+          }
           acc[c] = a;
         }
       }
@@ -317,9 +373,10 @@ __device__ void block_stream(const float* __restrict__ src,
 // Long-row block b of nb: the rows r = b mod nb with more than kLongRow
 // values, listed kLongThreads candidates at a time and streamed through
 // the block's rings, a column tile of up to kMaxTile floats at a time.
-template <int VL>
+template <int VL, bool W>
 __device__ void long_rows(const float* __restrict__ src,
                           const int32_t* __restrict__ idx,
+                          const float* __restrict__ wt,
                           const int64_t* __restrict__ ptr,
                           float* __restrict__ out, int64_t rows, int dim,
                           int nb) {
@@ -348,8 +405,8 @@ __device__ void long_rows(const float* __restrict__ src,
     const int n = count;
     if (n > 0) {
       for (int col0 = 0; col0 < dim; col0 += kMaxTile) {
-        block_stream<VL>(src, idx, out, dim, row_id, row_lo, row_len, n,
-                         col0, lesser(kMaxTile, dim - col0));
+        block_stream<VL, W>(src, idx, wt, out, dim, row_id, row_lo, row_len,
+                            n, col0, lesser(kMaxTile, dim - col0));
       }
     }
     __syncthreads();              // the list is rewritten next
@@ -359,16 +416,18 @@ __device__ void long_rows(const float* __restrict__ src,
 // One grid: the first long_blocks blocks take the long rows (so they
 // start first), the rest give each warp a strip of kRowsPerWarp rows.
 // V: floats per lane of the short rows' loads; VL: floats per cp.async
-// of the long rows' copies.
-template <int V, int VL>
+// of the long rows' copies; W: each value scaled by its weight wt[j]
+// (wt is not read when W is false).
+template <int V, int VL, bool W>
 __global__ void __launch_bounds__(kThreads)
     csr_gather_sum_kernel(const float* __restrict__ src,
                           const int32_t* __restrict__ idx,
+                          const float* __restrict__ wt,
                           const int64_t* __restrict__ ptr,
                           float* __restrict__ out, int64_t rows, int dim,
                           int long_blocks) {
   if (static_cast<int>(blockIdx.x) < long_blocks) {
-    long_rows<VL>(src, idx, ptr, out, rows, dim, long_blocks);
+    long_rows<VL, W>(src, idx, wt, ptr, out, rows, dim, long_blocks);
     return;
   }
   const int64_t strip =
@@ -376,29 +435,29 @@ __global__ void __launch_bounds__(kThreads)
       threadIdx.x / 32;
   const int64_t r0 = strip * kRowsPerWarp;
   if (r0 < rows) {
-    warp_strip<V>(src, idx, ptr, out, rows, dim, r0, threadIdx.x % 32);
+    warp_strip<V, W>(src, idx, wt, ptr, out, rows, dim, r0,
+                     threadIdx.x % 32);
   }
 }
 
-template <int V, int VL>
-void launch(const float* src, const int32_t* idx, const int64_t* ptr,
-            float* out, int64_t rows, int dim, int sms, int dev,
-            cudaStream_t stream) {
+template <int V, int VL, bool W>
+void launch(const float* src, const int32_t* idx, const float* wt,
+            const int64_t* ptr, float* out, int64_t rows, int dim, int sms,
+            int dev, cudaStream_t stream) {
   static bool sized[64] = {false};   // the shared-memory limit, by device
   if (!sized[dev & 63]) {
-    cudaFuncSetAttribute(csr_gather_sum_kernel<V, VL>,
+    cudaFuncSetAttribute(csr_gather_sum_kernel<V, VL, W>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         kSmemBytes);
+                         kSmemBytes<W>);
     sized[dev & 63] = true;
   }
   const int long_blocks = static_cast<int>(
       lesser<int64_t>(rows, static_cast<int64_t>(kLongBlocksPerSm) * sms));
   const int64_t per_block = static_cast<int64_t>(kWarps) * kRowsPerWarp;
   const int64_t blocks = long_blocks + (rows + per_block - 1) / per_block;
-  csr_gather_sum_kernel<V, VL><<<static_cast<unsigned>(blocks), kThreads,
-                                 kSmemBytes, stream>>>(src, idx, ptr, out,
-                                                       rows, dim,
-                                                       long_blocks);
+  csr_gather_sum_kernel<V, VL, W>
+      <<<static_cast<unsigned>(blocks), kThreads, kSmemBytes<W>, stream>>>(
+          src, idx, wt, ptr, out, rows, dim, long_blocks);
 }
 
 int sm_count(int dev) {
@@ -408,40 +467,61 @@ int sm_count(int dev) {
   return n > 0 ? n : 1;
 }
 
+template <bool W>
+void dispatch(const float* src, const int32_t* idx, const float* wt,
+              const int64_t* ptr, float* out, int64_t rows, int dim,
+              cudaStream_t stream) {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  const int sms = sm_count(dev);
+  const uintptr_t bits = reinterpret_cast<uintptr_t>(src) |
+                         reinterpret_cast<uintptr_t>(out);
+  const int v = gather::vec_width(dim, bits);
+  switch (gather::copy_width(dim, bits) * 10 + v) {
+    case 44:
+      launch<4, 4, W>(src, idx, wt, ptr, out, rows, dim, sms, dev, stream);
+      break;
+    case 42:
+      launch<2, 4, W>(src, idx, wt, ptr, out, rows, dim, sms, dev, stream);
+      break;
+    case 41:
+      launch<1, 4, W>(src, idx, wt, ptr, out, rows, dim, sms, dev, stream);
+      break;
+    case 22:
+      launch<2, 2, W>(src, idx, wt, ptr, out, rows, dim, sms, dev, stream);
+      break;
+    case 21:
+      launch<1, 2, W>(src, idx, wt, ptr, out, rows, dim, sms, dev, stream);
+      break;
+    default:
+      launch<1, 1, W>(src, idx, wt, ptr, out, rows, dim, sms, dev, stream);
+  }
+}
+
 }  // namespace
 
 // src f32 [*, dim]; idx int32 [nnz] (rows of src); ptr int64 [rows + 1]
-// ascending with ptr[0] = 0 and ptr[rows] = nnz; out f32 [rows, dim].
+// ascending from ptr[0] = 0 (values past ptr[rows] are not read); out f32
+// [rows, dim].
 extern "C" int csr_gather_sum_launch(const float* src, const int32_t* idx,
                                      const int64_t* ptr, float* out,
                                      int64_t rows, int dim,
                                      cudaStream_t stream) {
   if (rows > 0 && dim > 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    const int sms = sm_count(dev);
-    const uintptr_t bits = reinterpret_cast<uintptr_t>(src) |
-                           reinterpret_cast<uintptr_t>(out);
-    const int v = gather::vec_width(dim, bits);
-    switch (gather::copy_width(dim, bits) * 10 + v) {
-      case 44:
-        launch<4, 4>(src, idx, ptr, out, rows, dim, sms, dev, stream);
-        break;
-      case 42:
-        launch<2, 4>(src, idx, ptr, out, rows, dim, sms, dev, stream);
-        break;
-      case 41:
-        launch<1, 4>(src, idx, ptr, out, rows, dim, sms, dev, stream);
-        break;
-      case 22:
-        launch<2, 2>(src, idx, ptr, out, rows, dim, sms, dev, stream);
-        break;
-      case 21:
-        launch<1, 2>(src, idx, ptr, out, rows, dim, sms, dev, stream);
-        break;
-      default:
-        launch<1, 1>(src, idx, ptr, out, rows, dim, sms, dev, stream);
-    }
+    dispatch<false>(src, idx, nullptr, ptr, out, rows, dim, stream);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same with weights: wt f32 [nnz], value j scaled by wt[j].
+extern "C" int csr_gather_sum_weighted_launch(const float* src,
+                                              const int32_t* idx,
+                                              const float* wt,
+                                              const int64_t* ptr, float* out,
+                                              int64_t rows, int dim,
+                                              cudaStream_t stream) {
+  if (rows > 0 && dim > 0) {
+    dispatch<true>(src, idx, wt, ptr, out, rows, dim, stream);
   }
   return static_cast<int>(cudaGetLastError());
 }

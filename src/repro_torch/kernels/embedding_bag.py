@@ -4,15 +4,19 @@ Replaces ``repro/kernels/embedding_bag.py::embedding_bag_pallas``. One
 kernel, ``out[s] = Σ_{j∈[ptr[s], ptr[s+1])} src[idx[j]]`` added in j
 order, serves the bag forward (:func:`embedding_bag`) and both backward
 passes of the embedding layer (:func:`scatter_rows`, used by
-``kernels/ops.py``). On a CUDA tensor a wrapper launches the kernel (or
-raises); on a CPU tensor it runs the plain version, ``ref.csr_gather_sum``,
-which the kernel equals bit for bit. ``csr_gather_sum.launches`` counts
-kernel launches.
+``kernels/ops.py``). Its weighted instantiation, ``Σ_j w[j]·src[idx[j]]``
+with each product rounded on its own, is the LightGCN propagation,
+forward and backward (``models/lightgcn.py``). On a CUDA tensor a wrapper
+launches the kernel (or raises); on a CPU tensor it runs the plain
+version, ``ref.csr_gather_sum``, which the kernel equals bit for bit.
+``csr_gather_sum.launches`` counts kernel launches, weighted or not;
+``csr_gather_sum.launches_weighted`` the weighted ones alone.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
@@ -24,50 +28,70 @@ _NAME = "embedding_bag"
 
 
 @functools.cache
-def _entry():
+def _entry(weighted: bool):
     """The C entry point, bound once per process."""
-    fn = platform.load(_NAME).csr_gather_sum_launch
+    lib = platform.load(_NAME)
+    fn = (lib.csr_gather_sum_weighted_launch if weighted
+          else lib.csr_gather_sum_launch)
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_int,
-                                           ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * (5 if weighted else 4)
+                   + [ctypes.c_int64, ctypes.c_int, ctypes.c_void_p])
     return fn
 
 
-def csr_gather_sum(src: torch.Tensor, idx: torch.Tensor,
-                   ptr: torch.Tensor) -> torch.Tensor:
-    """src f32 [R, d], idx int32 [nnz], ptr int64 [S + 1] -> f32 [S, d].
+def csr_gather_sum(src: torch.Tensor, idx: torch.Tensor, ptr: torch.Tensor,
+                   weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """src f32 [R, d], idx int32 [nnz], ptr int64 [S + 1] -> f32 [S, d];
+    with ``weight`` f32 [nnz], value j is scaled by weight[j] first.
 
-    ptr must ascend from 0 to nnz and idx lie in [0, R); the kernel
-    checks neither (the callers here build both)."""
+    ptr must ascend from 0 (values past ptr[S] are not read) and idx lie
+    in [0, R); the kernel checks neither (the callers here build both)."""
     if src.dim() != 2 or idx.dim() != 1 or ptr.dim() != 1:
         raise ValueError(f"src [R, d], idx [nnz] and ptr [S + 1] expected, "
                          f"got {tuple(src.shape)}, {tuple(idx.shape)} and "
                          f"{tuple(ptr.shape)}")
+    if weight is not None and weight.shape != idx.shape:
+        raise ValueError(f"weight must be [nnz] like idx, got "
+                         f"{tuple(weight.shape)} and {tuple(idx.shape)}")
     if src.device.type == "cpu":
-        return ref.csr_gather_sum(src, idx, ptr)
+        return ref.csr_gather_sum(src, idx, ptr, weight)
     dev = src.device
-    if dev.type != "cuda" or idx.device != dev or ptr.device != dev:
-        raise ValueError(f"csr_gather_sum needs src, idx and ptr on one "
-                         f"CUDA device, got {src.device}, {idx.device} and "
-                         f"{ptr.device}")
+    if dev.type != "cuda" or idx.device != dev or ptr.device != dev or (
+            weight is not None and weight.device != dev):
+        raise ValueError(f"csr_gather_sum needs src, idx, ptr and weight on "
+                         f"one CUDA device, got {src.device}, {idx.device}, "
+                         f"{ptr.device} and "
+                         f"{None if weight is None else weight.device}")
     if (src.dtype != torch.float32 or idx.dtype != torch.int32
-            or ptr.dtype != torch.int64):
-        raise TypeError(f"csr_gather_sum takes f32 src, int32 idx and int64 "
-                        f"ptr, got {src.dtype}, {idx.dtype} and {ptr.dtype}")
+            or ptr.dtype != torch.int64 or (
+                weight is not None and weight.dtype != torch.float32)):
+        raise TypeError(f"csr_gather_sum takes f32 src, int32 idx, int64 ptr "
+                        f"and f32 weight, got {src.dtype}, {idx.dtype}, "
+                        f"{ptr.dtype} and "
+                        f"{None if weight is None else weight.dtype}")
     src = src.contiguous()
     idx = idx.contiguous()
     ptr = ptr.contiguous()
     rows = int(ptr.shape[0]) - 1
     out = torch.empty(rows, src.shape[1], dtype=torch.float32, device=dev)
-    status = _entry()(src.data_ptr(), idx.data_ptr(), ptr.data_ptr(),
-                      out.data_ptr(), rows, src.shape[1],
-                      torch.cuda.current_stream(dev).cuda_stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if weight is None:
+        status = _entry(False)(src.data_ptr(), idx.data_ptr(), ptr.data_ptr(),
+                               out.data_ptr(), rows, src.shape[1], stream)
+    else:
+        weight = weight.contiguous()
+        status = _entry(True)(src.data_ptr(), idx.data_ptr(),
+                              weight.data_ptr(), ptr.data_ptr(),
+                              out.data_ptr(), rows, src.shape[1], stream)
     platform.check(status, _NAME)
     csr_gather_sum.launches += 1
+    if weight is not None:
+        csr_gather_sum.launches_weighted += 1
     return out
 
 
 csr_gather_sum.launches = 0
+csr_gather_sum.launches_weighted = 0
 
 
 def _ptr(sorted_ids: torch.Tensor, n: int) -> torch.Tensor:
@@ -121,6 +145,7 @@ def scatter_rows(g: torch.Tensor, dest: torch.Tensor, src: torch.Tensor,
     (the order of ``jax.ops.segment_sum`` on the CPU): the backward of a
     gather. A stable sort by ``dest`` keeps equal rows in j order, and
     the CSR gather-sum adds them; no float atomics. g [M, d]; dest and
-    src int [J] with dest in [0, num_rows) and src in [0, M)."""
+    src int [J] with dest in [0, num_rows] and src in [0, M): an entry
+    with dest == num_rows is dropped."""
     dest_sorted, perm = torch.sort(dest.long(), stable=True)
     return csr_gather_sum(g, src[perm].int(), _ptr(dest_sorted, num_rows))

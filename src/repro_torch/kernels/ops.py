@@ -15,9 +15,10 @@ tensor to a plain version.
 
 Every lookup is a ``torch.autograd.Function`` (port of the reference's
 ``custom_vjp``s, ``repro/kernels/ops.py:96-119`` and ``:145-168``): the
-forward runs a kernel, and the backward drops masked entries, stably
-sorts the looked-up row ids and sums the cotangent rows into each table
-row with the CSR gather-sum kernel (:func:`.embedding_bag.scatter_rows`).
+forward runs a kernel, and the backward stably sorts the looked-up row
+ids (masked entries sorted past the last row) and sums the cotangent
+rows into each table row with the CSR gather-sum kernel
+(:func:`.embedding_bag.scatter_rows`); nothing in it waits on the host.
 With a stable sort, equal rows add in the reference's index order, and
 two runs are bitwise equal: no float atomics.
 """
@@ -85,8 +86,10 @@ class _CodebookSum(torch.autograd.Function):
         dest = idx.reshape(-1)
         src = torch.arange(b * h, device=idx.device) // h
         if ctx.binary and h > 1:
+            # a dropped duplicate goes to row k_rows, past the last row the
+            # sum reads: no boolean indexing, so no host sync
             keep = dedup_keep_mask(idx).reshape(-1)
-            dest, src = dest[keep], src[keep]
+            dest = torch.where(keep, dest.long(), ctx.k_rows)
         return scatter_rows(g, dest, src, ctx.k_rows), None, None
 
 

@@ -101,14 +101,20 @@ def embedding_bag(table: torch.Tensor, values: torch.Tensor,
     return segment_sum(table[values.long()], segment_ids, num_segments)
 
 
-def csr_gather_sum(src: torch.Tensor, idx: torch.Tensor,
-                   ptr: torch.Tensor) -> torch.Tensor:
+def csr_gather_sum(src: torch.Tensor, idx: torch.Tensor, ptr: torch.Tensor,
+                   weight=None) -> torch.Tensor:
     """out[s] = Σ_{j in [ptr[s], ptr[s+1])} src[idx[j]], added in j order
-    from +0.0: the CSR kernel's contract. ptr int [S + 1], ascending."""
+    from +0.0: the CSR kernel's contract. ptr int [S + 1], ascending from
+    0; values past ptr[S] are not read. With ``weight`` [nnz] each row is
+    ``src[idx[j]] * weight[j]``, every product rounded on its own before
+    it is added (the weighted kernel's contract)."""
     n_seg = int(ptr.shape[0]) - 1
-    seg = torch.repeat_interleave(
-        torch.arange(n_seg, device=src.device), (ptr[1:] - ptr[:-1]).long())
-    return embedding_bag(src, idx, seg, n_seg)
+    lens = (ptr[1:] - ptr[:-1]).long()
+    seg = torch.repeat_interleave(torch.arange(n_seg, device=src.device), lens)
+    rows = src[idx[:seg.shape[0]].long()]
+    if weight is not None:
+        rows = rows * weight[:seg.shape[0], None]
+    return segment_sum(rows, seg, n_seg)
 
 
 def expand_items(items: torch.Tensor, scale=None, sketch=None) -> torch.Tensor:

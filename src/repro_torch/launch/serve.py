@@ -1,11 +1,12 @@
 """Serving launcher for the port: ``python -m repro_torch.launch.serve``.
 
 ``--artifact DIR`` serves a published CompressedArtifact bundle (one the
-JAX package exported loads as well). Without one, the launcher builds
+JAX package exported loads as well; ``python -m repro_torch.launch.train
+--export DIR`` publishes a trained one). Without one, the launcher builds
 the BACO sketch on the spot with the port's ClusterEngine and serves
-randomly initialised codebooks (seeded): the trainer is not ported yet,
-so the top-k lists are untrained. Requests go through RecsysSession
-behind BatchDispatcher; the launcher prints p50/p99 latency.
+randomly initialised codebooks (seeded), so the top-k lists are
+untrained. Requests go through RecsysSession behind BatchDispatcher; the
+launcher prints p50/p99 latency.
 
 Runs on the CUDA device by default (``--device cpu`` to run the kernels'
 plain versions on the CPU).
@@ -38,7 +39,7 @@ def _get_artifact(args):
     print(f"[serve] built sketch on {args.device}: K_u={sketch.k_users} "
           f"K_v={sketch.k_items} gamma={sketch.meta['gamma']} "
           f"iters={sketch.meta['iters']} {engine.stats}")
-    print("[serve] training is not ported yet: serving randomly "
+    print("[serve] no trained artifact given: serving randomly "
           f"initialised codebooks (seed {args.seed})")
     mcfg = from_sketch(train, sketch, dim=args.dim)
     art = CompressedArtifact.from_parts(

@@ -1,5 +1,5 @@
-"""LightGCN forward (He et al. 2020) over full or codebook tables
-(port of ``repro.models.lightgcn``, forward only).
+"""LightGCN (He et al. 2020) over full or codebook tables, with BPR
+(port of ``repro.models.lightgcn``).
 
 The tables are either the full |U|x d / |V|x d matrices or codebooks
 indexed through a frozen sketch (U = Y_u Z_u, V = Y_v Z_v). Propagation
@@ -7,10 +7,13 @@ runs over the training graph with symmetric 1/sqrt(d_u d_v) weights; the
 final representation is the mean of the K+1 layer outputs.
 
 Propagation is scatter-free, as in the reference: each side is a sorted
-run of edges reduced by a prefix sum and a boundary difference
-(``_segsum_sorted``). ``index_add_`` would be shorter, but its float
-atomics make the sums differ from run to run on a GPU; the prefix sum is
-deterministic.
+run of edges, and each output row is the weighted sum of its run, folded
+in edge order from +0.0 by the weighted CSR gather-sum kernel
+(``kernels.embedding_bag.csr_gather_sum``; its plain version on the CPU).
+Its backward (``_Propagate``, the reference's custom VJP) is the same
+sum under the opposite orientation. No float atomics: two runs are
+bitwise equal. The reference reduces each run with a tree prefix scan
+and a boundary difference, so the two agree to a tolerance, not bitwise.
 """
 from __future__ import annotations
 
@@ -19,15 +22,19 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
+from torch.utils.weak import WeakIdKeyDictionary
 
 from repro_torch.core.graph import BipartiteGraph
 from repro_torch.core.sketch import Sketch
 from repro_torch.device import resolve_device
 from repro_torch.embedding import EmbeddingEngine, EmbeddingSpec, init_codebook
+from repro_torch.kernels.embedding_bag import csr_gather_sum
+from repro_torch.kernels.ops import _CodebookSum
 
 __all__ = ["LightGCNConfig", "from_sketch", "engines", "make_statics",
            "sorted_edge_statics", "edge_norms", "init_params", "all_embeddings",
-           "eval_embeddings", "score_all_items"]
+           "bpr_loss_fn", "eval_embeddings", "score_all_items"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -151,46 +158,106 @@ def _base_embeddings(params, statics, cfg: LightGCNConfig):
     return params["user_table"], params["item_table"]
 
 
-def _segsum_sorted(data_t, indptr):
-    """Segment sum of sorted runs: prefix sum + boundary difference.
-    data_t [d, E] holds the E edge rows as columns, grouped into
-    len(indptr)-1 contiguous runs; returns [d, len(indptr)-1].
-
-    The scan runs along the contiguous (last) axis: PyTorch's CUDA scan
-    along the leading axis of an [E, d] tensor gives each of the d
-    columns one thread, which walks all E rows in turn.
-
-    Precision caveat (as in the reference): each segment is a difference
-    of two global prefix values, so its absolute error scales with the
-    running-sum magnitude (~eps * |prefix|) rather than the segment's.
-    For zero-mean embedding columns the prefix is a random walk
-    (~sqrt(E) * scale), harmless at the repo's dataset scales; at 1e8+
-    edges rebase the scan per chunk or scan in f64. The prefix sum's
-    order also differs from the reference's tree scan, so results agree
-    to a tolerance, not bitwise.
-    """
-    c = torch.cumsum(torch.nn.functional.pad(data_t, (1, 0)), dim=1)
-    return c[:, indptr[1:]] - c[:, indptr[:-1]]
+# int32 copies of the statics' edge ids, made once per statics dict for
+# the kernel (the statics keep the reference's keys, with int64 ids)
+_IDX32 = WeakIdKeyDictionary()
 
 
-def all_embeddings(params, statics, cfg: LightGCNConfig):
-    """LightGCN propagation; returns (U [n_users,d], V [n_items,d]).
+def _kernel_edges(statics):
+    """(user side, item side) of one layer, each (idx int32, weight,
+    indptr): the user side sums item rows over the user-sorted edges, the
+    item side user rows over the item-sorted edges."""
+    key = statics["edge_v"]
+    idx = _IDX32.get(key)
+    if idx is None:
+        idx = _IDX32[key] = (statics["edge_v"].int(),
+                             statics["edge_u_byitem"].int())
+    return ((idx[0], statics["edge_norm"], statics["indptr_u"]),
+            (idx[1], statics["edge_norm_byitem"], statics["indptr_v"]))
 
-    Layers run on transposed [d, n] embeddings, so each edge gather and
-    each prefix sum walks contiguous memory."""
-    u, v = _base_embeddings(params, statics, cfg)
-    ev_u, w_u = statics["edge_v"], statics["edge_norm"]
-    eu_i, w_i = statics["edge_u_byitem"], statics["edge_norm_byitem"]
-    iu, iv = statics["indptr_u"], statics["indptr_v"]
-    cu, cv = u.T.contiguous(), v.T.contiguous()
-    acc_u, acc_v = cu, cv
+
+def _wsum(src, side):
+    idx, w, ptr = side
+    return csr_gather_sum(src, idx, ptr, w)
+
+
+class _Propagate(torch.autograd.Function):
+    """One scatter-free LightGCN layer (cu, cv) -> (nu, nv) (port of the
+    reference's ``_make_propagate``, ``repro/models/lightgcn.py:154-183``).
+
+    nu[u] = Σ_{edges e of u} w_e cv[v_e] and nv[v] = Σ_{edges e of v}
+    w_e cu[u_e], each over its side's sorted edges. The adjoint of "sum
+    over edges into user" is "sum over edges into item": the backward is
+    the same weighted sums under the opposite orientation, and saves
+    nothing but the statics."""
+
+    @staticmethod
+    def forward(ctx, cu, cv, statics):
+        user_side, item_side = _kernel_edges(statics)
+        ctx.sides = (user_side, item_side)
+        return (_wsum(cv.contiguous(), user_side),
+                _wsum(cu.contiguous(), item_side))
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gnu, gnv):
+        user_side, item_side = ctx.sides
+        d_cv = _wsum(gnu.contiguous(), item_side)
+        d_cu = _wsum(gnv.contiguous(), user_side)
+        return d_cu, d_cv, None
+
+
+def _layers(u, v, statics, cfg: LightGCNConfig):
+    """The mean of the K+1 layer outputs from base embeddings (u, v)."""
+    acc_u, acc_v = u, v
+    cu, cv = u, v
     for _ in range(cfg.n_layers):
-        cu, cv = (_segsum_sorted(cv[:, ev_u] * w_u, iu),
-                  _segsum_sorted(cu[:, eu_i] * w_i, iv))
+        cu, cv = _Propagate.apply(cu, cv, statics)
         acc_u = acc_u + cu
         acc_v = acc_v + cv
     k = cfg.n_layers + 1
-    return (acc_u / k).T.contiguous(), (acc_v / k).T.contiguous()
+    return acc_u / k, acc_v / k
+
+
+def all_embeddings(params, statics, cfg: LightGCNConfig):
+    """LightGCN propagation; returns (U [n_users,d], V [n_items,d])."""
+    u, v = _base_embeddings(params, statics, cfg)
+    return _layers(u, v, statics, cfg)
+
+
+def _rows(table, ids):
+    """table[ids] through the codebook_lookup kernel (H = 1), whose
+    backward sums the cotangent rows in the reference's order with the
+    CSR gather-sum: deterministic, where the backward of plain indexing
+    on a GPU accumulates in no fixed order. ``ids`` must lie in range
+    (the samplers draw them so); nothing checks it, as a check would
+    wait on the host."""
+    return _CodebookSum.apply(table, ids.reshape(-1, 1).int(), False)
+
+
+def bpr_loss_fn(params, statics, batch, cfg: LightGCNConfig):
+    """BPR over (user, pos, neg) with L2 on the *ego* embeddings (port of
+    ``repro/models/lightgcn.py:209-227``).
+
+    The propagated and ego tables are concatenated per side so each batch
+    index is gathered once (3 gathers: [U_all | U0] and [V_all | V0]); the
+    ego half carries the regulariser. The base embeddings are computed
+    once and feed both halves (the reference looks them up twice; the
+    values are the same)."""
+    u0, v0 = _base_embeddings(params, statics, cfg)
+    u_all, v_all = _layers(u0, v0, statics, cfg)
+    d = cfg.dim
+    ucat = torch.cat([u_all, u0], dim=1)
+    vcat = torch.cat([v_all, v0], dim=1)
+    uu = _rows(ucat, batch["user"])
+    pi = _rows(vcat, batch["pos"])
+    ni = _rows(vcat, batch["neg"])
+    pos = torch.sum(uu[:, :d] * pi[:, :d], dim=-1)
+    neg = torch.sum(uu[:, :d] * ni[:, :d], dim=-1)
+    loss = -torch.mean(torch.nn.functional.logsigmoid(pos - neg))
+    reg = (torch.sum(uu[:, d:] ** 2) + torch.sum(pi[:, d:] ** 2)
+           + torch.sum(ni[:, d:] ** 2)) / batch["user"].shape[0]
+    return loss + cfg.l2 * reg
 
 
 def eval_embeddings(params, statics, cfg: LightGCNConfig, user_ids):

@@ -75,6 +75,22 @@ class CompressedArtifact:
                    "edge_norm": np.asarray(edges["edge_norm"], np.float32)},
             sketch=sketch, model=dict(model), provenance=prov)
 
+    @classmethod
+    def from_trainer(cls, trainer) -> "CompressedArtifact":
+        """Snapshot a ``repro_torch.training.Trainer`` into a deployable
+        artifact (host numpy), with the reference's provenance keys."""
+        params = {k: p.detach().cpu().numpy()
+                  for k, p in trainer.params.items()}
+        edges = {k: trainer.statics[k].cpu().numpy()
+                 for k in ("edge_u", "edge_v", "edge_norm")}
+        cfg = trainer.mcfg
+        return cls.from_parts(params, edges, trainer.sketch, cfg, {
+            "lookup_backend": cfg.lookup_backend,
+            "train_steps": int(trainer.step),
+            "trainer_backend": trainer.backend.name,
+            "sampler": trainer.sampler.name,
+            "exported_by": "Trainer.export"})
+
     # -- int8 quantization --------------------------------------------------
     def quantize(self, keep_fp32: bool = False) -> "CompressedArtifact":
         """int8 symmetric per-row quantized copy (fp32 tables dropped

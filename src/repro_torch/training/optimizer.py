@@ -1,0 +1,142 @@
+"""Optimizers over dicts of tensors: SGD, AdamW and Adafactor (port of
+``repro.training.optimizer``).
+
+Each optimizer is an ``Optimizer(init, update)`` pair, as in the
+reference, with the reference's state layout (AdamW:
+``{"step", "m": {...}, "v": {...}}``; Adafactor: ``{"step", "fac":
+[...]}``, one entry per parameter in sorted-key order), so a checkpoint
+of either package restores into the other. ``update(grads, state,
+params)`` updates ``params`` and ``state`` IN PLACE under
+``torch.no_grad()`` (the reference returns new trees; the port reuses the
+buffers) and returns them. Math is in f32 whatever the parameters'
+dtype, as in the reference; ``state["step"]`` is an int32 scalar tensor
+on the parameters' device, so an update never waits on the host.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, NamedTuple, Optional, Tuple
+
+import torch
+
+__all__ = ["adamw", "adafactor", "sgd", "Optimizer", "global_norm"]
+
+
+class Optimizer(NamedTuple):
+    init: Callable[[Any], Any]
+    update: Callable[[Any, Any, Any], Tuple[Any, Any]]  # (g, state, p)
+
+
+def _leaves(tree: dict):
+    """The (key, tensor) leaves of a dict of tensors, in sorted-key order
+    (``jax.tree.flatten``'s order for dicts)."""
+    return [(k, tree[k]) for k in sorted(tree)]
+
+
+def global_norm(grads: dict) -> torch.Tensor:
+    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                          for _, g in _leaves(grads)))
+
+
+def _clip(grads: dict, grad_clip: Optional[float]) -> dict:
+    if grad_clip is None:
+        return grads
+    gn = global_norm(grads)
+    scale = torch.clamp(grad_clip / torch.clamp(gn, min=1e-9), max=1.0)
+    return {k: g * scale for k, g in grads.items()}
+
+
+def _step(params: dict) -> torch.Tensor:
+    """The int32 step counter, on the parameters' device."""
+    device = next(iter(params.values())).device if params else None
+    return torch.zeros((), dtype=torch.int32, device=device)
+
+
+def sgd(lr: float = 1e-2) -> Optimizer:
+    def init(params):
+        return {"step": _step(params)}
+
+    @torch.no_grad()
+    def update(grads, state, params):
+        for k, p in _leaves(params):
+            p.copy_((p.float() - lr * grads[k].float()).to(p.dtype))
+        state["step"].add_(1)
+        return params, state
+
+    return Optimizer(init, update)
+
+
+def adamw(lr: float = 1e-3, b1: float = 0.9, b2: float = 0.999,
+          eps: float = 1e-8, weight_decay: float = 0.0,
+          grad_clip: Optional[float] = None) -> Optimizer:
+    def init(params):
+        z = lambda p: torch.zeros(p.shape, dtype=torch.float32,  # noqa: E731
+                                  device=p.device)
+        return {"step": _step(params),
+                "m": {k: z(p) for k, p in params.items()},
+                "v": {k: z(p) for k, p in params.items()}}
+
+    @torch.no_grad()
+    def update(grads, state, params):
+        state["step"].add_(1)
+        grads = _clip(grads, grad_clip)
+        t = state["step"].float()
+        bc1 = 1 - torch.pow(b1, t)
+        bc2 = 1 - torch.pow(b2, t)
+        for k, p in _leaves(params):
+            g32 = grads[k].float()
+            m, v = state["m"][k], state["v"][k]
+            m.copy_(b1 * m + (1 - b1) * g32)
+            v.copy_(b2 * v + (1 - b2) * torch.square(g32))
+            delta = lr * ((m / bc1) / (torch.sqrt(v / bc2) + eps)
+                          + weight_decay * p.float())
+            p.copy_((p.float() - delta).to(p.dtype))
+        return params, state
+
+    return Optimizer(init, update)
+
+
+def adafactor(lr: float = 1e-2, decay: float = 0.8, eps: float = 1e-30,
+              clip_threshold: float = 1.0,
+              grad_clip: Optional[float] = None) -> Optimizer:
+    """Factored second moment: O(n+m) state per n x m matrix."""
+
+    def init(params):
+        fac = []
+        for _, p in _leaves(params):
+            if p.dim() >= 2:
+                fac.append({"vr": torch.zeros(p.shape[:-1],
+                                              dtype=torch.float32,
+                                              device=p.device),
+                            "vc": torch.zeros(p.shape[:-2] + p.shape[-1:],
+                                              dtype=torch.float32,
+                                              device=p.device)})
+            else:
+                fac.append({"v": torch.zeros(p.shape, dtype=torch.float32,
+                                             device=p.device)})
+        return {"step": _step(params), "fac": fac}
+
+    @torch.no_grad()
+    def update(grads, state, params):
+        state["step"].add_(1)
+        grads = _clip(grads, grad_clip)
+        t = state["step"].float()
+        beta = 1.0 - torch.pow(t, -decay)
+        for (k, p), s in zip(_leaves(params), state["fac"]):
+            g32 = grads[k].float()
+            g2 = torch.square(g32) + eps
+            if p.dim() >= 2:
+                s["vr"].copy_(beta * s["vr"] + (1 - beta) * g2.mean(dim=-1))
+                s["vc"].copy_(beta * s["vc"] + (1 - beta) * g2.mean(dim=-2))
+                r = s["vr"] / torch.clamp(s["vr"].mean(dim=-1, keepdim=True),
+                                          min=eps)
+                u = (g32 * torch.rsqrt(r)[..., None]
+                     * torch.rsqrt(s["vc"])[..., None, :])
+            else:
+                s["v"].copy_(beta * s["v"] + (1 - beta) * g2)
+                u = g32 * torch.rsqrt(s["v"])
+            rms = torch.sqrt(torch.mean(torch.square(u)) + 1e-30)
+            u = u / torch.clamp(rms / clip_threshold, min=1.0)
+            p.copy_((p.float() - lr * u).to(p.dtype))
+        return params, state
+
+    return Optimizer(init, update)

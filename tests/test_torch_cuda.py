@@ -9,7 +9,13 @@ float4 lanes, from tables 4 bytes off 16-byte alignment, on skewed bags
 (4,000 values beside 300-600-value, 0-3-value and empty bags), with no
 values and no rows, and two calls repeat bitwise; NaN scores rank first, lowest id first, in both
 the kernel and the plain version; the lookups' kernel gradients are
-bitwise equal across runs and within 1e-5 of the gather backend's.
+bitwise equal across runs and within 1e-5 of the gather backend's. The
+weighted CSR gather-sum (the LightGCN propagation) is bitwise its plain
+version on skewed bags with zero, -0.0 and negative weights, one row of
+100,000 values, all rows empty and no rows; ``_Propagate``'s forward and
+backward are bitwise equal across two runs and within 1e-6 of the CPU's
+(the same fold, in the same order); the fused trainer is bitwise the host trainer
+with the device sampler, and a warm chunk runs under sync-debug "error".
 dot_interaction is bitwise on integer inputs and within 2e-4 / 2e-5 (f32;
 2e-2 in bf16 and f16, one rounding of sums in another order) elsewhere,
 over F (every F mod 4, one tile per lane and lanes looping) and d (scalar
@@ -549,3 +555,115 @@ def test_fused_topk_all_equal_scores(dev, variant, k):
     assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
     assert torch.equal(got[1].cpu(), torch.arange(k, dtype=torch.int32)
                        .expand(130, k))
+
+
+# ---------------------------------------------------------------------------
+# the weighted CSR gather-sum (the LightGCN propagation) and training
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("case", ["skewed", "zeros", "negative", "long_row",
+                                  "all_empty", "no_rows"])
+@pytest.mark.parametrize("d", [1, 3, 50, 64, 129, 600])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_weighted_csr_gather_sum_kernel_bitwise(dev, case, d, aligned):
+    # empty rows, w = 0 and -0.0, negative weights, rows of more than 32
+    # values (the long-row blocks), one row of 100,000 values, all rows
+    # empty, no rows; scalar, float2 and float4 lanes and a column tile
+    g = torch.Generator().manual_seed(11 + d)
+    flat = torch.randn(2000 * d + 1, generator=g).to(dev)
+    table = (flat[:2000 * d] if aligned else flat[1:]).view(2000, d)
+    if case == "long_row":
+        idx = torch.randint(0, 2000, (100_000,), generator=g,
+                            dtype=torch.int32)
+        ptr = torch.tensor([0, 0, 100_000, 100_000])
+    elif case in ("all_empty", "no_rows"):
+        idx = torch.zeros(0, dtype=torch.int32)
+        ptr = torch.zeros(700 if case == "all_empty" else 1,
+                          dtype=torch.int64)
+    else:
+        idx, ptr = _skewed_csr(3000, 2000, g)
+    w = torch.randn(idx.numel(), generator=g)
+    if case == "zeros":
+        w[::2] = 0.0
+        w[1::2] = -0.0
+    elif case == "negative":
+        w = -w.abs()
+    idx, ptr, w = idx.to(dev), ptr.to(dev), w.to(dev)
+    before = (csr_gather_sum.launches, csr_gather_sum.launches_weighted)
+    got = csr_gather_sum(table, idx, ptr, w)
+    assert (csr_gather_sum.launches, csr_gather_sum.launches_weighted) == (
+        before[0] + 1, before[1] + 1)
+    assert got.shape == (ptr.numel() - 1, d)
+    assert torch.equal(got, ref.csr_gather_sum(table, idx, ptr, w))
+    assert torch.equal(got, csr_gather_sum(table, idx, ptr, w))
+    if case == "zeros":
+        assert not got.any() and not got.signbit().any()
+
+
+def test_weighted_csr_gather_sum_refuses_bad_weights(dev):
+    table = torch.randn(10, 8, device=dev)
+    idx = torch.zeros(4, dtype=torch.int32, device=dev)
+    ptr = torch.tensor([0, 4], device=dev)
+    with pytest.raises(TypeError):
+        csr_gather_sum(table, idx, ptr, torch.ones(4, device=dev).double())
+    with pytest.raises(ValueError):
+        csr_gather_sum(table, idx, ptr, torch.ones(4))
+    with pytest.raises(ValueError):
+        csr_gather_sum(table, idx, ptr, torch.ones(5, device=dev))
+
+
+def _small_training_setup():
+    from repro_torch.core import ClusterEngine
+    from repro_torch.data import planted_coclusters
+    g, _, _ = planted_coclusters(600, 500, 8, 12, seed=3)
+    sk = ClusterEngine(device="cpu").build(g, d=32, ratio=0.3)
+    return g, sk
+
+
+def test_propagate_backward_on_the_card(dev):
+    from repro_torch.models import lightgcn as L
+    g, _ = _small_training_setup()
+    gen = torch.Generator().manual_seed(5)
+    cu = torch.randn(g.n_users, 32, generator=gen)
+    cv = torch.randn(g.n_items, 32, generator=gen)
+    gu = torch.randn(g.n_users, 32, generator=gen)
+    gv = torch.randn(g.n_items, 32, generator=gen)
+
+    def grads(device):
+        st = L.make_statics(g, None, device=device)
+        a = cu.to(device).requires_grad_(True)
+        b = cv.to(device).requires_grad_(True)
+        nu, nv = L._Propagate.apply(a, b, st)
+        loss = (nu * gu.to(device)).sum() + (nv * gv.to(device)).sum()
+        return [x.cpu() for x in (nu, nv, *torch.autograd.grad(loss, [a, b]))]
+
+    one, two, cpu = grads(dev), grads(dev), grads("cpu")
+    for x, y, z in zip(one, two, cpu):
+        assert torch.equal(x, y)
+        torch.testing.assert_close(x, z, rtol=1e-6, atol=1e-6)
+
+
+def test_fused_trainer_equals_host_on_the_card(dev, tmp_path):
+    from repro_torch.training import TrainConfig, Trainer
+    g, sk = _small_training_setup()
+    cfg = TrainConfig(dim=32, steps=24, batch_size=256, lr=5e-3,
+                      chunk_size=8, sampler="device")
+    out = {}
+    for backend in ("host", "fused"):
+        tr = Trainer(g, sk, TrainConfig(**{**cfg.__dict__,
+                                           "backend": backend}), device=dev)
+        out[backend] = (tr.run(log_every=0),
+                        {k: v.detach().clone() for k, v in tr.params.items()})
+    assert out["host"][0] == out["fused"][0]
+    for k, v in out["host"][1].items():
+        assert torch.equal(out["fused"][1][k], v)
+    # a warm chunk enqueues work only
+    tr = Trainer(g, sk, TrainConfig(**{**cfg.__dict__, "backend": "fused"}),
+                 device=dev)
+    tr.run(steps=8, log_every=0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        losses = tr.backend.chunk(tr, 8)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.isfinite(losses).all()

@@ -2,9 +2,10 @@
 
 Identical params (numpy, from a seed) and the same graph and sketch go
 through ``repro.models.lightgcn`` and ``repro_torch.models.lightgcn`` on
-the CPU. Tolerance rtol=1e-5, atol=1e-6: both propagate with a prefix
-sum and boundary difference, but the reference's tree scan and PyTorch's
-cumsum add in different orders.
+the CPU. Tolerance rtol=1e-5, atol=1e-6: the reference reduces each
+propagation segment with a tree prefix scan and a boundary difference,
+the port folds it in edge order (the weighted CSR gather-sum's plain
+version), so the sums add in different orders.
 """
 import jax
 import jax.numpy as jnp
