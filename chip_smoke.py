@@ -23,6 +23,21 @@
    32 and resume from its checkpoint bitwise equal to 64 uninterrupted
    steps. Fused and dense top-k must agree (ids equal up to near-ties),
    and two GPU solves must give identical labels.
+   Then the stream (``repro_torch.stream``) at amazonbook's width
+   (``STREAM_ARGS``: 52,643 users, 91,599 items, k_true 300, 4 waves
+   after a warm prefix of 31,586 x 54,959): BACO (d 64, ratio 0.25) and
+   200 fused training steps on the warm prefix, then ``replay`` (refresh
+   every 2 steps with 40 tune steps, 8 requests of 64 users a step) into
+   a capacity-padded fused-fp32 session with the launcher's caps. Labels
+   and sketch digests must equal ``STREAM_REFERENCE`` (the JAX package's
+   replay) at every step; every swap must allocate no device state (no
+   capacity bump, every state tensor's ``data_ptr`` kept); the padded
+   session's top-k must equal a fresh unpadded session's over the final
+   artifact; its int8 quantization is swapped into a padded fused and a
+   padded dense session, which must agree. Launch counts are zeroed just
+   before the replay and read just after; codebook_lookup, the weighted
+   CSR gather-sum and fused_topk must have run. It prints a ``stream``
+   JSON line.
 3. Drives the embedding layer's entry points (``repro_torch.embedding``) at
    the same width, on the main path's sketch (K_u 8,878 with H=2, K_v 17,136
    with H=1) and its trained d=64 codebooks: the codebook
@@ -74,14 +89,17 @@
    the port end to end on a small input against itself on the CPU,
    serving and 20 training steps (losses to rtol 1e-5).
 
-Prints a ``kernels`` JSON line, a ``timer`` line (the timer's floor), the
-``nvidia-smi`` name/power line, and as its last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
+Prints a ``stream`` JSON line, a ``kernels`` JSON line, a ``timer`` line
+(the timer's floor), the ``nvidia-smi`` name/power line, and as its last
+line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
 result, if there is no CUDA device, if ``repro_torch`` is missing, or if any
 phase fails. It imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import hashlib
 import json
 import os
 import re
@@ -102,6 +120,50 @@ F16_OPS_PER_S = 989e12
 # the JAX package's values on this dataset and seed (CPU run)
 JAX_REFERENCE = {"k_users": 8878, "k_items": 17136, "gamma": 0.0078125,
                  "iters": 1}
+
+# the stream phase's stream (amazonbook's users, items and k_true)
+STREAM_ARGS = dict(n_users=52_643, n_items=91_599, k_true=300, avg_deg=10,
+                   T=4, drift=0.05, seed=0)
+# the JAX package's update-only replay of that stream on the CPU,
+# pinned with `PYTHONPATH=src python tests/test_torch_stream.py`
+# (``reference_stream_pins``: BACO d 64 ratio 0.25 on the warm prefix,
+# then replay(updater, stream.steps, None, ReplayConfig(refresh_every=2,
+# tune_steps=0)) with the launcher's caps): per step, adopted cold users
+# and items, refresh sweeps and gamma, K_u and K_v, and the sha256 (its
+# first 32 hex digits) of the labels and the sketch's index arrays
+STREAM_REFERENCE = {
+    "stream": {"n_warm_users": 31586, "n_warm_items": 54959,
+               "base_edges": 118843, "total_edges": 514160},
+    "bootstrap": {
+        "k_users": 11364, "k_items": 30445, "gamma": 16.0,
+        "iters": 5,
+        "labels": "8b1ea76e3f0438ca034698d9220c682e",
+        "user_idx": "7d22326e586a3f98389bcc214f71615f",
+        "item_idx": "461dd194eeabcf0fe733d79650d3898d"},
+    "steps": [
+        {"adopted_users": 5264, "adopted_items": 8335,
+         "k_users": 12647, "k_items": 31276,
+         "labels": "e7b6a24e5c13c4c3b68fb8f65c626d6d",
+         "user_idx": "7f268a8413f68e715e57d95b10c0bf39",
+         "item_idx": "81c0effd2e715318b84ef63411ad145c"},
+        {"adopted_users": 5264, "adopted_items": 8187, "sweeps": 7,
+         "gamma": 16.0,
+         "k_users": 14441, "k_items": 32268,
+         "labels": "c26dad8b20105f71e4085c38f3d2b75b",
+         "user_idx": "6b085c66bdacadb2a1656b1e3deea6cb",
+         "item_idx": "149e8840fabda50262559032571f677e"},
+        {"adopted_users": 5264, "adopted_items": 8214,
+         "k_users": 15647, "k_items": 33221,
+         "labels": "50b6a089c4802e7826da0a9a2d73248e",
+         "user_idx": "c7e6b6ad1ae77d4083bb3c81d951d94d",
+         "item_idx": "9fc12f5d420794490e7dd6b9f61db426"},
+        {"adopted_users": 5265, "adopted_items": 8269, "sweeps": 7,
+         "gamma": 16.0,
+         "k_users": 16987, "k_items": 34131,
+         "labels": "373cee0574b7bd28f440d471e073c231",
+         "user_idx": "010aa68781356831971bcfb6f85e74f1",
+         "item_idx": "3f89b06a4ea2f1057fc212898d4bab2a"},
+    ]}
 
 
 def log(msg: str) -> None:
@@ -554,6 +616,434 @@ def train_path(train, test, sketch, workdir: str, device: str = "cuda",
 
 
 # ---------------------------------------------------------------------------
+# phase 2b: the stream (cold-start assignment, refresh, deltas, hot swap)
+# ---------------------------------------------------------------------------
+def digest(a) -> str:
+    import numpy as np
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()[:32]
+
+
+def record_stream_steps(updater):
+    """Wrap ``updater.apply_events``/``refresh`` so each replay step
+    appends the entry ``STREAM_REFERENCE["steps"]`` pins to ``rec`` (its
+    digests are filled in by :func:`close_stream_step` at the end of the
+    step), and its cold-assign and refresh times and churn to
+    ``timing``."""
+    rec, timing = [], []
+    apply_events, refresh = updater.apply_events, updater.refresh
+
+    def apply_wrapped(*args):
+        out = apply_events(*args)
+        rec.append({"adopted_users": out["assign"].adopted_users,
+                    "adopted_items": out["assign"].adopted_items})
+        timing.append({"cold_assign_ms": out["assign"].ms})
+        return out
+
+    def refresh_wrapped(*args, **kwargs):
+        stats = refresh(*args, **kwargs)
+        rec[-1].update(sweeps=stats.iters, gamma=stats.gamma)
+        timing[-1].update(refresh_ms=stats.ms, churn_users=stats.churn_users,
+                          churn_items=stats.churn_items)
+        return stats
+
+    updater.apply_events = apply_wrapped
+    updater.refresh = refresh_wrapped
+    return rec, timing
+
+
+def close_stream_step(rec: list, updater) -> None:
+    rec[-1].update(k_users=updater.sketch.k_users,
+                   k_items=updater.sketch.k_items,
+                   labels=digest(updater.labels),
+                   user_idx=digest(updater.sketch.user_idx),
+                   item_idx=digest(updater.sketch.item_idx))
+
+
+def state_ptrs(session) -> dict:
+    return {f"{kind}/{k}": v.data_ptr()
+            for kind, state in (("params", session.params),
+                                ("statics", session.statics))
+            for k, v in state.items()}
+
+
+def stream_path(device: str = "cuda", stream_args=None, reference=None,
+                bootstrap_steps: int = 200) -> dict:
+    """The stream at full amazonbook width (``STREAM_ARGS``): BACO (d 64,
+    ratio 0.25) and 200 fused training steps on the warm prefix, then
+    ``replay`` of the stream's waves into a capacity-padded fused-fp32
+    session (refresh every 2 steps, 40 tune steps, 8 requests of 64
+    users a step) with the launcher's caps. Labels and sketch digests
+    must equal ``STREAM_REFERENCE`` at every step (the JAX package's
+    update-only replay; ``stream_args`` and ``reference`` replace both for
+    a rehearsal at another size); swaps must allocate no device state;
+    after the
+    replay the int8 quantization of the final artifact is swapped into a
+    padded fused and a padded dense session, which must agree, and the
+    fp32 padded session must equal a fresh unpadded one."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import ClusterEngine
+    from repro_torch.data import drifting_coclusters
+    from repro_torch.embedding import dequantize_params
+    from repro_torch.models import lightgcn as L
+    from repro_torch.stream import ReplayConfig, StreamUpdater, replay
+    from repro_torch.training import TrainConfig, Trainer
+
+    ref = reference or STREAM_REFERENCE
+    args = dict(stream_args or STREAM_ARGS)
+    t0 = time.perf_counter()
+    stream = drifting_coclusters(**args)
+    t_data = time.perf_counter() - t0
+    n_edges = stream.base.n_edges + sum(s.edge_u.size for s in stream.steps)
+    sizes = {"n_warm_users": stream.n_warm_users,
+             "n_warm_items": stream.n_warm_items,
+             "base_edges": stream.base.n_edges, "total_edges": n_edges}
+    log(f"stream {args}: warm prefix {sizes}, {len(stream.steps)} waves to "
+        f"{stream.n_users} x {stream.n_items} ({t_data:.1f} s on the host)")
+    require(sizes == ref["stream"], f"the stream's sizes {sizes} are not "
+            f"the reference's {ref['stream']}")
+
+    engine = ClusterEngine(device=device)
+    t0 = time.perf_counter()
+    sketch = engine.build(stream.base, d=64, ratio=0.25)
+    t_build = time.perf_counter() - t0
+    boot = {"k_users": sketch.k_users, "k_items": sketch.k_items,
+            "gamma": sketch.meta["gamma"], "iters": sketch.meta["iters"],
+            "labels": digest(sketch.meta["joint_labels"]),
+            "user_idx": digest(sketch.user_idx),
+            "item_idx": digest(sketch.item_idx)}
+    log(f"bootstrap BACO on the warm prefix: {t_build:.2f} s, "
+        f"K_u={boot['k_users']} K_v={boot['k_items']} "
+        f"gamma={boot['gamma']} iters={boot['iters']}")
+    require(boot == ref["bootstrap"], f"the bootstrap sketch {boot} is not "
+            f"the reference's {ref['bootstrap']}")
+    tr = Trainer(stream.base, sketch,
+                 TrainConfig(steps=bootstrap_steps, batch_size=2048,
+                             lr=5e-3, seed=0, backend="fused",
+                             chunk_size=16), device=device)
+    t0 = time.perf_counter()
+    losses = tr.run(log_every=0)
+    sync(device)
+    t_train = time.perf_counter() - t0
+    log(f"bootstrap training: {bootstrap_steps} fused steps in "
+        f"{t_train:.2f} s, loss {losses[0]:.5f} -> {losses[-1]:.5f}")
+
+    caps = {"n_users": stream.n_users, "n_items": stream.n_items,
+            "k_users": stream.n_users // 2, "k_items": stream.n_items // 2,
+            "n_edges": n_edges}
+    updater = StreamUpdater.from_trainer(tr, engine=engine, capacity=caps)
+    art0 = tr.export()
+    session = art0.session(k=20, capacity=caps, scorer="fused",
+                           device=device)
+    session.warmup(64)
+    rungs = session.stats()["capacity"]
+    log(f"capacity caps {caps} -> rungs {rungs} ({n_edges} stream edges)")
+    alloc0, ptrs0 = session.state_allocations, state_ptrs(session)
+    rec, timing = record_stream_steps(updater)
+    cfg = ReplayConfig(refresh_every=2, tune_steps=40, requests_per_step=8,
+                       request_batch=64)
+
+    zero_counts()
+    sync(device)
+    t0 = time.perf_counter()
+    report = replay(updater, stream.steps, session, cfg,
+                    log=lambda line: (close_stream_step(rec, updater),
+                                      log(f"  {line}")))
+    sync(device)
+    t_replay = time.perf_counter() - t0
+    counts = launch_counts()
+    launches = {n: counts[n] for n in ("codebook_lookup", "fused_topk",
+                                       "embedding_bag")}
+    weighted = weighted_launches()
+    log(f"replay: {t_replay:.1f} s; kernel launches {launches} (weighted "
+        f"CSR gather-sum {weighted})")
+    for name in launches:
+        require(launches[name] > 0, f"{name} never ran on the stream path")
+    require(weighted > 0, "the weighted CSR gather-sum never ran on the "
+            "stream path")
+    tele = report["telemetry"]
+    require(session.state_allocations == alloc0
+            and state_ptrs(session) == ptrs0 and tele["capacity_bumps"] == 0,
+            f"a swap allocated device state: "
+            f"{session.state_allocations - alloc0} tensors, "
+            f"{tele['capacity_bumps']} capacity bumps")
+    log(f"{tele['swaps']} swaps allocated no device state (every params/"
+        f"statics tensor kept its data_ptr); no capacity bump")
+    for t, (got, want) in enumerate(zip(rec, ref["steps"])):
+        require(got == want, f"stream step {t}: {got} is not the "
+                f"reference's {want}")
+    require(len(rec) == len(ref["steps"]), "replay step count differs")
+    log(f"labels and sketch digests equal the reference's at all "
+        f"{len(rec)} steps")
+
+    # the final artifact: padded == fresh unpadded; int8 fused == dense
+    final = report["final_artifact"]
+    ids = np.arange(0, final.model["n_users"], 97)
+    fresh = final.session(k=20, scorer="fused", device=device)
+    got, want = session(ids), fresh(ids)
+    require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+            "the padded session's top-k is not the unpadded session's")
+    quant = final.quantize()
+    outs, swap_alloc = {}, 0
+    for scorer in ("fused", "dense"):
+        s = art0.quantize().session(k=20, capacity=caps, scorer=scorer,
+                                    device=device)
+        ptrs = state_ptrs(s)
+        sw = s.swap(quant)
+        swap_alloc += sw["state_allocations"]
+        require(not sw["capacity_bumped"] and sw["state_allocations"] == 0
+                and state_ptrs(s) == ptrs,
+                f"the int8 swap into the {scorer} session allocated")
+        outs[scorer] = [tuple(x.cpu() for x in s(ids))]
+    params = {k: torch.as_tensor(v, device=device)
+              for k, v in quant.serving_params().items()}
+    statics = quant.statics(torch.device(device))
+    u_all, v_all = L.all_embeddings(dequantize_params(params), statics,
+                                    quant.mcfg())
+    (vf, idf), (vd, idd) = outs["fused"][0], outs["dense"][0]
+    n_diff = topk_agree(vf, idf, vd, idd, pair_scorer(
+        u_all[torch.as_tensor(ids, device=device)], v_all))
+    log(f"final artifact {final.content_id()}: padded fused fp32 == fresh "
+        f"unpadded ({ids.size} users); int8 swapped into padded fused and "
+        f"dense sessions with no allocation, agree ({n_diff} ids differ at "
+        f"near-ties)")
+
+    plain = check_stream_kernels(updater, session, ids[:64], device)
+
+    swap = session.telemetry.swap
+    st = session.stats()
+    swap_ms = {"p50": swap.percentile(50), "max": swap.percentile(100)}
+    lat = serve_padded_vs_unpadded(session, fresh, ids[:64], device)
+    swap_parts = swap_host_ms(session, final)
+    prof = profile_tune(updater, 10) if device == "cuda" else None
+    steps = len(stream.steps)
+    n_ref = tele["refreshes"]
+    out = {
+        "stream": sizes, "caps": caps, "rungs": rungs,
+        "bootstrap": {**{k: boot[k] for k in ("k_users", "k_items",
+                                               "gamma", "iters")},
+                      "build_s": t_build, "train_s": t_train,
+                      "train_steps": bootstrap_steps},
+        "steps": steps, "replay_s": t_replay,
+        "cold_assign_ms": [t["cold_assign_ms"] for t in timing],
+        "refresh_ms": [t["refresh_ms"] for t in timing if "refresh_ms" in t],
+        "refresh_sweeps": [r["sweeps"] for r in rec if "sweeps" in r],
+        "tune_ms_per_step": (report["tune_total_ms"]
+                             / max(cfg.tune_steps * n_ref, 1)),
+        "swap_p50_ms": swap_ms["p50"], "swap_max_ms": swap_ms["max"],
+        "delta_kb_mean": report["delta_bytes_mean"] / 1024,
+        "request_p50_ms": st["p50_ms"], "requests": st["requests"],
+        "b64_p50_ms": lat, "swap_parts_ms": swap_parts,
+        "tune_profile": prof,
+        "swap_allocations": session.state_allocations - alloc0 + swap_alloc,
+        "capacity_bumps": tele["capacity_bumps"],
+        "churn": [[t["churn_users"], t["churn_items"]] for t in timing
+                  if "churn_users" in t],
+        "launches": launches, "weighted_launches": weighted,
+        "near_tie_ids": n_diff, "plain_checks": plain}
+    return out
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Route the LightGCN path's kernel wrappers to their plain PyTorch
+    versions (``repro_torch.kernels.ref``) on device tensors, for a
+    comparison on the same inputs: the propagation's weighted CSR
+    gather-sum, the codebook backward's CSR gather-sum and
+    ``codebook_lookup``. It fails if any kernel launched inside."""
+    import importlib
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import lightgcn as L
+
+    # the package exports a function of the module's name
+    eb = importlib.import_module("repro_torch.kernels.embedding_bag")
+    before = launch_counts()
+    saved = (L.csr_gather_sum, eb.csr_gather_sum, ops.codebook_lookup)
+    L.csr_gather_sum = eb.csr_gather_sum = ref.csr_gather_sum
+    ops.codebook_lookup = ref.codebook_lookup
+    try:
+        yield
+    finally:
+        L.csr_gather_sum, eb.csr_gather_sum, ops.codebook_lookup = saved
+    require(launch_counts() == before,
+            "a kernel launched inside the plain versions")
+
+
+def check_stream_kernels(updater, session, ids, device: str) -> dict:
+    """The stream path's kernels against their plain versions at the
+    stream's own shapes, on the same device tensors, after the replay:
+
+      * one tuner batch on the tuner's padded device state: the BPR loss
+        and both codebook gradients (codebook_lookup over the padded
+        sketches; the weighted CSR gather-sum forward and backward over
+        the padded edges, whose trailing segments are empty and whose
+        pad edges lie past ``ptr[S]``; the codebook backward, with every
+        pad sketch row folded into codebook row 0), bitwise; the pad
+        codebook rows' gradients are exactly 0;
+      * the padded session's ``all_embeddings``, bitwise;
+      * ``fused_topk`` over the padded items with the ``-inf`` item mask
+        against the plain top-k: ids agree up to near-ties
+        (``topk_agree``), the ``-inf`` pattern is equal, no pad item is
+        returned.
+
+    The tuner's device statics must also equal the host padding of the
+    final graph bitwise (the in-place install on the card)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.sampler import BPRSampler
+    from repro_torch.embedding import dequantize_params
+    from repro_torch.kernels import fused_topk, ref
+    from repro_torch.models import lightgcn as L
+    from repro_torch.serve.session import pad_to_capacity
+
+    updater.tune(0)       # install the final graph into the tuner's state
+    tuner, graph, sketch = updater._tuner, updater.sgraph.graph, \
+        updater.sketch
+    mcfg = L.from_sketch(graph, sketch, dim=int(updater.model["dim"]),
+                         n_layers=int(updater.model["n_layers"]),
+                         l2=float(updater.model["l2"]),
+                         lookup_backend=updater.model.get("lookup_backend"))
+    host = {k: v.numpy()
+            for k, v in L.make_statics(graph, sketch, "cpu").items()}
+    _, statics_p, mcfg_pad, caps, bumped = pad_to_capacity(
+        updater.params, host, mcfg, tuner._caps)
+    require(not bumped and set(statics_p) == set(tuner._statics)
+            and all(torch.equal(tuner._statics[k].cpu(),
+                                torch.from_numpy(v))
+                    for k, v in statics_p.items()),
+            "the tuner's device statics are not the host padding of the "
+            "final graph")
+    params, statics = tuner._params, tuner._statics
+    names = sorted(params)
+    u, p, n = BPRSampler(graph, tuner.batch_size, seed=0).next_batch()
+    batch = {"user": torch.as_tensor(u, device=device),
+             "pos": torch.as_tensor(p, device=device),
+             "neg": torch.as_tensor(n, device=device)}
+
+    def loss_and_grads():
+        loss = L.bpr_loss_fn(params, statics, batch, mcfg_pad)
+        grads = torch.autograd.grad(loss, [params[k] for k in names])
+        return [loss.detach()] + list(grads)
+
+    def serve_embeddings():
+        with torch.no_grad():
+            return list(L.all_embeddings(dequantize_params(session.params),
+                                         session.statics, session.mcfg))
+
+    before, w0 = launch_counts(), weighted_launches()
+    got_tune, got_emb = loss_and_grads(), serve_embeddings()
+    require(launch_counts()["codebook_lookup"] > before["codebook_lookup"]
+            and weighted_launches() > w0,
+            "a kernel never ran in the stream checks")
+    with plain_versions():
+        want_tune, want_emb = loss_and_grads(), serve_embeddings()
+    sync(device)
+    out = {}
+    for what, got, want in (
+            ("tune", got_tune, want_tune),
+            ("all_embeddings", got_emb, want_emb)):
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        require(all(torch.equal(a, b) for a, b in zip(got, want)),
+                f"stream {what}: kernels differ from the plain versions "
+                f"(max abs err {err})")
+        out[what] = err
+    k_real = {"user_table": sketch.k_users, "item_table": sketch.k_items}
+    for name, grad in zip(names, got_tune[1:]):
+        require(not grad[k_real[name]:].any(),
+                f"{name}: a pad codebook row has a nonzero gradient")
+    # fused_topk over the padded items, -inf on the pads
+    mask = session.statics["item_mask"]
+    u_all, v_all = got_emb
+    uq = u_all[torch.as_tensor(ids, device=device)].contiguous()
+    got_v, got_i = fused_topk(uq, v_all, session.k, mask=mask)
+    want_v, want_i = ref.fused_topk(uq, v_all, session.k, mask=mask)
+    n_diff = topk_agree(got_v.cpu(), got_i.cpu(), want_v.cpu(),
+                        want_i.cpu(), pair_scorer(uq, v_all, mask=mask))
+    require(torch.equal(torch.isfinite(got_v), torch.isfinite(want_v)),
+            "fused_topk's -inf pattern over the padded items differs")
+    n_real = int(graph.n_items)
+    require(int(got_i.max()) < n_real, "fused_topk returned a pad item")
+    fin = torch.isfinite(want_v)
+    out["fused_topk"] = float((got_v[fin] - want_v[fin]).abs().max())
+    out["fused_topk_near_tie_ids"] = n_diff
+    log(f"stream kernels vs plain versions at the stream's shapes: one "
+        f"tuner batch of {len(u)} (loss, grads) and the padded session's "
+        f"all_embeddings bitwise ({mcfg_pad.n_users} x {mcfg_pad.n_items} "
+        f"padded, {int(statics['edge_u'].shape[0])} padded edges, "
+        f"{int(graph.n_edges)} real); fused_topk over {v_all.shape[0]} "
+        f"items ({v_all.shape[0] - n_real} -inf pads) agrees ({n_diff} ids "
+        f"differ at near-ties, max abs err {out['fused_topk']})")
+    return out
+
+
+def serve_padded_vs_unpadded(padded, fresh, ids, device: str,
+                             n: int = 9) -> dict:
+    """p50 ms of ``n`` requests of the same ids on the padded session and
+    on a fresh unpadded one over the same artifact, in turns (host clock
+    around each call, which ends in a synchronize)."""
+    import statistics
+    out = {"padded": [], "unpadded": []}
+    for _ in range(n):
+        for name, s in (("padded", padded), ("unpadded", fresh)):
+            t0 = time.perf_counter()
+            s(ids)
+            out[name].append((time.perf_counter() - t0) * 1e3)
+    res = {k: statistics.median(v) for k, v in out.items()}
+    log(f"B={len(ids)} request p50: padded {res['padded']:.4f} ms, "
+        f"unpadded {res['unpadded']:.4f} ms ({n} each, in turns)")
+    return res
+
+
+def swap_host_ms(session, artifact) -> dict:
+    """Where a swap's time goes: its host-side parts timed alone (the
+    artifact's statics rebuilt on the host, then padded to the session's
+    rungs), beside one more whole swap of the same artifact."""
+    from repro_torch.serve.session import _host_state, _pad_state
+    t0 = time.perf_counter()
+    params, statics = _host_state(artifact)
+    t1 = time.perf_counter()
+    mcfg = dataclasses.replace(artifact.mcfg(),
+                               lookup_backend=session.mcfg.lookup_backend)
+    _pad_state(params, statics, mcfg, session.stats()["capacity"])
+    t2 = time.perf_counter()
+    whole = session.swap(artifact)
+    out = {"host_state": (t1 - t0) * 1e3, "pad_state": (t2 - t1) * 1e3,
+           "whole_swap": whole["ms"]}
+    require(whole["state_allocations"] == 0, "a repeated swap allocated")
+    log(f"swap parts (ms): {out}")
+    return out
+
+
+def profile_tune(updater, n: int) -> dict:
+    """One ``updater.tune(n)`` under ``torch.profiler``: device time per
+    tuning step by kernel, wall time per step (set-up included), idle
+    share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        updater.tune(n)                     # ends in a copy to the host
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    per_kernel = device_times(prof, n)
+    busy = sum(per_kernel.values())
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
+    log(f"profile (stream tune, {n} steps): device busy {busy:.3f} ms of "
+        f"{wall_ms / n:.3f} ms a step")
+    for name, ms in top:
+        log(f"  {ms:8.4f} ms  {100 * ms / busy:5.1f}%  {name}")
+    return {"steps": n, "device_ms_per_step": busy,
+            "wall_ms_per_step": wall_ms / n,
+            "idle_share": 1.0 - busy / (wall_ms / n),
+            "top_kernels_ms": dict(top)}
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the embedding layer's entry points
 # ---------------------------------------------------------------------------
 def embedding_inputs(run: dict, device: str) -> dict:
@@ -867,10 +1357,12 @@ def check_codebook_lookup(run: dict) -> dict:
             "source": "src/repro_torch/kernels/csrc/codebook_lookup.cu",
             "replaces": "src/repro/kernels/codebook_lookup.py:98",
             "launches": (run["launches"]["codebook_lookup"]
-                         + run["training"]["launches"]["codebook_lookup"]),
+                         + run["training"]["launches"]["codebook_lookup"]
+                         + run["stream"]["launches"]["codebook_lookup"]),
             "launches_by_path": {
                 "serving": run["launches"]["codebook_lookup"],
-                "training": run["training"]["launches"]["codebook_lookup"]},
+                "training": run["training"]["launches"]["codebook_lookup"],
+                "stream": run["stream"]["launches"]["codebook_lookup"]},
             "max_abs_err": max_err, "ms": main["ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
@@ -977,7 +1469,11 @@ def check_fused_topk(run: dict) -> dict:
     return {"name": "fused_topk", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/fused_topk.cu",
             "replaces": "src/repro/kernels/fused_topk.py:229",
-            "launches": run["launches"]["fused_topk"],
+            "launches": (run["launches"]["fused_topk"]
+                         + run["stream"]["launches"]["fused_topk"]),
+            "launches_by_path": {
+                "serving": run["launches"]["fused_topk"],
+                "stream": run["stream"]["launches"]["fused_topk"]},
             "max_abs_err": max_err, "ms": main["ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
@@ -1227,7 +1723,8 @@ def check_embedding_bag(run: dict, emb_run: dict) -> dict:
     path_launches = {
         "serving": run["launches"]["embedding_bag"],
         "training": run["training"]["launches"]["embedding_bag"],
-        "embedding_layer": emb_run["launches"]["embedding_bag"]}
+        "embedding_layer": emb_run["launches"]["embedding_bag"],
+        "stream": run["stream"]["launches"]["embedding_bag"]}
     return {"name": "embedding_bag", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/embedding_bag.cu",
             "replaces": "src/repro/kernels/embedding_bag.py:56",
@@ -1704,6 +2201,7 @@ def main() -> int:
         with tempfile.TemporaryDirectory(dir=os.path.join(
                 ROOT, "build")) as workdir:
             run = main_path(workdir)
+            run["stream"] = stream_path()
             emb_run = embedding_path(run)
             bench_run = bench_path()
             floor = timer_floor_ms()
@@ -1719,6 +2217,7 @@ def main() -> int:
             subprocess.CalledProcessError) as e:
         log(f"FAIL: {type(e).__name__}: {e}")
         return 1
+    print(json.dumps({"stream": run["stream"]}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"timer": {"floor_ms": floor,
                                 "spin_cycles": spin_cycles()}}))

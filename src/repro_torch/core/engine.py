@@ -184,15 +184,23 @@ class ClusterEngine:
     solver: explicit override ("torch" | None/"auto").
     device: where the solves run ("cuda" by default; raises without a
             CUDA device unless the caller passes "cpu").
+    candidates: "exact" (default) scores every neighbor label;
+            "minhash" lets the stream layer's cold-assign/refresh prune
+            per-node candidates via ``core.candidates`` (``solve()``
+            itself is always exact).
     stats:  counters every solve adds to: ``sweeps`` (LP iterations) and
             ``host_syncs`` (device-to-host reads the host loop needs).
     """
     solver: Optional[str] = None
     device: Optional[str] = "cuda"
+    candidates: str = "exact"
     stats: dict = dataclasses.field(default_factory=dict, compare=False,
                                     repr=False)
 
     def __post_init__(self):
+        if self.candidates not in ("exact", "minhash"):
+            raise ValueError(f"candidates must be 'exact'|'minhash', "
+                             f"got {self.candidates!r}")
         object.__setattr__(self, "device", str(resolve_device(self.device)))
 
     def resolve(self) -> ClusterSolver:

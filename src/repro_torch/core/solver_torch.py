@@ -1,6 +1,7 @@
 """Side-synchronous label propagation in PyTorch (port of
 ``repro.core.solver_jax``: ``_half_step``, ``lp_step``, ``solve_loop``,
-``lp_solve`` and ``lp_solve_grid``).
+``lp_solve``, ``lp_solve_grid``, and the stream layer's
+``lp_solve_capped`` and ``lp_cold_assign``).
 
 Each node adopts the neighbor label maximizing
 
@@ -42,9 +43,9 @@ from repro_torch.kernels.ref import segment_sum
 
 from .graph import BipartiteGraph
 
-__all__ = ["lp_solve", "lp_solve_grid", "lp_step", "count_side_labels",
-           "solve_loop", "fma_sub", "segment_sum_ordered",
-           "device_edges", "device_inputs"]
+__all__ = ["lp_solve", "lp_solve_grid", "lp_solve_capped", "lp_cold_assign",
+           "lp_step", "count_side_labels", "solve_loop", "fma_sub",
+           "segment_sum_ordered", "device_edges", "device_inputs"]
 
 _NEG = -3e38
 
@@ -269,3 +270,138 @@ def lp_solve_grid(graph: BipartiteGraph, w_users, w_items, gammas,
         labs.append(lab)
         its.append(it)
     return np.stack(labs), np.asarray(its, np.int32)
+
+
+def lp_solve_capped(graph: BipartiteGraph, w_users, w_items, gamma: float,
+                    budget: Optional[int] = None, max_iters: int = 8,
+                    init_labels=None, caps: Optional[dict] = None, *,
+                    device="cuda", stats: Optional[dict] = None
+                    ) -> Tuple[np.ndarray, int]:
+    """The reference's ``lp_solve_capped`` signature over ``lp_solve``.
+
+    The reference pads users, items and edges to capacity rungs so that
+    a growing graph reuses one compiled program; its real labels are
+    bitwise the unpadded solve's. Eager PyTorch compiles nothing, so
+    ``caps`` is accepted and ignored and the solve runs unpadded.
+    """
+    del caps
+    return lp_solve(graph, w_users, w_items, gamma, budget, max_iters,
+                    init_labels, device=device, stats=stats)
+
+
+# ---------------------------------------------------------------------------
+# cold-start assignment: one half-step over only the new nodes' edges
+# ---------------------------------------------------------------------------
+def _cold_side(node_tail, opp_tail, opp_labels, w_self_side, own_side,
+               w_opp_full, gamma: float, n_new: int, n_labels: int, dev,
+               stats: Optional[dict] = None) -> np.ndarray:
+    """One half-step for the cold nodes of one side. ``node_tail`` is
+    0-based over the ``n_new`` cold nodes and sorted (the cold nodes are
+    an index suffix, so their edges are a contiguous tail of that side's
+    sorted edge orientation). The cluster weight totals (the
+    volume-balance term) fold ALL opposite-side nodes, in index order;
+    the sort/scan passes run over the cold nodes' edges only.
+
+    The reference pads each input onto a power-of-two ladder to bound
+    its compiles; pads carry weight 0 and a phantom node, so its real
+    rows equal this unpadded half-step's."""
+    def t(a, dtype):
+        return torch.as_tensor(np.asarray(a, dtype), device=dev)
+
+    opp_lab = t(opp_labels, np.int64)
+    w_by_label = segment_sum_ordered(t(w_opp_full, np.float32), opp_lab,
+                                     n_labels, stats)
+    out = _half_step(t(node_tail, np.int64), opp_lab[t(opp_tail, np.int64)],
+                     t(w_self_side, np.float32), w_by_label,
+                     t(own_side, np.int64),
+                     torch.tensor(float(gamma), dtype=torch.float32,
+                                  device=dev), n_new, n_labels)
+    return out.to(torch.int32).cpu().numpy()
+
+
+def _cand_edge_mask(node_tail: np.ndarray, edge_lab: np.ndarray,
+                    flat: np.ndarray, indptr: np.ndarray,
+                    n_labels: int) -> np.ndarray:
+    """bool[E_tail]: which cold edges carry a candidate label that
+    survives pruning. ``flat``/``indptr`` are per-cold-node candidate
+    label lists (CSR over the 0-based cold nodes, labels SORTED within
+    each node's slice, as ``core.candidates`` emits them). Membership is
+    one searchsorted over fused (node, label) int64 keys."""
+    if flat.size == 0 or node_tail.size == 0:
+        return np.zeros(node_tail.shape, bool)
+    m = np.int64(n_labels) + 1
+    reps = np.diff(np.asarray(indptr, np.int64))
+    ckeys = np.repeat(np.arange(reps.size, dtype=np.int64), reps) * m \
+        + np.asarray(flat, np.int64)
+    keys = node_tail.astype(np.int64) * m + np.asarray(edge_lab, np.int64)
+    pos = np.minimum(np.searchsorted(ckeys, keys), ckeys.size - 1)
+    return ckeys[pos] == keys
+
+
+def lp_cold_assign(graph: BipartiteGraph, labels, w_users, w_items,
+                   gamma: float, n_new_users: int = 0,
+                   n_new_items: int = 0,
+                   cand_labels: Optional[dict] = None, *, device="cuda",
+                   stats: Optional[dict] = None) -> np.ndarray:
+    """Place brand-new users/items (index suffixes of their sides) into
+    the existing partition with ONE LP half-step each, over only their
+    incident edges (the reference's ``lp_cold_assign``).
+
+    The score is Eq. 13/14, neighbor-label counts minus the
+    gamma-weighted opposite-side cluster volume, so a cold node does not
+    simply sink into the hottest cluster its neighbors touch; a cold
+    node whose best candidate scores no better than staying alone keeps
+    its fresh singleton label. ``labels`` must already be grown to the
+    new universe (``stream.grow_labels``). Users are assigned first
+    (item labels fixed), then items see the new user labels. Returns the
+    updated labels (host int32[n_nodes]); old nodes never move.
+
+    ``cand_labels`` (optional) prunes each cold node's candidates:
+    {"user"/"item": (flat, indptr)} CSR lists of allowed labels, sorted
+    within each node (``core.candidates.cold_candidate_sets``). Edges
+    whose neighbor label is outside the list are dropped before the
+    half-step; the node's own label always stays a candidate.
+    """
+    nu, nv, n = graph.n_users, graph.n_items, graph.n_nodes
+    lab = np.array(labels, dtype=np.int32, copy=True)
+    if lab.shape[0] != n:
+        raise ValueError(f"labels must cover the grown universe: "
+                         f"{lab.shape[0]} != {n} nodes")
+    if not (0 <= n_new_users <= nu and 0 <= n_new_items <= nv):
+        raise ValueError("n_new_users/n_new_items out of range")
+    if n_new_users == 0 and n_new_items == 0:
+        return lab
+    dev = resolve_device(device)
+    wu = np.asarray(w_users, np.float32)
+    wv = np.asarray(w_items, np.float32)
+
+    def prune(side, node_tail, opp_tail, opp_lab, own_lab):
+        if cand_labels is None or side not in cand_labels:
+            return node_tail, opp_tail
+        flat, indptr = cand_labels[side]
+        edge_lab = opp_lab[opp_tail]
+        keep = _cand_edge_mask(node_tail, edge_lab, np.asarray(flat),
+                               np.asarray(indptr), n)
+        keep |= edge_lab == own_lab[node_tail]
+        return node_tail[keep], opp_tail[keep]
+
+    if n_new_users:
+        u0 = nu - n_new_users
+        lo = int(np.searchsorted(graph.edge_u, u0))
+        node_tail = (graph.edge_u[lo:] - u0).astype(np.int32)
+        node_tail, opp_tail = prune("user", node_tail, graph.edge_v[lo:],
+                                    lab[nu:], lab[u0:nu])
+        lab[u0:nu] = _cold_side(node_tail, opp_tail, lab[nu:], wu[u0:],
+                                lab[u0:nu], wv, gamma, n_new_users, n, dev,
+                                stats)
+    if n_new_items:
+        v0 = nv - n_new_items
+        ev_byv, eu_byv = graph.edges_by_item()
+        lo = int(np.searchsorted(ev_byv, v0))
+        node_tail = (ev_byv[lo:] - v0).astype(np.int32)
+        node_tail, opp_tail = prune("item", node_tail, eu_byv[lo:],
+                                    lab[:nu], lab[nu + v0:])
+        lab[nu + v0:] = _cold_side(node_tail, opp_tail, lab[:nu], wv[v0:],
+                                   lab[nu + v0:], wu, gamma, n_new_items, n,
+                                   dev, stats)
+    return lab

@@ -23,7 +23,6 @@ from typing import Optional
 import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
-from torch.utils.weak import WeakIdKeyDictionary
 
 from repro_torch.core.graph import BipartiteGraph
 from repro_torch.core.sketch import Sketch
@@ -33,8 +32,9 @@ from repro_torch.kernels.embedding_bag import csr_gather_sum
 from repro_torch.kernels.ops import _CodebookSum
 
 __all__ = ["LightGCNConfig", "from_sketch", "engines", "make_statics",
-           "sorted_edge_statics", "edge_norms", "init_params", "all_embeddings",
-           "bpr_loss_fn", "eval_embeddings", "score_all_items"]
+           "sorted_edge_statics", "edge_norms", "kernel_edge_ids",
+           "init_params", "all_embeddings", "bpr_loss_fn", "eval_embeddings",
+           "score_all_items"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,7 +81,8 @@ def sorted_edge_statics(edge_u, edge_v, edge_norm, n_users: int,
                         device="cuda") -> dict:
     """Scatter-free propagation constants from a (user-sorted) edge
     list, as tensors on ``device``: both segment orientations as sorted
-    runs plus both CSR indptrs."""
+    runs plus both CSR indptrs, with the reference's keys, plus the int32
+    edge ids the propagation kernel reads (``kernel_edge_ids``)."""
     dev = resolve_device(device)
     edge_u = np.asarray(edge_u)
     edge_v = np.asarray(edge_v)
@@ -93,6 +94,7 @@ def sorted_edge_statics(edge_u, edge_v, edge_norm, n_users: int,
             else np.argsort(edge_v, kind="stable"))
     indptr_u = np.searchsorted(edge_u, np.arange(n_users + 1,
                                                  dtype=np.int64))
+    eu_byv = edge_u[perm]
     indptr_v = np.searchsorted(edge_v[perm], np.arange(n_items + 1,
                                                        dtype=np.int64))
 
@@ -100,15 +102,18 @@ def sorted_edge_statics(edge_u, edge_v, edge_norm, n_users: int,
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
                                device=dev)
 
-    return {
+    statics = {
         "edge_u": t(edge_u, torch.int64),
         "edge_v": t(edge_v, torch.int64),
         "edge_norm": t(edge_norm, torch.float32),
-        "edge_u_byitem": t(edge_u[perm], torch.int64),
+        "edge_u_byitem": t(eu_byv, torch.int64),
         "edge_norm_byitem": t(edge_norm[perm], torch.float32),
         "indptr_u": t(indptr_u, torch.int64),
         "indptr_v": t(indptr_v, torch.int64),
     }
+    for name, ids in kernel_edge_ids(edge_v, eu_byv).items():
+        statics[name] = t(ids, torch.int32)
+    return statics
 
 
 def edge_norms(graph: BipartiteGraph) -> np.ndarray:
@@ -158,22 +163,24 @@ def _base_embeddings(params, statics, cfg: LightGCNConfig):
     return params["user_table"], params["item_table"]
 
 
-# int32 copies of the statics' edge ids, made once per statics dict for
-# the kernel (the statics keep the reference's keys, with int64 ids)
-_IDX32 = WeakIdKeyDictionary()
+def kernel_edge_ids(edge_v, edge_u_byitem) -> dict:
+    """``{"edge_v_idx32", "edge_u_byitem_idx32"}``: int32 copies (host
+    numpy) of the statics' edge ids, as the propagation kernel reads
+    them. Every statics dict carries them (``sorted_edge_statics``,
+    ``serve.session._pad_state``), so state whose edges are rewritten in
+    place has its kernel ids rewritten with them."""
+    return {"edge_v_idx32": np.asarray(edge_v).astype(np.int32),
+            "edge_u_byitem_idx32": np.asarray(edge_u_byitem).astype(np.int32)}
 
 
 def _kernel_edges(statics):
     """(user side, item side) of one layer, each (idx int32, weight,
     indptr): the user side sums item rows over the user-sorted edges, the
     item side user rows over the item-sorted edges."""
-    key = statics["edge_v"]
-    idx = _IDX32.get(key)
-    if idx is None:
-        idx = _IDX32[key] = (statics["edge_v"].int(),
-                             statics["edge_u_byitem"].int())
-    return ((idx[0], statics["edge_norm"], statics["indptr_u"]),
-            (idx[1], statics["edge_norm_byitem"], statics["indptr_v"]))
+    return ((statics["edge_v_idx32"], statics["edge_norm"],
+             statics["indptr_u"]),
+            (statics["edge_u_byitem_idx32"], statics["edge_norm_byitem"],
+             statics["indptr_v"]))
 
 
 def _wsum(src, side):

@@ -6,15 +6,35 @@ port uses).
   * :class:`LatencyRecorder` — a ring of the newest ``cap`` raw samples
     (exact percentiles while it has seen at most ``cap`` values) feeding
     a Histogram that answers percentiles past that.
+  * :class:`CounterSet` — a named family of monotone counters, read
+    like a dict (``serve.telemetry.StreamTelemetry`` keeps one).
 """
 from __future__ import annotations
 
 import math
 from collections import deque
+from typing import Dict
 
 import numpy as np
 
-__all__ = ["Histogram", "LatencyRecorder"]
+__all__ = ["CounterSet", "Histogram", "LatencyRecorder"]
+
+
+class CounterSet:
+    """Named monotone counters, insertion-ordered, read like a dict
+    (``counters["capacity_bumps"]``)."""
+
+    def __init__(self, names=()):
+        self._c: Dict[str, int] = {str(n): 0 for n in names}
+
+    def bump(self, name: str, n: int = 1) -> None:
+        self._c[name] = self._c.get(name, 0) + int(n)
+
+    def as_dict(self) -> Dict[str, int]:
+        return dict(self._c)
+
+    def __getitem__(self, name: str) -> int:
+        return self._c[name]
 
 
 class Histogram:
@@ -115,3 +135,4 @@ class LatencyRecorder:
         return {"requests": self.count,
                 "p50_ms": round(self.percentile(50), 3),
                 "p99_ms": round(self.percentile(99), 3)}
+

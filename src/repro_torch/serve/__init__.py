@@ -5,6 +5,10 @@
   * ``RecsysSession`` — top-k over the codebooks, "dense" or "fused"
     (the fused_topk kernel), fp32 or int8.
   * ``BatchDispatcher`` — a padded bucket ladder in front of a session.
+  * Streaming: ``ArtifactDelta`` (``artifact.delta(prev)`` /
+    ``prev.apply_delta(d)``), capacity-padded sessions
+    (``capacity_plan``; ``session.swap(artifact)`` copies into the
+    session's device state) and ``StreamTelemetry``.
 
 Usage::
 
@@ -15,10 +19,13 @@ Usage::
 
 CLI: ``python -m repro_torch.launch.serve [--artifact DIR]``.
 """
-from .artifact import ARTIFACT_VERSION, CompressedArtifact
+from .artifact import (ARTIFACT_VERSION, DELTA_VERSION, ArtifactDelta,
+                       CompressedArtifact)
 from .dispatch import DEFAULT_BUCKETS, BatchDispatcher, chunk_plan
-from .session import RecsysSession, normalize_scorer
+from .session import RecsysSession, capacity_plan, normalize_scorer
+from .telemetry import StreamTelemetry
 
-__all__ = ["ARTIFACT_VERSION", "CompressedArtifact", "DEFAULT_BUCKETS",
-           "BatchDispatcher", "chunk_plan", "RecsysSession",
-           "normalize_scorer"]
+__all__ = ["ARTIFACT_VERSION", "DELTA_VERSION", "ArtifactDelta",
+           "CompressedArtifact", "DEFAULT_BUCKETS", "BatchDispatcher",
+           "chunk_plan", "RecsysSession", "capacity_plan",
+           "normalize_scorer", "StreamTelemetry"]

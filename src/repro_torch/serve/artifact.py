@@ -1,5 +1,5 @@
-"""CompressedArtifact: the deployable compression bundle (port of
-``repro.serve.artifact``, without deltas).
+"""CompressedArtifact: the deployable compression bundle, and the
+deltas a stream publishes (port of ``repro.serve.artifact``).
 
 The frozen sketch index arrays, the codebooks, the normalized training
 edges and enough model config to rebuild the scoring function, as host
@@ -12,6 +12,13 @@ Layout of ``save(dir)``:
 
     <dir>/manifest.json   version, model config, provenance (JSON)
     <dir>/arrays.npz      params/*, edges/*, sketch/*, quantized/*
+
+Streaming deployments ship deltas instead of whole bundles:
+``new.delta(base)`` carries only the arrays that changed between two
+versions, and ``base.apply_delta(d)`` rebuilds ``new`` bit for bit,
+checking the base's and the result's ``content_id``. A delta saved by
+either package loads in the other (``ArtifactDelta.save``/``load``, the
+reference's manifest).
 """
 from __future__ import annotations
 
@@ -19,17 +26,20 @@ import dataclasses
 import hashlib
 import json
 import os
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
 from repro_torch.core.sketch import Sketch
 from repro_torch.training.checkpoint import (_flatten_with_paths,
-                                             read_bundle, write_bundle)
+                                             _unflatten_paths, read_bundle,
+                                             write_bundle)
 
-__all__ = ["CompressedArtifact", "ARTIFACT_VERSION"]
+__all__ = ["CompressedArtifact", "ArtifactDelta", "ARTIFACT_VERSION",
+           "DELTA_VERSION"]
 
 ARTIFACT_VERSION = 1
+DELTA_VERSION = 1
 
 # the model-config keys an artifact must carry to rebuild a LightGCNConfig
 _MODEL_KEYS = ("n_users", "n_items", "dim", "n_layers", "l2",
@@ -135,10 +145,15 @@ class CompressedArtifact:
         return statics
 
     def session(self, k: int = 20, backend: Optional[str] = None,
-                scorer: str = "dense", device="cuda"):
-        """A RecsysSession over this bundle on ``device``."""
+                capacity=None, telemetry=None, scorer: str = "dense",
+                device="cuda"):
+        """A RecsysSession over this bundle on ``device``. ``capacity``
+        ("auto" or a maxima dict) pads it to the capacity ladder, so
+        ``swap`` reuses its device state."""
         from repro_torch.serve.session import RecsysSession
         return RecsysSession.from_artifact(self, k=k, backend=backend,
+                                           capacity=capacity,
+                                           telemetry=telemetry,
                                            scorer=scorer, device=device)
 
     # -- content addressing -------------------------------------------------
@@ -150,6 +165,9 @@ class CompressedArtifact:
             tree["quantized"] = self.quantized
         return tree
 
+    def _flat(self) -> dict:
+        return _flatten_with_paths(self._tree())
+
     def content_id(self) -> str:
         """Digest of every array (path, dtype, shape, bytes) and the
         model config — the reference's ``content_id``, memoized."""
@@ -157,7 +175,7 @@ class CompressedArtifact:
         if cached is not None:
             return cached
         h = hashlib.sha256()
-        flat = _flatten_with_paths(self._tree())
+        flat = self._flat()
         for key in sorted(flat):
             arr = np.ascontiguousarray(flat[key])
             h.update(key.encode())
@@ -168,6 +186,58 @@ class CompressedArtifact:
         digest = h.hexdigest()[:16]
         object.__setattr__(self, "_content_id", digest)
         return digest
+
+    def delta(self, base: "CompressedArtifact") -> "ArtifactDelta":
+        """The delta that turns ``base`` into ``self``: the arrays that
+        changed or are new, and the paths that disappeared. Apply with
+        ``base.apply_delta(delta)``."""
+        old = base._flat()
+        new = self._flat()
+        changed = {}
+        for key, arr in new.items():
+            prev = old.get(key)
+            if (prev is None or prev.shape != arr.shape
+                    or prev.dtype != arr.dtype
+                    or not np.array_equal(prev, arr)):
+                changed[key] = arr
+        removed = tuple(sorted(set(old) - set(new)))
+        return ArtifactDelta(base_id=base.content_id(),
+                             new_id=self.content_id(), changed=changed,
+                             removed=removed, model=dict(self.model),
+                             provenance=dict(self.provenance))
+
+    def apply_delta(self, delta: "ArtifactDelta") -> "CompressedArtifact":
+        """The delta's target artifact, rebuilt from this base. Checks
+        the base digest before and the target digest after, so a delta
+        applied to the wrong base, or corrupted, raises."""
+        have = self.content_id()
+        if delta.base_id != have:
+            raise ValueError(
+                f"delta expects base {delta.base_id}, artifact is {have} "
+                f"(deltas must be applied in publication order)")
+        flat = self._flat()
+        for key in delta.removed:
+            flat.pop(key, None)
+        flat.update(delta.changed)
+        tree = _unflatten_paths(flat)
+        model = dict(delta.model)
+        sketch = None
+        if "sketch" in tree:
+            sketch = Sketch.from_state(
+                tree["sketch"], k_users=model["k_users"],
+                k_items=model["k_items"],
+                method=delta.provenance.get("method", "unknown"),
+                meta=dict(delta.provenance))
+        out = CompressedArtifact(params=tree.get("params", {}),
+                                 edges=tree["edges"], sketch=sketch,
+                                 model=model,
+                                 provenance=dict(delta.provenance),
+                                 quantized=tree.get("quantized"))
+        got = out.content_id()
+        if got != delta.new_id:
+            raise ValueError(f"delta application produced {got}, "
+                             f"expected {delta.new_id} (corrupt delta?)")
+        return out
 
     # -- persistence --------------------------------------------------------
     def save(self, directory: str) -> str:
@@ -205,3 +275,52 @@ class CompressedArtifact:
                    sketch=sketch, model=dict(model),
                    provenance=dict(provenance),
                    quantized=tree.get("quantized"))
+
+
+@dataclasses.dataclass(frozen=True)
+class ArtifactDelta:
+    """A versioned artifact-to-artifact patch (``CompressedArtifact.
+    delta``). ``changed`` maps flattened array paths (``params/
+    user_table``, ``sketch/user_idx``, ...) to their new values;
+    ``removed`` lists the paths that no longer exist; (base_id, new_id)
+    make applying it order-safe and verifiable."""
+
+    base_id: str
+    new_id: str
+    changed: dict
+    removed: Tuple[str, ...]
+    model: dict
+    provenance: dict
+
+    def nbytes(self) -> int:
+        """Payload size: what crosses the wire instead of a bundle."""
+        return int(sum(np.asarray(a).nbytes for a in self.changed.values()))
+
+    def save(self, directory: str) -> str:
+        """Atomically publish the delta bundle at ``directory``."""
+        directory = os.path.normpath(directory)
+        parent, name = os.path.split(directory)
+        manifest = {"delta_version": DELTA_VERSION,
+                    "base_id": self.base_id, "new_id": self.new_id,
+                    "removed": list(self.removed), "model": self.model,
+                    "provenance": self.provenance}
+        return write_bundle(parent or ".", name,
+                            _unflatten_paths(dict(self.changed)), manifest)
+
+    @classmethod
+    def load(cls, directory: str) -> "ArtifactDelta":
+        """Load a delta bundle (either package's)."""
+        tree, manifest = read_bundle(directory)
+        version = manifest.get("delta_version")
+        if version is None:
+            raise ValueError(f"{directory!r} is a bundle but not an "
+                             f"ArtifactDelta (no delta_version)")
+        if version != DELTA_VERSION:
+            raise ValueError(f"unsupported delta version {version} at "
+                             f"{directory!r} (this build reads "
+                             f"{DELTA_VERSION})")
+        return cls(base_id=manifest["base_id"], new_id=manifest["new_id"],
+                   changed=_flatten_with_paths(tree),
+                   removed=tuple(manifest.get("removed", ())),
+                   model=dict(manifest["model"]),
+                   provenance=dict(manifest.get("provenance", {})))

@@ -16,6 +16,10 @@ version on skewed bags with zero, -0.0 and negative weights, one row of
 backward are bitwise equal across two runs and within 1e-6 of the CPU's
 (the same fold, in the same order); the fused trainer is bitwise the host trainer
 with the device sampler, and a warm chunk runs under sync-debug "error".
+A capacity-padded fused session (fp32 and int8) serves bitwise what an
+unpadded one serves, a swap within the rungs allocates no device
+state and then serves what a fresh session serves, and the
+CapacityTuner's fine-tune on the card equals the CPU's.
 dot_interaction is bitwise on integer inputs and within 2e-4 / 2e-5 (f32;
 2e-2 in bf16 and f16, one rounding of sums in another order) elsewhere,
 over F (every F mod 4, one tile per lane and lanes looping) and d (scalar
@@ -667,3 +671,91 @@ def test_fused_trainer_equals_host_on_the_card(dev, tmp_path):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert torch.isfinite(losses).all()
+
+
+def _stream_artifacts(dev):
+    """Two exports of a short stream replayed on the card (3 tune steps
+    at the refresh), and the launcher's caps."""
+    from repro_torch.core import ClusterEngine
+    from repro_torch.data import drifting_coclusters
+    from repro_torch.models import lightgcn as L
+    from repro_torch.stream import ReplayConfig, StreamUpdater, replay
+    stream = drifting_coclusters(600, 480, k_true=12, avg_deg=10, T=2)
+    engine = ClusterEngine(device=dev)
+    sk = engine.build(stream.base, d=32, ratio=0.25)
+    caps = {"n_users": 600, "n_items": 480, "k_users": 300, "k_items": 240,
+            "n_edges": stream.base.n_edges
+            + sum(s.edge_u.size for s in stream.steps)}
+    up = StreamUpdater(stream.base, sk,
+                       L.init_params(0, L.from_sketch(stream.base, sk,
+                                                      dim=32)),
+                       {"dim": 32, "n_layers": 3, "l2": 1e-4,
+                        "lookup_backend": None},
+                       engine=engine, capacity=caps)
+    first = up.export_artifact()
+    report = replay(up, stream.steps, None,
+                    ReplayConfig(refresh_every=2, tune_steps=3))
+    return first, report["final_artifact"], caps
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["fp32", "int8"])
+def test_padded_fused_session_equals_unpadded_on_the_card(dev, quantized):
+    _, art, caps = _stream_artifacts(dev)
+    if quantized:
+        art = art.quantize()
+    ids = np.arange(0, art.model["n_users"], 3)
+    exact = art.session(k=20, scorer="fused", device=dev)(ids)
+    padded = art.session(k=20, scorer="fused", capacity=caps, device=dev)
+    got = padded(ids)
+    assert torch.equal(got[0], exact[0]) and torch.equal(got[1], exact[1])
+    assert int(got[1].max()) < art.model["n_items"]
+
+
+def test_swap_allocates_nothing_on_the_card(dev):
+    first, final, caps = _stream_artifacts(dev)
+    session = first.session(k=20, scorer="fused", capacity=caps, device=dev)
+    session.warmup(64)
+    ids = np.arange(0, first.model["n_users"], 5)
+    session(ids)                                  # enqueued before the swap
+    n_alloc = session.state_allocations
+    ptrs = {k: v.data_ptr() for k, v in {**session.params,
+                                         **session.statics}.items()}
+    sw = session.swap(final)
+    assert sw["state_allocations"] == 0 and not sw["capacity_bumped"]
+    assert session.state_allocations == n_alloc
+    assert ptrs == {k: v.data_ptr() for k, v in {**session.params,
+                                                 **session.statics}.items()}
+    ids = np.arange(0, final.model["n_users"], 5)
+    got = session(ids)
+    want = final.session(k=20, scorer="fused", device=dev)(ids)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_capacity_tuner_on_the_card_matches_cpu(dev):
+    """10 tuning steps on capacity-padded state: the card's codebooks
+    equal the CPU's (the plain versions) to rtol 1e-4 / atol 2e-5, the
+    tolerance the CPU run is held to against the reference; the pad
+    codebook rows stay exactly zero on the card."""
+    from repro_torch.core import ClusterEngine
+    from repro_torch.data import drifting_coclusters
+    from repro_torch.models import lightgcn as L
+    from repro_torch.stream import CapacityTuner
+    stream = drifting_coclusters(600, 480, k_true=12, avg_deg=10, T=2)
+    g = stream.base
+    sk = ClusterEngine(device="cpu").build(g, d=32, ratio=0.25)
+    caps = {"n_users": 600, "n_items": 480, "k_users": 300, "k_items": 240,
+            "n_edges": g.n_edges + sum(s.edge_u.size for s in stream.steps)}
+    params = L.init_params(0, L.from_sketch(g, sk, dim=32))
+    model = {"dim": 32, "n_layers": 3, "l2": 1e-4, "lookup_backend": None}
+    out = {}
+    for device in (dev, "cpu"):
+        tuner = CapacityTuner(model, lr=5e-3, batch_size=256, caps=caps,
+                              device=device)
+        out[device] = tuner.tune(g, sk, params, 10, seed=3)
+        if device == dev:
+            assert not tuner._params["user_table"][sk.k_users:].any()
+            assert not tuner._params["item_table"][sk.k_items:].any()
+    for k in ("user_table", "item_table"):
+        assert not np.array_equal(out[dev][k], params[k])
+        np.testing.assert_allclose(out[dev][k], out["cpu"][k], rtol=1e-4,
+                                   atol=2e-5)

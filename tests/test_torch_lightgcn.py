@@ -95,6 +95,12 @@ def test_statics_match_reference(setup):
     gj, gt, sk, sk_j = setup
     js = JL.make_statics(gj, sk_j)
     ts = L.make_statics(gt, sk, device="cpu")
-    assert set(ts) == set(js)
+    # the reference's keys, plus the kernel's int32 copies of two of them
+    kernel_ids = {"edge_v_idx32": "edge_v",
+                  "edge_u_byitem_idx32": "edge_u_byitem"}
+    assert set(ts) == set(js) | set(kernel_ids)
     for key in js:
         np.testing.assert_array_equal(ts[key].numpy(), np.asarray(js[key]))
+    for key, of in kernel_ids.items():
+        assert ts[key].dtype == torch.int32
+        np.testing.assert_array_equal(ts[key].numpy(), np.asarray(js[of]))
