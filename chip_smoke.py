@@ -38,6 +38,28 @@
    before the replay and read just after; codebook_lookup, the weighted
    CSR gather-sum and fused_topk must have run. It prints a ``stream``
    JSON line.
+   Then the serving front end (``repro_torch.frontdoor``) over the
+   trained export, as ``python -m repro_torch.launch.load_bench`` sets
+   it up: ``web`` alone on a capacity-padded fused fp32 session,
+   ``mobile`` and ``beta`` on one fused int8 session over its
+   quantization, buckets (1, 8, 64), ``flush_ms`` 2, a 256-deep queue
+   that sheds, a 1,024-entry hot-user cache. v2 is the main path's
+   trainer fine-tuned 40 more steps and shipped as a verified delta.
+   Two open-loop runs of 4 s on fresh tenants, at 120 and at 600 qps
+   offered (bursts 2x, Zipf 1.1 users, sizes 1-8, tenant weights 0.5 /
+   0.3 / 0.2), ``web`` swapping to v2 halfway. Launch counts are zeroed
+   just before each run and read just after; codebook_lookup, the
+   weighted CSR gather-sum and fused_topk must have run. Every arrival
+   must be accounted for (responses + shed + timeouts + failed ==
+   offered, no failure, no shed at 120 qps); every device batch, at its
+   own padded bucket, and every response must equal a fresh session of
+   the version that served it (bitwise or within ``topk_agree``'s
+   near-ties); each ``web`` response must be wholly v1 or wholly v2, v2
+   if submitted after the swap returned and v1 if resolved before it
+   began; the swap must be ``swapped`` and allocate no device state
+   across the registry. The change in the caching allocator's segments
+   over each run is printed, not gated. It prints a ``frontdoor`` JSON
+   line.
 3. Drives the embedding layer's entry points (``repro_torch.embedding``) at
    the same width, on the main path's sketch (K_u 8,878 with H=2, K_v 17,136
    with H=1) and its trained d=64 codebooks: the codebook
@@ -89,7 +111,8 @@
    the port end to end on a small input against itself on the CPU,
    serving and 20 training steps (losses to rtol 1e-5).
 
-Prints a ``stream`` JSON line, a ``kernels`` JSON line, a ``timer`` line
+Prints a ``stream`` JSON line, a ``frontdoor`` JSON line, a ``kernels``
+JSON line, a ``timer`` line
 (the timer's floor), the ``nvidia-smi`` name/power line, and as its last
 line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
 result, if there is no CUDA device, if ``repro_torch`` is missing, or if any
@@ -120,6 +143,11 @@ F16_OPS_PER_S = 989e12
 # the JAX package's values on this dataset and seed (CPU run)
 JAX_REFERENCE = {"k_users": 8878, "k_items": 17136, "gamma": 0.0078125,
                  "iters": 1}
+
+# the frontdoor phase: 4 s open-loop runs at the reference load bench's
+# 120 qps (no request may be shed) and at 600 qps
+FRONTDOOR_RATES = (120.0, 600.0)
+FRONTDOOR_DURATION_S = 4.0
 
 # the stream phase's stream (amazonbook's users, items and k_true)
 STREAM_ARGS = dict(n_users=52_643, n_items=91_599, k_true=300, avg_deg=10,
@@ -606,7 +634,7 @@ def train_path(train, test, sketch, workdir: str, device: str = "cuda",
     log("parity: 32 steps of host (device sampler) bitwise equal to fused; "
         "kill at 32 and resume bitwise equal to 64 uninterrupted steps")
     prof = profile_chunk(whole, chunk) if device == "cuda" else None
-    return {"artifact": art, "path": path, "steps": steps,
+    return {"artifact": art, "trainer": tr, "path": path, "steps": steps,
             "ms_per_step": ms_step, "ms_per_step_chunks": per_step_ms,
             "seconds": t_train, "loss_first": losses[0],
             "loss_last": losses[-1], "untrained": untrained,
@@ -1044,6 +1072,209 @@ def profile_tune(updater, n: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 2c: the serving front end under open-loop load
+# ---------------------------------------------------------------------------
+@contextlib.contextmanager
+def recorded_session_calls(calls: list):
+    """Every ``RecsysSession.__call__`` inside appends ``(artifact_id,
+    padded ids, (values, items))``: the device batches as the sessions
+    saw them, bucket padding included."""
+    import numpy as np
+
+    from repro_torch.serve import RecsysSession
+    inner = RecsysSession.__call__
+
+    def call(self, user_ids):
+        out = inner(self, user_ids)
+        calls.append((self.artifact_id, np.array(user_ids), out))
+        return out
+
+    RecsysSession.__call__ = call
+    try:
+        yield calls
+    finally:
+        RecsysSession.__call__ = inner
+
+
+class VersionCheck:
+    """Fresh unpadded fused sessions over the served versions, and the
+    near-tie rule of :func:`topk_agree` against each."""
+
+    def __init__(self, artifacts: dict, device: str):
+        from repro_torch.launch.load_bench import BUCKETS
+        from repro_torch.serve import BatchDispatcher
+        self.artifacts = artifacts
+        self.device = device
+        self.sessions = {aid: art.session(k=20, scorer="fused",
+                                          device=device)
+                         for aid, art in artifacts.items()}
+        self.dispatchers = {aid: BatchDispatcher(s, BUCKETS)
+                            for aid, s in self.sessions.items()}
+        self._emb = {}
+        self.near_tie_ids = 0
+
+    def _score(self, aid, ids):
+        import numpy as np
+        import torch
+
+        from repro_torch.embedding import dequantize_params
+        from repro_torch.models import lightgcn as L
+        if aid not in self._emb:
+            art = self.artifacts[aid]
+            params = {k: torch.as_tensor(v, device=self.device)
+                      for k, v in art.serving_params().items()}
+            statics = art.statics(torch.device(self.device))
+            self._emb[aid] = (*L.all_embeddings(
+                dequantize_params(params), statics, art.mcfg()), statics)
+        u_all, v_all, statics = self._emb[aid]
+        rows = torch.as_tensor(np.asarray(ids, np.int64), device=self.device)
+        return pair_scorer(u_all[rows], v_all,
+                           mask=statics.get("item_mask"))
+
+    def agrees(self, aid, ids, vals, items, want=None) -> bool:
+        """``(vals, items)`` served for ``ids`` equal the fresh session of
+        version ``aid`` (``want``, its output on the same padded batch,
+        else a fresh dispatch of ``ids``), bitwise or within near-ties."""
+        import numpy as np
+        if want is None:
+            want = self.dispatchers[aid](ids)
+        want = [np.asarray(x.cpu() if hasattr(x, "cpu") else x)
+                for x in want]
+        vals, items = (np.asarray(x.cpu() if hasattr(x, "cpu") else x)
+                       for x in (vals, items))
+        try:
+            n = topk_agree(vals, items, want[0], want[1],
+                           self._score(aid, ids))
+        except SmokeFailure:
+            return False
+        self.near_tie_ids += n
+        return True
+
+
+def frontdoor_run(base, v2, shared, qps: float, device: str, versions,
+                  no_shed: bool) -> dict:
+    """One open-loop run of the load bench's scenario on fresh tenants:
+    launch counts zeroed just before and read just after; then every
+    device batch and every response checked against fresh sessions."""
+    from repro_torch.launch import load_bench as LB
+    fd = LB.frontdoor(base, flush_ms=2.0, queue_size=256,
+                      cache_entries=1024, device=device)
+    calls, submitted = [], {}
+    sync(device)
+    zero_counts()
+    with recorded_session_calls(calls):
+        rec = LB.run(fd, v2, qps=qps, duration=FRONTDOOR_DURATION_S,
+                     seed=0, log=submitted)
+    sync(device)
+    counts = launch_counts()
+    launches = {n: counts[n] for n in ("codebook_lookup", "fused_topk",
+                                       "embedding_bag")}
+    launches["weighted"] = weighted_launches()
+    accounted = rec["responses"] + rec["shed"] + rec["timeouts"] \
+        + rec["failed"]
+    require(accounted == rec["offered"] and rec["failed"] == 0,
+            f"{qps} qps: arrivals unaccounted or failed: {rec}")
+    require(rec["swap_mode"] == "swapped",
+            f"{qps} qps: web swapped by mode {rec['swap_mode']}")
+    require(rec["state_allocations_under_load"] == 0,
+            f"{qps} qps: {rec['state_allocations_under_load']} device state "
+            f"allocations under load")
+    for name in ("codebook_lookup", "fused_topk", "embedding_bag",
+                 "weighted"):
+        require(launches[name] > 0,
+                f"{name} never ran on the frontdoor path")
+
+    # every device batch, at its own padded bucket
+    ids_v1, ids_v2 = base.content_id(), v2.content_id()
+    require({a for a, _, _ in calls} <= {ids_v1, ids_v2,
+                                         shared.content_id()},
+            "a session served an unknown version")
+    for aid, ids, out in calls:
+        require(versions.agrees(aid, ids, *out,
+                                want=versions.sessions[aid](ids)),
+                f"{qps} qps: a device batch of {ids.size} differs from a "
+                f"fresh session of its version")
+    # every response: its version, wholly, and the swap's order
+    swap = submitted["swap"]
+    served = {"v1": 0, "v2": 0, "either": 0, "int8": 0}
+    for i, (tenant, ids, ticket) in enumerate(submitted["requests"]):
+        if ticket.error() is not None:
+            continue                              # a timeout, counted
+        vals, items = ticket.result(timeout=60)
+        if tenant != "web":
+            require(versions.agrees(shared.content_id(), ids, vals, items),
+                    f"{tenant} response differs from the int8 base")
+            served["int8"] += 1
+            continue
+        is_v1 = versions.agrees(ids_v1, ids, vals, items)
+        is_v2 = versions.agrees(ids_v2, ids, vals, items)
+        require(is_v1 or is_v2,
+                "a web response is neither wholly v1 nor wholly v2")
+        if i >= swap["submitted_before"]:
+            require(is_v2, "a request submitted after the swap returned "
+                    "was not served by v2")
+        if ticket.t_done < swap["t_start"]:
+            require(is_v1, "a response resolved before the swap began "
+                    "was not served by v1")
+        served["either" if is_v1 and is_v2 else
+               "v1" if is_v1 else "v2"] += 1
+    if no_shed:
+        require(rec["shed"] == 0, f"{qps} qps shed {rec['shed']} requests")
+    rec["launches"] = launches
+    rec["responses_checked"] = served
+    rec["device_batches_checked"] = len(calls)
+    log(f"frontdoor {qps:g} qps: offered {rec['offered_qps']} -> "
+            f"sustained {rec['sustained_qps']}; e2e p50/p99 "
+            f"{rec['e2e_p50_ms']}/{rec['e2e_p99_ms']} ms, queue p50/p99 "
+            f"{rec['queue_delay_p50_ms']}/{rec['queue_delay_p99_ms']} ms; "
+            f"fill {rec['batch_fill_mean']} buckets {rec['bucket_counts']}; "
+            f"shed {rec['shed']} timeouts {rec['timeouts']} cache hits "
+            f"{rec['cache_hits']}; swap {rec['swap_mode']} pause "
+            f"{rec['swap_pause_ms']} ms (drain {rec['swap_drain_ms']}); "
+            f"allocations {rec['state_allocations_under_load']}, allocator "
+            f"segments +{rec['allocator_segments_under_load']}; launches "
+            f"{launches}")
+    log(f"frontdoor {qps:g} qps: {len(calls)} device batches and "
+        f"{sum(served.values())} responses ({served}) equal fresh "
+        f"sessions of their versions")
+    return rec
+
+
+def frontdoor_path(run: dict, device: str = "cuda",
+                   extra_steps: int = 40) -> dict:
+    """The serving front end (``repro_torch.frontdoor``) over the main
+    path's trained export: v2 is the main path's trainer fine-tuned
+    ``extra_steps`` more steps and shipped as a verified delta; then one
+    open-loop run per rate in ``FRONTDOOR_RATES`` (the load bench's
+    three tenants, ``web`` swapping to v2 halfway)."""
+    from repro_torch.launch import load_bench as LB
+    base = run["loaded"]
+    t0 = time.perf_counter()
+    v2 = LB.ship_v2(run["training"]["trainer"], run["training"]["artifact"],
+                    extra_steps)
+    require(v2.content_id() != base.content_id(), "v2 equals the base")
+    shared = base.quantize()
+    versions = VersionCheck({a.content_id(): a for a in (base, v2, shared)},
+                            device)
+    log(f"frontdoor: v2 {v2.content_id()} = base + delta after "
+        f"{extra_steps} more steps ({time.perf_counter() - t0:.1f} s)")
+    out = {"rates": {}}
+    for i, qps in enumerate(FRONTDOOR_RATES):
+        out["rates"][f"{qps:g}"] = frontdoor_run(
+            base, v2, shared, qps, device, versions, no_shed=i == 0)
+    out["near_tie_ids"] = versions.near_tie_ids
+    out["bitwise"] = versions.near_tie_ids == 0
+    log(f"frontdoor: every response checked "
+        f"{'bitwise' if out['bitwise'] else 'within near-ties'} "
+        f"({versions.near_tie_ids} ids at near-ties)")
+    out["launches"] = {
+        n: sum(r["launches"][n] for r in out["rates"].values())
+        for n in ("codebook_lookup", "fused_topk", "embedding_bag",
+                  "weighted")}
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the embedding layer's entry points
 # ---------------------------------------------------------------------------
 def embedding_inputs(run: dict, device: str) -> dict:
@@ -1358,11 +1589,14 @@ def check_codebook_lookup(run: dict) -> dict:
             "replaces": "src/repro/kernels/codebook_lookup.py:98",
             "launches": (run["launches"]["codebook_lookup"]
                          + run["training"]["launches"]["codebook_lookup"]
-                         + run["stream"]["launches"]["codebook_lookup"]),
+                         + run["stream"]["launches"]["codebook_lookup"]
+                         + run["frontdoor"]["launches"]["codebook_lookup"]),
             "launches_by_path": {
                 "serving": run["launches"]["codebook_lookup"],
                 "training": run["training"]["launches"]["codebook_lookup"],
-                "stream": run["stream"]["launches"]["codebook_lookup"]},
+                "stream": run["stream"]["launches"]["codebook_lookup"],
+                "frontdoor":
+                    run["frontdoor"]["launches"]["codebook_lookup"]},
             "max_abs_err": max_err, "ms": main["ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
@@ -1470,10 +1704,12 @@ def check_fused_topk(run: dict) -> dict:
             "source": "src/repro_torch/kernels/csrc/fused_topk.cu",
             "replaces": "src/repro/kernels/fused_topk.py:229",
             "launches": (run["launches"]["fused_topk"]
-                         + run["stream"]["launches"]["fused_topk"]),
+                         + run["stream"]["launches"]["fused_topk"]
+                         + run["frontdoor"]["launches"]["fused_topk"]),
             "launches_by_path": {
                 "serving": run["launches"]["fused_topk"],
-                "stream": run["stream"]["launches"]["fused_topk"]},
+                "stream": run["stream"]["launches"]["fused_topk"],
+                "frontdoor": run["frontdoor"]["launches"]["fused_topk"]},
             "max_abs_err": max_err, "ms": main["ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
@@ -1724,7 +1960,8 @@ def check_embedding_bag(run: dict, emb_run: dict) -> dict:
         "serving": run["launches"]["embedding_bag"],
         "training": run["training"]["launches"]["embedding_bag"],
         "embedding_layer": emb_run["launches"]["embedding_bag"],
-        "stream": run["stream"]["launches"]["embedding_bag"]}
+        "stream": run["stream"]["launches"]["embedding_bag"],
+        "frontdoor": run["frontdoor"]["launches"]["embedding_bag"]}
     return {"name": "embedding_bag", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/embedding_bag.cu",
             "replaces": "src/repro/kernels/embedding_bag.py:56",
@@ -2202,6 +2439,7 @@ def main() -> int:
                 ROOT, "build")) as workdir:
             run = main_path(workdir)
             run["stream"] = stream_path()
+            run["frontdoor"] = frontdoor_path(run)
             emb_run = embedding_path(run)
             bench_run = bench_path()
             floor = timer_floor_ms()
@@ -2218,6 +2456,7 @@ def main() -> int:
         log(f"FAIL: {type(e).__name__}: {e}")
         return 1
     print(json.dumps({"stream": run["stream"]}))
+    print(json.dumps({"frontdoor": run["frontdoor"]}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"timer": {"floor_ms": floor,
                                 "spin_cycles": spin_cycles()}}))

@@ -7,8 +7,9 @@ and ``CounterSet``).
 """
 from .clock import ms_between, now, wall
 from .metrics import CounterSet, Histogram, LatencyRecorder
-from .trace import NULL_SPAN, Span, Tracer, configure, get_tracer
+from .trace import (NULL_SPAN, Span, Tracer, configure, get_tracer,
+                    set_tracer)
 
 __all__ = ["now", "wall", "ms_between", "CounterSet", "Histogram",
            "LatencyRecorder", "Span", "Tracer", "NULL_SPAN", "get_tracer",
-           "configure"]
+           "set_tracer", "configure"]

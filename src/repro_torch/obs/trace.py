@@ -1,7 +1,10 @@
 """Spans and trace IDs (the part of ``repro.obs.trace`` the port uses).
 
 ``get_tracer().span(name, **attrs)`` is a context-managed child of the
-current thread's ambient span, or a fresh root when there is none.
+current thread's ambient span, or a fresh root when there is none;
+``record_span`` commits a span from timestamps taken earlier, from any
+thread (the frontdoor's batcher commits each request's queue, batch,
+dispatch, device and respond spans that way).
 Sampling is decided once per trace at root creation and inherited by
 every child. A disabled tracer (the default) returns the shared
 :data:`NULL_SPAN` from every call: no allocation, no clock read, no lock.
@@ -17,7 +20,8 @@ from typing import Dict, List, Optional
 
 from .clock import now
 
-__all__ = ["Span", "Tracer", "NULL_SPAN", "get_tracer", "configure"]
+__all__ = ["Span", "Tracer", "NULL_SPAN", "get_tracer", "set_tracer",
+           "configure"]
 
 
 class _NullSpan:
@@ -179,6 +183,29 @@ class Tracer:
         return Span(self, parent.trace_id, span_id, parent.span_id,
                     name, now(), attrs)
 
+    def record_span(self, name: str, t_start: float, t_end: float,
+                    parent: Optional[Span] = None, **attrs):
+        """Commit a span from externally measured ``clock.now()``
+        timestamps (retroactive, cross-thread safe). Returns the
+        committed span so callers can chain it as a parent."""
+        if not self.enabled:
+            return NULL_SPAN
+        if parent is not None and not getattr(parent, "sampled", False):
+            return NULL_SPAN
+        if parent is None:
+            trace_id, span_id, sampled = self._ids(new_trace=True)
+            if not sampled:
+                return NULL_SPAN
+            parent_id = ""
+        else:
+            trace_id, parent_id = parent.trace_id, parent.span_id
+            _, span_id, _ = self._ids(new_trace=False)
+        sp = Span(self, trace_id, span_id, parent_id, name, float(t_start),
+                  attrs)
+        sp.t_end = float(t_end)
+        self._commit(sp)
+        return sp
+
     def _commit(self, span: Span) -> None:
         with self._lock:
             if len(self._spans) >= self.max_spans:
@@ -196,6 +223,11 @@ class Tracer:
             out, self._spans = self._spans, []
             return out
 
+    def clear(self) -> None:
+        with self._lock:
+            self._spans = []
+            self.dropped = 0
+
 
 # Disabled by default; configure() mutates THIS object in place, so
 # modules that grabbed get_tracer() at import time see the change.
@@ -205,6 +237,13 @@ _GLOBAL = Tracer(enabled=False)
 def get_tracer() -> Tracer:
     """The process-wide ambient tracer (disabled until configured)."""
     return _GLOBAL
+
+
+def set_tracer(tracer: Tracer) -> Tracer:
+    """Swap the global tracer object (tests use this for isolation)."""
+    global _GLOBAL
+    _GLOBAL = tracer
+    return tracer
 
 
 def configure(enabled: bool = True, sample_rate: Optional[float] = None,

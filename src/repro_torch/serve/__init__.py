@@ -9,6 +9,8 @@
     ``prev.apply_delta(d)``), capacity-padded sessions
     (``capacity_plan``; ``session.swap(artifact)`` copies into the
     session's device state) and ``StreamTelemetry``.
+  * ``FrontdoorTelemetry`` — the counters and latencies of
+    ``repro_torch.frontdoor``'s async front end.
 
 Usage::
 
@@ -23,9 +25,10 @@ from .artifact import (ARTIFACT_VERSION, DELTA_VERSION, ArtifactDelta,
                        CompressedArtifact)
 from .dispatch import DEFAULT_BUCKETS, BatchDispatcher, chunk_plan
 from .session import RecsysSession, capacity_plan, normalize_scorer
-from .telemetry import StreamTelemetry
+from .telemetry import FrontdoorTelemetry, StreamTelemetry
 
 __all__ = ["ARTIFACT_VERSION", "DELTA_VERSION", "ArtifactDelta",
            "CompressedArtifact", "DEFAULT_BUCKETS", "BatchDispatcher",
            "chunk_plan", "RecsysSession", "capacity_plan",
-           "normalize_scorer", "StreamTelemetry"]
+           "normalize_scorer", "StreamTelemetry",
+           "FrontdoorTelemetry"]

@@ -88,10 +88,12 @@ class CompressedArtifact:
     @classmethod
     def from_trainer(cls, trainer) -> "CompressedArtifact":
         """Snapshot a ``repro_torch.training.Trainer`` into a deployable
-        artifact (host numpy), with the reference's provenance keys."""
-        params = {k: p.detach().cpu().numpy()
+        artifact (host numpy), with the reference's provenance keys. The
+        arrays are copies: a CPU trainer that keeps training leaves the
+        artifact as it was exported."""
+        params = {k: p.detach().to("cpu", copy=True).numpy()
                   for k, p in trainer.params.items()}
-        edges = {k: trainer.statics[k].cpu().numpy()
+        edges = {k: trainer.statics[k].to("cpu", copy=True).numpy()
                  for k in ("edge_u", "edge_v", "edge_norm")}
         cfg = trainer.mcfg
         return cls.from_parts(params, edges, trainer.sketch, cfg, {

@@ -19,7 +19,11 @@ with the device sampler, and a warm chunk runs under sync-debug "error".
 A capacity-padded fused session (fp32 and int8) serves bitwise what an
 unpadded one serves, a swap within the rungs allocates no device
 state and then serves what a fresh session serves, and the
-CapacityTuner's fine-tune on the card equals the CPU's.
+CapacityTuner's fine-tune on the card equals the CPU's. The frontdoor
+swaps a tenant from a thread other than its batcher's while three
+client threads load it: every response is wholly v1 or wholly v2 and
+equals a direct session call bitwise, and the swap allocates no device
+state (every state tensor keeps its ``data_ptr``).
 dot_interaction is bitwise on integer inputs and within 2e-4 / 2e-5 (f32;
 2e-2 in bf16 and f16, one rounding of sums in another order) elsewhere,
 over F (every F mod 4, one tile per lane and lanes looping) and d (scalar
@@ -36,6 +40,7 @@ all-equal scores; and two calls repeat bitwise. Its chunk plan takes the
 tiling and occupancy the build reports. An empty batch launches nothing.
 """
 import importlib.util
+import time
 from pathlib import Path
 
 import numpy as np
@@ -759,3 +764,84 @@ def test_capacity_tuner_on_the_card_matches_cpu(dev):
         assert not np.array_equal(out[dev][k], params[k])
         np.testing.assert_allclose(out[dev][k], out["cpu"][k], rtol=1e-4,
                                    atol=2e-5)
+
+
+@pytest.fixture(scope="module")
+def frontdoor_versions():
+    """A base export and its delta-shipped v2, trained on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.core import ClusterEngine
+    from repro_torch.data import planted_coclusters
+    from repro_torch.launch.load_bench import ship_v2
+    from repro_torch.training import TrainConfig, Trainer
+    g, _, _ = planted_coclusters(2000, 1500, 20, 10, seed=0)
+    sk = ClusterEngine(device="cuda").build(g, d=32, ratio=0.25)
+    tr = Trainer(g, sk, TrainConfig(dim=32, steps=20, batch_size=512,
+                                    lr=5e-3, backend="fused"),
+                 device="cuda")
+    tr.run(log_every=0)
+    base = tr.export()
+    return base, ship_v2(tr, base, 10)
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["fp32", "int8"])
+def test_frontdoor_swap_from_another_thread_on_the_card(
+        dev, frontdoor_versions, quantized):
+    import threading
+
+    from repro_torch.frontdoor import Frontdoor, FrontdoorConfig
+    from repro_torch.serve import BatchDispatcher
+    base, v2 = frontdoor_versions
+    if quantized:
+        base, v2 = base.quantize(), v2.quantize()
+    buckets = (1, 8, 64)
+    fd = Frontdoor(FrontdoorConfig(k=20, buckets=buckets, scorer="fused",
+                                   cache_entries=0, flush_ms=1.0,
+                                   device=dev))
+    fd.attach("web", base, capacity="auto")
+    sess = fd.registry.session("web")
+    warm = fd.state_allocations
+    ptrs = {k: v.data_ptr() for k, v in {**sess.params,
+                                         **sess.statics}.items()}
+    got, errors, swapped = [], [], {}
+    n_users = base.model["n_users"]
+
+    def client(cid):
+        rng = np.random.default_rng(cid)
+        try:
+            for _ in range(40):
+                ids = rng.integers(0, n_users, int(rng.choice([1, 3, 8,
+                                                               40])))
+                got.append((ids, *fd(ids, tenant="web")))
+        except Exception as e:                  # surface across threads
+            errors.append(e)
+
+    def swapper():
+        time.sleep(0.05)
+        swapped["out"] = fd.swap("web", v2)
+
+    with fd:
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(3)] + [threading.Thread(target=swapper)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+            assert not t.is_alive()
+    assert not errors, errors[0]
+    assert swapped["out"]["mode"] == "swapped"
+    assert swapped["out"]["session"]["state_allocations"] == 0
+    assert fd.state_allocations == warm
+    assert ptrs == {k: v.data_ptr() for k, v in {**sess.params,
+                                                 **sess.statics}.items()}
+    direct = [BatchDispatcher(a.session(k=20, scorer="fused", device=dev),
+                              buckets) for a in (base, v2)]
+    seen = set()
+    for ids, vals, items in got:
+        match = [v for v, d in enumerate(direct)
+                 if all(np.array_equal(x, y)
+                        for x, y in zip(d(ids), (vals, items)))]
+        assert match, "a response is neither wholly v1 nor wholly v2"
+        seen.update(match)
+    assert seen == {0, 1}
