@@ -60,6 +60,34 @@
    across the registry. The change in the caching allocator's segments
    over each run is printed, not gated. It prints a ``frontdoor`` JSON
    line.
+   Then the cluster build at scale (``repro_torch.launch.cluster_scale``:
+   ``planted_coclusters`` at average degree 8, gamma 0.5, 8 sweeps). The
+   100k rung (80,000 x 20,000, 286,695 edges): the streamed solve at
+   ``block_edges`` 1<<20 and 1<<12, the in-memory solve and
+   ``torch_hostloop``; the 1M rung (800,000 x 200,000, 2,647,670 edges):
+   streamed at 1<<20 and 1<<14 (an oversized block for the item of
+   degree 21,974), then in memory. Every solve of a rung gives the same
+   labels and sweeps, equal to ``SCALE_REFERENCE`` (the JAX package's
+   CPU solve); the streamed solves run on a graph no in-memory solve has
+   touched, and at the smaller block size their peak device bytes (from
+   a reset peak) must lie below the in-memory solve's. The minhash
+   cold-assign experiment runs at 100k. Launch counts are zeroed just
+   before the first solve and read just after the last; the CSR
+   gather-sum (the ordered W(k) sums) must have run; the W(k) sums of
+   each rung's final labels are then held bitwise against their plain
+   version and timed. It prints a ``scale`` JSON line.
+   Then the paper's comparison on the main path's graph (budget 0.25 x
+   nodes): the ``random``, ``frequency``, ``double``, ``hybrid``, ``lsh``,
+   ``lp`` and ``lpab`` sketches (``lp``/``lpab`` on the GPU solver, equal
+   to the CPU port's at gowalla_s), their K and parameters against full;
+   ``double`` (2-hot on both sides) trained 200 fused steps (batch
+   2,048), Recall/NDCG@20 on 4,096 test users beside BACO's, exported,
+   ``n_params``/``serving_nbytes`` in fp32 and int8 (int8 smaller), 13
+   fused requests bitwise a fresh session's; launch counts around the
+   training and the serving (codebook_lookup with items H = 2, the CSR
+   gather-sum, fused_topk must run); the items' H = 2 lookup held
+   against its plain version and timed. It prints a ``baselines`` JSON
+   line.
 3. Drives the embedding layer's entry points (``repro_torch.embedding``) at
    the same width, on the main path's sketch (K_u 8,878 with H=2, K_v 17,136
    with H=1) and its trained d=64 codebooks: the codebook
@@ -111,8 +139,8 @@
    the port end to end on a small input against itself on the CPU,
    serving and 20 training steps (losses to rtol 1e-5).
 
-Prints a ``stream`` JSON line, a ``frontdoor`` JSON line, a ``kernels``
-JSON line, a ``timer`` line
+Prints a ``stream`` JSON line, a ``frontdoor`` JSON line, a ``scale``
+and a ``baselines`` JSON line, a ``kernels`` JSON line, a ``timer`` line
 (the timer's floor), the ``nvidia-smi`` name/power line, and as its last
 line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
 result, if there is no CUDA device, if ``repro_torch`` is missing, or if any
@@ -192,6 +220,26 @@ STREAM_REFERENCE = {
          "user_idx": "010aa68781356831971bcfb6f85e74f1",
          "item_idx": "3f89b06a4ea2f1057fc212898d4bab2a"},
     ]}
+
+
+# the scale phase: the reference's in-memory solve (gamma 0.5, 8 sweeps)
+# of the cluster-scale ladder's rungs on the CPU, pinned with
+# `PYTHONPATH=src python tests/test_torch_scale.py`: edges, the sha256 (its
+# first 32 hex digits) of the int32 labels, sweeps and Barber modularity
+SCALE_REFERENCE = {
+    "100k": {"n_edges": 286695, "labels": "cbfa03236c3d9dcdd8901fe0b02904ef",
+             "iters": 8, "modularity": 0.6553885850996158},
+    "1m": {"n_edges": 2647670, "labels": "9a490abd9bd75e2482de03d1b582ef50",
+           "iters": 8, "modularity": 0.6298310676219552},
+}
+# streamed block sizes per rung; 1<<14 at 1M forces an oversized block for
+# the item of degree 21,974
+SCALE_BLOCKS = {"100k": (1 << 20, 1 << 12), "1m": (1 << 20, 1 << 14)}
+# the baselines phase: the hashing, LSH and LP sketches built at full
+# amazonbook width, and the 2-hot one trained, exported and served
+BASELINE_METHODS = ("random", "frequency", "double", "hybrid", "lsh", "lp",
+                    "lpab")
+BASELINE_TRAIN_STEPS = 200
 
 
 def log(msg: str) -> None:
@@ -405,6 +453,7 @@ def main_path(workdir: str, dataset: str = "amazonbook",
     sync(device)
     t_cluster = time.perf_counter() - t0
     build_stats = dict(engine.stats)        # the build's alone
+    cluster_launches = launch_counts()["embedding_bag"]
     meta = sketch.meta
     got = {"k_users": sketch.k_users, "k_items": sketch.k_items,
            "gamma": meta["gamma"], "iters": meta["iters"]}
@@ -502,8 +551,9 @@ def main_path(workdir: str, dataset: str = "amazonbook",
         log(f"fused vs dense top-k ({prec}): agree, {n_diff} ids differ "
             f"at near-ties")
 
-    return {"train": train, "sketch": sketch, "loaded": loaded,
-            "launches": launches, "serve": serve, "cluster_s": t_cluster,
+    return {"train": train, "test": test, "sketch": sketch,
+            "loaded": loaded, "launches": launches, "serve": serve,
+            "cluster_s": t_cluster, "cluster_launches": cluster_launches,
             "cluster": got, "stats": build_stats, "training": trained,
             "weighted_per_request": weighted_per_request}
 
@@ -1275,6 +1325,320 @@ def frontdoor_path(run: dict, device: str = "cuda",
 
 
 # ---------------------------------------------------------------------------
+# phase 2d: the cluster build at scale (the 100k and 1M rungs)
+# ---------------------------------------------------------------------------
+def segsum_row(values, seg, n: int) -> dict:
+    """The ordered W(k) sum on the card: the solver's route (a stable
+    sort and one CSR gather-sum launch) bitwise against its plain version
+    (``ref.segment_sum``, one ``index_add_`` per rank within a segment),
+    both timed beside ``index_add_`` (atomic, so not ordered)."""
+    import torch
+
+    from repro_torch.core import solver_torch
+    from repro_torch.kernels import ref
+    got = solver_torch.segment_sum_ordered(values, seg, n)
+    want = ref.segment_sum(values, seg, n)
+    require(torch.equal(got, want),
+            "the ordered W(k) sum is not bitwise its plain version")
+    m = int(seg.shape[0])
+    steps = int(torch.bincount(seg, minlength=n).max()) if m else 0
+    # values and labels read, sums written; one add per value
+    bms, by = bound(4 * m + 8 * m + 4 * n, m)
+    return {"shape": f"M={m} segments={n}", "plain_steps": steps,
+            "ms": time_ms(lambda: solver_torch.segment_sum_ordered(
+                values, seg, n)),
+            "plain_ms": time_ms(lambda: ref.segment_sum(values, seg, n),
+                                iters=5, warmup=1),
+            "library_ms": time_ms(lambda: torch.zeros(
+                n, device=values.device).index_add_(0, seg, values)),
+            "bound_ms": bms, "bound_by": by,
+            "max_abs_err": float((got - want).abs().max()) if n else 0.0}
+
+
+def scale_path(device: str = "cuda", rungs=("100k", "1m"),
+               reference=None, blocks=None) -> dict:
+    """The scale ladder's rungs through ``repro_torch.launch.cluster_scale``
+    (``planted_coclusters``, average degree 8, gamma 0.5, 8 sweeps). Each
+    rung: the streamed solve at its two block sizes on a graph no
+    in-memory solve has touched, then the in-memory "torch" solve (its
+    peak from a reset, with the device edge lists dropped before and
+    after); at 100k also "torch_hostloop" and the minhash cold-assign
+    experiment. Labels and sweeps must be equal across the solves and
+    the reference's (``SCALE_REFERENCE``), and at the smaller block size
+    the streamed peak device bytes must lie below the in-memory solve's.
+    Launch counts are zeroed just before the first solve and read just
+    after the last; the CSR gather-sum (the ordered W(k) sums) must have
+    run. Then the ordered W(k) sum on each rung's final labels is held
+    bitwise against its plain version and timed."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import make_weights
+    from repro_torch.core.metrics import bipartite_modularity
+    from repro_torch.launch import cluster_scale as cs
+
+    ref = reference or SCALE_REFERENCE
+    blocks = blocks or SCALE_BLOCKS
+    graphs = {}
+    for rung in rungs:
+        g, build_s = cs.build_rung(rung)
+        graphs[rung] = (g, build_s, make_weights(g, "hws"))
+        log(f"scale {rung}: {g.n_users} x {g.n_items}, {g.n_edges} edges "
+            f"(built in {build_s:.2f} s on the host)")
+    zero_counts()
+    out, finals = {}, {}
+    for rung in rungs:
+        g, build_s, (wu, wv) = graphs[rung]
+        rec = {"n_nodes": g.n_nodes, "n_edges": g.n_edges,
+               "build_s": build_s, "streamed": {}}
+        labels = {}
+        for be in blocks[rung]:
+            lab, it, st, sec = cs.solve_streamed(g, wu, wv, be, device)
+            labels[f"streamed/{be}"] = (lab, it)
+            rec["streamed"][str(be)] = {**st, "solve_s": sec}
+            log(f"scale {rung}: streamed block_edges={be}: {it} sweeps in "
+                f"{sec:.3f} s (fastest sweep {st['sweep_ms']:.3f} ms, "
+                f"{st['blocks_per_s']:.1f} blocks/s, "
+                f"{st['n_blocks_user']}+{st['n_blocks_item']} blocks padded "
+                f"to {st['block_pad_user']}/{st['block_pad_item']}), peak "
+                f"{st['peak_device_bytes']} bytes "
+                f"[{st['peak_bytes_source']}]")
+        base = int(torch.cuda.memory_allocated()) if device == "cuda" else 0
+        lab, it, sec, peak = cs.solve_inmem(g, wu, wv, device)
+        labels["torch"] = (lab, it)
+        rec["inmem"] = {"sweeps": it, "solve_s": sec,
+                        "peak_device_bytes": peak,
+                        "allocated_before_bytes": base}
+        log(f"scale {rung}: in-memory torch: {it} sweeps in {sec:.3f} s, "
+            f"peak {peak} bytes ({base} allocated before)")
+        if rung == "100k":
+            lab, it, sec, _ = cs.solve_inmem(g, wu, wv, device,
+                                             solver="torch_hostloop")
+            labels["torch_hostloop"] = (lab, it)
+            rec["hostloop"] = {"sweeps": it, "solve_s": sec}
+            log(f"scale {rung}: torch_hostloop: {it} sweeps in {sec:.3f} s")
+        lab0, it0 = labels["torch"]
+        for name, (lab, it) in labels.items():
+            require(np.array_equal(lab, lab0) and it == it0,
+                    f"scale {rung}: {name} differs from the in-memory solve")
+        got = {"n_edges": g.n_edges, "labels": digest(lab0.astype(np.int32)),
+               "iters": it0, "modularity": bipartite_modularity(g, lab0)}
+        require(got == ref[rung], f"scale {rung}: {got} is not the "
+                f"reference's {ref[rung]}")
+        small = rec["streamed"][str(min(blocks[rung]))]["peak_device_bytes"]
+        if device == "cuda":
+            require(small < rec["inmem"]["peak_device_bytes"],
+                    f"scale {rung}: streamed peak {small} bytes is not below "
+                    f"the in-memory solve's {rec['inmem']['peak_device_bytes']}")
+        rec["reference"] = got
+        log(f"scale {rung}: {len(labels)} solves equal, and equal to the "
+            f"reference (labels {got['labels']}, {it0} sweeps, modularity "
+            f"{got['modularity']})")
+        if rung == "100k":
+            t0 = time.perf_counter()
+            rec["cold"] = c = cs.cold_experiment(g, lab0, device)
+            log(f"scale {rung}: cold-assign {c['n_cold_users']} users in "
+                f"{time.perf_counter() - t0:.2f} s: exact {c['exact_ms']:.2f}"
+                f" ms, minhash {c['minhash_total_ms']:.2f} ms (index "
+                f"{c['cand_ms']:.2f} ms), recall {c['minhash_recall']}, "
+                f"{c['mean_candidates']:.1f} candidates of {c['n_labels']} "
+                f"labels")
+        finals[rung] = lab0
+        out[rung] = rec
+    sync(device)
+    counts = launch_counts()
+    launches = {"embedding_bag": counts["embedding_bag"]}
+    log(f"kernel launches on the scale path: {launches}")
+    require(launches["embedding_bag"] > 0,
+            "embedding_bag never ran on the scale path")
+    if device == "cuda":
+        for rung in rungs:
+            g, _, (wu, wv) = graphs[rung]
+            lab = torch.as_tensor(finals[rung], dtype=torch.int64,
+                                  device=device)
+            rows = {}
+            for side, w, seg in (
+                    ("items", wv, lab[g.n_users:]),
+                    ("users", wu, lab[:g.n_users])):
+                rows[side] = segsum_row(
+                    torch.as_tensor(np.asarray(w, np.float32),
+                                    device=device), seg, g.n_nodes)
+            steps = rows["items"]["plain_steps"] + rows["users"]["plain_steps"]
+            out[rung]["segment_sum"] = {
+                **rows, "plain_steps_per_sweep": steps,
+                "ms_per_sweep": rows["items"]["ms"] + rows["users"]["ms"],
+                "plain_ms_per_sweep": (rows["items"]["plain_ms"]
+                                       + rows["users"]["plain_ms"])}
+            log(f"scale {rung}: ordered W(k) sums of the final labels "
+                f"bitwise their plain version: "
+                f"{out[rung]['segment_sum']['ms_per_sweep']:.4f} ms a sweep "
+                f"(plain: {steps} steps, "
+                f"{out[rung]['segment_sum']['plain_ms_per_sweep']:.4f} ms)")
+    out["launches"] = launches
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 2e: the paper's comparison (ETC baselines and parameter accounting)
+# ---------------------------------------------------------------------------
+def baselines_path(run: dict, workdir: str, device: str = "cuda",
+                   steps: int = BASELINE_TRAIN_STEPS,
+                   check_dataset: str = "gowalla_s") -> dict:
+    """The baselines of ``BASELINE_METHODS`` built on the main path's
+    graph at budget 0.25 x nodes (the train launcher's), ``lp``/``lpab``
+    through the GPU solver; their K and parameters against full. At
+    ``check_dataset`` the GPU ``lp``/``lpab`` sketches must equal the
+    CPU port's. Then ``double`` (2-hot on both sides) as the train
+    launcher runs it: ``steps`` fused steps at batch 2,048,
+    Recall/NDCG@20 on 4,096 test users beside the main path's BACO,
+    export, int8 quantization (``n_params``/``serving_nbytes``; int8
+    must be smaller), 13 fused requests against a fresh session. Launch
+    counts are zeroed before training and before serving and read after
+    each; codebook_lookup (items H = 2), the CSR gather-sum and
+    fused_topk must have run. The items' H = 2 lookup is then held
+    against its plain version and timed."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import build_sketch
+    from repro_torch.data import paperlike_dataset
+    from repro_torch.kernels import codebook_lookup, ref
+    from repro_torch.serve import CompressedArtifact, RecsysSession
+    from repro_torch.training import TrainConfig, Trainer
+
+    train, test = run["train"], run["test"]
+    budget = int(0.25 * train.n_nodes)
+    full = (train.n_users + train.n_items) * 64
+    sketches, builds = {}, {}
+    for name in BASELINE_METHODS:
+        t0 = time.perf_counter()
+        sk = build_sketch(name, train, budget, device=device)
+        sync(device)
+        sec = time.perf_counter() - t0
+        sketches[name] = sk
+        builds[name] = {"k_users": sk.k_users, "k_items": sk.k_items,
+                        "hot": [int(sk.user_idx.shape[1]),
+                                int(sk.item_idx.shape[1])],
+                        "n_params": sk.n_params(64), "full_params": full,
+                        "build_s": sec}
+        log(f"baseline {name}: K_u={sk.k_users} K_v={sk.k_items} "
+            f"(H {builds[name]['hot']}), {sk.n_params(64)} params = "
+            f"{sk.n_params(64) / full:.4f} of full, built in {sec:.2f} s")
+    bk = run["sketch"]
+    builds["baco"] = {"k_users": bk.k_users, "k_items": bk.k_items,
+                      "n_params": bk.n_params(64), "full_params": full,
+                      "build_s": run["cluster_s"]}
+    _, _, _, small, _ = paperlike_dataset(check_dataset, seed=0)
+    b_small = int(0.25 * small.n_nodes)
+    for name in ("lp", "lpab"):
+        a = build_sketch(name, small, b_small, device=device)
+        b = build_sketch(name, small, b_small, device="cpu")
+        require(np.array_equal(a.user_idx, b.user_idx)
+                and np.array_equal(a.item_idx, b.item_idx)
+                and a.meta["iters"] == b.meta["iters"],
+                f"{check_dataset}: the GPU {name} sketch is not the CPU's")
+    log(f"{check_dataset}: GPU lp and lpab sketches equal the CPU port's")
+
+    sk = sketches["double"]
+    cfg = TrainConfig(steps=steps, batch_size=2048, lr=5e-3, seed=0,
+                      backend="fused", chunk_size=16)
+    tr = Trainer(train, sk, cfg, device=device)
+    zero_counts()
+    sync(device)
+    t0 = time.perf_counter()
+    losses = tr.run(log_every=0)
+    sync(device)
+    t_train = time.perf_counter() - t0
+    counts = launch_counts()
+    train_launches = {n: counts[n] for n in ("codebook_lookup",
+                                             "embedding_bag")}
+    require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+            f"double: the loss did not fall: {losses[0]} -> {losses[-1]}")
+    metrics = tr.evaluate(test, max_users=4096, topk_backend="block")
+    baco = run["training"]["trained"]["block"]
+    log(f"double: {steps} fused steps in {t_train:.2f} s, loss "
+        f"{losses[0]:.5f} -> {losses[-1]:.5f}; Recall/NDCG@20 {metrics} "
+        f"(BACO after {run['training']['steps']} steps: {baco})")
+    art = tr.export(os.path.join(workdir, "double"))
+    loaded = CompressedArtifact.load(os.path.join(workdir, "double"))
+    require(loaded.content_id() == art.content_id(),
+            "double: content_id changed across save/load")
+    q = loaded.quantize()
+    acct = {"n_params_fp32": loaded.n_params(),
+            "serving_nbytes_fp32": loaded.serving_nbytes(),
+            "n_params_int8": q.n_params(),
+            "serving_nbytes_int8": q.serving_nbytes(),
+            "compressed": loaded.compressed}
+    require(loaded.n_params() == sk.n_params(64),
+            "double: the artifact's n_params is not the sketch's")
+    require(acct["serving_nbytes_int8"] < acct["serving_nbytes_fp32"],
+            f"double: int8 is not smaller than fp32: {acct}")
+    log(f"double export: {acct}")
+
+    rng = np.random.default_rng(1)
+    sizes = [1, 8, 64, 512] + [int(x) for x in rng.integers(1, 513, 9)]
+    batches = [rng.integers(0, train.n_users, x) for x in sizes]
+    session = RecsysSession.from_artifact(loaded, k=20, scorer="fused",
+                                          device=device)
+    zero_counts()
+    t0 = time.perf_counter()
+    outs = [session(b) for b in batches]
+    sync(device)
+    t_serve = time.perf_counter() - t0
+    counts = launch_counts()
+    serve_launches = {n: counts[n] for n in ("codebook_lookup", "fused_topk",
+                                             "embedding_bag")}
+    fresh = RecsysSession.from_artifact(loaded, k=20, scorer="fused",
+                                        device=device)
+    for b, (v, i) in zip(batches, outs):
+        fv, fi = fresh(b)
+        require(v.shape == (b.size, 20) and torch.isfinite(v).all(),
+                "double: bad top-k values")
+        require(torch.equal(v, fv) and torch.equal(i, fi),
+                "double: a served request differs from a fresh session's")
+    log(f"double: {len(batches)} fused requests in {t_serve:.3f} s, "
+        f"bitwise a fresh session's; launches training {train_launches}, "
+        f"serving {serve_launches}")
+    for phase, launched in (("training", train_launches),
+                            ("serving", serve_launches)):
+        for name, n in launched.items():
+            require(n > 0, f"{name} never ran on the baselines {phase} path")
+    row = None
+    if device == "cuda":
+        z = torch.as_tensor(loaded.params["item_table"], device=device)
+        ix = torch.as_tensor(sk.item_idx, dtype=torch.int32, device=device)
+        got = codebook_lookup(z, ix, binary=True)
+        want = ref.codebook_lookup(z, ix, binary=True)
+        require(torch.equal(got, want), "codebook_lookup (items H = 2) is "
+                "not bitwise the plain version")
+        b, h = ix.shape
+        bms, by = bound(4 * (ix.numel() + z.numel() + b * z.shape[1]),
+                        b * h * z.shape[1])
+        ixl = ix.long()
+        row = {"shape": f"B={b} H={h} K={z.shape[0]} d={z.shape[1]}",
+               "ms": time_ms(lambda: codebook_lookup(z, ix, binary=True)),
+               "plain_ms": time_ms(lambda: ref.codebook_lookup(
+                   z, ix, binary=True)),
+               "library_ms": time_ms(lambda: z[ixl].sum(1)),
+               "bound_ms": bms, "bound_by": by,
+               "max_abs_err": float((got - want).abs().max())}
+        log(f"codebook_lookup items H=2 {row['shape']}: bitwise equal; {row}")
+    return {"budget": budget, "builds": builds,
+            "double": {"steps": steps, "train_s": t_train,
+                       "loss_first": losses[0], "loss_last": losses[-1],
+                       "metrics": metrics, "baco_metrics": baco, **acct,
+                       "serve_s": t_serve, "requests": len(batches)},
+            "launches": {
+                "training": train_launches, "serving": serve_launches,
+                "codebook_lookup": (train_launches["codebook_lookup"]
+                                    + serve_launches["codebook_lookup"]),
+                "embedding_bag": (train_launches["embedding_bag"]
+                                  + serve_launches["embedding_bag"]),
+                "fused_topk": serve_launches["fused_topk"]},
+            "codebook_items_h2": row}
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the embedding layer's entry points
 # ---------------------------------------------------------------------------
 def embedding_inputs(run: dict, device: str) -> dict:
@@ -1590,17 +1954,21 @@ def check_codebook_lookup(run: dict) -> dict:
             "launches": (run["launches"]["codebook_lookup"]
                          + run["training"]["launches"]["codebook_lookup"]
                          + run["stream"]["launches"]["codebook_lookup"]
-                         + run["frontdoor"]["launches"]["codebook_lookup"]),
+                         + run["frontdoor"]["launches"]["codebook_lookup"]
+                         + run["baselines"]["launches"]["codebook_lookup"]),
             "launches_by_path": {
                 "serving": run["launches"]["codebook_lookup"],
                 "training": run["training"]["launches"]["codebook_lookup"],
                 "stream": run["stream"]["launches"]["codebook_lookup"],
                 "frontdoor":
-                    run["frontdoor"]["launches"]["codebook_lookup"]},
+                    run["frontdoor"]["launches"]["codebook_lookup"],
+                "baselines":
+                    run["baselines"]["launches"]["codebook_lookup"]},
             "max_abs_err": max_err, "ms": main["ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
-            "shape": main["shape"], "items": rows["items"]}
+            "shape": main["shape"], "items": rows["items"],
+            "items_h2": run["baselines"]["codebook_items_h2"]}
 
 
 def check_fused_topk(run: dict) -> dict:
@@ -1705,11 +2073,13 @@ def check_fused_topk(run: dict) -> dict:
             "replaces": "src/repro/kernels/fused_topk.py:229",
             "launches": (run["launches"]["fused_topk"]
                          + run["stream"]["launches"]["fused_topk"]
-                         + run["frontdoor"]["launches"]["fused_topk"]),
+                         + run["frontdoor"]["launches"]["fused_topk"]
+                         + run["baselines"]["launches"]["fused_topk"]),
             "launches_by_path": {
                 "serving": run["launches"]["fused_topk"],
                 "stream": run["stream"]["launches"]["fused_topk"],
-                "frontdoor": run["frontdoor"]["launches"]["fused_topk"]},
+                "frontdoor": run["frontdoor"]["launches"]["fused_topk"],
+                "baselines": run["baselines"]["launches"]["fused_topk"]},
             "max_abs_err": max_err, "ms": main["ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
@@ -1961,7 +2331,10 @@ def check_embedding_bag(run: dict, emb_run: dict) -> dict:
         "training": run["training"]["launches"]["embedding_bag"],
         "embedding_layer": emb_run["launches"]["embedding_bag"],
         "stream": run["stream"]["launches"]["embedding_bag"],
-        "frontdoor": run["frontdoor"]["launches"]["embedding_bag"]}
+        "frontdoor": run["frontdoor"]["launches"]["embedding_bag"],
+        "cluster": run["cluster_launches"],
+        "scale": run["scale"]["launches"]["embedding_bag"],
+        "baselines": run["baselines"]["launches"]["embedding_bag"]}
     return {"name": "embedding_bag", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/embedding_bag.cu",
             "replaces": "src/repro/kernels/embedding_bag.py:56",
@@ -1973,7 +2346,10 @@ def check_embedding_bag(run: dict, emb_run: dict) -> dict:
             **{k: main[k] for k in ("ms", "plain_ms", "bound_ms",
                                     "bound_by", "library_ms", "shape")},
             "backward": {k: rows[k] for k in rows if k != "forward"},
-            "weighted": weighted}
+            "weighted": weighted,
+            "segment_sum": {r: run["scale"][r]["segment_sum"]
+                            for r in run["scale"]
+                            if "segment_sum" in run["scale"].get(r, {})}}
 
 
 def cumsum_route(src_t, idx, w, ptr):
@@ -2440,6 +2816,8 @@ def main() -> int:
             run = main_path(workdir)
             run["stream"] = stream_path()
             run["frontdoor"] = frontdoor_path(run)
+            run["scale"] = scale_path()
+            run["baselines"] = baselines_path(run, workdir)
             emb_run = embedding_path(run)
             bench_run = bench_path()
             floor = timer_floor_ms()
@@ -2457,6 +2835,8 @@ def main() -> int:
         return 1
     print(json.dumps({"stream": run["stream"]}))
     print(json.dumps({"frontdoor": run["frontdoor"]}))
+    print(json.dumps({"scale": run["scale"]}))
+    print(json.dumps({"baselines": run["baselines"]}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"timer": {"floor_ms": floor,
                                 "spin_cycles": spin_cycles()}}))

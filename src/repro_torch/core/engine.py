@@ -1,14 +1,32 @@
 """ClusterEngine: one dispatch layer for every co-clustering solve
 (port of ``repro.core.engine``).
 
-Solvers (registry): "torch" — the side-synchronous LP of
-``solver_torch`` on the engine's device, with ``solve_many`` running a
-gamma grid lane by lane. It is the only solver the port has, so
-auto-selection (solver=None/"auto") picks it.
+Solvers (registry):
+
+  * "torch"          the side-synchronous LP of ``solver_torch`` on the
+                     engine's device, with ``solve_many`` running a gamma
+                     grid lane by lane.
+  * "torch_streamed" the edge-block streamed solve
+                     (``solver_torch.lp_solve_streamed``): edges stay in
+                     pinned host blocks and sweep through the device, bit
+                     for bit "torch" with O(nodes + block) device
+                     residency — the million-node path. Sized by
+                     ``ClusterEngine(block_edges=...)``; the telemetry of
+                     its latest solve is the solver's ``last_stats``.
+  * "torch_hostloop" the seed's half-step in a host-driven loop that
+                     compares each sweep with the previous one (a
+                     benchmark reference).
+  * "numpy"          the paper-faithful sequential Algorithm 1 sweep
+                     (``solver_numpy``, host only; ``device`` is ignored).
+
+Only "torch" is auto-eligible, so auto-selection (solver=None/"auto")
+picks it. The reference's "jax_sharded" has no counterpart yet; a
+reference name raises the registry's ``KeyError``.
 
 The engine carries its ``device`` ("cuda" unless the caller says
 otherwise; a missing CUDA device raises) and a ``stats`` dict into which
-every solve counts its sweeps and host syncs.
+every solve counts its sweeps (and the in-memory solves their host
+syncs).
 """
 from __future__ import annotations
 
@@ -21,13 +39,13 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.obs.trace import get_tracer
 
-from . import solver_torch
+from . import solver_numpy, solver_torch
 from .graph import BipartiteGraph
 from .sketch import Sketch, compact_labels
 from .weights import make_weights
 
 __all__ = ["ClusterEngine", "ClusterSolver", "register_solver",
-           "get_solver"]
+           "get_solver", "available_solvers", "normalize_solver"]
 
 
 class ClusterSolver:
@@ -39,18 +57,28 @@ class ClusterSolver:
     runner-up user labels.
     """
     name: str = "?"
-    batched_grid: bool = False
+    batched_grid: bool = False    # solve_many runs the grid in one call
+    accepts_block_edges: bool = False   # solve(..., block_edges=) meaningful
+    auto_eligible: bool = True    # may be picked by auto-selection
 
     def solve(self, graph, wu, wv, gamma, budget=None, max_iters=8,
               init_labels=None, *, device, stats):
         raise NotImplementedError
 
     def solve_many(self, graph, wu, wv, gammas, budget=None, max_iters=8,
-                   init_labels=None, *, device, stats):
-        raise NotImplementedError
+                   init_labels=None, *, device, stats, **kw):
+        init = None if init_labels is None else np.asarray(init_labels)
+        labs, its = [], []
+        for i, g in enumerate(gammas):
+            seed = init[i] if init is not None and init.ndim == 2 else init
+            lab, it = self.solve(graph, wu, wv, float(g), budget, max_iters,
+                                 seed, device=device, stats=stats, **kw)
+            labs.append(lab)
+            its.append(it)
+        return np.stack(labs), np.asarray(its, np.int32)
 
     def secondary(self, graph, labels, wu, wv, gamma, *, device):
-        raise NotImplementedError
+        return _secondary_torch(graph, labels, wu, wv, gamma, device)
 
 
 _REGISTRY: Dict[str, ClusterSolver] = {}
@@ -68,6 +96,18 @@ def get_solver(name: str) -> ClusterSolver:
     return _REGISTRY[name]
 
 
+def available_solvers():
+    return tuple(sorted(_REGISTRY))
+
+
+def normalize_solver(name: Optional[str]) -> Optional[str]:
+    """None/"auto" -> None (auto-selection); else must be registered."""
+    if name is None or name == "auto":
+        return None
+    get_solver(name)
+    return name
+
+
 class _TorchSolver(ClusterSolver):
     name = "torch"
     batched_grid = True
@@ -83,11 +123,61 @@ class _TorchSolver(ClusterSolver):
                                           max_iters, init_labels,
                                           device=device, stats=stats)
 
+
+class _TorchStreamedSolver(ClusterSolver):
+    name = "torch_streamed"
+    accepts_block_edges = True
+    auto_eligible = False     # in-memory "torch" wins whenever edges fit
+
+    def __init__(self):
+        # sweep telemetry of the latest solve (blocks, seconds per sweep,
+        # peak device bytes), read by the scale CLI and the smoke
+        self.last_stats: dict = {}
+
+    def solve(self, graph, wu, wv, gamma, budget=None, max_iters=8,
+              init_labels=None, *, device, stats, block_edges=None):
+        last: dict = {}
+        out = solver_torch.lp_solve_streamed(
+            graph, wu, wv, gamma, budget, max_iters, init_labels,
+            int(block_edges) if block_edges else 1 << 20, device=device,
+            stats=last)
+        self.last_stats = last
+        stats["sweeps"] = stats.get("sweeps", 0) + int(out[1])
+        return out
+
+
+class _TorchHostloopSolver(ClusterSolver):
+    name = "torch_hostloop"
+    auto_eligible = False
+
+    def solve(self, graph, wu, wv, gamma, budget=None, max_iters=8,
+              init_labels=None, *, device, stats):
+        return solver_torch.lp_solve_hostloop(graph, wu, wv, gamma, budget,
+                                              max_iters, init_labels,
+                                              device=device, stats=stats)
+
+
+class _NumpySolver(ClusterSolver):
+    name = "numpy"
+    auto_eligible = False     # paper-faithful reference, orders slower
+
+    def solve(self, graph, wu, wv, gamma, budget=None, max_iters=8,
+              init_labels=None, *, device, stats):
+        del device                # host numpy
+        out = solver_numpy.lp_solve_sequential(graph, wu, wv, gamma, budget,
+                                               max_iters,
+                                               init_labels=init_labels)
+        stats["sweeps"] = stats.get("sweeps", 0) + int(out[1])
+        return out
+
     def secondary(self, graph, labels, wu, wv, gamma, *, device):
-        return _secondary_torch(graph, labels, wu, wv, gamma, device)
+        return _secondary_numpy(graph, labels, wu, wv, gamma)
 
 
 register_solver(_TorchSolver())
+register_solver(_TorchHostloopSolver())
+register_solver(_TorchStreamedSolver())
+register_solver(_NumpySolver())
 
 
 # ---------------------------------------------------------------------------
@@ -134,6 +224,29 @@ def _score_partitions(graph: BipartiteGraph, labels_batch: np.ndarray,
 # ---------------------------------------------------------------------------
 # SCU secondary assignment
 # ---------------------------------------------------------------------------
+def _secondary_numpy(graph: BipartiteGraph, labels, wu, wv, gamma):
+    """The numpy solver's runner-up user label (f64 weight totals, the
+    first maximizer among the non-primary candidates)."""
+    lab = labels.astype(np.int64).copy()
+    nu = graph.n_users
+    u_indptr, u_nbrs = graph.user_csr()
+    n = graph.n_nodes
+    w_v_by_label = np.bincount(lab[nu:], weights=wv, minlength=n)
+    out = lab[:nu].copy()
+    for i in range(nu):
+        nbrs = u_nbrs[u_indptr[i]:u_indptr[i + 1]]
+        if nbrs.size == 0:
+            continue
+        cand, cnt = np.unique(lab[nu + nbrs], return_counts=True)
+        own = lab[i]
+        keep = cand != own
+        if not keep.any():
+            continue
+        scores = (cnt - gamma * wu[i] * w_v_by_label[cand])[keep]
+        out[i] = cand[keep][int(np.argmax(scores))]
+    return out.astype(np.int32)
+
+
 def _secondary_torch(graph: BipartiteGraph, labels, wu, wv, gamma, device):
     """Runner-up user label (the best-scoring candidate other than the
     primary; the primary when there is none). The reference runs this
@@ -181,19 +294,25 @@ def _secondary_torch(graph: BipartiteGraph, labels, wu, wv, gamma, device):
 class ClusterEngine:
     """Routes co-clustering work through the selected solver.
 
-    solver: explicit override ("torch" | None/"auto").
+    solver: explicit override ("torch" | "torch_streamed" |
+            "torch_hostloop" | "numpy" | None/"auto").
     device: where the solves run ("cuda" by default; raises without a
             CUDA device unless the caller passes "cpu").
     candidates: "exact" (default) scores every neighbor label;
             "minhash" lets the stream layer's cold-assign/refresh prune
             per-node candidates via ``core.candidates`` (``solve()``
             itself is always exact).
+    block_edges: nominal edges per streamed block for "torch_streamed"
+            (node-aligned; any value gives the same labels — it trades
+            launches against device memory per block).
     stats:  counters every solve adds to: ``sweeps`` (LP iterations) and
-            ``host_syncs`` (device-to-host reads the host loop needs).
+            ``host_syncs`` (device-to-host reads the in-memory and
+            hostloop solves need).
     """
     solver: Optional[str] = None
     device: Optional[str] = "cuda"
     candidates: str = "exact"
+    block_edges: Optional[int] = None
     stats: dict = dataclasses.field(default_factory=dict, compare=False,
                                     repr=False)
 
@@ -201,6 +320,8 @@ class ClusterEngine:
         if self.candidates not in ("exact", "minhash"):
             raise ValueError(f"candidates must be 'exact'|'minhash', "
                              f"got {self.candidates!r}")
+        if self.block_edges is not None and int(self.block_edges) <= 0:
+            raise ValueError("block_edges must be positive")
         object.__setattr__(self, "device", str(resolve_device(self.device)))
 
     def resolve(self) -> ClusterSolver:
@@ -208,8 +329,17 @@ class ClusterEngine:
             return get_solver(self.solver)
         return get_solver("torch")
 
-    def _kw(self) -> dict:
-        return {"device": self.device, "stats": self.stats}
+    @staticmethod
+    def drop_device_edges(graph: BipartiteGraph) -> None:
+        """Forget the device edge lists the in-memory solvers and the
+        partition scoring memoized on ``graph``."""
+        solver_torch.drop_device_edges(graph)
+
+    def _kw(self, solver: ClusterSolver) -> dict:
+        kw = {"device": self.device, "stats": self.stats}
+        if solver.accepts_block_edges and self.block_edges:
+            kw["block_edges"] = int(self.block_edges)
+        return kw
 
     # -- one solve ---------------------------------------------------------
     def solve(self, graph: BipartiteGraph, wu, wv, gamma: float,
@@ -222,9 +352,21 @@ class ClusterEngine:
                                n_edges=int(graph.n_edges),
                                gamma=float(gamma)) as sp:
             labels, iters = s.solve(graph, wu, wv, gamma, budget, max_iters,
-                                    init_labels, **self._kw())
+                                    init_labels, **self._kw(s))
             sp.set(iters=int(iters))
         return labels, iters
+
+    def solve_grid(self, graph: BipartiteGraph, wu, wv, gammas,
+                   budget: Optional[int] = None, max_iters: int = 8,
+                   init_labels=None):
+        """Solve a gamma grid. Returns (labels [L, n_nodes], iters [L])."""
+        s = self.resolve()
+        gammas = [float(g) for g in gammas]
+        with get_tracer().span("cluster_solve_grid", solver=s.name,
+                               n_nodes=int(graph.n_nodes),
+                               n_gammas=len(gammas)):
+            return s.solve_many(graph, wu, wv, gammas, budget, max_iters,
+                                init_labels, **self._kw(s))
 
     # -- gamma auto-tuning -------------------------------------------------
     def fit_gamma(self, graph: BipartiteGraph, wu, wv, budget: int, *,
@@ -257,7 +399,7 @@ class ClusterEngine:
                     if not warm_start:
                         labs, its = s.solve_many(graph, wu, wv, chunk, budget,
                                                  max_iters, None,
-                                                 **self._kw())
+                                                 **self._kw(s))
                     else:
                         labs = its = None
                         for _ in range(len(chunk)):
@@ -272,7 +414,7 @@ class ClusterEngine:
                                 init = np.stack(shifted)
                             new_labs, its = s.solve_many(
                                 graph, wu, wv, chunk, budget, max_iters,
-                                init, **self._kw())
+                                init, **self._kw(s))
                             if labs is not None and np.array_equal(new_labs,
                                                                    labs):
                                 break

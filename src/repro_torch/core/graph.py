@@ -1,9 +1,8 @@
 """Bipartite interaction graph: the substrate BACO clusters over.
 
-A copy of ``repro.core.graph`` (numpy only), without the streamed
-solver's block planning (``node_aligned_bounds``, ``edge_block_bounds``).
-The port keeps its own copy so that it never imports the JAX package;
-the same edges give the same arrays in both.
+A copy of ``repro.core.graph`` (numpy only). The port keeps its own
+copy so that it never imports the JAX package; the same edges give the
+same arrays, and the same block bounds, in both.
 
 Stored as an edge list sorted by (user, item) with the item-order
 permutation precomputed, so the label-propagation solver runs its
@@ -18,13 +17,49 @@ from typing import Iterable, Optional, Tuple
 
 import numpy as np
 
-__all__ = ["BipartiteGraph", "pad_rung"]
+__all__ = ["BipartiteGraph", "pad_rung", "node_aligned_bounds"]
 
 
 def pad_rung(n: int, floor: int = 8) -> int:
     """Next power of two >= n (and >= floor): the capacity-ladder rung."""
     n = max(int(n), 1)
     return max(int(floor), 1 << (n - 1).bit_length())
+
+
+def node_aligned_bounds(indptr: np.ndarray, block_edges: int) -> np.ndarray:
+    """Edge-block boundaries of at most ``block_edges`` edges each, cut
+    at node boundaries of a node-sorted edge list.
+
+    ``indptr`` is the CSR index pointer of the updating side (node i's
+    edges occupy ``[indptr[i], indptr[i+1])``). Every returned boundary
+    is some ``indptr[k]``, so no node's edge run straddles a block: the
+    streamed LP half-step's per-(node, label) groups stay block-local
+    and its accumulate-then-commit sweep equals the in-memory one bit
+    for bit. A single node whose run exceeds ``block_edges`` gets its
+    own oversized block (blocks are padded to the longest one).
+    """
+    indptr = np.asarray(indptr, np.int64)
+    e = int(indptr[-1])
+    if block_edges <= 0:
+        raise ValueError("block_edges must be positive")
+    if e == 0:
+        return np.zeros(1, np.int64)
+    bounds = [0]
+    pos = 0
+    while pos < e:
+        target = pos + int(block_edges)
+        if target >= e:
+            bounds.append(e)
+            break
+        # node owning edge index ``target``; its run start is the last
+        # node boundary <= target
+        nd = int(np.searchsorted(indptr, target, side="right")) - 1
+        cut = int(indptr[nd])
+        if cut <= pos:                       # one node's run > block_edges
+            cut = int(indptr[nd + 1])
+        bounds.append(cut)
+        pos = cut
+    return np.asarray(bounds, np.int64)
 
 
 def _block_keys(n_users: int, n_items: int, edge_u, edge_v) -> np.ndarray:
@@ -188,3 +223,19 @@ class BipartiteGraph:
         by-item ordering (the item half-step's orientation). Memoized."""
         return self._memo("edges_by_item", lambda: (
             self.edge_v[self.perm_by_item], self.edge_u[self.perm_by_item]))
+
+    def edge_block_bounds(self, side: str, block_edges: int) -> np.ndarray:
+        """Node-aligned edge-block offsets for one side's sorted edge
+        orientation (``node_aligned_bounds`` over that side's CSR
+        indptr). side: "user" | "item". Memoized per (side, size)."""
+        if side not in ("user", "item"):
+            raise ValueError(f"side must be 'user'|'item', got {side!r}")
+        indptr = (self.user_csr() if side == "user" else self.item_csr())[0]
+        return self._memo(f"blocks/{side}/{int(block_edges)}",
+                          lambda: node_aligned_bounds(indptr, block_edges))
+
+    def biadjacency(self) -> np.ndarray:
+        """Dense {0,1} bi-adjacency B (tests and tiny graphs only)."""
+        b = np.zeros((self.n_users, self.n_items), dtype=np.float32)
+        b[self.edge_u, self.edge_v] = 1.0
+        return b

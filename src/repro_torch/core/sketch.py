@@ -1,9 +1,10 @@
-"""Sketch container: the output of the co-clustering build.
+"""Sketch container: the output of every ETC method in this framework.
 
 A copy of ``repro.core.sketch`` (numpy only). A Sketch is the frozen
 pre-training compression artifact: integer index arrays mapping each
-user/item to codebook rows. Multi-hot sketches (SCU) carry up to
-``n_hot`` indices per entity; lookup sums the rows (paper §4.5 / §3.3).
+user/item to codebook rows. Multi-hot sketches (SCU, double hashing)
+carry up to ``n_hot`` indices per entity; lookup sums the rows (paper
+§4.5 / §3.3).
 """
 from __future__ import annotations
 
@@ -97,3 +98,26 @@ class Sketch:
         return Sketch(np.asarray(arrays["user_idx"], np.int32),
                       np.asarray(arrays["item_idx"], np.int32),
                       int(k_users), int(k_items), method=method, meta=meta)
+
+    # -- dense views (tests / small graphs) ---------------------------------
+    def dense_Y_user(self) -> np.ndarray:
+        y = np.zeros((self.n_users, self.k_users), dtype=np.float32)
+        for h in range(self.user_idx.shape[1]):
+            y[np.arange(self.n_users), self.user_idx[:, h]] = 1.0
+        return y
+
+    def dense_Y_item(self) -> np.ndarray:
+        y = np.zeros((self.n_items, self.k_items), dtype=np.float32)
+        for h in range(self.item_idx.shape[1]):
+            y[np.arange(self.n_items), self.item_idx[:, h]] = 1.0
+        return y
+
+    @staticmethod
+    def one_hot(user_labels: np.ndarray, item_labels: np.ndarray,
+                method: str = "unknown",
+                meta: Optional[dict] = None) -> "Sketch":
+        """A 1-hot sketch from per-side label arrays (auto-compacted)."""
+        ku, ul = compact_labels(np.asarray(user_labels))
+        kv, il = compact_labels(np.asarray(item_labels))
+        return Sketch(ul[:, None], il[:, None], ku, kv, method=method,
+                      meta=meta)

@@ -21,8 +21,9 @@ import numpy as np
 
 from repro_torch.core.graph import BipartiteGraph
 
-__all__ = ["planted_coclusters", "paperlike_dataset", "drifting_coclusters",
-           "DriftStream", "StreamStep", "DATASET_PRESETS"]
+__all__ = ["synthetic_bipartite", "planted_coclusters", "paperlike_dataset",
+           "drifting_coclusters", "DriftStream", "StreamStep",
+           "DATASET_PRESETS"]
 
 # Named presets mirroring Table 3 / Table 10 statistics.
 DATASET_PRESETS: Dict[str, dict] = {
@@ -87,6 +88,15 @@ def planted_coclusters(n_users: int, n_items: int, k_true: int,
     ev = np.concatenate(edges_v)
     g = BipartiteGraph.from_edges(n_users, n_items, eu, ev)
     return g, uc.astype(np.int32), ic.astype(np.int32)
+
+
+def synthetic_bipartite(n_users: int, n_items: int, avg_deg: float,
+                        seed: int = 0, **kw) -> BipartiteGraph:
+    """A planted-co-cluster graph with K* = max(8, n_nodes // 400)."""
+    g, _, _ = planted_coclusters(n_users, n_items,
+                                 k_true=max(8, (n_users + n_items) // 400),
+                                 avg_deg=avg_deg, seed=seed, **kw)
+    return g
 
 
 # ---------------------------------------------------------------------------

@@ -25,7 +25,8 @@ def _get_artifact(args):
         try:
             art = CompressedArtifact.load(args.artifact)
             print(f"[serve] loaded artifact {args.artifact} "
-                  f"(method={art.provenance.get('method', '?')})")
+                  f"(method={art.provenance.get('method', '?')}, "
+                  f"{art.n_params()} params)")
             return art
         except FileNotFoundError:
             pass
@@ -104,11 +105,16 @@ def main(argv=None):
                 else args.batch)
         disp(rng.integers(0, n_users, size))
     st = disp.stats()
+    sk = art.sketch
+    compression = (f"codebook {sk.k_users}+{sk.k_items} rows, "
+                   f"{sk.compression_ratio(art.model['dim'])*100:.0f}% "
+                   f"of full params" if sk is not None else "uncompressed")
     print(f"[serve] {st['requests']} requests on {args.device} "
           f"(batch={'rand' if args.randomize_batches else args.batch}, "
           f"scorer={session.scorer}, int8={args.quantize}): "
           f"p50={st['p50_ms']:.2f}ms p99={st['p99_ms']:.2f}ms "
-          f"buckets={st['bucket_counts']}")
+          f"buckets={st['bucket_counts']} ({compression}; "
+          f"{art.serving_nbytes()} bytes of tables)")
     return 0
 
 

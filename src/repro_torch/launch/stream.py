@@ -46,25 +46,24 @@ def main(argv=None):
     ap.add_argument("--k", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--cluster-solver", default="auto",
-                    help="ClusterEngine solver: auto | torch")
+                    help="ClusterEngine solver: auto | torch | "
+                         "torch_streamed | torch_hostloop | numpy")
     ap.add_argument("--artifact", default=None,
                     help="publish the final artifact here")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    from repro_torch.core import ClusterEngine, get_solver
+    from repro_torch.core import ClusterEngine, normalize_solver
     from repro_torch.data import drifting_coclusters
     from repro_torch.device import resolve_device
     from repro_torch.stream import ReplayConfig, StreamUpdater, replay
     from repro_torch.training import TrainConfig, Trainer
 
     device = resolve_device(args.device)
-    solver = None if args.cluster_solver == "auto" else args.cluster_solver
-    if solver is not None:
-        try:
-            get_solver(solver)
-        except KeyError as e:
-            ap.error(str(e.args[0]))
+    try:
+        solver = normalize_solver(args.cluster_solver)
+    except KeyError as e:
+        ap.error(str(e.args[0]))
     stream = drifting_coclusters(args.n_users, args.n_items, args.k_true,
                                  args.avg_deg, T=args.t_steps,
                                  drift=args.drift, seed=args.seed)

@@ -1,12 +1,15 @@
 """Training launcher for the port: ``python -m repro_torch.launch.train``
 (port of ``repro.launch.train``'s paper pipeline).
 
-BACO-compresses a synthetic interaction graph with the port's
-ClusterEngine (``--method baco``; ``full`` trains uncompressed tables),
-trains LightGCN + BPR with checkpoint/resume, prints Recall/NDCG@20 on
-the held-out edges, and with ``--export DIR`` publishes the trained
-CompressedArtifact (``python -m repro_torch.launch.serve --artifact DIR``
-serves it, as does the JAX package).
+Compresses a synthetic interaction graph — BACO through the port's
+ClusterEngine (``--method baco``, solver ``--cluster-solver``), any other
+ETC baseline of ``core.BASELINES`` through ``build_sketch`` (its LP
+builders solve on ``--device``), or ``full`` for uncompressed tables —
+trains LightGCN + BPR with checkpoint/resume, prints the embedding
+parameters and Recall/NDCG@20 on the held-out edges, and with
+``--export DIR`` publishes the trained CompressedArtifact (``python -m
+repro_torch.launch.serve --artifact DIR`` serves it, as does the JAX
+package).
 
 Fault-tolerance knobs:
   --resume            resume from the newest checkpoint in --ckpt-dir
@@ -15,8 +18,7 @@ Fault-tolerance knobs:
                       relaunch elsewhere
 
 Runs on the CUDA device by default (``--device cpu`` runs the kernels'
-plain versions on the CPU). The other sketch methods and ``--arch`` are
-not ported yet and raise.
+plain versions on the CPU). ``--arch`` is not ported yet and raises.
 """
 from __future__ import annotations
 
@@ -26,22 +28,28 @@ import time
 
 
 def paper_pipeline(args):
-    from repro_torch.core import ClusterEngine
+    from repro_torch.core import ClusterEngine, build_sketch, normalize_solver
     from repro_torch.data import paperlike_dataset
     from repro_torch.training import TrainConfig, Trainer
 
-    if args.method not in ("baco", "full"):
-        raise NotImplementedError(
-            f"--method {args.method!r} is not ported yet (baco and full "
-            f"are)")
     g, uc, ic, train, test = paperlike_dataset(args.dataset, seed=args.seed)
     print(f"[train] dataset={args.dataset}: {train.n_users} users, "
           f"{train.n_items} items, {train.n_edges} edges")
     if args.method == "full":
         sketch = None
+    elif args.method == "baco":
+        engine = ClusterEngine(solver=normalize_solver(args.cluster_solver),
+                               device=args.device)
+        sketch = engine.build(train, d=args.dim, ratio=args.ratio,
+                              batched_gamma=args.batched_gamma)
     else:
-        sketch = ClusterEngine(device=args.device).build(
-            train, d=args.dim, ratio=args.ratio)
+        sketch = build_sketch(args.method, train,
+                              budget=int(args.ratio * train.n_nodes),
+                              device=args.device)
+    if sketch is not None:
+        print(f"[train] sketch {sketch.method}: K_u={sketch.k_users} "
+              f"K_v={sketch.k_items} ({sketch.n_params(args.dim)} params, "
+              f"{sketch.compression_ratio(args.dim) * 100:.1f}% of full)")
     cfg = TrainConfig(dim=args.dim, steps=args.steps,
                       batch_size=args.batch_size, lr=args.lr,
                       ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
@@ -80,8 +88,8 @@ def main(argv=None):
                     help="not ported yet (the LM/recsys architectures)")
     ap.add_argument("--dataset", default="gowalla_s")
     ap.add_argument("--method", default="baco",
-                    help="baco | full (the other sketch methods are not "
-                         "ported yet)")
+                    help="full, or an ETC method of core.BASELINES (baco, "
+                         "random, double, lp, louvain_modularity, ...)")
     ap.add_argument("--ratio", type=float, default=0.25)
     ap.add_argument("--dim", type=int, default=64)
     ap.add_argument("--steps", type=int, default=600)
@@ -101,8 +109,23 @@ def main(argv=None):
                     help="BPR sampler (default: the backend's own)")
     ap.add_argument("--export", default=None,
                     help="publish the trained CompressedArtifact here")
+    ap.add_argument("--cluster-solver", default="auto",
+                    help="ClusterEngine solver for --method baco: auto | "
+                         "torch | torch_streamed | torch_hostloop | numpy")
+    ap.add_argument("--batched-gamma", action="store_true",
+                    help="solve the gamma grid in blocks of lanes "
+                         "(identical selection to the sequential walk)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    # validate against the live registries before any work
+    from repro_torch.core import BASELINES, normalize_solver
+    if args.method != "full" and args.method not in BASELINES:
+        ap.error(f"unknown --method {args.method!r}; choose full or one of "
+                 f"{sorted(BASELINES)}")
+    try:
+        normalize_solver(args.cluster_solver)
+    except KeyError as e:
+        ap.error(str(e.args[0]))
     if args.arch:
         raise NotImplementedError(
             f"--arch {args.arch!r} is not ported yet: the port trains the "

@@ -46,6 +46,23 @@ _MODEL_KEYS = ("n_users", "n_items", "dim", "n_layers", "l2",
                "k_users", "k_items", "n_hot_users", "lookup_backend")
 
 
+def _leaves(tree):
+    """The arrays of a nest of dicts, lists and tuples (None holds none)."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for t in tree for x in _leaves(t)]
+    return [tree]
+
+
+def _nbytes(a) -> int:
+    if hasattr(a, "element_size"):             # a torch tensor
+        return int(a.numel() * a.element_size())
+    return int(np.asarray(a).nbytes)
+
+
 @dataclasses.dataclass(frozen=True)
 class CompressedArtifact:
     """Everything serving needs, as host numpy state.
@@ -122,6 +139,22 @@ class CompressedArtifact:
         if self.quantized is not None and not self.params:
             return dict(self.quantized)
         return self.params
+
+    # -- parameter accounting -----------------------------------------------
+    @property
+    def compressed(self) -> bool:
+        return self.sketch is not None
+
+    def n_params(self) -> int:
+        """Elements of the fp32 tables and the int8 payload (the
+        reference's count over the leaves of (params, quantized))."""
+        return sum(int(np.prod(a.shape)) for a in
+                   _leaves((self.params, self.quantized)))
+
+    def serving_nbytes(self) -> int:
+        """Bytes of the device-resident table payload (the number the
+        int8 rung shrinks ~4x)."""
+        return sum(_nbytes(a) for a in _leaves(self.serving_params()))
 
     # -- serving glue -------------------------------------------------------
     def mcfg(self):

@@ -38,6 +38,10 @@ of its 64-row block, ragged item counts and several widths; on items in
 ascending score order (every score beats the running threshold); on
 all-equal scores; and two calls repeat bitwise. Its chunk plan takes the
 tiling and occupancy the build reports. An empty batch launches nothing.
+The streamed LP solve gives the in-memory solve's labels on the card (and
+the CPU's) at the 10k rung, with a lower peak of device memory, and the
+solver's ordered W(k) sum (a stable sort and one CSR gather-sum) is
+bitwise its plain version and the CPU's.
 """
 import importlib.util
 import time
@@ -845,3 +849,59 @@ def test_frontdoor_swap_from_another_thread_on_the_card(
         assert match, "a response is neither wholly v1 nor wholly v2"
         seen.update(match)
     assert seen == {0, 1}
+
+
+# ---------------------------------------------------------------------------
+# the streamed solve and the ordered W(k) sums on the card
+# ---------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def rung_10k():
+    from repro_torch.core import make_weights
+    from repro_torch.launch import cluster_scale
+    g, _ = cluster_scale.build_rung("10k")
+    return g, make_weights(g, "hws")
+
+
+@pytest.mark.parametrize("block_edges", [1 << 8, 1 << 20])
+def test_streamed_equals_inmem_on_the_card(dev, rung_10k, block_edges):
+    from repro_torch.launch import cluster_scale
+    g, (wu, wv) = rung_10k
+    lab, it, stats, _ = cluster_scale.solve_streamed(g, wu, wv, block_edges,
+                                                     "cuda")
+    ref, it_ref, _, _ = cluster_scale.solve_inmem(g, wu, wv, "cuda")
+    cpu, it_cpu, _, _ = cluster_scale.solve_inmem(g, wu, wv, "cpu")
+    np.testing.assert_array_equal(lab, ref)
+    np.testing.assert_array_equal(lab, cpu)
+    assert it == it_ref == it_cpu
+    assert stats["peak_bytes_source"] == "max_memory_allocated"
+    assert not any(isinstance(k, tuple) and k[0] == "torch_edges"
+                   for k in g._cache)
+
+
+def test_streamed_peak_below_inmem_on_the_card(dev, rung_10k):
+    from repro_torch.core import ClusterEngine
+    from repro_torch.launch import cluster_scale
+    g, (wu, wv) = rung_10k
+    ClusterEngine.drop_device_edges(g)
+    _, _, stats, _ = cluster_scale.solve_streamed(g, wu, wv, 1 << 8, "cuda")
+    _, _, _, peak = cluster_scale.solve_inmem(g, wu, wv, "cuda")
+    assert 0 < stats["peak_device_bytes"] < peak
+
+
+@pytest.mark.parametrize("case", ["random", "one_segment", "singletons",
+                                  "empty"])
+def test_ordered_segment_sum_is_its_plain_version_on_the_card(dev, case):
+    from repro_torch.core import solver_torch
+    g = torch.Generator().manual_seed(3)
+    n = 5000
+    m = {"empty": 0, "singletons": n}.get(case, 40_000)
+    vals = torch.rand(m, generator=g) * 3.0 + 1e-3
+    seg = {"random": torch.randint(0, 37, (m,), generator=g) * 97,
+           "one_segment": torch.full((m,), 11),
+           "singletons": torch.randperm(n, generator=g),
+           "empty": torch.zeros(0, dtype=torch.int64)}[case]
+    got = solver_torch.segment_sum_ordered(vals.to(dev), seg.to(dev), n)
+    want = ref.segment_sum(vals.to(dev), seg.to(dev), n)
+    cpu = solver_torch.segment_sum_ordered(vals, seg, n)
+    assert torch.equal(got, want)
+    assert torch.equal(got.cpu(), cpu)
