@@ -26,17 +26,20 @@ The reference's node-aligned vs uniform shard balance
     python -m repro_torch.launch.cluster_scale --device cpu --rungs 10k
     python -m repro_torch.launch.cluster_scale --rungs 100k,1m --json
 
-Runs on the CUDA device by default; prints one JSON record with
-``--json`` (and writes it to ``--out``).
+Runs on the CUDA device by default. The record (bench ``cluster_scale``)
+goes to the port's results store through ``repro_torch.results.BenchRun``
+with the reference's config dict and headline metrics
+(:func:`ladder_metrics`); ``--json`` prints it as one JSON line and
+``--out`` writes it to a file.
 """
 from __future__ import annotations
 
-import argparse
-import json
 import sys
-import time
 
 import numpy as np
+
+from repro_torch.obs import clock
+from repro_torch.results import BenchRun, higher, lower
 
 # (n_users, n_items, k_true); average degree fixed across the ladder
 RUNGS = {
@@ -56,10 +59,10 @@ def build_rung(rung: str, seed: int = 0):
     """(graph, host seconds) of one rung."""
     from repro_torch.data import planted_coclusters
     nu, nv, k = RUNGS[rung]
-    t0 = time.perf_counter()
+    t0 = clock.now()
     g, _, _ = planted_coclusters(nu, nv, k_true=k, avg_deg=AVG_DEG,
                                  seed=seed)
-    return g, time.perf_counter() - t0
+    return g, clock.now() - t0
 
 
 def _sync(device: str) -> None:
@@ -73,11 +76,11 @@ def solve_streamed(graph, wu, wv, block_edges: int, device: str):
     from repro_torch.core import ClusterEngine
     eng = ClusterEngine(solver="torch_streamed", block_edges=block_edges,
                         device=device)
-    t0 = time.perf_counter()
+    t0 = clock.now()
     labels, sweeps = eng.solve(graph, wu, wv, GAMMA, max_iters=MAX_ITERS)
     _sync(device)
     return labels, sweeps, dict(eng.resolve().last_stats), \
-        time.perf_counter() - t0
+        clock.now() - t0
 
 
 def solve_inmem(graph, wu, wv, device: str, solver: str = "torch"):
@@ -94,10 +97,10 @@ def solve_inmem(graph, wu, wv, device: str, solver: str = "torch"):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     eng = ClusterEngine(solver=solver, device=device)
-    t0 = time.perf_counter()
+    t0 = clock.now()
     labels, sweeps = eng.solve(graph, wu, wv, GAMMA, max_iters=MAX_ITERS)
     _sync(device)
-    seconds = time.perf_counter() - t0
+    seconds = clock.now() - t0
     peak = int(torch.cuda.max_memory_allocated()) if on_gpu else None
     ClusterEngine.drop_device_edges(graph)
     return labels, sweeps, seconds, peak
@@ -107,9 +110,9 @@ def _best_of_2(fn):
     dt = float("inf")
     out = None
     for _ in range(2):
-        t0 = time.perf_counter()
+        t0 = clock.now()
         out = fn()
-        dt = min(dt, time.perf_counter() - t0)
+        dt = min(dt, clock.now() - t0)
     return out, max(dt, 1e-9)
 
 
@@ -133,9 +136,9 @@ def cold_experiment(graph, labels, device: str) -> dict:
                                    engine=ClusterEngine(device=device))
     (exact, _), exact_s = _best_of_2(
         lambda: exact_asgn.assign(graph, lab, n_cold, 0))
-    t0 = time.perf_counter()
+    t0 = clock.now()
     cand = cd.cold_candidate_sets(graph, lab, n_new_users=n_cold)
-    cand_s = time.perf_counter() - t0
+    cand_s = clock.now() - t0
     mh_asgn = ColdStartAssigner(
         gamma=GAMMA, engine=ClusterEngine(candidates="minhash",
                                           device=device))
@@ -200,44 +203,73 @@ def bench_rung(rung: str, block_edges: int, inmem_max_edges: int,
     return rec
 
 
+def ladder_metrics(rungs) -> dict:
+    """Declared-direction headline metrics over the ladder rungs (the
+    reference's)."""
+    out = {}
+    recalls, bitwise = [], []
+    for r in rungs:
+        if not isinstance(r, dict):
+            continue
+        tag = r.get("rung", "?")
+        if isinstance(r.get("sweep_ms"), (int, float)):
+            out[f"{tag}_sweep_ms"] = lower(r["sweep_ms"])
+        if isinstance(r.get("peak_device_bytes"), (int, float)):
+            out[f"{tag}_peak_mb"] = lower(
+                round(r["peak_device_bytes"] / 1e6, 1))
+        if isinstance(r.get("blocks_per_s"), (int, float)):
+            out[f"{tag}_blocks_per_s"] = higher(r["blocks_per_s"])
+        if isinstance(r.get("cold"), dict) \
+                and isinstance(r["cold"].get("minhash_recall"),
+                               (int, float)):
+            recalls.append(r["cold"]["minhash_recall"])
+        if "bitwise_equal_inmem" in r:
+            bitwise.append(bool(r["bitwise_equal_inmem"]))
+    if recalls:
+        out["min_minhash_recall"] = higher(min(recalls))
+    if bitwise:
+        out["bitwise_parity_ok"] = higher(int(all(bitwise)))
+    return out
+
+
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__,
-                                 formatter_class=argparse.
-                                 RawDescriptionHelpFormatter)
-    ap.add_argument("--rungs", default="10k,100k",
-                    help=f"comma list from {sorted(RUNGS)}")
-    ap.add_argument("--block-edges", type=int, default=1 << 20)
-    ap.add_argument("--inmem-max-edges", type=int, default=INMEM_MAX_EDGES,
-                    help="run the in-memory parity solve up to this many "
-                         "edges")
-    ap.add_argument("--json", action="store_true",
-                    help="print the record as one JSON line")
-    ap.add_argument("--out", default=None, help="also write the record here")
-    ap.add_argument("--device", default="cuda")
-    args = ap.parse_args(argv)
+    run_ = BenchRun("cluster_scale", description=__doc__)
+    run_.add_argument("--rungs", default="10k,100k",
+                      help=f"comma list from {sorted(RUNGS)}")
+    run_.add_argument("--block-edges", type=int, default=1 << 20)
+    run_.add_argument("--inmem-max-edges", type=int,
+                      default=INMEM_MAX_EDGES,
+                      help="run the in-memory parity solve up to this many "
+                           "edges")
+    args = run_.parse(argv)
     rungs = [r.strip() for r in args.rungs.split(",") if r.strip()]
     unknown = [r for r in rungs if r not in RUNGS]
     if unknown:
-        ap.error(f"unknown rungs {unknown}; choose from {sorted(RUNGS)}")
+        run_.parser.error(f"unknown rungs {unknown}; "
+                          f"choose from {sorted(RUNGS)}")
     if args.block_edges <= 0:
-        ap.error("--block-edges must be positive")
+        run_.parser.error("--block-edges must be positive")
+    config = {"rungs": rungs, "gamma": GAMMA, "avg_deg": AVG_DEG,
+              "max_iters": MAX_ITERS,
+              "block_edges": int(args.block_edges),
+              "inmem_max_edges": int(args.inmem_max_edges),
+              "cold_frac": COLD_FRAC}
+    hit = run_.cached(config)
+    if hit is not None:
+        run_.replay(hit)
+        return 0
     import torch
-
-    from repro_torch.device import resolve_device
-    dev = resolve_device(args.device)
-    recs = [bench_rung(r, args.block_edges, args.inmem_max_edges, str(dev))
-            for r in rungs]
+    dev = run_.device
+    with run_.profile("ladder"):
+        recs = [bench_rung(r, args.block_edges, args.inmem_max_edges,
+                           str(dev)) for r in rungs]
     record = {"bench": "cluster_scale",
               "platform": dev.type,
               "device": (torch.cuda.get_device_name(dev)
                          if dev.type == "cuda" else "cpu"),
               "gamma": GAMMA, "avg_deg": AVG_DEG,
               "block_edges": int(args.block_edges), "rungs": recs}
-    if args.out:
-        with open(args.out, "w") as f:
-            json.dump(record, f, indent=1)
-    if args.json:
-        print(json.dumps(record))
+    run_.emit(config, ladder_metrics(recs), record)
     return 0
 
 

@@ -1,34 +1,32 @@
 """Kernel micro-benchmarks of the port: ``python -m repro_torch.launch.kernel_bench``.
 
-Port of ``benchmarks/kernel_bench.py``, on the port's kernels and at the
-reference's shapes, with the same seeded inputs (numpy, seed 0)::
+Port of ``benchmarks/kernel_bench.py`` (bench ``kernel``), on the port's
+kernels and at the reference's shapes, with the same seeded inputs
+(numpy, seed 0)::
 
-    python -m repro_torch.launch.kernel_bench [--full] [--json] [--device cuda|cpu]
+    python -m repro_torch.launch.kernel_bench [--full] [--device cuda|cpu]
+    python -m repro_torch.launch.kernel_bench --json [--repeats N] [--store DIR] [--profile]
 
-* Without ``--json``, :func:`run` times the four classic ops (the
-  codebook lookup, the embedding bag, DLRM's dot interaction and flash
-  attention) at the fast shapes, or the ``--full`` ones, and prints one
-  ``name,us_per_call,derived`` row each (``gb_moved``, ``gflops``), then
-  ``kernel/flash_attention_maxerr``: the kernel's output against
-  ``ref.mha``.
-* ``--json`` sweeps every registered lookup backend over the codebook
-  shapes (:func:`bench_backends`), the fused top-k scorer against the
-  dense path (:func:`bench_fused`, with the codebook-expanded shape), and
-  prints the record with its headline metrics (:func:`sweep_metrics`) as
-  one JSON line.
+* Without ``--json``, ``--out`` or ``--profile``, :func:`run` times the
+  four classic ops (the codebook lookup, the embedding bag, DLRM's dot
+  interaction and flash attention) at the fast shapes, or the ``--full``
+  ones, and prints one ``name,us_per_call,derived`` row each
+  (``gb_moved``, ``gflops``), then ``kernel/flash_attention_maxerr``: the
+  kernel's output against ``ref.mha``. Nothing is recorded.
+* With any of them, the sweep: every registered lookup backend over the
+  codebook shapes (:func:`bench_backends`), the fused top-k scorer
+  against the dense path (:func:`bench_fused`, with the codebook-expanded
+  shape), recorded through ``repro_torch.results.BenchRun`` with the
+  reference's config and its headline metrics (:func:`sweep_metrics`);
+  ``--json`` prints the payload as one line.
 
 Runs on the CUDA device by default; ``--device cpu`` runs the kernels'
 plain versions. On the card a time comes from CUDA events around the
 calls, after one warm call; on the CPU from the host clock, and it is a
 time of PyTorch's CPU kernels, not of a device.
-
-Not ported yet (ROADMAP Queue 1 #10): the results store (``BenchRun``,
-``--out``, ``bench.cached`` / ``replay``) and ``--profile``.
 """
 from __future__ import annotations
 
-import argparse
-import json
 import sys
 
 import numpy as np
@@ -36,6 +34,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.obs import clock
+from repro_torch.results import BenchRun, higher, lower
 
 __all__ = ["Row", "run", "bench_backends", "bench_fused", "sweep_metrics",
            "main", "SWEEP_SHAPES", "FUSED_SHAPES", "FUSED_CB_SHAPE"]
@@ -206,16 +205,17 @@ def bench_fused(shapes=None, cb_shape=FUSED_CB_SHAPE, repeats: int = 3,
     def t(a, dtype=torch.float32):
         return torch.as_tensor(a, dtype=dtype, device=dev)
 
-    def record(variant, b, n, d, k, fn, bytes_moved, dense_us=None):
+    def record(variant, b, n, d, k, fn, bytes_moved, dense_us=None,
+               **extra):
         head = {"variant": variant, "B": b, "N": n, "d": d, "K": k}
         try:
             _, us = _time_us(fn, dev, repeats)
         except ValueError as exc:
-            records.append({**head, "error": str(exc)[:200],
+            records.append({**head, **extra, "error": str(exc)[:200],
                             "error_type": type(exc).__name__})
             return None
         dense_us = us if dense_us is None else dense_us
-        records.append({**head, "us_per_call": round(us, 2),
+        records.append({**head, **extra, "us_per_call": round(us, 2),
                         "bytes_moved": bytes_moved,
                         "achieved_gbps": round(bytes_moved / (us / 1e6) / 1e9,
                                                4),
@@ -249,71 +249,79 @@ def bench_fused(shapes=None, cb_shape=FUSED_CB_SHAPE, repeats: int = 3,
         dense_us = record(
             "dense_cb", b, n, d, k,
             lambda: topk(u @ ref.expand_items(cb, sketch=sk).T, k),
-            base + n * h * d * 4 + 2 * n * d * 4 + 2 * b * n * 4)
+            base + n * h * d * 4 + 2 * n * d * 4 + 2 * b * n * 4, H=h)
         record("fused_cb", b, n, d, k,
                lambda: E.fused_topk(u, cb, k, sketch=sk),
-               base + n * h * d * 4, dense_us)
+               base + n * h * d * 4, dense_us, H=h)
         record("fused_cb_int8", b, n, d, k,
                lambda: E.fused_topk(u, q, k, sketch=sk, scale=scale),
-               base + n * h * (d + 4), dense_us)
+               base + n * h * (d + 4), dense_us, H=h)
     return records
 
 
-def _higher(value) -> dict:
-    return {"value": value, "higher_is_better": True}
-
-
-def _lower(value) -> dict:
-    return {"value": value, "higher_is_better": False}
-
-
 def sweep_metrics(lookup, fused) -> dict:
-    """Declared-direction headline metrics of the sweep record (the
-    reference's, with ``dense`` for its ``dense_xla``)."""
-    frecs = [r for r in fused if isinstance(r, dict) and "us_per_call" in r]
-    out = {"fused_records": _higher(len(frecs)),
-           "lookup_errors": _lower(len([r for r in lookup if "error" in r]))}
+    """Declared-direction headline metrics of the sweep record: the
+    reference's, on rows of either package (the port's rows name their
+    speedup ``speedup_vs_dense``, the reference's ``speedup_vs_dense_xla``;
+    the metric takes the rows' name)."""
+    frecs = [r for r in fused
+             if isinstance(r, dict) and "us_per_call" in r]
+    out = {"fused_records": higher(len(frecs)),
+           "lookup_errors": lower(len([r for r in lookup
+                                       if "error" in r]))}
     for variant, label in (("fused", "best_fused_gbps"),
                            ("fused_int8", "best_int8_gbps")):
         vals = [r["achieved_gbps"] for r in frecs
-                if r.get("variant") == variant]
+                if r.get("variant") == variant
+                and isinstance(r.get("achieved_gbps"), (int, float))]
         if vals:
-            out[label] = _higher(max(vals))
-    sp = [r["speedup_vs_dense"] for r in frecs
-          if r.get("variant", "").startswith("fused")]
-    if sp:
-        out["best_speedup_vs_dense"] = _higher(max(sp))
+            out[label] = higher(max(vals))
+    for key in ("speedup_vs_dense_xla", "speedup_vs_dense"):
+        sp = [r[key] for r in frecs
+              if r.get("variant", "").startswith("fused")
+              and isinstance(r.get(key), (int, float))]
+        if sp:
+            out[f"best_{key}"] = higher(max(sp))
     us = [r["us_per_call"] for r in lookup if "us_per_call" in r]
     if us:
-        out["best_lookup_us"] = _lower(min(us))
+        out["best_lookup_us"] = lower(min(us))
     return out
 
 
 def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--full", action="store_true",
-                    help="full (slow) shapes for the classic kernel bench")
-    ap.add_argument("--json", action="store_true",
-                    help="sweep backends and the fused scorer; print the "
-                         "record as one JSON line")
-    ap.add_argument("--device", default="cuda",
-                    help="cuda (default) or cpu (the plain versions)")
-    args = ap.parse_args(argv)
-    dev = resolve_device(args.device)
-    if not args.json:
+    bench = BenchRun("kernel", description=__doc__)
+    bench.add_argument("--full", action="store_true",
+                       help="full (slow) shapes for the classic kernel "
+                            "bench")
+    bench.add_argument("--repeats", type=int, default=3,
+                       help="calls timed per sweep row (default 3, the "
+                            "reference's; a row of a few calls of "
+                            "~0.1 ms is mostly launch jitter)")
+    args = bench.parse(argv)
+    dev = bench.device
+    if not (args.json or args.out or args.profile):
         run(fast=not args.full, device=dev)
         return 0
-    lookup = bench_backends(SWEEP_SHAPES, device=dev)
-    fused = bench_fused(FUSED_SHAPES, FUSED_CB_SHAPE, device=dev)
+    config = {"mode": "sweep", "sweep_shapes": SWEEP_SHAPES,
+              "fused_shapes": FUSED_SHAPES, "cb_shape": FUSED_CB_SHAPE,
+              "repeats": args.repeats}
+    hit = bench.cached(config)
+    if hit is not None:
+        bench.replay(hit)
+        return 0
+    with bench.profile("codebook_sweep"):
+        lookup = bench_backends(SWEEP_SHAPES, repeats=args.repeats,
+                                device=dev)
+    with bench.profile("fused_sweep"):
+        fused = bench_fused(FUSED_SHAPES, FUSED_CB_SHAPE,
+                            repeats=args.repeats, device=dev)
+    metrics = sweep_metrics(lookup, fused)
     record = {"bench": "kernel", "platform": dev.type,
               "device": (torch.cuda.get_device_name(dev)
                          if dev.type == "cuda" else "cpu"),
-              "config": {"mode": "sweep", "sweep_shapes": SWEEP_SHAPES,
-                         "fused_shapes": FUSED_SHAPES,
-                         "cb_shape": FUSED_CB_SHAPE, "repeats": 3},
-              "metrics": sweep_metrics(lookup, fused),
+              "config": config, "metrics": metrics,
               "codebook_lookup": lookup, "fused": fused}
-    print(json.dumps(record), flush=True)
+    bench.emit(config, metrics, record)
     return 0
 
 

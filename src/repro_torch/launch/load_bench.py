@@ -25,18 +25,20 @@ Scenario (one run, everything measured together):
     drain+swap pause is measured from inside the traffic, and the
     device state allocated across every session must not move.
 
-``--json`` prints the record as one JSON line: the reference's keys,
-with ``state_allocations_warm`` / ``state_allocations_under_load`` in
-place of its compile counts, plus ``allocator_segments_under_load``
-(CUDA caching-allocator segments allocated during the run; null on the
-CPU). Runs on the CUDA device by default (``--device cpu`` runs the
-kernels' plain versions on the CPU).
+The record (bench ``server``) goes to the port's results store through
+``repro_torch.results.BenchRun``, with the reference's config dict and
+headline metrics (:func:`server_metrics`); ``--json`` prints it as one
+JSON line: the reference's keys, with ``state_allocations_warm`` /
+``state_allocations_under_load`` in place of its compile counts, plus
+``allocator_segments_under_load`` (CUDA caching-allocator segments
+allocated during the run; null on the CPU). Runs on the CUDA device by
+default (``--device cpu`` runs the kernels' plain versions on the CPU).
 """
 from __future__ import annotations
 
-import argparse
-import json
 import sys
+
+from repro_torch.results import BenchRun, higher, lower
 
 BUCKETS = (1, 8, 64)
 SCORER = "fused"
@@ -181,34 +183,63 @@ def bench(dataset: str = "beauty_s", dim: int = 32, steps: int = 60,
     return record
 
 
+def server_metrics(record) -> dict:
+    """Declared-direction headline metrics of the open-loop record: the
+    reference's, plus ``state_allocations_under_load`` where the port's
+    record carries it in place of ``compiles_under_load``."""
+    out = {}
+    for key, make in (("sustained_qps", higher), ("e2e_p50_ms", lower),
+                      ("e2e_p99_ms", lower),
+                      ("queue_delay_p50_ms", lower),
+                      ("queue_delay_p99_ms", lower),
+                      ("batch_fill_mean", higher),
+                      ("swap_pause_ms", lower),
+                      ("swap_drain_ms", lower),
+                      ("compiles_under_load", lower),
+                      ("state_allocations_under_load", lower),
+                      ("shed", lower), ("failed", lower)):
+        v = record.get(key)
+        if isinstance(v, (int, float)) and not isinstance(v, bool):
+            out[key] = make(v)
+    return out
+
+
 def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--dataset", default="beauty_s")
-    ap.add_argument("--dim", type=int, default=32)
-    ap.add_argument("--steps", type=int, default=60)
-    ap.add_argument("--extra-steps", type=int, default=24)
-    ap.add_argument("--qps", type=float, default=120.0)
-    ap.add_argument("--duration", type=float, default=4.0)
-    ap.add_argument("--flush-ms", type=float, default=2.0)
-    ap.add_argument("--queue-size", type=int, default=256)
-    ap.add_argument("--cache", type=int, default=1024)
-    ap.add_argument("--deadline-ms", type=float, default=None)
-    ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--device", default="cuda")
-    ap.add_argument("--json", action="store_true",
-                    help="print the record as one JSON line")
-    args = ap.parse_args(argv)
-    record = bench(dataset=args.dataset, dim=args.dim, steps=args.steps,
-                   extra_steps=args.extra_steps, qps=args.qps,
-                   duration=args.duration, flush_ms=args.flush_ms,
-                   queue_size=args.queue_size, cache_entries=args.cache,
-                   deadline_ms=args.deadline_ms, seed=args.seed,
-                   device=args.device)
-    if args.json:
-        print(json.dumps(record))
-    else:
+    run_ = BenchRun("server", description=__doc__)
+    run_.add_argument("--dataset", default="beauty_s")
+    run_.add_argument("--dim", type=int, default=32)
+    run_.add_argument("--steps", type=int, default=60)
+    run_.add_argument("--extra-steps", type=int, default=24)
+    run_.add_argument("--qps", type=float, default=120.0)
+    run_.add_argument("--duration", type=float, default=4.0)
+    run_.add_argument("--flush-ms", type=float, default=2.0)
+    run_.add_argument("--queue-size", type=int, default=256)
+    run_.add_argument("--cache", type=int, default=1024)
+    run_.add_argument("--deadline-ms", type=float, default=None)
+    run_.add_argument("--seed", type=int, default=0)
+    args = run_.parse(argv)
+    config = {"dataset": args.dataset, "dim": args.dim,
+              "steps": args.steps, "extra_steps": args.extra_steps,
+              "qps": args.qps, "duration_s": args.duration,
+              "flush_ms": args.flush_ms, "queue_size": args.queue_size,
+              "cache_entries": args.cache,
+              "deadline_ms": args.deadline_ms, "seed": args.seed,
+              "buckets": list(BUCKETS)}
+    hit = run_.cached(config)
+    if hit is not None:
+        run_.replay(hit)
+        return 0
+    with run_.profile("open_loop"):
+        record = bench(dataset=args.dataset, dim=args.dim, steps=args.steps,
+                       extra_steps=args.extra_steps, qps=args.qps,
+                       duration=args.duration, flush_ms=args.flush_ms,
+                       queue_size=args.queue_size, cache_entries=args.cache,
+                       deadline_ms=args.deadline_ms, seed=args.seed,
+                       device=run_.device)
+    if not args.json:
         for k, v in record.items():
             print(f"{k}: {v}")
+    run_.emit(config, server_metrics(record), record)
     if record["state_allocations_under_load"]:
         print(f"WARNING: {record['state_allocations_under_load']} device "
               f"state allocations under load (expected 0)", file=sys.stderr)

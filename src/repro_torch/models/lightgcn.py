@@ -33,7 +33,8 @@ from repro_torch.kernels.ops import _CodebookSum
 
 __all__ = ["LightGCNConfig", "from_sketch", "engines", "make_statics",
            "sorted_edge_statics", "edge_norms", "kernel_edge_ids",
-           "init_params", "all_embeddings", "bpr_loss_fn", "eval_embeddings",
+           "init_params", "all_embeddings", "bpr_loss_fn",
+           "all_embeddings_seed", "bpr_loss_fn_seed", "eval_embeddings",
            "score_all_items"]
 
 
@@ -264,6 +265,48 @@ def bpr_loss_fn(params, statics, batch, cfg: LightGCNConfig):
     loss = -torch.mean(torch.nn.functional.logsigmoid(pos - neg))
     reg = (torch.sum(uu[:, d:] ** 2) + torch.sum(pi[:, d:] ** 2)
            + torch.sum(ni[:, d:] ** 2)) / batch["user"].shape[0]
+    return loss + cfg.l2 * reg
+
+
+# ---------------------------------------------------------------------------
+# frozen seed twins (port of ``repro/models/lightgcn.py:236-266``): the
+# benchmark's "seed host loop" baseline, reached only through the
+# ``host_seed`` trainer backend. The reference scatter-adds with
+# ``jax.ops.segment_sum`` outside any Pallas kernel, so the faithful port
+# is plain ``index_add_`` under autograd, not the CSR gather-sum kernel.
+# ---------------------------------------------------------------------------
+def all_embeddings_seed(params, statics, cfg: LightGCNConfig):
+    """Seed propagation: ``index_add_`` scatter-adds of the weighted
+    neighbour rows (frozen)."""
+    u, v = _base_embeddings(params, statics, cfg)
+    eu, ev, w = statics["edge_u"], statics["edge_v"], statics["edge_norm"]
+    acc_u, acc_v = u, v
+    cu, cv = u, v
+    for _ in range(cfg.n_layers):
+        nu = cv.new_zeros(cfg.n_users, cv.shape[1]).index_add(
+            0, eu, cv[ev] * w[:, None])
+        nv = cu.new_zeros(cfg.n_items, cu.shape[1]).index_add(
+            0, ev, cu[eu] * w[:, None])
+        cu, cv = nu, nv
+        acc_u = acc_u + cu
+        acc_v = acc_v + cv
+    k = cfg.n_layers + 1
+    return acc_u / k, acc_v / k
+
+
+def bpr_loss_fn_seed(params, statics, batch, cfg: LightGCNConfig):
+    """Seed BPR step (frozen): six separate readout gathers by plain
+    indexing."""
+    u_all, v_all = all_embeddings_seed(params, statics, cfg)
+    uu = u_all[batch["user"]]
+    pi = v_all[batch["pos"]]
+    ni = v_all[batch["neg"]]
+    pos = torch.sum(uu * pi, dim=-1)
+    neg = torch.sum(uu * ni, dim=-1)
+    loss = -torch.mean(torch.nn.functional.logsigmoid(pos - neg))
+    u0, v0 = _base_embeddings(params, statics, cfg)
+    reg = (torch.sum(u0[batch["user"]] ** 2) + torch.sum(v0[batch["pos"]] ** 2)
+           + torch.sum(v0[batch["neg"]] ** 2)) / batch["user"].shape[0]
     return loss + cfg.l2 * reg
 
 

@@ -9,16 +9,19 @@ Sampling is decided once per trace at root creation and inherited by
 every child. A disabled tracer (the default) returns the shared
 :data:`NULL_SPAN` from every call: no allocation, no clock read, no lock.
 
-The reference bridges live spans into ``jax.profiler`` annotations; the
-port has no such bridge yet (a ``torch.profiler.record_function``
-bridge would take its place).
+Under ``device_annotations`` (off by default) a live span also opens a
+``torch.profiler.record_function(name)`` while it is entered, so host
+spans appear as named ranges inside a ``torch.profiler`` capture
+(``BenchRun --profile``), as the reference's spans open a
+``jax.profiler.TraceAnnotation``. Retroactive ``record_span`` spans are
+not bridged.
 """
 from __future__ import annotations
 
 import threading
 from typing import Dict, List, Optional
 
-from .clock import now
+from .clock import now, wall
 
 __all__ = ["Span", "Tracer", "NULL_SPAN", "get_tracer", "set_tracer",
            "configure"]
@@ -59,7 +62,8 @@ class Span:
     """One timed, named, attributed section of work inside a trace."""
 
     __slots__ = ("tracer", "trace_id", "span_id", "parent_id", "name",
-                 "t_start", "t_end", "attrs", "thread", "sampled")
+                 "t_start", "t_end", "attrs", "thread", "sampled",
+                 "_annotation")
 
     def __init__(self, tracer: "Tracer", trace_id: str, span_id: str,
                  parent_id: str, name: str, t_start: float,
@@ -74,6 +78,7 @@ class Span:
         self.attrs: Dict[str, object] = dict(attrs) if attrs else {}
         self.thread = threading.current_thread().name
         self.sampled = True
+        self._annotation = None
 
     def set(self, **attrs) -> "Span":
         self.attrs.update(attrs)
@@ -81,11 +86,18 @@ class Span:
 
     def __enter__(self) -> "Span":
         self.tracer._push(self)
+        if self.tracer.device_annotations:
+            from torch.profiler import record_function
+            self._annotation = record_function(self.name)
+            self._annotation.__enter__()
         return self
 
     def __exit__(self, exc_type, exc, tb) -> bool:
         if exc_type is not None:
             self.attrs.setdefault("error", exc_type.__name__)
+        if self._annotation is not None:
+            self._annotation.__exit__(exc_type, exc, tb)
+            self._annotation = None
         self.tracer._pop(self)
         self.end()
         return False
@@ -107,13 +119,16 @@ class Tracer:
     ``sample_rate`` is the fraction of traces kept (deterministic
     error-diffusion head sampling); ``max_spans`` caps the committed
     buffer, and overflow increments :attr:`dropped` instead of growing.
+    ``device_annotations`` bridges live spans into ``torch.profiler``
+    ranges.
     """
 
     def __init__(self, enabled: bool = True, sample_rate: float = 1.0,
-                 max_spans: int = 100_000):
+                 max_spans: int = 100_000, device_annotations: bool = False):
         self.enabled = bool(enabled)
         self.sample_rate = float(sample_rate)
         self.max_spans = int(max_spans)
+        self.device_annotations = bool(device_annotations)
         self.dropped = 0
         self._spans: List[Span] = []
         self._lock = threading.Lock()
@@ -121,6 +136,9 @@ class Tracer:
         self._n_traces = 0
         self._n_spans = 0
         self._sample_acc = 0.0
+        # perf/wall pair anchoring monotonic timestamps to calendar time
+        self.perf_t0 = now()
+        self.wall_t0 = wall()
 
     def _stack(self) -> List[Span]:
         st = getattr(self._local, "stack", None)
@@ -247,7 +265,8 @@ def set_tracer(tracer: Tracer) -> Tracer:
 
 
 def configure(enabled: bool = True, sample_rate: Optional[float] = None,
-              max_spans: Optional[int] = None) -> Tracer:
+              max_spans: Optional[int] = None,
+              device_annotations: Optional[bool] = None) -> Tracer:
     """Reconfigure the global tracer in place and return it."""
     t = _GLOBAL
     t.enabled = bool(enabled)
@@ -255,4 +274,6 @@ def configure(enabled: bool = True, sample_rate: Optional[float] = None,
         t.sample_rate = float(sample_rate)
     if max_spans is not None:
         t.max_spans = int(max_spans)
+    if device_annotations is not None:
+        t.device_annotations = bool(device_annotations)
     return t

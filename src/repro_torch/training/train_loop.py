@@ -14,9 +14,13 @@ behind a trainer-backend registry:
   host once. Chunks never straddle a checkpoint multiple, so the save
   points (and bitwise resume) are the host backend's.
 
-The reference's ``host_seed`` (its frozen seed step) and
-``fused_sharded`` (data parallel over a device mesh) are not ported;
-asking for them raises the registry's ``KeyError``.
+* ``host_seed`` — the host loop over the frozen seed step
+  (``lightgcn.bpr_loss_fn_seed``: ``index_add_`` propagation, six
+  readout gathers): the benchmarks' "seed host loop" baseline, which no
+  default selects (the reference's ``:170-193``).
+
+The reference's ``fused_sharded`` (data parallel over a device mesh) is
+not ported; asking for it raises the registry's ``KeyError``.
 
 Fault tolerance: ``CheckpointManager`` captures (params, optimizer
 state, sampler state) in the reference's layout; ``maybe_resume``
@@ -60,7 +64,7 @@ class TrainConfig:
     eval_k: int = 20
     # EmbeddingEngine backend for all table lookups (None -> auto)
     lookup_backend: Optional[str] = None
-    # trainer backend: host | fused (None/auto -> host)
+    # trainer backend: host | host_seed | fused (None/auto -> host)
     backend: Optional[str] = None
     # steps per chunk (fused backend)
     chunk_size: int = 16
@@ -145,6 +149,20 @@ class HostBackend(TrainerBackend):
 
 
 @register_trainer_backend
+class HostSeedBackend(HostBackend):
+    """The seed implementation frozen end to end: the host loop driving
+    the seed step (scatter-add propagation, six readout gathers).
+    Benchmark reference only. Numerically equivalent to ``host``, not
+    bitwise (the sums add in another order)."""
+
+    name = "host_seed"
+    default_sampler = "numpy"
+
+    def setup(self, trainer):
+        trainer._loss_fn = L.bpr_loss_fn_seed
+
+
+@register_trainer_backend
 class FusedBackend(TrainerBackend):
     """Chunks of sample + step with no host sync inside a chunk; one copy
     of the chunk's losses to the host."""
@@ -213,6 +231,7 @@ class Trainer:
                                   lookup_backend=cfg.lookup_backend)
         self.statics = L.make_statics(graph, sketch, device=self.device)
         self.backend = _make_trainer_backend(cfg.backend)
+        self._loss_fn = L.bpr_loss_fn
         self.sampler = make_sampler(cfg.sampler
                                     or self.backend.default_sampler,
                                     graph, cfg.batch_size, seed=cfg.seed,
@@ -234,7 +253,7 @@ class Trainer:
         """One BPR step in place: loss, gradients of both tables, AdamW.
         Returns the loss as a 0-d device tensor."""
         names = sorted(self.params)
-        loss = L.bpr_loss_fn(self.params, self.statics, batch, self.mcfg)
+        loss = self._loss_fn(self.params, self.statics, batch, self.mcfg)
         grads = torch.autograd.grad(loss, [self.params[k] for k in names])
         self.optimizer.update(dict(zip(names, grads)), self.opt_state,
                               self.params)

@@ -42,6 +42,11 @@ The streamed LP solve gives the in-memory solve's labels on the card (and
 the CPU's) at the 10k rung, with a lower peak of device memory, and the
 solver's ordered W(k) sum (a stable sort and one CSR gather-sum) is
 bitwise its plain version and the CPU's.
+The measurement layer: ``host_seed`` (the seed step's ``index_add_``
+propagation) trains on the card within 1e-4 of the CPU's losses;
+``BenchRun.profile`` on a CUDA run exports a Chrome trace with device
+events, the codebook_lookup and CSR gather-sum kernels among them; the
+card's fingerprint carries its ``power_limit_w``.
 """
 import importlib.util
 import time
@@ -905,3 +910,54 @@ def test_ordered_segment_sum_is_its_plain_version_on_the_card(dev, case):
     cpu = solver_torch.segment_sum_ordered(vals, seg, n)
     assert torch.equal(got, want)
     assert torch.equal(got.cpu(), cpu)
+
+
+# ---------------------------------------------------------------------------
+# the measurement layer on the card
+# ---------------------------------------------------------------------------
+def test_host_seed_trains_on_the_card(dev):
+    from repro_torch.core import ClusterEngine
+    from repro_torch.data import planted_coclusters
+    from repro_torch.training import TrainConfig, Trainer
+    g, _, _ = planted_coclusters(300, 240, 10, 8, seed=2)
+    sk = ClusterEngine(device="cpu").build(g, d=16, ratio=0.3)
+    cfg = TrainConfig(dim=16, steps=8, batch_size=128, lr=5e-3, seed=0,
+                      backend="host_seed", sampler="numpy")
+    losses = {d: Trainer(g, sk, cfg, device=d).run(log_every=0)
+              for d in ("cuda", "cpu")}
+    # index_add_ on the card adds in no fixed order: a tolerance, not bits
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+
+
+def test_benchrun_profile_records_device_events(dev, tmp_path):
+    import json
+
+    from repro_torch.kernels import csr_gather_sum
+    from repro_torch.results import BenchRun
+    run = BenchRun("kernel")
+    run.parse(["--profile", "--profile-dir", str(tmp_path),
+               "--store", str(tmp_path / "store")])
+    assert run.device.type == "cuda"
+    cb = torch.randn(64, 16, device=dev)
+    idx = torch.randint(0, 64, (256, 2), device=dev, dtype=torch.int32)
+    ptr = torch.arange(0, 257, device=dev, dtype=torch.int64)
+    with run.profile("kernels"):
+        codebook_lookup(cb, idx)
+        csr_gather_sum(cb, idx[:, 0].contiguous(), ptr)
+        torch.cuda.synchronize()
+    (n,) = run.device_events
+    assert n >= 2
+    trace = json.load(open(tmp_path / "kernel" / "kernels" / "trace.json"))
+    kernels = [e["name"] for e in trace["traceEvents"]
+               if e.get("cat") == "kernel"]
+    assert any("codebook_lookup" in k for k in kernels)
+    assert any("csr_gather_sum" in k for k in kernels)
+
+
+def test_fingerprint_carries_the_power_limit(dev):
+    from repro_torch.results import fingerprint, fingerprint_key
+    fp = fingerprint("cuda")
+    assert fp["platform"] == "gpu"
+    assert fp["device_kind"] == torch.cuda.get_device_name(0)
+    assert fp["power_limit_w"] > 0
+    assert fingerprint_key(fp).endswith(f":{fp['power_limit_w']:g}W")

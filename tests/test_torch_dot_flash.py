@@ -353,12 +353,13 @@ def test_kernel_bench_ops_match_reference_at_the_fast_shapes():
         rtol=2e-4, atol=2e-5)
 
 
-def test_kernel_bench_json_record(monkeypatch, capsys):
+def test_kernel_bench_json_record(monkeypatch, capsys, tmp_path):
     monkeypatch.setattr(kernel_bench, "SWEEP_SHAPES", [(16, 64, 8, 2)])
     monkeypatch.setattr(kernel_bench, "FUSED_SHAPES", [(4, 300, 8, 5),
                                                        (4, 300, 8, 40)])
     monkeypatch.setattr(kernel_bench, "FUSED_CB_SHAPE", (4, 200, 8, 5, 30, 2))
-    assert kernel_bench.main(["--json", "--device", "cpu"]) == 0
+    assert kernel_bench.main(["--json", "--device", "cpu", "--store",
+                              str(tmp_path / "store")]) == 0
     rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert rec["platform"] == "cpu" and rec["bench"] == "kernel"
     assert {r["backend"] for r in rec["codebook_lookup"]} == \

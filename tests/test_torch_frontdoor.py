@@ -688,9 +688,10 @@ def test_frontdoor_cli_on_the_cpu():
     assert "state allocations under load: 0" in out
 
 
-def test_load_bench_cli_json_on_the_cpu():
+def test_load_bench_cli_json_on_the_cpu(tmp_path):
     out = _run("repro_torch.launch.load_bench", "--steps", "10",
-               "--extra-steps", "3", "--json")
+               "--extra-steps", "3", "--json", "--store",
+               str(tmp_path / "store"))
     rec = json.loads(out.strip().splitlines()[-1])
     assert rec["platform"] == "cpu" and rec["tenants"] == 3
     assert rec["sessions"] == 2 and rec["swap_mode"] == "swapped"

@@ -293,7 +293,8 @@ def test_scale_cli_10k_record(tmp_path, capsys):
     out = tmp_path / "scale.json"
     assert cluster_scale.main(["--device", "cpu", "--rungs", "10k",
                                "--block-edges", "4096", "--json",
-                               "--out", str(out)]) == 0
+                               "--out", str(out), "--store",
+                               str(tmp_path / "store")]) == 0
     rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert rec == json.loads(out.read_text())
     assert rec["platform"] == "cpu" and rec["device"] == "cpu"

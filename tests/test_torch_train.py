@@ -52,7 +52,9 @@ from repro_torch.kernels import csr_gather_sum, ref
 from repro_torch.launch import train as train_cli
 from repro_torch.models import lightgcn as L
 from repro_torch.serve import CompressedArtifact
-from repro_torch.training import TrainConfig, Trainer, checkpoint, optimizer
+from repro_torch.training import (TrainConfig, Trainer,
+                                  available_trainer_backends, checkpoint,
+                                  optimizer)
 
 D = 16
 
@@ -373,7 +375,8 @@ def test_gather_backend_backward_is_deterministic_across_threads():
 
 def test_backend_registry(setup):
     _, gt, sk, _, _ = setup
-    for name in ("host_seed", "fused_sharded", "nope"):
+    assert available_trainer_backends() == ("fused", "host", "host_seed")
+    for name in ("fused_sharded", "nope"):
         with pytest.raises(KeyError):
             Trainer(gt, sk, TrainConfig(**_cfg(backend=name)), device="cpu")
     with pytest.raises(ValueError):
