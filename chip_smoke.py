@@ -88,6 +88,30 @@
    gather-sum, fused_topk must run); the items' H = 2 lookup held
    against its plain version and timed. It prints a ``baselines`` JSON
    line.
+   Then the recsys architectures at their full published width
+   (``ARCH_CELLS``; params from their init under ``torch.Generator``
+   seed 0, each compressed field's sketch a seeded random assignment
+   into its codebook, ids uniform over each field's vocabulary):
+   ``dlrm-mlperf-baco`` (24.1 GB of codebooks and tables, 0.75 GB of
+   sketches) through ``ArchSession`` at ``serve_p99`` (B 512, 20
+   requests), ``serve_bulk`` (B 262,144, 5) and ``retrieval_cand`` (C
+   1,000,000, 5); ``wide-deep-baco`` at ``serve_p99`` and
+   ``train_batch`` (B 65,536, 5 AdamW steps through ``build_cell``);
+   ``sasrec-baco`` at ``serve_p99`` and ``train_batch``;
+   ``bert4rec-baco`` at ``serve_p99``; each after one untimed warm-up.
+   Launch counts are zeroed just before each cell and read just after;
+   codebook_lookup, dot_interaction (DLRM), flash_attention on its
+   CUDA-core route (SASRec, BERT4Rec) and, in the train cells, the CSR
+   gather-sum must have run. The warm-up's first call of each kernel is
+   held against its plain version on the very tensors the path passed
+   (codebook_lookup and the CSR gather-sum bitwise, the others at the
+   f32 tolerance below) and timed, with the counters restored after.
+   Scores must have the expected shape and be finite, train losses
+   finite, every param changed. Each cell's p50/p99 ms and peak device
+   bytes (from a reset at its start, and from a reset after the warm-up)
+   are printed; the device is freed between cells. The smoke cells of
+   each arch then run on the card against the port's CPU path (rtol
+   1e-4 / atol 1e-5). It prints an ``arch`` JSON line.
 3. Drives the embedding layer's entry points (``repro_torch.embedding``) at
    the same width, on the main path's sketch (K_u 8,878 with H=2, K_v 17,136
    with H=1) and its trained d=64 codebooks: the codebook
@@ -115,9 +139,15 @@
    at one layer of qwen1.5-32b (H 40, d 128) at S 4,096, bf16, causal, and
    at the bench's full shape (B 2, H 8, S 2,048, d 128, f32, causal and
    not), and checks that each shape ran the route its dtype and d choose
-   (tensor cores for bf16/f16 at d <= 128). Tolerances: f32 rtol 2e-4 /
-   atol 2e-5; bf16 and f16 one rounding step of the type (rtol 1.5 x its
-   eps, atol 1e-4); dot_interaction bitwise on integer inputs. Bounds
+   (tensor cores for bf16/f16 at d <= 128). The kernels line's entries of
+   codebook_lookup, the CSR gather-sum, dot_interaction and flash_attention
+   add the arch phase's recorded calls (``arch_path``) and launches;
+   dot_interaction's and flash_attention's lead rows are their
+   ``ARCH_MAIN`` cells' calls. fused_topk is also held at k 33, 64, 100 and
+   128 (exact on integer inputs) and timed at k 100; k 129 must be refused.
+   Tolerances: f32 rtol 2e-4 / atol 2e-5; bf16 and f16 one rounding step
+   of the type (rtol 1.5 x its eps, atol 1e-4); dot_interaction bitwise
+   on integer inputs. Bounds
    charge products of two bf16 or f16 values at the bf16/f16 tensor rate
    and all other operations at the f32 rate; the 16-bit attention rows
    count every product at the tensor rate (their P·V runs on the tensor
@@ -149,9 +179,9 @@
    --rungs 100k`` and ``kernel_bench --json --repeats 100``. Each must
    append exactly one record keyed to this card
    (``gpu:<name>:1:torch<ver>:<limit>W``) with every metric's direction
-   declared, and no error row; the kernel bench's fused rows whose k
-   lies above the kernels' cap are refusals, counted on the ``benches``
-   line as ``refused_rows`` (an open gap); launch counts are zeroed before each
+   declared, and no error row; a row refused by a kernel's declared cap
+   fails the phase (``refused_rows`` must be 0: the kernel bench's k =
+   100 fused rows are measured); launch counts are zeroed before each
    bench and read after it, and codebook_lookup, fused_topk, its
    codebook variant and the CSR gather-sum must have run. The kernel
    bench is then called again (a cache hit: no record) and with
@@ -166,8 +196,8 @@
    an exception or an undeclared direction does). It prints a
    ``benches`` JSON line.
 
-Prints a ``stream`` JSON line, a ``frontdoor`` JSON line, a ``scale``
-and a ``baselines`` JSON line, a ``kernels`` JSON line, a ``timer`` line
+Prints a ``stream`` JSON line, a ``frontdoor`` JSON line, a ``scale``,
+a ``baselines`` and an ``arch`` JSON line, a ``kernels`` JSON line, a ``timer`` line
 (the timer's floor), a ``benches`` JSON line, the ``nvidia-smi``
 name/power line, and as its last
 line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -181,6 +211,7 @@ import dataclasses
 import hashlib
 import io
 import json
+import math
 import os
 import re
 import subprocess
@@ -1703,6 +1734,381 @@ def baselines_path(run: dict, workdir: str, device: str = "cuda",
 
 
 # ---------------------------------------------------------------------------
+# the recsys architectures at full published width
+# ---------------------------------------------------------------------------
+# (arch, shape, timed requests or AdamW steps after one untimed warm-up)
+ARCH_CELLS = (("dlrm-mlperf-baco", "serve_p99", 20),
+              ("dlrm-mlperf-baco", "serve_bulk", 5),
+              ("dlrm-mlperf-baco", "retrieval_cand", 5),
+              ("wide-deep-baco", "serve_p99", 20),
+              ("wide-deep-baco", "train_batch", 5),
+              ("sasrec-baco", "serve_p99", 20),
+              ("sasrec-baco", "train_batch", 5),
+              ("bert4rec-baco", "serve_p99", 20))
+# the cell whose recorded call gives dot_interaction's and flash_attention's
+# lead row on the kernels line (the other kernels list the arch path's
+# rows beside their own lead rows)
+ARCH_MAIN = {"dot_interaction": "dlrm-mlperf-baco:serve_bulk",
+             "flash_attention": "sasrec-baco:train_batch"}
+
+
+def count_state() -> dict:
+    """Every launch counter, as (wrapper, attribute) -> value."""
+    fns = counted_kernels()
+    state = {(fn, "launches"): fn.launches for fn in fns.values()}
+    fa, eb = fns["flash_attention"], fns["embedding_bag"]
+    for fn, attr in ((fa, "launches_tc"), (fa, "launches_cc"),
+                     (eb, "launches_weighted")):
+        state[(fn, attr)] = getattr(fn, attr)
+    return state
+
+
+def set_count_state(state: dict) -> None:
+    for (fn, attr), value in state.items():
+        setattr(fn, attr, value)
+
+
+def gather_sum_inputs(g, dest, src, num_rows) -> tuple:
+    """The CSR gather-sum's arguments in ``scatter_rows(g, dest, src,
+    num_rows)`` (the lookups' backward): its stable sort by ``dest``."""
+    import importlib
+    eb = importlib.import_module("repro_torch.kernels.embedding_bag")
+    import torch
+    dest_sorted, perm = torch.sort(dest.long(), stable=True)
+    return g, src[perm].int(), eb._ptr(dest_sorted, num_rows)
+
+
+@contextlib.contextmanager
+def first_calls(check):
+    """Inside the block, the first call of each kernel wrapper on the
+    recsys path (codebook_lookup as the lookups call it, the CSR
+    gather-sum as their backward's ``scatter_rows`` calls it,
+    dot_interaction and flash_attention as the models call them) is
+    followed by ``check(name, args, kwargs, out)`` on the very tensors
+    the path passed the kernel, with every launch counter restored after
+    it: launches made to check or time a kernel do not count."""
+    import repro_torch.kernels.ops as ops
+    import repro_torch.models.recsys as rs
+
+    targets = ((ops, "codebook_lookup", "codebook_lookup"),
+               (ops, "scatter_rows", "embedding_bag"),
+               (rs, "_dot_kernel", "dot_interaction"),
+               (rs, "_flash_kernel", "flash_attention"))
+    seen, saved = set(), []
+    for mod, attr, name in targets:
+        orig = getattr(mod, attr)
+        saved.append((mod, attr, orig))
+
+        def wrap(*a, _orig=orig, _name=name, **kw):
+            out = _orig(*a, **kw)
+            if _name not in seen:
+                seen.add(_name)
+                state = count_state()
+                if _name == "embedding_bag":
+                    a, kw = gather_sum_inputs(*a, **kw), {}
+                check(_name, a, kw, out)
+                set_count_state(state)
+            return out
+        setattr(mod, attr, wrap)
+    try:
+        yield seen
+    finally:
+        for mod, attr, orig in saved:
+            setattr(mod, attr, orig)
+
+
+def arch_kernel_row(name: str, a, kw, out) -> dict:
+    """One recorded call of a kernel on the recsys path held against its
+    plain version on the same device tensors (codebook_lookup and the
+    CSR gather-sum bitwise; dot_interaction and flash_attention at
+    ``check_close``'s f32 tolerance), and timed beside its plain version
+    and one PyTorch library call, with its bound from this call's inputs
+    (the rows a lookup reads, not the whole codebook)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import route
+
+    kernel = counted_kernels()[name]          # the unwrapped wrapper
+    if name == "codebook_lookup":
+        z, idx = a
+        binary = kw.get("binary", False)
+        want = ref.codebook_lookup(z, idx, binary=binary)
+        require(torch.equal(out, want), "codebook_lookup on the recsys "
+                "path is not bitwise its plain version")
+        b, h = idx.shape
+        d = z.shape[1]
+        rows = int(torch.unique(idx).numel())
+        bms, by = bound(4 * (idx.numel() + rows * d + b * d), b * h * d)
+        ixl = idx.long()
+        row = {"shape": f"B={b} H={h} K={z.shape[0]} d={d}",
+               "max_abs_err": 0.0,
+               "plain_ms": time_ms(lambda: ref.codebook_lookup(
+                   z, idx, binary=binary), iters=10),
+               "library_ms": time_ms(lambda: z[ixl].sum(1), iters=10)}
+    elif name == "embedding_bag":
+        src, idx, ptr = a[:3]
+        weight = a[3] if len(a) > 3 else kw.get("weight")
+        want = ref.csr_gather_sum(src, idx, ptr, weight)
+        require(torch.equal(out, want), "the CSR gather-sum on the recsys "
+                "path is not bitwise its plain version")
+        n_seg, d = out.shape
+        nnz = int(ptr[-1])
+        seg = torch.repeat_interleave(
+            torch.arange(n_seg, device=src.device),
+            (ptr[1:] - ptr[:-1]).long())
+        idl = idx[:nnz].long()
+        acc = torch.zeros_like(out)
+        bms, by = bound(4 * (nnz * d + n_seg * d + nnz + n_seg + 1),
+                        nnz * d)
+        row = {"shape": f"nnz={nnz} S={n_seg} d={d}", "max_abs_err": 0.0,
+               "plain_ms": time_ms(lambda: ref.csr_gather_sum(
+                   src, idx, ptr, weight), iters=10),
+               "library_ms": time_ms(lambda: acc.zero_().index_add_(
+                   0, seg, src[idl]), iters=10)}
+    elif name == "dot_interaction":
+        (x,) = a
+        err = check_close(out, ref.dot_interaction(x), x.dtype,
+                          "dot_interaction on the recsys path")
+        b, f, d = x.shape
+        p = f * (f - 1) // 2
+        bms, by = bound(4 * (x.numel() + b * p), 2.0 * b * p * d)
+        i, j = torch.tril_indices(f, f, -1, device=x.device)
+        row = {"shape": f"B={b} F={f} d={d} float32", "max_abs_err": err,
+               "plain_ms": time_ms(lambda: ref.dot_interaction(x),
+                                   iters=10),
+               "library_ms": time_ms(
+                   lambda: torch.bmm(x, x.transpose(1, 2))[:, i, j],
+                   iters=10)}
+    else:
+        q, k, v = a
+        causal = kw["causal"]
+        require(route(q.dtype, q.shape[-1]) == "cc",
+                "the recsys attention is not on the CUDA-core route")
+        err = check_close(out, ref.flash_attention(q, k, v, causal=causal),
+                          q.dtype, "flash_attention on the recsys path")
+        b, h, sq, d = q.shape
+        bms, by = bound(4 * 4 * q.numel(),
+                        attention_ops(b, h, sq, k.shape[2], d, causal))
+        row = {"shape": f"B={b} H={h} S={sq} d={d} float32 "
+                        f"{'causal' if causal else 'full'}",
+               "max_abs_err": err,
+               "plain_ms": time_ms(lambda: ref.flash_attention(
+                   q, k, v, causal=causal), iters=10),
+               "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                   q, k, v, is_causal=causal), iters=10)}
+    row.update(ms=time_ms(lambda: kernel(*a, **kw), iters=10), bound_ms=bms,
+               bound_by=by)
+    return row
+
+
+def arch_out_shape(cell) -> tuple:
+    """The shape a serve/retrieval cell's scores must have: one per
+    example (DLRM, Wide&Deep serve), one per candidate (their retrieval),
+    [B, C] (SASRec, BERT4Rec)."""
+    b = cell.args[-1]
+    if "seq" in b:
+        return tuple(b["candidates"].shape)
+    if cell.kind == "retrieval":
+        return (b["candidates"].shape[0],)
+    return (b["sparse"].shape[0],)
+
+
+def arch_cell(arch: str, shape: str, n: int) -> dict:
+    """One recsys cell at the full published width on the card:
+    serve/retrieval through ``ArchSession``, train through
+    ``build_cell``'s AdamW step. Counts zeroed just before the
+    warm-up and read just after the last call; the warm-up's first call
+    of each kernel is held against its plain version and timed
+    (:func:`first_calls`). Peak device memory from a reset at the cell's
+    start (``peak_gb``, checks included) and from a reset after the
+    warm-up (``peak_calls_gb``, the timed calls only)."""
+    import gc
+
+    import torch
+
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models import recsys as rs
+    from repro_torch.obs import LatencyRecorder, clock
+    from repro_torch.serve import ArchSession
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    train = shape == "train_batch"
+    if train:
+        cell = build_cell(arch, shape, smoke=False, device="cuda")
+        flat = rs.flat_params(cell.args[0])
+        before = {k: p.clone() for k, p in flat.items()}
+    else:
+        session = ArchSession(arch, shape, smoke=False, device="cuda")
+        cell = session.cell
+    sync("cuda")
+    build_s = time.perf_counter() - t0
+    kernels = {}
+
+    def check(name, a, kw, out):
+        kernels[name] = arch_kernel_row(name, a, kw, out)
+
+    zero_counts()
+    losses = []
+    with first_calls(check):
+        if train:
+            losses.append(float(cell.fn(*cell.args)[2]))
+        else:
+            session.warmup()
+    torch.cuda.reset_peak_memory_stats()
+    lat = LatencyRecorder()
+    for _ in range(n):
+        if train:
+            sync("cuda")
+            t = clock.now()
+            loss = cell.fn(*cell.args)[2]
+            sync("cuda")
+            lat.record(clock.ms_between(t, clock.now()))
+            losses.append(float(loss))
+        else:
+            out = session()
+    sync("cuda")
+    launches = {k: v for k, v in launch_counts().items() if v}
+    routes = flash_routes()
+    peak_calls = torch.cuda.max_memory_allocated() / 1e9
+    label = f"{arch}:{shape}"
+    res = {"cell": label, "kind": cell.kind, "calls": n + 1,
+           "build_s": build_s, "launches": launches,
+           "launches_per_call": {k: v / (n + 1) for k, v in launches.items()},
+           "flash_routes": routes, "kernels": kernels}
+    if train:
+        require(all(map(math.isfinite, losses)),
+                f"{label}: a loss is not finite: {losses}")
+        changed = [k for k, p in rs.flat_params(cell.args[0]).items()
+                   if not torch.equal(p, before[k])]
+        require(len(changed) == len(before), f"{label}: params left "
+                f"unchanged by {n + 1} steps: "
+                f"{sorted(set(before) - set(changed))[:5]}")
+        res.update(losses=losses, params_changed=len(changed),
+                   batch=int(next(iter(cell.args[3].values())).shape[0]),
+                   **lat.summary())
+        del before, flat
+    else:
+        want = arch_out_shape(cell)
+        require(tuple(out.shape) == want and bool(torch.isfinite(out).all()),
+                f"{label}: scores {tuple(out.shape)} (want {want}) or not "
+                f"finite")
+        res.update(out_shape=list(want), **session.stats())
+        del session, out
+    need = {"codebook_lookup", "dot_interaction"} if arch.startswith(
+        "dlrm") else {"codebook_lookup"}
+    if arch.startswith(("sasrec", "bert4rec")):
+        need |= {"flash_attention"}
+    if train:
+        need |= {"embedding_bag"}
+    for name in sorted(need):
+        require(launches.get(name, 0) > 0, f"{name} never ran on {label}")
+        require(name in kernels, f"{name}: no call recorded on {label}")
+    require(routes["cc"] > 0 or "flash_attention" not in need,
+            f"{label}: flash_attention ran no CUDA-core launch")
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    res["peak_calls_gb"] = peak_calls
+    del cell
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"arch {label}: {res}")
+    return res
+
+
+def arch_small_reference() -> dict:
+    """Each -baco arch's smoke cells on the card against the port's CPU
+    path (held against the JAX package by the CPU tests) on the same
+    params: serve scores and one train step's loss and params within
+    rtol 1e-4 / atol 1e-5."""
+    import torch
+
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models import recsys as rs
+    from repro_torch.training.optimizer import adamw
+
+    out = {}
+    for arch in ("dlrm-mlperf-baco", "wide-deep-baco", "sasrec-baco",
+                 "bert4rec-baco"):
+        for shape in ("serve_p99", "retrieval_cand", "train_batch"):
+            cpu = build_cell(arch, shape, smoke=True, device="cpu")
+            gpu = build_cell(arch, shape, smoke=True, device="cuda")
+            params = _to(cpu.args[0], "cuda")
+            args = (params,) + tuple(gpu.args[1:])
+            if cpu.kind == "train":
+                args = (params, adamw(lr=1e-3).init(rs.flat_params(params)),
+                        gpu.args[2], gpu.args[3])
+            got, want = gpu.fn(*args), cpu.fn(*cpu.args)
+            if cpu.kind == "train":
+                pairs = [(got[2], want[2])] + [
+                    (rs.flat_params(got[0])[k], v)
+                    for k, v in rs.flat_params(want[0]).items()]
+            else:
+                pairs = [(got, want)]
+            err = 0.0
+            for g, w in pairs:
+                g = g.detach().cpu()
+                require(torch.allclose(g, w, rtol=1e-4, atol=1e-5),
+                        f"{arch}:{shape} smoke: the card differs from the "
+                        f"CPU path")
+                err = max(err, float((g - w).abs().max()))
+            out[f"{arch}:{shape}"] = err
+    log(f"arch smoke cells, card == CPU path (max |err|): {out}")
+    return out
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device, copy=True)
+
+
+def arch_rows(run: dict, name: str) -> dict:
+    """The arch phase's recorded-call rows of one kernel, by cell."""
+    return {c["cell"]: c["kernels"][name] for c in run["arch"]["cells"]
+            if name in c["kernels"]}
+
+
+def arch_entry(run: dict, name: str, bench_launches: int) -> dict:
+    """A kernel's kernels-line fields from the arch phase: its launches
+    (the arch phase's and the kernel bench's), and the row of its
+    :data:`ARCH_MAIN` cell's recorded call."""
+    rows = arch_rows(run, name)
+    main = rows[ARCH_MAIN[name]]
+    arch_n = run["arch"]["launches"].get(name, 0)
+    return {"launches": arch_n + bench_launches,
+            "launches_by_path": {"arch": arch_n,
+                                 "kernel_bench": bench_launches},
+            **{k: main[k] for k in ("ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms", "shape")},
+            "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
+            "arch_path": rows}
+
+
+def arch_path() -> dict:
+    """The recsys architectures through their entry points at the full
+    published width on the card: ``ArchSession`` for the serve and
+    retrieval cells, ``build_cell``'s AdamW step for the train cells
+    (:func:`arch_cell` each), then the smoke cells on the card against
+    the CPU path. Each cell's kernels must have run."""
+    t0 = time.perf_counter()
+    res = {"cells": [arch_cell(a, s, n) for a, s, n in ARCH_CELLS]}
+    total = {}
+    for c in res["cells"]:
+        for k, v in c["launches"].items():
+            total[k] = total.get(k, 0) + v
+    res["launches"] = total
+    res["small_reference"] = arch_small_reference()
+    res["seconds"] = time.perf_counter() - t0
+    log(f"arch phase: {res['seconds']:.1f} s, launches {total}")
+    return res
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the embedding layer's entry points
 # ---------------------------------------------------------------------------
 def embedding_inputs(run: dict, device: str) -> dict:
@@ -2019,7 +2425,8 @@ def check_codebook_lookup(run: dict) -> dict:
                          + run["training"]["launches"]["codebook_lookup"]
                          + run["stream"]["launches"]["codebook_lookup"]
                          + run["frontdoor"]["launches"]["codebook_lookup"]
-                         + run["baselines"]["launches"]["codebook_lookup"]),
+                         + run["baselines"]["launches"]["codebook_lookup"]
+                         + run["arch"]["launches"]["codebook_lookup"]),
             "launches_by_path": {
                 "serving": run["launches"]["codebook_lookup"],
                 "training": run["training"]["launches"]["codebook_lookup"],
@@ -2027,12 +2434,14 @@ def check_codebook_lookup(run: dict) -> dict:
                 "frontdoor":
                     run["frontdoor"]["launches"]["codebook_lookup"],
                 "baselines":
-                    run["baselines"]["launches"]["codebook_lookup"]},
+                    run["baselines"]["launches"]["codebook_lookup"],
+                "arch": run["arch"]["launches"]["codebook_lookup"]},
             "max_abs_err": max_err, "ms": main["ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
             "shape": main["shape"], "items": rows["items"],
-            "items_h2": run["baselines"]["codebook_items_h2"]}
+            "items_h2": run["baselines"]["codebook_items_h2"],
+            "arch_path": arch_rows(run, "codebook_lookup")}
 
 
 def check_fused_topk(run: dict) -> dict:
@@ -2055,10 +2464,10 @@ def check_fused_topk(run: dict) -> dict:
     max_err = 0.0
     per_b = {}
 
-    def compare(u, v, exact=False, block=1024, **kw):
+    def compare(u, v, exact=False, block=1024, kk=k, **kw):
         nonlocal max_err
-        got_v, got_i = fused_topk(u, v, k, block=block, **kw)
-        want_v, want_i = ref.fused_topk(u, v, k, **kw)
+        got_v, got_i = fused_topk(u, v, kk, block=block, **kw)
+        want_v, want_i = ref.fused_topk(u, v, kk, **kw)
         torch.cuda.synchronize()
         if exact:
             require(torch.equal(got_i, want_i) and torch.equal(got_v, want_v),
@@ -2122,15 +2531,36 @@ def check_fused_topk(run: dict) -> dict:
           for kk, vv in loaded.quantize().serving_params().items()}
     uq, vq = L.all_embeddings(dequantize_params(qp), statics, loaded.mcfg())
     compare(uq[:512].contiguous(), vq)
+    # k above one key a lane (lists of 64 and 128 keys): exact on integer
+    # inputs, with < k finite scores and with exclusions, near-ties on the
+    # main path's embeddings; k = 100 timed at B = 512
+    for kk in (33, 64, 100, 128):
+        compare(ui, vi, exact=True, kk=kk)
+        compare(ui, vi, exact=True, kk=kk, block=37, mask=mask)
+        compare(ui, vi, exact=True, kk=kk, exclude=excl)
+        compare(ui, q, exact=True, kk=kk, scale=pow2)
+        compare(u_all[:64].contiguous(), v_all, kk=kk)
+    u512 = u_all[:512].contiguous()
+    zeros = torch.zeros(n, device=dev)
+    bms, by = bound(4 * (u512.numel() + v_all.numel() + 2 * 512 * 100),
+                    2.0 * 512 * n * d)
+    k100 = {"shape": f"B=512 N={n} d={d} k=100",
+            "ms": time_ms(lambda: fused_topk(u512, v_all, 100)),
+            "plain_ms": time_ms(lambda: ref.fused_topk(u512, v_all, 100)),
+            "library_ms": time_ms(
+                lambda: torch.topk(u512 @ v_all.T + zeros, 100)),
+            "bound_ms": bms, "bound_by": by}
+    log(f"fused_topk k=33..128: agrees (exact on integer inputs); k=100 "
+        f"{k100}")
     # k above the cap is refused
     try:
-        fused_topk(ui, vi, 33)
+        fused_topk(ui, vi, 129)
         raise SmokeFailure("fused_topk accepted k above its cap")
     except ValueError:
         pass
     check_nan_order(ui, vi)
-    log("fused_topk edge cases (ties, <k finite, exclusions, int8, k cap, "
-        "NaN scores): pass")
+    log("fused_topk edge cases (ties, <k finite, exclusions, int8, k up "
+        "to 128, k cap, NaN scores): pass")
     main = per_b[512]
     return {"name": "fused_topk", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/fused_topk.cu",
@@ -2148,7 +2578,7 @@ def check_fused_topk(run: dict) -> dict:
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
             "shape": f"B=512 N={n} d={d} k={k}",
-            "by_batch": {str(b): per_b[b] for b in per_b}}
+            "by_batch": {str(b): per_b[b] for b in per_b}, "k100": k100}
 
 
 def check_nan_order(u, items, sketch=None) -> None:
@@ -2398,7 +2828,8 @@ def check_embedding_bag(run: dict, emb_run: dict) -> dict:
         "frontdoor": run["frontdoor"]["launches"]["embedding_bag"],
         "cluster": run["cluster_launches"],
         "scale": run["scale"]["launches"]["embedding_bag"],
-        "baselines": run["baselines"]["launches"]["embedding_bag"]}
+        "baselines": run["baselines"]["launches"]["embedding_bag"],
+        "arch": run["arch"]["launches"].get("embedding_bag", 0)}
     return {"name": "embedding_bag", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/embedding_bag.cu",
             "replaces": "src/repro/kernels/embedding_bag.py:56",
@@ -2413,7 +2844,8 @@ def check_embedding_bag(run: dict, emb_run: dict) -> dict:
             "weighted": weighted,
             "segment_sum": {r: run["scale"][r]["segment_sum"]
                             for r in run["scale"]
-                            if "segment_sum" in run["scale"].get(r, {})}}
+                            if "segment_sum" in run["scale"].get(r, {})},
+            "arch_path": arch_rows(run, "embedding_bag")}
 
 
 def cumsum_route(src_t, idx, w, ptr):
@@ -2567,7 +2999,8 @@ DOT_SHAPES = [(65536, 27, 128, "float32"), (65536, 27, 128, "bfloat16"),
               (2048, 27, 128, "float16")]
 
 
-def check_dot_interaction(bench_run: dict, device: str = "cuda") -> dict:
+def check_dot_interaction(bench_run: dict, run: dict,
+                          device: str = "cuda") -> dict:
     import torch
 
     from repro_torch.kernels import dot_interaction, ref
@@ -2611,16 +3044,16 @@ def check_dot_interaction(bench_run: dict, device: str = "cuda") -> dict:
         except ValueError:
             pass
     log("dot_interaction edge cases (strided input, tile cap): pass")
-    main_shape = next(iter(rows))
-    main = rows[main_shape]
-    return {"name": "dot_interaction", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/dot_interaction.cu",
-            "replaces": "src/repro/kernels/dot_interaction.py:45",
-            "launches": bench_run["launches"]["dot_interaction"],
-            "max_abs_err": max_err, "ms": main["ms"],
-            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
-            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
-            "shape": main_shape, "by_shape": rows}
+    # the model path's recorded call gives the lead row; the shapes above
+    # stand beside it
+    entry = {"name": "dot_interaction", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/dot_interaction.cu",
+             "replaces": "src/repro/kernels/dot_interaction.py:45",
+             **arch_entry(run, "dot_interaction",
+                          bench_run["launches"]["dot_interaction"]),
+             "by_shape": rows}
+    entry["max_abs_err"] = max(entry["max_abs_err"], max_err)
+    return entry
 
 
 # (B, H, Sq, Skv, d, dtype, causal, timed): one layer of qwen1.5-32b (40
@@ -2645,7 +3078,8 @@ def attention_ops(b, h, sq, skv, d, causal) -> float:
     return 4.0 * b * h * pairs * d
 
 
-def check_flash_attention(bench_run: dict, device: str = "cuda") -> dict:
+def check_flash_attention(bench_run: dict, run: dict,
+                          device: str = "cuda") -> dict:
     import torch
     import torch.nn.functional as F
 
@@ -2699,16 +3133,16 @@ def check_flash_attention(bench_run: dict, device: str = "cuda") -> dict:
         torch.float32, "flash_attention on strided inputs"))
     log("flash_attention edge cases (d=50, Sq != Skv, f16, bf16 d=256, "
         "strided): pass")
-    main_shape = next(iter(rows))
-    main = rows[main_shape]
-    return {"name": "flash_attention", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-            "replaces": "src/repro/kernels/flash_attention.py:87",
-            "launches": bench_run["launches"]["flash_attention"],
-            "max_abs_err": max_err, "ms": main["ms"],
-            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
-            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
-            "shape": main_shape, "by_shape": rows}
+    # the model path's recorded call gives the lead row; the shapes above
+    # stand beside it
+    entry = {"name": "flash_attention", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+             "replaces": "src/repro/kernels/flash_attention.py:87",
+             **arch_entry(run, "flash_attention",
+                          bench_run["launches"]["flash_attention"]),
+             "by_shape": rows}
+    entry["max_abs_err"] = max(entry["max_abs_err"], max_err)
+    return entry
 
 
 # ---------------------------------------------------------------------------
@@ -2825,10 +3259,8 @@ def benches_path(workdir: str, device: str = "cuda", bench_args=None,
                       "launches": {k: v for k, v in launches.items() if v}}
         log(f"bench {bench}: {seconds:.1f} s, {len(rec['metrics'])} "
             f"metrics, launches {out[bench]['launches']}")
-        if refused:
-            out[bench]["refused"] = refused
-            log(f"  {bench}: {len(refused)} rows refused by a kernel's "
-                f"declared cap (an open gap, not a pass): {refused}")
+        require(not refused, f"bench {bench}: {len(refused)} rows refused "
+                f"by a kernel's declared cap: {refused}")
         if bench in BENCH_ROW_KEYS:
             keys = BENCH_ROW_KEYS[bench]
             out[bench]["rows"] = [[r.get(k) for k in keys]
@@ -3109,6 +3541,7 @@ def main() -> int:
             run["frontdoor"] = frontdoor_path(run)
             run["scale"] = scale_path()
             run["baselines"] = baselines_path(run, workdir)
+            run["arch"] = arch_path()
             emb_run = embedding_path(run)
             bench_run = bench_path()
             floor = timer_floor_ms()
@@ -3116,8 +3549,8 @@ def main() -> int:
             kernels = [check_codebook_lookup(run), check_fused_topk(run),
                        check_fused_topk_codebook(run, emb_run),
                        check_embedding_bag(run, emb_run),
-                       check_dot_interaction(bench_run),
-                       check_flash_attention(bench_run)]
+                       check_dot_interaction(bench_run, run),
+                       check_flash_attention(bench_run, run)]
             prof = profile_requests(run)
         small_reference()
         with tempfile.TemporaryDirectory(dir=os.path.join(
@@ -3131,6 +3564,7 @@ def main() -> int:
     print(json.dumps({"frontdoor": run["frontdoor"]}))
     print(json.dumps({"scale": run["scale"]}))
     print(json.dumps({"baselines": run["baselines"]}))
+    print(json.dumps({"arch": run["arch"]}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"timer": {"floor_ms": floor,
                                 "spin_cycles": spin_cycles()}}))

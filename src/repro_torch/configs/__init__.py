@@ -1,0 +1,7 @@
+"""repro_torch.configs — the architecture registry (port of
+``repro.configs``): the recsys family and the paper's LightGCN backbone."""
+from .registry import (ArchSpec, ShapeSpec, all_cells, get_arch, list_archs,
+                       register)
+
+__all__ = ["ArchSpec", "ShapeSpec", "all_cells", "get_arch", "list_archs",
+           "register"]

@@ -60,6 +60,11 @@ class EmbeddingSpec:
     def compressed(self) -> bool:
         return self.k_rows is not None
 
+    @property
+    def table_rows(self) -> int:
+        """Rows of the parameter table: the codebook's if compressed."""
+        return self.k_rows if self.compressed else self.n_rows
+
 
 def bag_combine(out, segment_ids, num_segments: int, mode: str):
     """Sum -> mean post-processing shared by the bag backends: empty bags

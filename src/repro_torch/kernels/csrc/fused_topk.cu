@@ -19,7 +19,7 @@
 // equal values compare by IEEE equality (so -0.0 ties +0.0, the
 // reference's carve-out). NaN ranks above every number, lowest id first
 // among NaNs (lax.top_k's order for a NaN with a clear sign bit).
-// k <= kMaxK and d <= kMaxDim, compile-time caps. Each score is
+// k <= kMaxK (128) and d <= kMaxDim, compile-time caps. Each score is
 // fmaf(u[c], v[c], s) over c = 0..d-1 from +0.0, then + mask: the same
 // chain in every version of this kernel, so values repeat bit for bit.
 //
@@ -41,15 +41,19 @@
 //    float4 from shared memory for 64 FMAs.
 //    Selection: a candidate is an order key, value and id in one 64-bit
 //    integer whose integer order is the total order below. Each row keeps
-//    its best 32 keys, sorted, and its k-th key as a threshold. A score
+//    its best 32 R keys, sorted (R = 1, 2 or 4 keys a lane: the smallest
+//    that holds k, a template parameter), and its k-th key as a
+//    threshold. A score
 //    below the threshold's value is dropped with one float compare, one
 //    whose key does not beat the threshold with one more; a survivor goes
 //    to the row's candidate buffer (a shared-memory atomic counter). Once a
 //    row holds more than kCap - kItems candidates, and at the chunk's end,
-//    a warp merges the buffer into the row's list, one key per lane: up to
-//    kInsertMax survivors of a batch of 32 one at a time (a ballot finds
-//    the slot, one shuffle shifts the tail), more as a bitonic sort of the
-//    32 on registers, a max against the reversed list and a bitonic merge.
+//    a warp merges the buffer into the row's list, R keys per lane (key i
+//    of the list in register i / 32 of lane i % 32): up to insert_max(R)
+//    survivors of a batch of 32 one at a time (ballots find the slot,
+//    shuffles shift the tail), more as a bitonic sort of the 32 on
+//    registers, a max of the reversed batch against the list's last 32 and
+//    a bitonic merge of all 32 R (across registers, then across lanes).
 //    No runtime-indexed local arrays. The chunk's top-k goes to scratch.
 //  * merge_chunks_kernel: one block per row; each warp filters and merges a
 //    share of the chunks' lists the same way, then warp 0 merges the
@@ -71,7 +75,7 @@
 
 namespace {
 
-constexpr int kMaxK = 32;
+constexpr int kMaxK = 128;          // 32 keys a lane x R = 4
 constexpr int kMaxDim = 256;
 constexpr int kRows = 64;           // query rows per block
 constexpr int kItems = 64;          // items per tile
@@ -80,7 +84,6 @@ constexpr int kThreads = 256;       // 16 x 16, 4 rows x 4 items each
 constexpr int kCap = 96;            // candidate slots per row
 constexpr int kMergeAt = kCap - kItems;   // merge a row holding more
 constexpr int kVLd = kSlice + 4;    // staged item row stride (floats)
-constexpr int kInsertMax = 12;      // survivors inserted one at a time
 constexpr int32_t kNoId = 0x7fffffff;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -120,44 +123,94 @@ __device__ __forceinline__ void bitonic_sort(uint64_t& x, int lane) {
       cas(x, j, ((lane & size) == 0) == ((lane & j) == 0));
 }
 
-// list: 32 keys sorted largest first, one per lane. Merge the 32 keys c
-// into it, keeping the largest 32 of the union, sorted.
-__device__ __forceinline__ void merge_into(uint64_t& list, uint64_t c,
+// Survivors of a batch inserted one at a time before a full merge pays:
+// an insert costs about 3 R shuffles, a merge about 16 + 5 R.
+template <int R>
+__host__ __device__ constexpr int insert_max() {
+  return R == 1 ? 12 : (R == 2 ? 6 : 4);
+}
+
+// The list: 32 R keys sorted largest first, key i in register i / 32 of
+// lane i % 32. Its k-th key (the same in every lane).
+template <int R>
+__device__ __forceinline__ uint64_t kth(const uint64_t (&list)[R], int k) {
+  const int reg = (k - 1) >> 5;
+  uint64_t t = list[0];
+#pragma unroll
+  for (int r = 1; r < R; ++r)
+    if (reg == r) t = list[r];
+  return __shfl_sync(kFull, t, (k - 1) & 31);
+}
+
+// Merge the 32 keys c into the list, keeping the largest 32 R of the
+// union, sorted: the sorted batch reversed against the list's last 32 (a
+// max gives the largest 32 R as one bitonic sequence), then a bitonic merge
+// across registers and across lanes.
+template <int R>
+__device__ __forceinline__ void merge_into(uint64_t (&list)[R], uint64_t c,
                                            int lane) {
   bitonic_sort(c, lane);
   const uint64_t o = __shfl_sync(kFull, c, 31 - lane);
-  if (o > list) list = o;             // max of list[i], c[31 - i]: the
-#pragma unroll                        // largest 32, a bitonic sequence
-  for (int j = 16; j > 0; j >>= 1) cas(list, j, (lane & j) == 0);
+  if (o > list[R - 1]) list[R - 1] = o;
+#pragma unroll
+  for (int s = R / 2; s > 0; s >>= 1)
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      if ((r & s) == 0 && r + s < R) {
+        const uint64_t a = list[r], b = list[r + s];
+        list[r] = a > b ? a : b;
+        list[r + s] = a > b ? b : a;
+      }
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int j = 16; j > 0; j >>= 1) cas(list[r], j, (lane & j) == 0);
 }
 
 // Insert the key x (the same in every lane) into the sorted list.
-__device__ __forceinline__ void insert(uint64_t& list, uint64_t x, int lane) {
-  const int pos = __popc(__ballot_sync(kFull, list > x));
-  const uint64_t prev = __shfl_up_sync(kFull, list, 1);
-  if (lane > pos) list = prev;
-  else if (lane == pos) list = x;
+template <int R>
+__device__ __forceinline__ void insert(uint64_t (&list)[R], uint64_t x,
+                                       int lane) {
+  int pos = 0;
+#pragma unroll
+  for (int r = 0; r < R; ++r) pos += __popc(__ballot_sync(kFull, list[r] > x));
+  uint64_t prev[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    prev[r] = __shfl_up_sync(kFull, list[r], 1);
+    if (r > 0) {                      // lane 0 takes the previous register's
+      const uint64_t carry = __shfl_sync(kFull, list[r > 0 ? r - 1 : 0], 31);
+      if (lane == 0) prev[r] = carry; // last key
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = r * 32 + lane;
+    if (i > pos) list[r] = prev[r];
+    else if (i == pos) list[r] = x;
+  }
 }
 
 // Take the keys c (one per lane, kNone where absent) that beat thr, the
 // list's k-th key, into the list: one by one when few survive, else as one
 // bitonic merge. thr follows the list.
-__device__ __forceinline__ void absorb(uint64_t& list, uint64_t& thr,
+template <int R>
+__device__ __forceinline__ void absorb(uint64_t (&list)[R], uint64_t& thr,
                                        uint64_t c, int k, int lane) {
   unsigned m = __ballot_sync(kFull, c > thr);
   if (m == 0) return;
-  if (__popc(m) <= kInsertMax) {
+  if (__popc(m) <= insert_max<R>()) {
     while (m != 0) {
       const uint64_t x = __shfl_sync(kFull, c, __ffs(m) - 1);
       m &= m - 1;
       if (x > thr) {
         insert(list, x, lane);
-        thr = __shfl_sync(kFull, list, k - 1);
+        thr = kth(list, k);
       }
     }
   } else {
     merge_into(list, c > thr ? c : kNone, lane);
-    thr = __shfl_sync(kFull, list, k - 1);
+    thr = kth(list, k);
   }
 }
 
@@ -277,16 +330,21 @@ __device__ __forceinline__ void stage(const Rows& load, float* vs, int base,
   }
 }
 
-// One warp merges a row's candidate buffer into its list and refreshes its
-// threshold (the list's k-th key).
+// One warp merges a row's candidate buffer into its list (32 R keys in
+// shared memory, in list order) and refreshes its threshold (the list's k-th
+// key).
+template <int R>
 __device__ __forceinline__ void merge_row(uint64_t* list, const uint64_t* cand,
                                           int cnt, int k, uint64_t* thr,
                                           int lane) {
-  uint64_t l = list[lane];
+  uint64_t l[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) l[r] = list[r * 32 + lane];
   uint64_t t = *thr;
   for (int base = 0; base < cnt; base += 32)
     absorb(l, t, base + lane < cnt ? cand[base + lane] : kNone, k, lane);
-  list[lane] = l;
+#pragma unroll
+  for (int r = 0; r < R; ++r) list[r * 32 + lane] = l[r];
   if (lane == 0) *thr = t;
 }
 
@@ -294,7 +352,7 @@ struct Smem {
   float* us;        // [kRows][ud]
   float* vs;        // [2][kItems][kVLd]
   uint64_t* cand;   // [kRows][kCap]
-  uint64_t* list;   // [kRows][32]
+  uint64_t* list;   // [kRows][32 R]
   uint64_t* thr;    // [kRows]
   int* cnt;         // [kRows]
 };
@@ -303,14 +361,19 @@ __host__ __device__ constexpr int padded_dim(int d) {
   return (d + kSlice - 1) / kSlice * kSlice;
 }
 
-__host__ __device__ inline size_t smem_bytes(int d) {
+// The keys a lane holds for a list of k: 1, 2 or 4.
+__host__ __device__ constexpr int lane_keys(int k) {
+  return k <= 32 ? 1 : (k <= 64 ? 2 : 4);
+}
+
+__host__ __device__ inline size_t smem_bytes(int d, int r) {
   const int ud = padded_dim(d) + 4;
   return sizeof(float) * (static_cast<size_t>(kRows) * ud +
                           2 * kItems * kVLd) +
-         sizeof(uint64_t) * kRows * (kCap + 32 + 1) + sizeof(int) * kRows;
+         sizeof(uint64_t) * kRows * (kCap + 32 * r + 1) + sizeof(int) * kRows;
 }
 
-template <class Rows>
+template <class Rows, int R>
 __global__ void __launch_bounds__(kThreads, 2)
 score_chunks_kernel(const float* __restrict__ u, const Rows load,
                     const float* __restrict__ mask,
@@ -326,7 +389,7 @@ score_chunks_kernel(const float* __restrict__ u, const Rows load,
   sm.vs = sm.us + kRows * ud;
   sm.cand = reinterpret_cast<uint64_t*>(sm.vs + 2 * kItems * kVLd);
   sm.list = sm.cand + kRows * kCap;
-  sm.thr = sm.list + kRows * 32;
+  sm.thr = sm.list + kRows * 32 * R;
   sm.cnt = reinterpret_cast<int*>(sm.thr + kRows);
 
   const int tid = threadIdx.x;
@@ -345,7 +408,7 @@ score_chunks_kernel(const float* __restrict__ u, const Rows load,
                    ? u[static_cast<int64_t>(row0 + r) * d + col]
                    : 0.0f;
   }
-  for (int t = tid; t < kRows * 32; t += kThreads) sm.list[t] = kNone;
+  for (int t = tid; t < kRows * 32 * R; t += kThreads) sm.list[t] = kNone;
   if (tid < kRows) {
     sm.thr[tid] = kNone;
     sm.cnt[tid] = 0;
@@ -437,8 +500,8 @@ score_chunks_kernel(const float* __restrict__ u, const Rows load,
       for (int r = warp; r < kRows; r += kThreads / 32) {
         const int cnt = sm.cnt[r];
         if (cnt > kMergeAt || (final_tile && cnt > 0)) {
-          merge_row(sm.list + r * 32, sm.cand + r * kCap, cnt, k, sm.thr + r,
-                    lane);
+          merge_row<R>(sm.list + r * 32 * R, sm.cand + r * kCap, cnt, k,
+                       sm.thr + r, lane);
           if (lane == 0) sm.cnt[r] = 0;
         }
       }
@@ -456,7 +519,7 @@ score_chunks_kernel(const float* __restrict__ u, const Rows load,
     const int r = t / k, j = t % k;
     if (row0 + r >= rows) continue;
     const int64_t off = (static_cast<int64_t>(row0 + r) * n_chunks + c) * k;
-    const uint64_t key = sm.list[r * 32 + j];
+    const uint64_t key = sm.list[r * 32 * R + j];
     part_v[off + j] = value_of(key);
     part_i[off + j] = id_of(key);
   }
@@ -464,18 +527,21 @@ score_chunks_kernel(const float* __restrict__ u, const Rows load,
 
 // One block per row: each warp filters and merges a strided share of the
 // row's n_cand chunk candidates, then warp 0 merges the warps' lists.
+template <int R>
 __global__ void __launch_bounds__(kThreads)
 merge_chunks_kernel(const float* __restrict__ part_v,
                     const int32_t* __restrict__ part_i, int n_cand, int k,
                     float* __restrict__ out_v, int32_t* __restrict__ out_i) {
   constexpr int kWarps = kThreads / 32;
   constexpr int kAhead = 4;            // batches loaded before filtering
-  __shared__ uint64_t lists[kWarps * 32];
+  __shared__ uint64_t lists[kWarps * 32 * R];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int64_t row = blockIdx.x;
   const float* pv = part_v + row * n_cand;
   const int32_t* pi = part_i + row * n_cand;
-  uint64_t list = kNone, thr = kNone;
+  uint64_t list[R], thr = kNone;
+#pragma unroll
+  for (int r = 0; r < R; ++r) list[r] = kNone;
   for (int base = warp * 32; base < n_cand; base += kAhead * kThreads) {
     uint64_t c[kAhead];
 #pragma unroll
@@ -486,33 +552,69 @@ merge_chunks_kernel(const float* __restrict__ part_v,
 #pragma unroll
     for (int a = 0; a < kAhead; ++a) absorb(list, thr, c[a], k, lane);
   }
-  lists[warp * 32 + lane] = list;
+#pragma unroll
+  for (int r = 0; r < R; ++r) lists[(warp * R + r) * 32 + lane] = list[r];
   __syncthreads();
   if (warp != 0) return;
   for (int w = 1; w < kWarps; ++w)
-    absorb(list, thr, lists[w * 32 + lane], k, lane);
-  if (lane < k) {
-    out_v[row * k + lane] = value_of(list);
-    out_i[row * k + lane] = id_of(list);
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      absorb(list, thr, lists[(w * R + r) * 32 + lane], k, lane);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int j = r * 32 + lane;
+    if (j < k) {
+      out_v[row * k + j] = value_of(list[r]);
+      out_i[row * k + j] = id_of(list[r]);
+    }
   }
 }
 
-// Lets score_chunks_kernel<Rows> take its shared memory at width d.
-template <class Rows>
+// Lets score_chunks_kernel<Rows, R> take its shared memory at width d.
+template <class Rows, int R>
 cudaError_t allow_smem(int d) {
-  return cudaFuncSetAttribute(score_chunks_kernel<Rows>,
+  return cudaFuncSetAttribute(score_chunks_kernel<Rows, R>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem_bytes(d)));
+                              static_cast<int>(smem_bytes(d, R)));
 }
 
-// The score blocks of loader Rows one multiprocessor holds at width d.
-template <class Rows>
+// The score blocks of loader Rows and R keys a lane one multiprocessor
+// holds at width d.
+template <class Rows, int R>
 int blocks_per_sm(int d, int* blocks) {
-  cudaError_t err = allow_smem<Rows>(d);
+  cudaError_t err = allow_smem<Rows, R>(d);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks, score_chunks_kernel<Rows>, kThreads, smem_bytes(d));
+        blocks, score_chunks_kernel<Rows, R>, kThreads, smem_bytes(d, R));
   return static_cast<int>(err);
+}
+
+template <class Rows>
+int blocks_per_sm_k(int d, int k, int* blocks) {
+  switch (lane_keys(k)) {
+    case 1: return blocks_per_sm<Rows, 1>(d, blocks);
+    case 2: return blocks_per_sm<Rows, 2>(d, blocks);
+    default: return blocks_per_sm<Rows, 4>(d, blocks);
+  }
+}
+
+template <class Rows, int R>
+int launch_r(const float* u, const Rows& load, const float* mask,
+             const int32_t* ex_ptr, const int32_t* ex_ids, int rows, int n,
+             int d, int k, int chunk, float* part_v, int32_t* part_i,
+             float* out_v, int32_t* out_i, cudaStream_t stream) {
+  const int n_chunks = (n + chunk - 1) / chunk;
+  const dim3 grid(n_chunks, (rows + kRows - 1) / kRows);
+  cudaError_t err = allow_smem<Rows, R>(d);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  score_chunks_kernel<Rows, R><<<grid, kThreads, smem_bytes(d, R), stream>>>(
+      u, load, mask, ex_ptr, ex_ids, rows, n, d, k, chunk, n_chunks, part_v,
+      part_i);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  merge_chunks_kernel<R><<<rows, kThreads, 0, stream>>>(
+      part_v, part_i, n_chunks * k, k, out_v, out_i);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <class Rows>
@@ -524,18 +626,17 @@ int launch(const float* u, const Rows& load, const float* mask,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (rows == 0) return static_cast<int>(cudaGetLastError());
-  const int n_chunks = (n + chunk - 1) / chunk;
-  const dim3 grid(n_chunks, (rows + kRows - 1) / kRows);
-  cudaError_t err = allow_smem<Rows>(d);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  score_chunks_kernel<Rows><<<grid, kThreads, smem_bytes(d), stream>>>(
-      u, load, mask, ex_ptr, ex_ids, rows, n, d, k, chunk, n_chunks, part_v,
-      part_i);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  merge_chunks_kernel<<<rows, kThreads, 0, stream>>>(
-      part_v, part_i, n_chunks * k, k, out_v, out_i);
-  return static_cast<int>(cudaGetLastError());
+  switch (lane_keys(k)) {
+    case 1:
+      return launch_r<Rows, 1>(u, load, mask, ex_ptr, ex_ids, rows, n, d, k,
+                               chunk, part_v, part_i, out_v, out_i, stream);
+    case 2:
+      return launch_r<Rows, 2>(u, load, mask, ex_ptr, ex_ids, rows, n, d, k,
+                               chunk, part_v, part_i, out_v, out_i, stream);
+    default:
+      return launch_r<Rows, 4>(u, load, mask, ex_ptr, ex_ids, rows, n, d, k,
+                               chunk, part_v, part_i, out_v, out_i, stream);
+  }
 }
 
 }  // namespace
@@ -546,18 +647,20 @@ extern "C" int fused_topk_max_dim() { return kMaxDim; }
 // What the caller's chunk plan needs (kernels/fused_topk.py::plan_chunk):
 // the query rows of one score block (grid.y = ceil(rows / rows_per_block)),
 // the items of one tile, and the score blocks one multiprocessor of the
-// current device holds at width d with the loader of (codebook, quantized).
-extern "C" int fused_topk_tiling(int d, int codebook, int quantized,
+// current device holds at width d and top-k size k (its list's shared
+// memory) with the loader of (codebook, quantized).
+extern "C" int fused_topk_tiling(int d, int codebook, int quantized, int k,
                                  int* rows_per_block, int* items_per_tile,
                                  int* blocks) {
-  if (d < 1 || d > kMaxDim) return static_cast<int>(cudaErrorInvalidValue);
+  if (d < 1 || d > kMaxDim || k < 1 || k > kMaxK)
+    return static_cast<int>(cudaErrorInvalidValue);
   *rows_per_block = kRows;
   *items_per_tile = kItems;
   if (codebook)
-    return quantized ? blocks_per_sm<CodebookRows<true>>(d, blocks)
-                     : blocks_per_sm<CodebookRows<false>>(d, blocks);
-  return quantized ? blocks_per_sm<DenseRowsInt8>(d, blocks)
-                   : blocks_per_sm<DenseRows>(d, blocks);
+    return quantized ? blocks_per_sm_k<CodebookRows<true>>(d, k, blocks)
+                     : blocks_per_sm_k<CodebookRows<false>>(d, k, blocks);
+  return quantized ? blocks_per_sm_k<DenseRowsInt8>(d, k, blocks)
+                   : blocks_per_sm_k<DenseRows>(d, k, blocks);
 }
 
 // u f32 [rows, d]; items f32 or int8 [n, d] (quantized != 0: int8 with

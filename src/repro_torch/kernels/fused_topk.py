@@ -28,8 +28,8 @@ _NAME = "fused_topk"
 _MIN_CHUNK = 256
 _MAX_GRID_Y = 65535
 _ENTRIES: dict = {}             # the loaded library's caps and entry points
-# (device index, d, codebook, quantized) -> (rows per block, items per
-# tile, score blocks the card holds at once)
+# (device index, d, codebook, quantized, keys a lane) -> (rows per block,
+# items per tile, score blocks the card holds at once)
 _TILING: dict = {}
 
 
@@ -50,7 +50,7 @@ def _entries() -> dict:
                              + [ctypes.c_void_p] * 5)
         tiling = lib.fused_topk_tiling
         tiling.restype = ctypes.c_int
-        tiling.argtypes = ([ctypes.c_int] * 3
+        tiling.argtypes = ([ctypes.c_int] * 4
                            + [ctypes.POINTER(ctypes.c_int)] * 3)
         _ENTRIES.update(max_k=lib.fused_topk_max_k(),
                         max_dim=lib.fused_topk_max_dim(), dense=dense,
@@ -58,18 +58,27 @@ def _entries() -> dict:
     return _ENTRIES
 
 
-def _tiling(dev, d: int, codebook: bool, quantized: bool) -> tuple:
+def lane_keys(k: int) -> int:
+    """The keys each lane of the kernel's warp-wide sorted list holds for
+    a top-k of ``k``: 1, 2 or 4 (a list of 32, 64 or 128 keys), as
+    ``csrc/fused_topk.cu::lane_keys`` picks its instance."""
+    return 1 if k <= 32 else (2 if k <= 64 else 4)
+
+
+def _tiling(dev, d: int, codebook: bool, quantized: bool, k: int) -> tuple:
     """(query rows per block, items per tile, score blocks the card holds
     at once) of the kernel instance for this call, as the build reports
-    them (its tiling, and its occupancy at width d times the card's
-    multiprocessors); asked once per device, d and loader."""
+    them (its tiling, and its occupancy at width d and top-k size k times
+    the card's multiprocessors); asked once per device, d, loader and
+    list size (:func:`lane_keys`)."""
     i = dev.index if dev.index is not None else torch.cuda.current_device()
-    key = (i, int(d), bool(codebook), bool(quantized))
+    r = lane_keys(int(k))
+    key = (i, int(d), bool(codebook), bool(quantized), r)
     if key not in _TILING:
         out = [ctypes.c_int() for _ in range(3)]
         with torch.cuda.device(i):
             platform.check(_entries()["tiling"](
-                *key[1:], *map(ctypes.byref, out)), _NAME)
+                *key[1:4], 32 * r, *map(ctypes.byref, out)), _NAME)
         sms = torch.cuda.get_device_properties(i).multi_processor_count
         _TILING[key] = (out[0].value, out[1].value, out[2].value * sms)
     return _TILING[key]
@@ -140,7 +149,7 @@ def _run(variant, lead, u, k, n, scale, mask, exclude, block):
     dev = u.device
     rows, d = u.shape
     per_block, per_tile, slots = _tiling(dev, d, variant == "codebook",
-                                         scale is not None)
+                                         scale is not None, k)
     if rows > _MAX_GRID_Y * per_block:
         raise ValueError(f"fused_topk takes at most {_MAX_GRID_Y * per_block}"
                          f" rows, got {rows}")
@@ -221,7 +230,8 @@ def fused_topk(u: torch.Tensor, items: torch.Tensor, k: int, *, sketch=None,
     -inf in those rows (and remain candidates). ``block`` is the number
     of items one thread block scores before its partial top-k is merged
     (default: :func:`plan_chunk`'s choice for the batch and the card).
-    k must not exceed N nor the kernel's cap (32); d must not exceed 256.
+    k must not exceed N nor the kernel's cap (128); d must not exceed
+    256.
     With ``sketch`` int32 [N, H], ``items`` is a codebook and the call
     goes to :func:`fused_topk_codebook`.
     """

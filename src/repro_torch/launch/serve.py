@@ -8,6 +8,10 @@ randomly initialised codebooks (seeded), so the top-k lists are
 untrained. Requests go through RecsysSession behind BatchDispatcher; the
 launcher prints p50/p99 latency.
 
+For the recsys architectures, ``--arch <id> --shape serve_p99|serve_bulk|
+retrieval_cand`` serves the cell through ``ArchSession`` at smoke width
+(the full width runs through ``ArchSession(..., smoke=False)``).
+
 Runs on the CUDA device by default (``--device cpu`` to run the kernels'
 plain versions on the CPU).
 """
@@ -54,9 +58,30 @@ def _get_artifact(args):
     return art
 
 
+def arch_serving(args):
+    from repro_torch.embedding import normalize_backend
+    from repro_torch.serve import ArchSession
+    session = ArchSession(args.arch, args.shape,
+                          backend=normalize_backend(args.backend),
+                          smoke=True, device=args.device)
+    session.warmup()
+    for _ in range(args.n_requests):
+        session()
+    st = session.stats()
+    print(f"[serve] {args.arch}:{args.shape} "
+          f"smoke on {args.device} "
+          f"(backend={args.backend}): {st['requests']} requests "
+          f"p50={st['p50_ms']:.2f}ms p99={st['p99_ms']:.2f}ms")
+    return 0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--dataset", default="gowalla_s")
+    ap.add_argument("--arch", default=None,
+                    help="serve a recsys architecture's cell "
+                         "(configs.list_archs)")
+    ap.add_argument("--shape", default="serve_p99")
     ap.add_argument("--dim", type=int, default=64)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--batch", type=int, default=64)
@@ -88,6 +113,8 @@ def main(argv=None):
             fn(value)
         except (KeyError, ValueError) as e:
             ap.error(str(e.args[0] if e.args else e))
+    if args.arch:
+        return arch_serving(args)
     art = _get_artifact(args)
     if args.quantize:
         art = art.quantize()

@@ -1,0 +1,344 @@
+"""Step builders: (arch x shape) -> a Cell of (step fn, args) (port of
+``repro.launch.steps``, the recsys and cf families).
+
+Every builder returns a ``Cell``:
+    fn:      the step (train / serve / retrieval) on tensors
+    args:    its arguments, tensors on the cell's device
+    donate:  the argnums the reference donates (params/opt-state); the
+             port's train step updates them in place instead
+
+``smoke=True`` builds the reference's smoke cell: its smoke config, and
+inputs drawn exactly as the reference draws them (``_materialize``, the
+statics rules), so the same numpy values reach both packages. Params are
+drawn from a torch generator (the reference draws from a jax.random key,
+which torch cannot reproduce); tests carry the reference's params over
+with ``models.recsys.params_from_numpy``.
+
+``smoke=False`` builds the full published config on the device (the
+reference builds ShapeDtypeStructs for a dry run there): params from the
+model's init under ``torch.Generator`` seed 0, each compressed field's
+sketch a seeded random assignment into its codebook (the reference's
+smoke rule, numpy seed 0; the repo holds no Criteo or MovieLens data),
+and batches with ids uniform over each field's vocabulary, dense inputs
+standard normal, labels in {0, 1}.
+
+There is no mesh: the LM and GNN families raise NotImplementedError
+(ROADMAP Queue 1 #6).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.registry import (ArchSpec, ShapeSpec, get_arch,
+                                          not_ported)
+from repro_torch.device import resolve_device
+from repro_torch.models import lightgcn as LG
+from repro_torch.models import recsys as R
+from repro_torch.training import optimizer as opt_lib
+
+__all__ = ["Cell", "build_cell", "param_shapes"]
+
+
+@dataclasses.dataclass
+class Cell:
+    arch_id: str
+    shape_name: str
+    kind: str
+    fn: Callable
+    args: Tuple[Any, ...]
+    donate: Tuple[int, ...] = ()
+    notes: str = ""
+
+    def next_args(self, args: Tuple[Any, ...], out) -> Tuple[Any, ...]:
+        """Thread one request's outputs into the next request's args.
+
+        Decode cells (the reference's LM family, not ported) return
+        (logits, cache) and thread the cache; every other kind keeps its
+        args (serve/retrieval cells are stateless between requests; the
+        port's train step updates params and optimizer state in place)."""
+        if self.kind == "decode" and self.donate:
+            return (args[0], out[1]) + tuple(args[2:])
+        return args
+
+
+# ---------------------------------------------------------------------------
+# inputs: (shape, dtype) specs, drawn as the reference draws them
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class _Spec:
+    """The port's stand-in for a ShapeDtypeStruct: a batch leaf to draw.
+    ``high`` is the exclusive bound of a full-width id draw, or a tuple of
+    one bound per column."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+    high: Any = None
+
+
+def _materialize(batch: dict, device, seed: int = 0) -> dict:
+    """The reference's smoke draws (``repro/launch/steps.py:177-189``):
+    ``np.random.default_rng(seed)`` over the spec leaves in
+    ``jax.tree.map``'s order (the batch dict's keys sorted; params,
+    optimizer state and statics are concrete and draw nothing): integers
+    in {0, 1}, floats standard normal."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for key in sorted(batch):
+        spec = batch[key]
+        if spec.dtype.is_floating_point:
+            a = rng.standard_normal(spec.shape).astype(np.float32)
+        else:
+            a = rng.integers(0, 2, spec.shape).astype(np.int32)
+        out[key] = torch.as_tensor(a, device=device)
+    return {k: out[k] for k in batch}
+
+
+def _full_batch(batch: dict, device, seed: int = 0) -> dict:
+    """Full-width batches on the device: ids uniform in [0, high) (a
+    field's vocabulary, a sequence's positions), floats standard normal,
+    labels in {0, 1}."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    out = {}
+    for key, spec in batch.items():
+        if spec.dtype.is_floating_point:
+            out[key] = torch.randn(spec.shape, generator=g, device=device)
+        elif isinstance(spec.high, tuple):     # one bound per column
+            cols = [torch.randint(0, hi, spec.shape[:1], generator=g,
+                                  device=device, dtype=torch.int32)
+                    for hi in spec.high]
+            out[key] = torch.stack(cols, dim=1)
+        else:
+            out[key] = torch.randint(0, spec.high, spec.shape, generator=g,
+                                     device=device, dtype=torch.int32)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# RecSys family
+# ---------------------------------------------------------------------------
+def _recsys_init(cfg):
+    if isinstance(cfg, R.SASRecConfig):
+        return R.seqrec_init
+    if isinstance(cfg, R.DLRMConfig):
+        return R.dlrm_init
+    return R.widedeep_init
+
+
+def param_shapes(cfg) -> dict:
+    """{path: shape} of a recsys config's params, reckoned on the meta
+    device (nothing allocated)."""
+    meta = _recsys_init(cfg)(None, cfg, device="meta")
+    return {k: tuple(v.shape) for k, v in R.flat_params(meta).items()}
+
+
+def _recsys_statics(cfg, device):
+    """Sketch index arrays of the compressed fields (frozen BACO
+    artifacts), drawn as the reference's smoke rule draws them
+    (``repro/launch/steps.py:441-452``): one ``np.random.default_rng(0)``
+    over the statics in insertion order, each entry uniform over its
+    codebook's rows. The port draws them so at full width too."""
+    shapes = {}
+    if isinstance(cfg, (R.DLRMConfig, R.WideDeepConfig)):
+        for f in cfg.compressed_fields():
+            shapes[f"sketch_{f}"] = ((R.pad_rows(cfg.vocabs[f]), 1),
+                                     cfg.table_rows(f))
+    elif getattr(cfg, "etc_ratio", None) is not None:
+        shapes["sketch_items"] = ((R.pad_rows(cfg.n_items), 1),
+                                  cfg.table_rows)
+    rng = np.random.default_rng(0)
+    return {k: torch.as_tensor(rng.integers(0, hi, shape).astype(np.int32),
+                               device=device)
+            for k, (shape, hi) in shapes.items()}
+
+
+def _recsys_batch(cfg, shape: ShapeSpec, dims: dict) -> dict:
+    """The batch specs of a recsys cell (the reference's ``mk_batch``),
+    with each id leaf's full-width bound."""
+    batch = dims["batch"]
+    i32 = torch.int32
+    if isinstance(cfg, R.SASRecConfig):
+        seq = _Spec((batch, cfg.seq_len), i32, cfg.n_items)
+        nc = (dims.get("n_candidates", 100) if shape.kind == "retrieval"
+              else 100)
+        if isinstance(cfg, R.BERT4RecConfig):
+            if shape.kind == "train":
+                return {"seq": seq,
+                        "target_pos": _Spec((batch, cfg.n_mask), i32,
+                                            cfg.seq_len),
+                        "target_ids": _Spec((batch, cfg.n_mask), i32,
+                                            cfg.n_items),
+                        "neg_ids": _Spec((cfg.n_neg,), i32, cfg.n_items)}
+            return {"seq": seq,
+                    "target_pos": _Spec((batch,), i32, cfg.seq_len),
+                    "candidates": _Spec((batch, nc), i32, cfg.n_items)}
+        if shape.kind == "train":
+            return {"seq": seq,
+                    "neg": _Spec((batch, cfg.seq_len - 1), i32, cfg.n_items)}
+        return {"seq": seq,
+                "candidates": _Spec((batch, nc), i32, cfg.n_items)}
+    b = {}
+    if isinstance(cfg, R.DLRMConfig):
+        b["dense"] = _Spec((batch, cfg.n_dense), torch.float32)
+    b["sparse"] = _Spec((batch, cfg.n_sparse), i32, tuple(cfg.vocabs))
+    if shape.kind == "train":
+        b["label"] = _Spec((batch,), torch.float32)
+    if shape.kind == "retrieval":
+        b["candidates"] = _Spec((dims["n_candidates"],), i32, cfg.vocabs[0])
+    return b
+
+
+def _draw_batch(specs: dict, smoke: bool, device) -> dict:
+    if smoke:
+        return _materialize(specs, device)
+    batch = _full_batch(specs, device)
+    if "label" in batch:                     # labels in {0, 1}
+        batch["label"] = (batch["label"] > 0).float()
+    return batch
+
+
+def _adamw_step(loss_fn, opt):
+    """The reference's train step: loss and grads of every param, one
+    AdamW update (in place on the params and the optimizer state)."""
+    def train_step(params, opt_state, statics, b):
+        flat = R.flat_params(params)
+        leaves = list(flat.values())
+        for p in leaves:
+            p.requires_grad_(True)
+        loss = loss_fn(params, statics, b)
+        grads = torch.autograd.grad(loss, leaves)
+        for p in leaves:
+            p.requires_grad_(False)
+        opt.update(dict(zip(flat, grads)), opt_state, flat)
+        return params, opt_state, loss.detach()
+    return train_step
+
+
+def _recsys_cell(spec: ArchSpec, shape: ShapeSpec, smoke: bool,
+                 lookup_backend, device) -> Cell:
+    cfg = spec.smoke_config() if smoke else spec.full_config()
+    if lookup_backend is not None:
+        cfg = dataclasses.replace(cfg, lookup_backend=lookup_backend)
+    dims = dict(shape.dims)
+    if smoke:
+        dims["batch"] = 1 if shape.kind == "retrieval" else 8
+        dims["n_candidates"] = 64
+    is_seq = isinstance(cfg, R.SASRecConfig)
+    is_bert = isinstance(cfg, R.BERT4RecConfig)
+    statics = _recsys_statics(cfg, device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = _recsys_init(cfg)(gen, cfg)
+    batch = _draw_batch(_recsys_batch(cfg, shape, dims), smoke, device)
+
+    if shape.kind == "train":
+        opt = opt_lib.adamw(lr=1e-3)
+        opt_state = opt.init(R.flat_params(params))
+        if is_bert:
+            loss = R.bert4rec_train_loss
+        elif is_seq:
+            loss = R.sasrec_train_loss
+        elif isinstance(cfg, R.DLRMConfig):
+            loss = R.dlrm_train_loss
+        else:
+            loss = R.widedeep_train_loss
+        step = _adamw_step(lambda p, s, b: loss(p, s, b, cfg), opt)
+        return Cell(spec.arch_id, shape.name, "train", step,
+                    (params, opt_state, statics, batch), donate=(0, 1))
+
+    # serve / retrieval
+    if is_bert:
+        fwd = R.bert4rec_score_candidates
+    elif is_seq:
+        fwd = R.sasrec_score_candidates
+    elif isinstance(cfg, R.DLRMConfig):
+        fwd = (R.dlrm_retrieval if shape.kind == "retrieval"
+               else R.dlrm_forward)
+    else:
+        fwd = (R.widedeep_retrieval if shape.kind == "retrieval"
+               else R.widedeep_forward)
+
+    @torch.no_grad()
+    def serve_step(params, statics, b):
+        return fwd(params, statics, b, cfg)
+
+    return Cell(spec.arch_id, shape.name, shape.kind, serve_step,
+                (params, statics, batch))
+
+
+# ---------------------------------------------------------------------------
+# CF family (the paper's LightGCN pipeline)
+# ---------------------------------------------------------------------------
+def _cf_statics(cfg, device) -> dict:
+    """The reference's cf statics (``repro/launch/steps.py:615-628``):
+    one ``np.random.default_rng(0)`` draws the five statics in insertion
+    order (ints in {0, 1}, edge_norm uniform [0, 1)), then redraws the
+    sketches within their codebooks and the edges within the graph. The
+    port then sorts the edges by user (stably) into its sorted-edge
+    statics (``models.lightgcn.sorted_edge_statics``): the propagation
+    sums the same edges. Full width draws the same way."""
+    nu, nv = cfg.n_users, cfg.n_items
+    e = max(4 * (nu + nv), 1024)
+    rng = np.random.default_rng(0)
+    drawn = {"edge_u": rng.integers(0, 2, (e,)),
+             "edge_v": rng.integers(0, 2, (e,)),
+             "edge_norm": rng.random((e,)).astype(np.float32)}
+    if cfg.k_users is not None:
+        drawn["sketch_u"] = rng.integers(0, 2, (nu, cfg.n_hot_users))
+        drawn["sketch_v"] = rng.integers(0, 2, (nv, 1))
+        drawn["sketch_u"] = rng.integers(0, cfg.k_users,
+                                         (nu, cfg.n_hot_users))
+        drawn["sketch_v"] = rng.integers(0, cfg.k_items, (nv, 1))
+    drawn["edge_u"] = rng.integers(0, nu, e)
+    drawn["edge_v"] = rng.integers(0, nv, e)
+    order = np.argsort(drawn["edge_u"], kind="stable")
+    statics = LG.sorted_edge_statics(
+        drawn["edge_u"][order], drawn["edge_v"][order],
+        drawn["edge_norm"][order], nu, nv, device=device)
+    for k in ("sketch_u", "sketch_v"):
+        if k in drawn:
+            statics[k] = torch.as_tensor(drawn[k].astype(np.int32),
+                                         device=device)
+    return statics
+
+
+def _cf_cell(spec: ArchSpec, shape: ShapeSpec, smoke: bool, lookup_backend,
+             device) -> Cell:
+    cfg = spec.smoke_config() if smoke else spec.full_config()
+    if lookup_backend is not None:
+        cfg = dataclasses.replace(cfg, lookup_backend=lookup_backend)
+    batch = 8 if smoke else shape.dims["batch"]
+    params = {k: torch.as_tensor(v, device=device)
+              for k, v in LG.init_params(0, cfg).items()}
+    statics = _cf_statics(cfg, device)
+    specs = {"user": _Spec((batch,), torch.int32, cfg.n_users),
+             "pos": _Spec((batch,), torch.int32, cfg.n_items),
+             "neg": _Spec((batch,), torch.int32, cfg.n_items)}
+    b = _draw_batch(specs, smoke, device)
+    opt = opt_lib.adamw(lr=1e-3)
+    opt_state = opt.init(params)
+    step = _adamw_step(lambda p, s, bb: LG.bpr_loss_fn(p, s, bb, cfg), opt)
+    return Cell(spec.arch_id, shape.name, "train", step,
+                (params, opt_state, statics, b), donate=(0, 1))
+
+
+# ---------------------------------------------------------------------------
+# dispatcher
+# ---------------------------------------------------------------------------
+_FAMILY = {"recsys": _recsys_cell, "cf": _cf_cell}
+
+
+def build_cell(arch_id: str, shape_name: str, smoke: bool = False,
+               lookup_backend: Optional[str] = None,
+               device="cuda") -> Cell:
+    """The (arch, shape) cell on ``device`` (default the CUDA device;
+    raises without one). ``lookup_backend``: explicit EmbeddingEngine
+    backend override ("gather" | "onehot" | "cuda"); None auto-selects
+    by device."""
+    spec = get_arch(arch_id)
+    shape = spec.shape(shape_name)
+    if spec.family not in _FAMILY:
+        raise not_ported(f"the {spec.family!r} family")
+    return _FAMILY[spec.family](spec, shape, smoke, lookup_backend,
+                                resolve_device(device))

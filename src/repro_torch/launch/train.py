@@ -1,5 +1,13 @@
 """Training launcher for the port: ``python -m repro_torch.launch.train``
-(port of ``repro.launch.train``'s paper pipeline).
+(port of ``repro.launch.train``).
+
+Two modes:
+  * paper pipeline (default), below;
+  * ``--arch <id> [--shape train_batch]``: N train steps of a recsys
+    architecture's cell (``launch.steps.build_cell``: DLRM, Wide&Deep,
+    SASRec, BERT4Rec, or ``lightgcn-baco``'s ``bpr_train``), at smoke
+    width (the full width runs through ``build_cell(..., smoke=False)``).
+    The LM architectures are not ported (ROADMAP Queue 1 #6) and raise.
 
 Compresses a synthetic interaction graph — BACO through the port's
 ClusterEngine (``--method baco``, solver ``--cluster-solver``), any other
@@ -18,7 +26,7 @@ Fault-tolerance knobs:
                       relaunch elsewhere
 
 Runs on the CUDA device by default (``--device cpu`` runs the kernels'
-plain versions on the CPU). ``--arch`` is not ported yet and raises.
+plain versions on the CPU).
 """
 from __future__ import annotations
 
@@ -82,10 +90,29 @@ def paper_pipeline(args):
     return 0
 
 
+def arch_pipeline(args):
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.obs import clock
+    cell = build_cell(args.arch, args.shape, smoke=True, device=args.device)
+    out = cell.fn(*cell.args)
+    t0 = clock.now()
+    for _ in range(args.steps):
+        out = cell.fn(*cell.args)
+    loss = out[2] if cell.kind == "train" else None
+    if loss is not None:
+        loss = float(loss)             # waits for the device
+    dt = clock.now() - t0
+    print(f"[train] {args.arch}:{args.shape} x{args.steps} smoke steps "
+          f"on {args.device} in {dt:.2f}s"
+          + (f" loss={loss:.4f}" if loss is not None else ""))
+    return 0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", default=None,
-                    help="not ported yet (the LM/recsys architectures)")
+                    help="train an architecture's cell (configs.list_archs)")
+    ap.add_argument("--shape", default="train_batch")
     ap.add_argument("--dataset", default="gowalla_s")
     ap.add_argument("--method", default="baco",
                     help="full, or an ETC method of core.BASELINES (baco, "
@@ -127,9 +154,7 @@ def main(argv=None):
     except KeyError as e:
         ap.error(str(e.args[0]))
     if args.arch:
-        raise NotImplementedError(
-            f"--arch {args.arch!r} is not ported yet: the port trains the "
-            f"paper pipeline (LightGCN + BPR) only")
+        return arch_pipeline(args)
     return paper_pipeline(args)
 
 

@@ -9,6 +9,8 @@
     ``prev.apply_delta(d)``), capacity-padded sessions
     (``capacity_plan``; ``session.swap(artifact)`` copies into the
     session's device state) and ``StreamTelemetry``.
+  * ``ArchSession`` — the recsys architectures' serve and retrieval
+    cells (DLRM, Wide&Deep, SASRec, BERT4Rec), smoke or full width.
   * ``FrontdoorTelemetry`` — the counters and latencies of
     ``repro_torch.frontdoor``'s async front end.
 
@@ -24,11 +26,13 @@ CLI: ``python -m repro_torch.launch.serve [--artifact DIR]``.
 from .artifact import (ARTIFACT_VERSION, DELTA_VERSION, ArtifactDelta,
                        CompressedArtifact)
 from .dispatch import DEFAULT_BUCKETS, BatchDispatcher, chunk_plan
-from .session import RecsysSession, capacity_plan, normalize_scorer
+from .session import (ArchSession, RecsysSession, Session, capacity_plan,
+                      normalize_scorer)
 from .telemetry import FrontdoorTelemetry, StreamTelemetry
 
 __all__ = ["ARTIFACT_VERSION", "DELTA_VERSION", "ArtifactDelta",
            "CompressedArtifact", "DEFAULT_BUCKETS", "BatchDispatcher",
-           "chunk_plan", "RecsysSession", "capacity_plan",
+           "chunk_plan", "Session", "RecsysSession", "ArchSession",
+           "capacity_plan",
            "normalize_scorer", "StreamTelemetry",
            "FrontdoorTelemetry"]

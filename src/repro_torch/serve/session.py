@@ -1,6 +1,11 @@
-"""RecsysSession: batched user ids -> top-k items over (possibly
-compressed) LightGCN tables (port of ``repro.serve.session``'s
-``RecsysSession``, with capacity padding and hot swap).
+"""Session: the serving protocol (port of ``repro.serve.session``), and
+its two implementations:
+
+  * ``RecsysSession`` — batched user ids -> top-k items over (possibly
+    compressed) LightGCN tables, with capacity padding and hot swap;
+  * ``ArchSession`` — the recsys architectures' serve and retrieval
+    cells (``launch.steps.build_cell``): DLRM, Wide&Deep, SASRec and
+    BERT4Rec, at smoke width or at the full published width on the card.
 
 The protocol is the reference's: ``warmup(batch)``, ``__call__(ids)``,
 ``stats()``. Params and statics live on the session's device for its
@@ -44,8 +49,8 @@ from repro_torch.obs import LatencyRecorder, clock
 from repro_torch.obs.trace import get_tracer
 from repro_torch.serve.telemetry import StreamTelemetry
 
-__all__ = ["RecsysSession", "DeviceState", "capacity_plan",
-           "pad_to_capacity", "normalize_scorer"]
+__all__ = ["Session", "RecsysSession", "ArchSession", "DeviceState",
+           "capacity_plan", "pad_to_capacity", "normalize_scorer"]
 
 _SCORER_CHOICES = ("dense", "fused")
 
@@ -241,7 +246,26 @@ def _host_state(artifact):
             statics)
 
 
-class RecsysSession:
+class Session:
+    """Protocol base: ``warmup(batch)``, ``__call__(...)`` (one request,
+    timed up to the device finishing it) and ``stats()``. PyTorch runs
+    eagerly: there are no compiled programs, and ``compile_count`` is 0."""
+
+    def warmup(self, batch: Optional[int] = None) -> None:
+        raise NotImplementedError
+
+    def __call__(self, *args, **kwargs):
+        raise NotImplementedError
+
+    def stats(self) -> dict:
+        raise NotImplementedError
+
+    @property
+    def compile_count(self) -> int:
+        return 0
+
+
+class RecsysSession(Session):
     """Top-k scoring over (possibly compressed) LightGCN tables.
 
     With ``capacity`` ("auto", True, or a dict of expected maxima) the
@@ -401,3 +425,62 @@ class RecsysSession:
             out["capacity"] = dict(self._caps) if self._caps else None
             out["stream"] = self._stream.summary()
         return out
+
+
+class ArchSession(Session):
+    """Serve and retrieval cells of the recsys architectures
+    (``launch.steps.build_cell``): smoke width by default, the full
+    published width with ``smoke=False`` (on the card: dlrm-mlperf-baco's
+    24.1 GB of codebooks and tables fit one 80 GB H100).
+
+    Each request runs the cell's step on its arguments, which stay on the
+    device for the session's life. Decode cells (the reference's LM
+    family) would thread their cache through ``Cell.next_args``; the port
+    has none, so ``donates_cache`` is False.
+    """
+
+    def __init__(self, arch_id: str, shape: str = "serve_p99",
+                 backend: Optional[str] = None, smoke: bool = True,
+                 device="cuda"):
+        from repro_torch.launch.steps import build_cell
+        self.device = resolve_device(device)
+        self.cell = build_cell(arch_id, shape, smoke=smoke,
+                               lookup_backend=normalize_backend(backend),
+                               device=self.device)
+        self._args = self.cell.args
+        self._lat = LatencyRecorder()
+        self._warm = False
+
+    @property
+    def donates_cache(self) -> bool:
+        return self.cell.kind == "decode" and bool(self.cell.donate)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def warmup(self, batch: Optional[int] = None) -> None:
+        """Run one request, untimed."""
+        out = self.cell.fn(*self._args)
+        self._sync()
+        self._args = self.cell.next_args(self._args, out)
+        self._warm = True
+
+    def __call__(self):
+        """One request on the cell's arguments; the latency recorded is
+        the request's, up to the device finishing it."""
+        if not self._warm:
+            self.warmup()
+        self._sync()
+        t0 = clock.now()
+        out = self.cell.fn(*self._args)
+        self._sync()
+        self._lat.record(clock.ms_between(t0, clock.now()))
+        self._args = self.cell.next_args(self._args, out)
+        return out
+
+    def stats(self) -> dict:
+        return {"kind": self.cell.kind, "arch": self.cell.arch_id,
+                "shape": self.cell.shape_name,
+                "cache_donated": self.donates_cache,
+                "compiles": self.compile_count, **self._lat.summary()}

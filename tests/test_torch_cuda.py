@@ -38,6 +38,13 @@ of its 64-row block, ragged item counts and several widths; on items in
 ascending score order (every score beats the running threshold); on
 all-equal scores; and two calls repeat bitwise. Its chunk plan takes the
 tiling and occupancy the build reports. An empty batch launches nothing.
+Above one key a lane (k 33, 64, 100, 128: lists of 64 and 128 keys), both
+variants, f32 and int8, are bitwise the plain version's order with masks,
+exclusions, ±0 ties, NaN rows and all -inf rows, equal torch.topk's values
+on finite scores, and never reach torch.topk; k 129 is refused. Each
+recsys arch's smoke cell (DLRM, Wide&Deep, SASRec, BERT4Rec: serve,
+retrieval, one AdamW step) on the card launches its kernels and equals
+the CPU's plain path within rtol 1e-4 / atol 1e-5.
 The streamed LP solve gives the in-memory solve's labels on the card (and
 the CPU's) at the 10k rung, with a lower peak of device memory, and the
 solver's ordered W(k) sum (a stable sort and one CSR gather-sum) is
@@ -143,7 +150,8 @@ def test_fused_topk_kernel_refuses_bad_input(dev):
     u = torch.randn(2, 8, device=dev)
     v = torch.randn(40, 8, device=dev)
     with pytest.raises(ValueError):
-        fused_topk(u, v, 33)                      # above the k cap
+        fused_topk(u, torch.randn(400, 8, device=dev), 129)  # above the
+                                                  # k cap (128)
     with pytest.raises(TypeError):
         fused_topk(u, v.double(), 4)
     with pytest.raises(ValueError):
@@ -533,8 +541,12 @@ def test_fused_topk_tiling_from_the_build(dev, codebook, quantized):
     shared memory, ~148 KB, leaves room for one)."""
     from repro_torch.kernels.fused_topk import _tiling
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    assert _tiling(dev, 64, codebook, quantized) == (64, 64, 2 * sms)
-    assert _tiling(dev, 256, codebook, quantized) == (64, 64, sms)
+    assert _tiling(dev, 64, codebook, quantized, 20) == (64, 64, 2 * sms)
+    assert _tiling(dev, 256, codebook, quantized, 20) == (64, 64, sms)
+    # a list of 128 keys a row (k 65..128): ~148 KB at d 64, ~196 KB at
+    # d 256, one block per SM
+    for d in (64, 256):
+        assert _tiling(dev, d, codebook, quantized, 100) == (64, 64, sms)
 
 
 @pytest.mark.parametrize("variant", ["dense", "codebook"])
@@ -573,6 +585,181 @@ def test_fused_topk_all_equal_scores(dev, variant, k):
     assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
     assert torch.equal(got[1].cpu(), torch.arange(k, dtype=torch.int32)
                        .expand(130, k))
+
+
+def _large_k_case(variant, case, rows, n, d, g):
+    """An integer-valued top-k case with the edge the name asks for:
+    "mask" (-inf on all but 150 items), "exclude" (400 random pairs and
+    each row's 10 best items), "zeros" (items of all-zero rows beside
+    -0.0 scores: ±0 ties), "nan" (a NaN query row and NaN items), "ninf"
+    (a row of -inf scores: every item masked)."""
+    u, items, kw = _topk_case(variant, rows, n, d, g)
+    if case == "mask":
+        kw["mask"] = torch.full((n,), float("-inf"))
+        kw["mask"][torch.randperm(n, generator=g)[:150]] = 0.0
+    elif case == "exclude":
+        _, top = ref.fused_topk(u, items, 10, **kw)
+        r = torch.cat([torch.arange(rows).repeat_interleave(10),
+                       torch.randint(0, rows, (400,), generator=g)])
+        c = torch.cat([top.reshape(-1).long(),
+                       torch.randint(0, n, (400,), generator=g)])
+        kw["exclude"] = (r, c)
+    elif case == "zeros":
+        u[::2] = -u[::2]
+        u[1::3] = 0.0
+        u[2::3, 0] = -1.0
+        u[2::3, 1:] = 0.0                 # rows scoring -0.0 on zero items
+        zero = torch.arange(0, n if variant != "codebook" else 211, 7)
+        items[zero] = 0
+    elif case == "nan":
+        u[3] = float("nan")
+        items = items.float() if variant != "int8" else items
+        if variant == "int8":
+            kw["scale"][[7, 123, n - 1]] = float("nan")
+        else:
+            items[[7, 123, items.shape[0] - 1]] = float("nan")
+    elif case == "ninf":
+        kw["mask"] = torch.zeros(n)
+        kw["exclude"] = (torch.full((n,), 5), torch.arange(n))
+    return u, items, kw
+
+
+@pytest.mark.parametrize("variant", ["dense", "int8", "codebook"])
+@pytest.mark.parametrize("k", [33, 64, 100, 128])
+@pytest.mark.parametrize("case", ["plain", "mask", "exclude", "zeros", "nan",
+                                  "ninf"])
+def test_fused_topk_large_k_exact(dev, variant, k, case):
+    """k above one key a lane (lists of 64 and 128 keys): bitwise the
+    plain version's order (NaN first, value descending, the lower id; -0.0
+    ties +0.0), which on finite scores is torch.topk's values; both
+    kernel variants launch, and two calls repeat bitwise."""
+    g = torch.Generator().manual_seed(k * 13 + len(case))
+    u, items, kw = _large_k_case(variant, case, 97, 4099, 64, g)
+    u, items = u.to(dev), items.to(dev)
+    kw = {key: (tuple(t.to(dev) for t in val) if key == "exclude"
+                else val.to(dev)) for key, val in kw.items()}
+    counter = fused_topk_codebook if variant == "codebook" else fused_topk
+    before = counter.launches
+    got = fused_topk(u, items, k, **kw)
+    assert counter.launches == before + 1
+    want = ref.fused_topk(u, items, k, **kw)
+    assert torch.equal(got[1], want[1])
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=0,
+                               equal_nan=True)
+    if case != "nan":
+        scores = u @ ref.expand_items(items, kw.get("scale"),
+                                      kw.get("sketch")).T
+        if "mask" in kw:
+            scores = scores + kw["mask"]
+        if case in ("exclude", "ninf"):
+            r, c = kw["exclude"]
+            scores[r.long(), c.long()] = float("-inf")
+        assert torch.equal(got[0], torch.topk(scores, k).values)
+    if case == "nan":
+        assert torch.isnan(got[0][3]).all()
+    if case == "ninf":
+        assert torch.equal(got[1][5].cpu(), torch.arange(k, dtype=torch.int32))
+    again = fused_topk(u, items, k, **kw)
+    assert torch.equal(again[0].nan_to_num(), got[0].nan_to_num())
+    assert torch.equal(again[1], got[1])
+
+
+@pytest.mark.parametrize("variant", ["dense", "codebook"])
+@pytest.mark.parametrize("block", [None, 61])
+def test_fused_topk_large_k_ascending_and_equal_scores(dev, variant, block):
+    """k 100 and 128 on items in ascending score order (every score beats
+    the running threshold: each tile pushes all its items) and on all-equal
+    scores (the lowest ids win, in order)."""
+    n, d = 5003, 64
+    u = torch.zeros(70, d)
+    u[:, 0] = 1.0
+    u[1::2, 0] = -1.0
+    table = torch.zeros(n, d)
+    table[:, 0] = torch.arange(n, dtype=torch.float32)
+    kw = {}
+    if variant == "codebook":
+        kw["sketch"] = torch.arange(n, dtype=torch.int32)[:, None].to(dev)
+    u, table = u.to(dev), table.to(dev)
+    for k in (100, 128):
+        got = fused_topk(u, table, k, block=block, **kw)
+        want = ref.fused_topk(u, table, k, **kw)
+        assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+        assert torch.equal(got[1][0].cpu(), torch.arange(
+            n - 1, n - 1 - k, -1, dtype=torch.int32))
+        flat = fused_topk(torch.zeros_like(u), table, k, block=block, **kw)
+        assert torch.equal(flat[1].cpu(), torch.arange(
+            k, dtype=torch.int32).expand(70, k))
+
+
+def test_fused_topk_large_k_never_calls_torch_topk(dev, monkeypatch):
+    """k above 32 launches the kernel: no torch.topk (nor torch.sort)
+    anywhere on the call."""
+    g = torch.Generator().manual_seed(9)
+    u, items, _ = _topk_case("dense", 33, 3001, 64, g)
+    u, items = u.to(dev), items.to(dev)
+    want = ref.fused_topk(u, items, 100)
+
+    def refuse(*a, **k):
+        raise AssertionError("torch.topk/torch.sort reached")
+
+    monkeypatch.setattr(torch, "topk", refuse)
+    monkeypatch.setattr(torch, "sort", refuse)
+    before = fused_topk.launches
+    got = fused_topk(u, items, 100)
+    assert fused_topk.launches == before + 1
+    monkeypatch.undo()
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+
+
+def _to_device(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_device(v, dev) for v in tree]
+    return tree.to(dev, copy=True)
+
+
+@pytest.mark.parametrize("arch", ["dlrm-mlperf-baco", "wide-deep-baco",
+                                  "sasrec-baco", "bert4rec-baco"])
+@pytest.mark.parametrize("shape", ["serve_p99", "retrieval_cand",
+                                   "train_batch"])
+def test_arch_cell_kernels_on_the_card(dev, arch, shape):
+    """Each recsys arch's smoke cell on the card (lookups through
+    codebook_lookup, DLRM's interaction through dot_interaction, the
+    attention through flash_attention's CUDA-core route, the train
+    cells' backward through the CSR gather-sum) against the same cell on
+    the CPU's plain versions with the same params: scores, and one AdamW
+    step's loss and params, within rtol 1e-4 / atol 1e-5."""
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models import recsys as rs
+    from repro_torch.training.optimizer import adamw
+
+    cpu = build_cell(arch, shape, smoke=True, device="cpu")
+    gpu = build_cell(arch, shape, smoke=True, device=dev)
+    params = _to_device(cpu.args[0], dev)
+    args = (params,) + tuple(gpu.args[1:])
+    if cpu.kind == "train":
+        args = (params, adamw(lr=1e-3).init(rs.flat_params(params)),
+                gpu.args[2], gpu.args[3])
+    kernels = [codebook_lookup, dot_interaction, flash_attention,
+               csr_gather_sum]
+    before = [k.launches for k in kernels]
+    cc = flash_attention.launches_cc
+    got, want = gpu.fn(*args), cpu.fn(*cpu.args)
+    ran = [k.launches - b for k, b in zip(kernels, before)]
+    assert ran[0] > 0
+    assert (ran[1] > 0) == arch.startswith("dlrm")
+    seq = arch.startswith(("sasrec", "bert4rec"))
+    assert (ran[2] > 0) == seq and (flash_attention.launches_cc - cc) == ran[2]
+    assert (ran[3] > 0) == (cpu.kind == "train")
+    if cpu.kind == "train":
+        pairs = [(got[2], want[2])] + [
+            (rs.flat_params(got[0])[k], v)
+            for k, v in rs.flat_params(want[0]).items()]
+    else:
+        pairs = [(got, want)]
+    for g, w in pairs:
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-5)
 
 
 # ---------------------------------------------------------------------------
