@@ -112,6 +112,28 @@
    are printed; the device is freed between cells. The smoke cells of
    each arch then run on the card against the port's CPU path (rtol
    1e-4 / atol 1e-5). It prints an ``arch`` JSON line.
+   Then the dense LM family at its published widths, each cell cut to one
+   card (``launch.steps.LM_ONE_CARD``; params from ``init_params`` under
+   generator seed 0, bf16; tokens uniform over the vocabulary; a decode
+   cell's cache drawn standard normal in the cache dtype at ``pos =
+   seq_len - 1``, so every step reads the full 32k cache) through
+   ``ArchSession`` (``LM_CELLS``): gemma2-9b ``prefill_32k`` (B 1 of 32,
+   2 requests) and ``decode_32k`` (B 4 of 128), gemma3-12b
+   ``decode_32k`` (B 8), qwen1.5-32b ``decode_32k`` (B 2, 32 of its 64
+   layers, fp8 cache), each after one untimed warm-up whose token lookup
+   (codebook_lookup's bf16 instantiation, at H = 1) is held bitwise
+   against its plain version and timed (``first_calls``). Launch counts
+   are zeroed just before each cell and read just after; the lookup must
+   launch once a request. Logits must be finite f32 [B, vocab]. p50/p99,
+   tokens/s and peak device bytes (from a reset after the warm-up) are
+   printed, and each decode cell's arch runs the decode-after-prefill
+   check on its full-width params (``lm_decode_after_prefill``: 64
+   prompt tokens, 8 rows; tolerance by cache dtype, and two planted
+   position faults that must fail it). bf16 GEMMs sum in
+   f32: the model's entries turn cuBLAS's reduced-precision reduction off.
+   The smoke cells (f32, and bf16 variants of gemma2's and qwen's) then
+   run on the card against the port's CPU path. It prints an ``lm`` JSON
+   line.
 3. Drives the embedding layer's entry points (``repro_torch.embedding``) at
    the same width, on the main path's sketch (K_u 8,878 with H=2, K_v 17,136
    with H=1) and its trained d=64 codebooks: the codebook
@@ -161,7 +183,8 @@
    forward and backward, and on edge cases (zero, -0.0 and negative
    weights, skewed bags, one row of 100,000 values), timed beside
    ``index_add_`` and the previous cumsum route; codebook_lookup
-   at H 1..5 and 40, d 1..129, on unaligned codebooks. Every timing
+   at H 1..5 and 40, d 1..129, on unaligned codebooks, and its bf16 and
+   f16 instantiations at d 1..3,584. Every timing
    enqueues a ~0.1 ms device spin before its start event, so it times
    the device and not the host's enqueue; the timer's floor (a
    one-element add) is printed once.
@@ -197,7 +220,8 @@
    ``benches`` JSON line.
 
 Prints a ``stream`` JSON line, a ``frontdoor`` JSON line, a ``scale``,
-a ``baselines`` and an ``arch`` JSON line, a ``kernels`` JSON line, a ``timer`` line
+a ``baselines``, an ``arch`` and an ``lm`` JSON line, a ``kernels`` JSON
+line, a ``timer`` line
 (the timer's floor), a ``benches`` JSON line, the ``nvidia-smi``
 name/power line, and as its last
 line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -1840,13 +1864,20 @@ def arch_kernel_row(name: str, a, kw, out) -> dict:
         b, h = idx.shape
         d = z.shape[1]
         rows = int(torch.unique(idx).numel())
-        bms, by = bound(4 * (idx.numel() + rows * d + b * d), b * h * d)
+        es = z.element_size()
+        bms, by = bound(4 * idx.numel() + es * (rows * d + b * d),
+                        b * h * d)
         ixl = idx.long()
-        row = {"shape": f"B={b} H={h} K={z.shape[0]} d={d}",
+        wide = z.dtype == torch.float32
+        # a 16-bit lookup (the LM token embedding, H = 1): `table[ids]`
+        library = ((lambda: z[ixl].sum(1)) if wide or h > 1
+                   else (lambda: z[ixl[:, 0]]))
+        row = {"shape": f"B={b} H={h} K={z.shape[0]} d={d}"
+                        + ("" if wide else f" {str(z.dtype)[6:]}"),
                "max_abs_err": 0.0,
                "plain_ms": time_ms(lambda: ref.codebook_lookup(
                    z, idx, binary=binary), iters=10),
-               "library_ms": time_ms(lambda: z[ixl].sum(1), iters=10)}
+               "library_ms": time_ms(library, iters=10)}
     elif name == "embedding_bag":
         src, idx, ptr = a[:3]
         weight = a[3] if len(a) > 3 else kw.get("weight")
@@ -2105,6 +2136,283 @@ def arch_path() -> dict:
     res["small_reference"] = arch_small_reference()
     res["seconds"] = time.perf_counter() - t0
     log(f"arch phase: {res['seconds']:.1f} s, launches {total}")
+    return res
+
+
+# the dense LM cells at their published widths, each cut to one H100
+# (launch.steps.LM_ONE_CARD), with the requests each serves after its
+# warm-up
+LM_CELLS = (("gemma2-9b", "prefill_32k", 2),
+            ("gemma2-9b", "decode_32k", 5),
+            ("gemma3-12b", "decode_32k", 5),
+            ("qwen1.5-32b", "decode_32k", 5))
+# the full-width decode-after-prefill check: rows, prompt tokens, and the
+# logit tolerance by cache dtype (see lm_decode_after_prefill)
+LM_CHECK_ROWS, LM_CHECK_PROMPT = 8, 64
+LM_CHECK_ATOL = {"bfloat16": 0.08, "float8_e4m3fn": 0.25}
+
+
+def lm_config(arch: str, shape: str):
+    """The full config of an LM cell, at its one-card depth."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.steps import LM_ONE_CARD
+
+    cfg = get_arch(arch).full_config()
+    n = LM_ONE_CARD[(arch, shape)].get("n_layers")
+    return cfg if n is None else dataclasses.replace(cfg, n_layers=n)
+
+
+def lm_decode_after_prefill(params, cfg) -> dict:
+    """At full width on the cell's params: prefill ``S`` prompt tokens,
+    decode token S, against a prefill of S + 1 tokens (``LM_CHECK_ROWS``
+    rows of tokens uniform over the vocabulary). Decode reads K/V rounded
+    to the cache's dtype (bf16, or fp8 for qwen) and, for gemma, rounds
+    its attention output to bf16, where the longer prefill attends to
+    the unrounded f32 K/V: the logits may differ by those roundings,
+    carried through every layer. Gates: every logit finite; max |diff|
+    within ``LM_CHECK_ATOL`` of the cache dtype (3x and 2.2x the readings
+    on an H100 80GB HBM3: 0.027 for bf16, 0.113 for fp8, on logits of
+    standard deviation ~1); the greedy token equal in every row whose
+    top two logits (of the longer prefill) lie more than twice the
+    measured |diff| apart, and in at least one row. Two planted faults
+    must fail the |diff| gate: decoding at ``pos`` S - 1 (the last
+    prompt slot overwritten, the mask one slot short, RoPE one back) and
+    at S + 1 (RoPE one ahead); on the same card they read 0.96-1.35
+    (bf16) and 0.34-0.64 (fp8)."""
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    s, b = LM_CHECK_PROMPT, LM_CHECK_ROWS
+    dev = params["embed"].device
+    g = torch.Generator(device=dev).manual_seed(1)
+    tok = torch.randint(0, cfg.vocab_size, (b, s + 1), generator=g,
+                        device=dev, dtype=torch.int32)
+
+    def decode_at(pos):
+        _, cache = T.prefill(params, {"tokens": tok[:, :s]}, cfg,
+                             max_seq=s + 1)
+        dec, _ = T.decode_step(params, cache, {
+            "tokens": tok[:, s:s + 1],
+            "pos": torch.tensor(pos, dtype=torch.int32, device=dev)}, cfg)
+        return dec
+
+    with torch.inference_mode():
+        full, _ = T.prefill(params, {"tokens": tok}, cfg, max_seq=s + 1)
+        dec = decode_at(s)
+        planted = {f"pos {p - s:+d}": float((decode_at(p) - full).abs().max())
+                   for p in (s - 1, s + 1)}
+    kv = cfg.kv_cache_dtype or cfg.dtype
+    atol = LM_CHECK_ATOL[kv]
+    require(bool(torch.isfinite(full).all() & torch.isfinite(dec).all()),
+            f"{cfg.name}: decode-after-prefill logits not finite")
+    diff = float((dec - full).abs().max())
+    top2 = full.topk(2, dim=-1).values
+    gap = (top2[:, 0] - top2[:, 1]).cpu().tolist()
+    same = (dec.argmax(-1) == full.argmax(-1)).cpu().tolist()
+    binding = [gp > 2 * diff for gp in gap]
+    res = {"rows": b, "prompt": s, "kv_dtype": kv, "max_abs_diff": diff,
+           "atol": atol, "logit_absmax": float(full.abs().max()),
+           "logit_std": float(full.float().std()), "greedy_equal": same,
+           "top2_gap": gap, "greedy_rows_checked": sum(binding),
+           "planted_max_abs_diff": planted}
+    require(diff <= atol, f"{cfg.name}: decode after prefill differs from "
+            f"the longer prefill by {diff} (atol {atol}): {res}")
+    require(any(binding), f"{cfg.name}: every row is a near-tie, the "
+            f"greedy gate checks nothing: {res}")
+    for ok, bind in zip(same, binding):
+        require(ok or not bind, f"{cfg.name}: greedy token differs "
+                f"beyond a near-tie: {res}")
+    for what, d in planted.items():
+        require(d > atol, f"{cfg.name}: a planted fault ({what}) passes "
+                f"the decode-after-prefill gate: {res}")
+    log(f"{cfg.name} decode after prefill: {res}")
+    return res
+
+
+def lm_cell(arch: str, shape: str, n: int) -> dict:
+    """One dense LM cell at full width on the card through
+    ``ArchSession`` (one card's cut): counts zeroed just before the
+    warm-up and read just after the last request; the warm-up's token
+    lookup (codebook_lookup's 16-bit kernel) held bitwise against its
+    plain version and timed (:func:`first_calls`); p50/p99, tokens/s,
+    peak device bytes from a reset after the warm-up. A decode cell's
+    arch then runs :func:`lm_decode_after_prefill` on its params."""
+    import gc
+
+    import torch
+
+    from repro_torch.launch.steps import LM_ONE_CARD
+    from repro_torch.serve import ArchSession
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    session = ArchSession(arch, shape, smoke=False, device="cuda",
+                          **LM_ONE_CARD[(arch, shape)])
+    sync("cuda")
+    build_s = time.perf_counter() - t0
+    kernels = {}
+
+    def check(name, a, kw, out):
+        kernels[name] = arch_kernel_row(name, a, kw, out)
+
+    zero_counts()
+    t0 = time.perf_counter()
+    with first_calls(check):
+        session.warmup()
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(n):
+        out = session()
+    sync("cuda")
+    launches = {k: v for k, v in launch_counts().items() if v}
+    peak_calls = torch.cuda.max_memory_allocated() / 1e9
+    label = f"{arch}:{shape}"
+    cell = session.cell
+    logits = out[0]
+    b = cell.args[-1]["tokens"].shape[0]
+    cfg = lm_config(arch, shape)
+    require(tuple(logits.shape) == (b, cfg.vocab_size)
+            and logits.dtype == torch.float32
+            and bool(torch.isfinite(logits).all()),
+            f"{label}: logits {tuple(logits.shape)} {logits.dtype} (want "
+            f"({b}, {cfg.vocab_size}) float32) or not finite")
+    require(launches.get("codebook_lookup", 0) == n + 1,
+            f"{label}: codebook_lookup launched {launches} times in "
+            f"{n + 1} requests (want one a request)")
+    require("codebook_lookup" in kernels,
+            f"codebook_lookup: no call recorded on {label}")
+    res = {"cell": label, "kind": cell.kind, "calls": n + 1,
+           "build_s": build_s, "warmup_s": warm_s, "batch": b,
+           "seq_len": int(cell.args[-1]["tokens"].shape[1]
+                          if cell.kind == "prefill"
+                          else cell.args[1]["k_global"].shape[3]),
+           "n_layers": cfg.n_layers, "launches": launches,
+           "launches_per_call": {k: v / (n + 1)
+                                 for k, v in launches.items()},
+           "kernels": kernels, **session.stats(),
+           "peak_calls_gb": peak_calls}
+    if cell.kind == "decode":
+        res["profile"] = profile_lm_request(session, label)
+        cache = out[1]
+        require(all(bool(torch.isfinite(cache[k][:, :, :, -1].float()).all())
+                    for k in cache if k.endswith("global")),
+                f"{label}: the cache slot decode wrote is not finite")
+        res["decode_after_prefill"] = lm_decode_after_prefill(
+            cell.args[0], cfg)
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del session, cell, out, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"lm {label}: {res}")
+    return res
+
+
+def profile_lm_request(session, label: str) -> dict:
+    """One more request of a cell under ``torch.profiler`` (after its
+    launch counts were read): device time by kernel, wall time, idle
+    share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        session()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    per_kernel = device_times(prof, 1)
+    busy = sum(per_kernel.values())
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
+    log(f"profile ({label}, one request): device busy {busy:.3f} ms of "
+        f"{wall_ms:.3f} ms")
+    for name, ms in top:
+        log(f"  {ms:9.4f} ms  {100 * ms / max(busy, 1e-9):5.1f}%  {name}")
+    return {"device_ms": busy, "wall_ms": wall_ms,
+            "idle_share": 1.0 - busy / wall_ms, "top_kernels_ms": dict(top)}
+
+
+def lm_small_reference(device: str = "cuda") -> dict:
+    """Each dense LM's smoke cells on the card against the port's CPU path
+    (held against the JAX package by the CPU tests) on the same params
+    and inputs: prefill and decode logits and cache, and one AdamW step's
+    loss and params, within rtol 1e-4 / atol 1e-5 (f32); a bf16 variant of
+    gemma2's and qwen's smoke config, prefill within rtol 2e-2 / atol
+    4e-2 (bf16 roundings after sums in another order), with the
+    reference's residual dtype (f32 for gemma2, bf16 for qwen)."""
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models import recsys as rs
+    from repro_torch.models import transformer as T
+
+    out = {}
+
+    def hold(pairs, label, rtol, atol):
+        err = 0.0
+        for g, w in pairs:
+            g = g.detach().cpu().float()
+            w = w.detach().float()
+            require(torch.allclose(g, w, rtol=rtol, atol=atol),
+                    f"{label}: the card differs from the CPU path")
+            err = max(err, float((g - w).abs().max()))
+        out[label] = err
+
+    for arch in ("gemma2-9b", "gemma3-12b", "qwen1.5-32b"):
+        for shape in ("train_4k", "prefill_32k", "decode_32k"):
+            cpu = build_cell(arch, shape, smoke=True, device="cpu")
+            gpu = build_cell(arch, shape, smoke=True, device=device)
+            args = tuple(_to(a, device) for a in cpu.args)
+            got, want = gpu.fn(*args), cpu.fn(*cpu.args)
+            if cpu.kind == "train":
+                pairs = [(got[2], want[2])] + [
+                    (rs.flat_params(got[0])[k], v)
+                    for k, v in rs.flat_params(want[0]).items()]
+            else:
+                pairs = [(got[0], want[0])] + [(got[1][k], v)
+                                               for k, v in want[1].items()]
+            hold(pairs, f"{arch}:{shape}", 1e-4, 1e-5)
+    for arch, stream in (("gemma2-9b", torch.float32),
+                         ("qwen1.5-32b", torch.bfloat16)):
+        cfg = dataclasses.replace(get_arch(arch).smoke_config(),
+                                  dtype="bfloat16")
+        params = T.init_params(torch.Generator().manual_seed(0), cfg)
+        tok = torch.randint(0, cfg.vocab_size, (2, 16), dtype=torch.int32,
+                            generator=torch.Generator().manual_seed(1))
+        with torch.inference_mode():
+            want = T.prefill(params, {"tokens": tok}, cfg, max_seq=16)
+            got = T.prefill(_to(params, device), {"tokens": tok.to(device)},
+                            cfg, max_seq=16)
+            h = T._backbone(_to(params, device), tok.to(device), cfg,
+                            T._positions(2, 16, device))
+        require(h.dtype == stream, f"{arch} bf16: residual stream "
+                f"{h.dtype}, want {stream}")
+        hold([(got[0], want[0])] + [(got[1][k], v)
+                                    for k, v in want[1].items()],
+             f"{arch}:bf16 prefill", 2e-2, 4e-2)
+    log(f"lm smoke cells, card == CPU path (max |err|): {out}")
+    return out
+
+
+def lm_path() -> dict:
+    """The dense LM family through its entry points at the published
+    widths on the card (:func:`lm_cell` each, ``LM_CELLS``), then the
+    smoke cells on the card against the CPU path. The token lookup's
+    kernel must run once a request in every cell."""
+    import torch
+
+    t0 = time.perf_counter()
+    res = {"cells": [lm_cell(a, s, n) for a, s, n in LM_CELLS]}
+    total = {}
+    for c in res["cells"]:
+        for k, v in c["launches"].items():
+            total[k] = total.get(k, 0) + v
+    res["launches"] = total
+    res["small_reference"] = lm_small_reference()
+    res["seconds"] = time.perf_counter() - t0
+    log(f"lm phase: {res['seconds']:.1f} s, launches {total}")
     return res
 
 
@@ -2414,9 +2722,30 @@ def check_codebook_lookup(run: dict) -> dict:
                     n_cases += 1
     empty = codebook_lookup(z, ix[:0], binary=True)
     require(empty.shape == (0, z.shape[1]), "codebook_lookup B=0")
+    # the 16-bit instantiations (bf16, f16): 8, 4, 2 and 1 elements a
+    # lane, a codebook 2 bytes off alignment, the LM width 3,584
+    n16 = 0
+    for dtype in (torch.bfloat16, torch.float16):
+        for h in (1, 2, 3, 5, 40):
+            for d in (1, 3, 64, 130, 3584):
+                flat = (torch.randn(97 * d + 1, generator=g) * 4).to(
+                    dtype).to(dev)
+                ix = torch.randint(0, 97, (257, h), generator=g,
+                                   dtype=torch.int32)
+                if h > 1:
+                    ix[::3, h - 1] = ix[::3, 0]
+                ix = ix.to(dev)
+                for z16 in (flat[:97 * d].view(97, d), flat[1:].view(97, d)):
+                    for binary in (False, True):
+                        got = codebook_lookup(z16, ix, binary=binary)
+                        require(got.dtype == dtype and torch.equal(
+                            got, ref.codebook_lookup(z16, ix, binary=binary)),
+                            f"codebook_lookup {dtype} H={h} d={d} "
+                            f"binary={binary} differs")
+                        n16 += 1
     log(f"codebook_lookup edge cases ({n_cases}: H 1..5 and 40, d 1..129, "
-        f"duplicates, binary on/off, unaligned codebook, B=0): bitwise "
-        f"equal")
+        f"duplicates, binary on/off, unaligned codebook, B=0; {n16} in bf16 "
+        f"and f16 at d 1..3,584): bitwise equal")
     main = rows["users"]
     return {"name": "codebook_lookup", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/codebook_lookup.cu",
@@ -2426,7 +2755,8 @@ def check_codebook_lookup(run: dict) -> dict:
                          + run["stream"]["launches"]["codebook_lookup"]
                          + run["frontdoor"]["launches"]["codebook_lookup"]
                          + run["baselines"]["launches"]["codebook_lookup"]
-                         + run["arch"]["launches"]["codebook_lookup"]),
+                         + run["arch"]["launches"]["codebook_lookup"]
+                         + run["lm"]["launches"]["codebook_lookup"]),
             "launches_by_path": {
                 "serving": run["launches"]["codebook_lookup"],
                 "training": run["training"]["launches"]["codebook_lookup"],
@@ -2435,13 +2765,16 @@ def check_codebook_lookup(run: dict) -> dict:
                     run["frontdoor"]["launches"]["codebook_lookup"],
                 "baselines":
                     run["baselines"]["launches"]["codebook_lookup"],
-                "arch": run["arch"]["launches"]["codebook_lookup"]},
+                "arch": run["arch"]["launches"]["codebook_lookup"],
+                "lm": run["lm"]["launches"]["codebook_lookup"]},
             "max_abs_err": max_err, "ms": main["ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
             "shape": main["shape"], "items": rows["items"],
             "items_h2": run["baselines"]["codebook_items_h2"],
-            "arch_path": arch_rows(run, "codebook_lookup")}
+            "arch_path": arch_rows(run, "codebook_lookup"),
+            "lm_path": {c["cell"]: c["kernels"]["codebook_lookup"]
+                        for c in run["lm"]["cells"]}}
 
 
 def check_fused_topk(run: dict) -> dict:
@@ -3542,6 +3875,7 @@ def main() -> int:
             run["scale"] = scale_path()
             run["baselines"] = baselines_path(run, workdir)
             run["arch"] = arch_path()
+            run["lm"] = lm_path()
             emb_run = embedding_path(run)
             bench_run = bench_path()
             floor = timer_floor_ms()
@@ -3565,6 +3899,7 @@ def main() -> int:
     print(json.dumps({"scale": run["scale"]}))
     print(json.dumps({"baselines": run["baselines"]}))
     print(json.dumps({"arch": run["arch"]}))
+    print(json.dumps({"lm": run["lm"]}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"timer": {"floor_ms": floor,
                                 "spin_cycles": spin_cycles()}}))

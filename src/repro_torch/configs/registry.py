@@ -8,9 +8,10 @@ Each ``configs/<arch>.py`` module of the port registers an ArchSpec with:
                      builders in launch/steps.py
 
 The port registers the recsys family (DLRM, Wide&Deep, SASRec,
-BERT4Rec) and the paper's own backbone (``lightgcn-baco``, family
-"cf"). The reference's LM and GNN archs are not ported: ``get_arch``
-names ROADMAP Queue 1 #6 for them.
+BERT4Rec), the paper's own backbone (``lightgcn-baco``, family "cf")
+and the dense LM family (gemma2-9b, gemma3-12b, qwen1.5-32b). The
+reference's MoE LMs and its GNN are not ported: ``get_arch`` names the
+ROADMAP item each waits for (``WAITS_FOR``).
 
 Shape kinds: train | prefill | decode | serve | retrieval.
 """
@@ -21,7 +22,7 @@ import importlib
 from typing import Callable, Dict, Optional, Tuple
 
 __all__ = ["ArchSpec", "ShapeSpec", "register", "get_arch", "list_archs",
-           "all_cells", "UNPORTED_ARCHS", "not_ported"]
+           "all_cells", "UNPORTED_ARCHS", "WAITS_FOR", "not_ported"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,21 +52,25 @@ class ArchSpec:
 
 _REGISTRY: Dict[str, ArchSpec] = {}
 
-_MODULES = ["dlrm_mlperf", "sasrec", "wide_deep", "bert4rec",
-            "lightgcn_baco"]
+_MODULES = ["gemma3_12b", "gemma2_9b", "qwen15_32b", "dlrm_mlperf", "sasrec",
+            "wide_deep", "bert4rec", "lightgcn_baco"]
 
-# the reference's archs of the families the port has not ported yet (the
-# LM transformer and SchNet), with their family
-UNPORTED_ARCHS = {"gemma3-12b": "lm", "gemma2-9b": "lm", "qwen1.5-32b": "lm",
-                  "kimi-k2-1t-a32b": "lm", "dbrx-132b": "lm",
+# the reference's archs the port has not ported yet (its MoE LMs and
+# SchNet), with their family, and the ROADMAP item each waits for
+UNPORTED_ARCHS = {"kimi-k2-1t-a32b": "lm", "dbrx-132b": "lm",
                   "schnet": "gnn"}
+MOE_ITEM = "ROADMAP Queue 1 #7c"
+GNN_ITEM = "ROADMAP Queue 1 #7b"
+WAITS_FOR = {"kimi-k2-1t-a32b": MOE_ITEM, "dbrx-132b": MOE_ITEM,
+             "schnet": GNN_ITEM}
 
 
-def not_ported(what: str) -> NotImplementedError:
-    """The error for an arch or family the port does not have yet."""
+def not_ported(what: str, item: str) -> NotImplementedError:
+    """The error for an arch, family or feature the port does not have
+    yet, naming the ROADMAP item it waits for."""
     return NotImplementedError(
-        f"{what} is not ported yet: the port runs the recsys and cf "
-        f"families; the LM and GNN models wait for ROADMAP Queue 1 #6")
+        f"{what} is not ported yet: the port runs the recsys, cf and dense "
+        f"LM families; this waits for {item}")
 
 
 def register(spec: ArchSpec):
@@ -84,7 +89,7 @@ def get_arch(arch_id: str) -> ArchSpec:
     _load()
     if arch_id in UNPORTED_ARCHS:
         raise not_ported(f"arch {arch_id!r} (family "
-                         f"{UNPORTED_ARCHS[arch_id]!r})")
+                         f"{UNPORTED_ARCHS[arch_id]!r})", WAITS_FOR[arch_id])
     if arch_id not in _REGISTRY:
         raise KeyError(f"unknown arch {arch_id!r}; have {sorted(_REGISTRY)}")
     return _REGISTRY[arch_id]

@@ -8,9 +8,12 @@ randomly initialised codebooks (seeded), so the top-k lists are
 untrained. Requests go through RecsysSession behind BatchDispatcher; the
 launcher prints p50/p99 latency.
 
-For the recsys architectures, ``--arch <id> --shape serve_p99|serve_bulk|
-retrieval_cand`` serves the cell through ``ArchSession`` at smoke width
-(the full width runs through ``ArchSession(..., smoke=False)``).
+For the architectures, ``--arch <id> --shape <shape>`` serves the cell
+through ``ArchSession``: a recsys arch's serve_p99|serve_bulk|
+retrieval_cand, or a dense LM's (gemma2-9b, gemma3-12b, qwen1.5-32b)
+prefill_32k|decode_32k, at smoke width (the published width runs through
+``ArchSession(..., smoke=False)``). It prints p50/p99 and, for the LM
+cells, tokens/s.
 
 Runs on the CUDA device by default (``--device cpu`` to run the kernels'
 plain versions on the CPU).
@@ -68,10 +71,12 @@ def arch_serving(args):
     for _ in range(args.n_requests):
         session()
     st = session.stats()
+    rate = (f" tokens/s={st['tokens_per_s']:.1f}"
+            if "tokens_per_s" in st else "")
     print(f"[serve] {args.arch}:{args.shape} "
           f"smoke on {args.device} "
           f"(backend={args.backend}): {st['requests']} requests "
-          f"p50={st['p50_ms']:.2f}ms p99={st['p99_ms']:.2f}ms")
+          f"p50={st['p50_ms']:.2f}ms p99={st['p99_ms']:.2f}ms{rate}")
     return 0
 
 
@@ -79,8 +84,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--dataset", default="gowalla_s")
     ap.add_argument("--arch", default=None,
-                    help="serve a recsys architecture's cell "
-                         "(configs.list_archs)")
+                    help="serve an architecture's cell (configs.list_archs)")
     ap.add_argument("--shape", default="serve_p99")
     ap.add_argument("--dim", type=int, default=64)
     ap.add_argument("--seed", type=int, default=0)

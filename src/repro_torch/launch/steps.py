@@ -1,5 +1,5 @@
 """Step builders: (arch x shape) -> a Cell of (step fn, args) (port of
-``repro.launch.steps``, the recsys and cf families).
+``repro.launch.steps``, the dense LM, recsys and cf families).
 
 Every builder returns a ``Cell``:
     fn:      the step (train / serve / retrieval) on tensors
@@ -22,25 +22,37 @@ smoke rule, numpy seed 0; the repo holds no Criteo or MovieLens data),
 and batches with ids uniform over each field's vocabulary, dense inputs
 standard normal, labels in {0, 1}.
 
-There is no mesh: the LM and GNN families raise NotImplementedError
-(ROADMAP Queue 1 #6).
+The dense LM family (``_lm_cell``): train, prefill and decode cells of
+``models.transformer``. Smoke draws are one ``default_rng(0)`` over the
+args in ``jax.tree.map`` order (decode: the cache's keys sorted, then
+``pos``, then ``tokens``). At full width the params come from
+``init_params`` under generator seed 0, tokens uniform over the
+vocabulary, and a decode cell's cache is drawn standard normal in the
+cache dtype with ``pos = seq_len - 1``, so every step reads a full
+cache. ``batch=`` and ``n_layers=`` cut a full-width cell to one card
+(``LM_ONE_CARD``; each cut is listed in ``Cell.reduced``).
+
+There is no mesh: the GNN family and the MoE LMs raise
+NotImplementedError naming their ROADMAP items.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.configs.registry import (ArchSpec, ShapeSpec, get_arch,
-                                          not_ported)
+from repro_torch.configs.registry import (GNN_ITEM, ArchSpec, ShapeSpec,
+                                          get_arch, not_ported)
 from repro_torch.device import resolve_device
 from repro_torch.models import lightgcn as LG
 from repro_torch.models import recsys as R
+from repro_torch.models import transformer as T
 from repro_torch.training import optimizer as opt_lib
 
-__all__ = ["Cell", "build_cell", "param_shapes"]
+__all__ = ["Cell", "build_cell", "param_shapes", "LM_ONE_CARD"]
 
 
 @dataclasses.dataclass
@@ -52,14 +64,17 @@ class Cell:
     args: Tuple[Any, ...]
     donate: Tuple[int, ...] = ()
     notes: str = ""
+    reduced: Tuple[str, ...] = ()    # cuts of a full-width cell
 
     def next_args(self, args: Tuple[Any, ...], out) -> Tuple[Any, ...]:
         """Thread one request's outputs into the next request's args.
 
-        Decode cells (the reference's LM family, not ported) return
-        (logits, cache) and thread the cache; every other kind keeps its
-        args (serve/retrieval cells are stateless between requests; the
-        port's train step updates params and optimizer state in place)."""
+        Decode cells return (logits, cache) and thread the cache (updated
+        in place: the same tensors, the port's counterpart of the
+        reference's donation); every other kind keeps its args
+        (serve/retrieval/prefill cells are stateless between requests;
+        the port's train step updates params and optimizer state in
+        place)."""
         if self.kind == "decode" and self.donate:
             return (args[0], out[1]) + tuple(args[2:])
         return args
@@ -78,21 +93,23 @@ class _Spec:
     high: Any = None
 
 
-def _materialize(batch: dict, device, seed: int = 0) -> dict:
+def _materialize(batch: dict, device, seed: int = 0, rng=None) -> dict:
     """The reference's smoke draws (``repro/launch/steps.py:177-189``):
     ``np.random.default_rng(seed)`` over the spec leaves in
     ``jax.tree.map``'s order (the batch dict's keys sorted; params,
     optimizer state and statics are concrete and draw nothing): integers
-    in {0, 1}, floats standard normal."""
-    rng = np.random.default_rng(seed)
+    in {0, 1}, floats standard normal (cast to the spec's dtype). Pass
+    ``rng`` to go on drawing from it (args of several spec dicts)."""
+    rng = np.random.default_rng(seed) if rng is None else rng
     out = {}
     for key in sorted(batch):
         spec = batch[key]
         if spec.dtype.is_floating_point:
             a = rng.standard_normal(spec.shape).astype(np.float32)
+            out[key] = torch.as_tensor(a, device=device).to(spec.dtype)
         else:
-            a = rng.integers(0, 2, spec.shape).astype(np.int32)
-        out[key] = torch.as_tensor(a, device=device)
+            a = np.asarray(rng.integers(0, 2, spec.shape), dtype=np.int32)
+            out[key] = torch.as_tensor(a, device=device)
     return {k: out[k] for k in batch}
 
 
@@ -114,6 +131,129 @@ def _full_batch(batch: dict, device, seed: int = 0) -> dict:
             out[key] = torch.randint(0, spec.high, spec.shape, generator=g,
                                      device=device, dtype=torch.int32)
     return out
+
+
+# ---------------------------------------------------------------------------
+# LM family (dense)
+# ---------------------------------------------------------------------------
+# one H100's cuts of the full-width serving cells (80 GB; PERF.md §4): the
+# batch (global_batch 32 / 128 otherwise), and qwen1.5-32b's depth (its
+# 64 layers are 70.4 GB of bf16 params and its fp8 cache 21.5 GB a row)
+LM_ONE_CARD = {("gemma2-9b", "prefill_32k"): {"batch": 1},
+               ("gemma2-9b", "decode_32k"): {"batch": 4},
+               ("gemma3-12b", "decode_32k"): {"batch": 8},
+               ("qwen1.5-32b", "decode_32k"): {"batch": 2, "n_layers": 32}}
+
+
+def _lm_optimizer(cfg):
+    """The reference's choice (``repro/launch/steps.py:194-198``) for a
+    dense model: AdamW (its Adafactor is for MoEs of 128+ experts)."""
+    return "adamw", opt_lib.adamw(lr=3e-4, grad_clip=1.0)
+
+
+def _lm_train_step(cfg, opt, n_micro: int, acc_dtype):
+    """Loss and grads of every param (summed over ``n_micro`` equal
+    microbatches in ``acc_dtype``, then divided), one update in place."""
+    def train_step(params, opt_state, b):
+        flat = R.flat_params(params)
+        leaves = list(flat.values())
+        for p in leaves:
+            p.requires_grad_(True)
+        if n_micro == 1:
+            loss = T.train_loss(params, b, cfg)
+            grads = torch.autograd.grad(loss, leaves)
+        else:
+            acc = [torch.zeros(p.shape, dtype=acc_dtype, device=p.device)
+                   for p in leaves]
+            loss = torch.zeros((), dtype=torch.float32,
+                               device=leaves[0].device)
+            for m in range(n_micro):
+                mb = {k: v.reshape(n_micro, v.shape[0] // n_micro,
+                                   *v.shape[1:])[m] for k, v in b.items()}
+                lm = T.train_loss(params, mb, cfg)
+                g = torch.autograd.grad(lm, leaves)
+                acc = [a + x.to(acc_dtype) for a, x in zip(acc, g)]
+                loss = loss + lm.detach()
+            grads = [a / n_micro for a in acc]
+            loss = loss / n_micro
+        for p in leaves:
+            p.requires_grad_(False)
+        opt.update(dict(zip(flat, grads)), opt_state, flat)
+        return params, opt_state, loss.detach()
+    return train_step
+
+
+def _lm_cell(spec: ArchSpec, shape: ShapeSpec, smoke: bool, lookup_backend,
+             device, batch: Optional[int] = None,
+             n_layers: Optional[int] = None) -> Cell:
+    cfg = spec.smoke_config() if smoke else spec.full_config()
+    if lookup_backend is not None:
+        cfg = dataclasses.replace(cfg, lookup_backend=lookup_backend)
+    dims = shape.dims
+    if smoke:
+        seq = {"train": 16, "prefill": 16, "decode": 32}.get(shape.kind, 16)
+        b = 4
+    else:
+        seq, b = dims["seq_len"], dims["global_batch"]
+    reduced = []
+    if batch is not None and batch != b:
+        reduced.append(f"global_batch {b} -> {batch}")
+        b = batch
+    if n_layers is not None and n_layers != cfg.n_layers:
+        reduced.append(f"n_layers {cfg.n_layers} -> {n_layers}")
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = T.init_params(gen, cfg)
+    i32 = torch.int32
+    tok = lambda shp: _Spec(shp, i32, cfg.vocab_size)  # noqa: E731
+    cell = functools.partial(Cell, spec.arch_id, shape.name, shape.kind,
+                             reduced=tuple(reduced))
+
+    if shape.kind == "train":
+        opt_name, opt = _lm_optimizer(cfg)
+        opt_state = opt.init(R.flat_params(params))
+        specs = {"tokens": tok((b, seq)), "targets": tok((b, seq))}
+        bt = _draw_batch(specs, smoke, device)
+        # gradient accumulation (the reference's rule), and its f32
+        # accumulator, bf16 where the params would be FSDP-sharded (over 8
+        # GB of bf16 on one model shard, as every full LM config is)
+        n_micro = dims.get("microbatches") or (
+            8 if not smoke and shape.name == "train_4k" else 1)
+        fsdp = T.count_params(cfg) * 2 > 8e9
+        acc = torch.bfloat16 if fsdp else torch.float32
+        return cell(_lm_train_step(cfg, opt, n_micro, acc),
+                    (params, opt_state, bt), donate=(0, 1),
+                    notes=f"optimizer={opt_name},microbatches={n_micro}")
+
+    if shape.kind == "prefill":
+        bt = _draw_batch({"tokens": tok((b, seq))}, smoke, device)
+
+        @torch.inference_mode()
+        def prefill_step(params, b):
+            return T.prefill(params, b, cfg, max_seq=seq)
+
+        return cell(prefill_step, (params, bt))
+
+    # decode: KV cache as input, one new token at pos
+    batch_specs = {"tokens": tok((b, 1)), "pos": _Spec((), i32)}
+    if smoke:
+        meta = T.init_cache(cfg, b, seq, device="meta")
+        rng = np.random.default_rng(0)
+        cache = _materialize({k: _Spec(tuple(v.shape), v.dtype)
+                              for k, v in meta.items()}, device, rng=rng)
+        bt = _materialize(batch_specs, device, rng=rng)
+    else:
+        cache = T.init_cache(cfg, b, seq, device=device, generator=gen)
+        bt = {"tokens": _full_batch({"tokens": batch_specs["tokens"]},
+                                    device)["tokens"],
+              "pos": torch.tensor(seq - 1, dtype=i32, device=device)}
+
+    @torch.inference_mode()
+    def decode(params, cache, b):
+        return T.decode_step(params, cache, b, cfg)
+
+    return cell(decode, (params, cache, bt), donate=(1,),
+                notes="KV cache updated in place")
 
 
 # ---------------------------------------------------------------------------
@@ -326,19 +466,26 @@ def _cf_cell(spec: ArchSpec, shape: ShapeSpec, smoke: bool, lookup_backend,
 # ---------------------------------------------------------------------------
 # dispatcher
 # ---------------------------------------------------------------------------
-_FAMILY = {"recsys": _recsys_cell, "cf": _cf_cell}
+_FAMILY = {"lm": _lm_cell, "recsys": _recsys_cell, "cf": _cf_cell}
 
 
 def build_cell(arch_id: str, shape_name: str, smoke: bool = False,
                lookup_backend: Optional[str] = None,
-               device="cuda") -> Cell:
+               device="cuda", **cuts) -> Cell:
     """The (arch, shape) cell on ``device`` (default the CUDA device;
     raises without one). ``lookup_backend``: explicit EmbeddingEngine
     backend override ("gather" | "onehot" | "cuda"); None auto-selects
-    by device."""
+    by device. ``cuts`` (LM cells: ``batch``, ``n_layers``) cut the cell,
+    each cut listed in ``Cell.reduced`` (``LM_ONE_CARD`` holds the cuts
+    that fit one H100)."""
     spec = get_arch(arch_id)
     shape = spec.shape(shape_name)
     if spec.family not in _FAMILY:
-        raise not_ported(f"the {spec.family!r} family")
-    return _FAMILY[spec.family](spec, shape, smoke, lookup_backend,
-                                resolve_device(device))
+        raise not_ported(f"the {spec.family!r} family", GNN_ITEM)
+    device = resolve_device(device)
+    if spec.family != "lm":
+        if cuts:
+            raise TypeError(f"{arch_id} takes no cuts, got {sorted(cuts)}")
+        return _FAMILY[spec.family](spec, shape, smoke, lookup_backend,
+                                    device)
+    return _lm_cell(spec, shape, smoke, lookup_backend, device, **cuts)

@@ -3,11 +3,13 @@
 
 Two modes:
   * paper pipeline (default), below;
-  * ``--arch <id> [--shape train_batch]``: N train steps of a recsys
+  * ``--arch <id> [--shape train_batch]``: N train steps of an
     architecture's cell (``launch.steps.build_cell``: DLRM, Wide&Deep,
-    SASRec, BERT4Rec, or ``lightgcn-baco``'s ``bpr_train``), at smoke
-    width (the full width runs through ``build_cell(..., smoke=False)``).
-    The LM architectures are not ported (ROADMAP Queue 1 #6) and raise.
+    SASRec, BERT4Rec, ``lightgcn-baco``'s ``bpr_train``, or a dense LM's
+    ``train_4k``: gemma2-9b, gemma3-12b, qwen1.5-32b), at smoke width
+    (the full width runs through ``build_cell(..., smoke=False)``; LM
+    training at full width waits for ROADMAP Queue 1 #7a). The MoE LMs
+    and SchNet are not ported and raise.
 
 Compresses a synthetic interaction graph — BACO through the port's
 ClusterEngine (``--method baco``, solver ``--cluster-solver``), any other

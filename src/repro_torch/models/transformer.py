@@ -1,0 +1,683 @@
+"""Decoder-only transformer, dense (port of ``repro.models.transformer``).
+
+One config drives gemma2-9b, gemma3-12b and qwen1.5-32b:
+  * GQA with any (n_heads, n_kv_heads); optional QKV bias (qwen)
+  * per-block layer patterns (gemma3 = 5 local + 1 global per block,
+    gemma2 = (local, global)); params are stacked
+    ``[n_blocks, layers_per_block, ...]`` as in the reference, and the
+    reference's ``lax.scan`` over blocks is a Python loop over them
+  * sliding-window local attention is BANDED: each query chunk slices
+    only its KV span, ``min(skv, window + q_chunk)`` long
+  * optional attn/final logit softcap (gemma2), QK-norm (gemma3)
+  * cross-entropy in sequence chunks, so [B, S, vocab] never exists
+
+Dtypes follow JAX's promotion, made explicit (torch's ``bf16 * float``
+stays bf16 and ``f32 @ bf16`` raises):
+  * gemma's ``x * np.sqrt(d)`` multiplies by a numpy float64, which JAX
+    does not treat as weakly typed, so a bf16 residual stream becomes f32
+    there and stays f32: every product of an f32 activation with a bf16
+    weight upcasts the weight and computes in f32 (``_mm``), the tied
+    head too (the table is cast per call: 3.67 GB f32 transient for
+    gemma2-9b's 256,000 x 3,584). qwen's stream stays bf16.
+  * attention scores are f32 (the reference's ``preferred_element_type``):
+    16-bit q and k are upcast, whose products are exact in f32. Prefill
+    and training cast the softmax to q's dtype before P·V; decode casts it
+    to the config's dtype (so gemma's decode attention output is bf16 and
+    its prefill's f32, as in the reference).
+  * an fp8 (e4m3fn) KV cache is written through :func:`to_kv`, which
+    gives NaN where ml_dtypes does (|x| > 464, ±inf); torch's own cast
+    saturates to ±448 there.
+  * products sum in f32, as the reference's dots do: :func:`prefill`,
+    :func:`decode_step` and :func:`train_loss`'s forward run with TF32
+    off and with cuBLAS's reduced-precision bf16 reduction off
+    (:func:`_f32_sums`), whatever the process had set.
+
+Serving: prefill fills a layer-stacked cache (local layers keep a ring
+buffer of ``window`` slots, position p at slot p % length); decode writes
+one slot a layer in place (``index_copy_`` at a device ``pos``: no host
+sync a layer) and returns the same cache, the port's counterpart of the
+reference's donated buffer. The token embedding is a full lookup through
+the EmbeddingEngine: on the card the codebook_lookup kernel at H = 1 (its
+16-bit instantiation for a bf16 table).
+
+Training: ``jax.checkpoint`` (a block under ``cfg.remat``, each attention
+chunk, each CE chunk) is ``torch.utils.checkpoint`` whenever autograd
+records. The reference's ``shard(...)`` calls are the identity off a
+mesh and are dropped. MoE configs raise (ROADMAP Queue 1 #7c): the
+reference's local MoE is a ``shard_map`` and goes with the sharded path.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import functools
+import math
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.embedding import embedding_lookup
+
+__all__ = ["TransformerConfig", "MoEConfig", "init_params", "count_params",
+           "params_from_numpy", "tensor_from_numpy", "rms_norm", "expand_kv",
+           "chunked_attention", "to_kv", "train_loss", "init_cache",
+           "prefill", "decode_step"]
+
+NEG_INF = -1e30          # masked scores, as in the reference
+FP8_NAN_FROM = 464.0     # ml_dtypes' e4m3fn cast gives NaN above this
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16, "float8_e4m3fn": torch.float8_e4m3fn}
+
+
+# ---------------------------------------------------------------------------
+# config
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    capacity_factor: float = 1.25
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: Optional[int] = None          # default d_model // n_heads
+    block_pattern: Tuple[str, ...] = ("global",)   # per-layer attn kinds
+    window: int = 1024                      # local attention window
+    attn_softcap: Optional[float] = None    # gemma2: 50.0
+    final_softcap: Optional[float] = None   # gemma2: 30.0
+    qk_norm: bool = False                   # gemma3
+    qkv_bias: bool = False                  # qwen1.5
+    post_norm: bool = False                 # gemma2/3 sandwich norms
+    moe: Optional[MoEConfig] = None
+    rope_theta: float = 10_000.0
+    embed_scale: bool = False               # gemma: x *= sqrt(d)
+    tie_embed: bool = True
+    dtype: str = "bfloat16"                 # params + activations
+    kv_cache_dtype: Optional[str] = None    # e.g. "float8_e4m3fn" (qwen)
+    q_chunk: int = 512                      # attention query chunking
+    loss_chunk: int = 512                   # CE seq chunking
+    remat: bool = True
+    moe_impl: str = "local"                 # the reference's MoE dispatch
+    lookup_backend: Optional[str] = None    # EmbeddingEngine override for
+                                            # the token-embedding lookup
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return _DTYPES[self.dtype]
+
+    @property
+    def kv_torch_dtype(self) -> torch.dtype:
+        return _DTYPES[self.kv_cache_dtype or self.dtype]
+
+    @property
+    def layers_per_block(self) -> int:
+        return len(self.block_pattern)
+
+    @property
+    def n_blocks(self) -> int:
+        assert self.n_layers % self.layers_per_block == 0, (
+            f"{self.n_layers} layers not divisible by pattern "
+            f"{self.block_pattern}")
+        return self.n_layers // self.layers_per_block
+
+
+def _dense_only(cfg: TransformerConfig) -> None:
+    if cfg.moe is not None:
+        from repro_torch.configs.registry import MOE_ITEM, not_ported
+        raise not_ported(f"the MoE FFN of {cfg.name!r}", MOE_ITEM)
+
+
+# ---------------------------------------------------------------------------
+# params
+# ---------------------------------------------------------------------------
+def _param_defs(cfg: TransformerConfig) -> dict:
+    """path -> (shape, fan_in), nested; blocks get the leading stack dims.
+    QKV projections keep heads merged ([d, H*Dh]), as the reference."""
+    d, f, hq, hk, dh = (cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.n_kv_heads,
+                        cfg.hd)
+    nb, lpb = cfg.n_blocks, cfg.layers_per_block
+    defs = {"embed": ((cfg.vocab_size, d), d), "final_norm": ((d,), None)}
+    if not cfg.tie_embed:
+        defs["lm_head"] = ((d, cfg.vocab_size), d)
+    blk = {
+        "attn_norm": ((nb, lpb, d), None),
+        "wq": ((nb, lpb, d, hq * dh), d),
+        "wk": ((nb, lpb, d, hk * dh), d),
+        "wv": ((nb, lpb, d, hk * dh), d),
+        "wo": ((nb, lpb, hq * dh, d), hq * dh),
+        "mlp_norm": ((nb, lpb, d), None),
+    }
+    if cfg.qkv_bias:
+        blk["bq"] = ((nb, lpb, hq * dh), None)
+        blk["bk"] = ((nb, lpb, hk * dh), None)
+        blk["bv"] = ((nb, lpb, hk * dh), None)
+    if cfg.qk_norm:
+        blk["q_norm"] = ((nb, lpb, dh), None)
+        blk["k_norm"] = ((nb, lpb, dh), None)
+    if cfg.post_norm:
+        blk["attn_post_norm"] = ((nb, lpb, d), None)
+        blk["mlp_post_norm"] = ((nb, lpb, d), None)
+    if cfg.moe is None:
+        blk["w_gate"] = ((nb, lpb, d, f), d)
+        blk["w_up"] = ((nb, lpb, d, f), d)
+        blk["w_down"] = ((nb, lpb, f, d), f)
+    else:
+        e = cfg.moe.n_experts
+        blk["router"] = ((nb, lpb, d, e), d)
+        blk["w_gate"] = ((nb, lpb, e, d, f), d)
+        blk["w_up"] = ((nb, lpb, e, d, f), d)
+        blk["w_down"] = ((nb, lpb, e, f, d), f)
+    defs["blocks"] = blk
+    return defs
+
+
+def _walk(defs: dict, prefix=()):
+    for k, v in defs.items():
+        if isinstance(v, dict):
+            yield from _walk(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def _fill_normal(out: torch.Tensor, scale: float, generator,
+                 cast=None) -> torch.Tensor:
+    """Fill ``out`` in place with f32 N(0, 1) * scale cast to its dtype
+    (``cast(x, dtype)`` if given), drawn in chunks of 2**26 values so no
+    full-size f32 copy of a large leaf exists."""
+    flat = out.view(-1)
+    step = 1 << 26
+    for s in range(0, flat.numel(), step):
+        n = min(step, flat.numel() - s)
+        x = torch.randn(n, generator=generator, dtype=torch.float32,
+                        device=out.device)
+        if scale != 1.0:
+            x.mul_(scale)
+        flat[s:s + n].copy_(cast(x, out.dtype) if cast else x)
+    return out
+
+
+def init_params(generator, cfg: TransformerConfig, device=None) -> dict:
+    """Nested dict of tensors in the reference's layout: norm scales 1,
+    every other leaf N(0, 1) / sqrt(fan_in) drawn in f32 from
+    ``generator`` and cast to ``cfg.dtype`` (the reference's rule; its
+    jax.random values differ). ``device`` defaults to the generator's;
+    on "meta" nothing is allocated."""
+    _dense_only(cfg)
+    if device is None:
+        if generator is None:
+            raise ValueError("give a generator or a device")
+        device = generator.device
+    device = torch.device(device)
+    dtype = cfg.torch_dtype
+    params: dict = {}
+    for path, (shape, fan) in _walk(_param_defs(cfg)):
+        node = params
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        if fan is None:
+            leaf = torch.ones(shape, dtype=dtype, device=device)
+        else:
+            leaf = torch.empty(shape, dtype=dtype, device=device)
+            if device.type != "meta":
+                _fill_normal(leaf, 1.0 / math.sqrt(fan), generator)
+        node[path[-1]] = leaf
+    return params
+
+
+def count_params(cfg: TransformerConfig) -> int:
+    return sum(int(np.prod(shape)) for _, (shape, _) in
+               _walk(_param_defs(cfg)))
+
+
+def tensor_from_numpy(a, device="cuda") -> torch.Tensor:
+    """A numpy array (a reference leaf) as a tensor, bf16 and fp8 e4m3fn
+    (ml_dtypes, which torch.as_tensor does not take) by their bits."""
+    a = np.asarray(a)
+    name = a.dtype.name
+    if name == "bfloat16":
+        return torch.as_tensor(a.view(np.uint16).copy(),
+                               device=device).view(torch.bfloat16)
+    if name == "float8_e4m3fn":
+        return torch.as_tensor(a.view(np.uint8).copy(),
+                               device=device).view(torch.float8_e4m3fn)
+    return torch.as_tensor(np.array(a), device=device)
+
+
+def params_from_numpy(tree, device="cuda"):
+    """A reference params (or cache) tree (``jax.tree.map(np.asarray,
+    ...)``) as the port's tree of tensors on ``device``, same keys."""
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, device) for k, v in tree.items()}
+    return tensor_from_numpy(tree, device)
+
+
+# ---------------------------------------------------------------------------
+# primitives
+# ---------------------------------------------------------------------------
+@contextlib.contextmanager
+def _f32_sums_ctx():
+    mm = torch.backends.cuda.matmul
+    saved = (mm.allow_tf32, mm.allow_bf16_reduced_precision_reduction)
+    mm.allow_tf32 = False
+    mm.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        mm.allow_tf32, mm.allow_bf16_reduced_precision_reduction = saved
+
+
+def _f32_sums(fn):
+    """Run ``fn`` with every GEMM summing in f32: no TF32, and no
+    reduced-precision reduction of bf16 products (both cuBLAS flags are
+    restored after)."""
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        with _f32_sums_ctx():
+            return fn(*args, **kwargs)
+    return wrapped
+
+
+def _mm(x, w):
+    """x @ w in JAX's promoted dtype (f32 x with a bf16 w computes in
+    f32, the weight upcast)."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return torch.matmul(x.to(dt), w.to(dt))
+
+
+def rms_norm(x, scale, eps=1e-6):
+    """In f32, cast back to x's dtype, then times ``scale`` (promoting),
+    in the reference's order."""
+    xf = x.float()
+    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * scale
+
+
+def _rope(x, positions, theta):
+    """x [..., S, H, Dh]; positions [..., S]; rotate-half."""
+    half = x.shape[-1] // 2
+    freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                   device=x.device) / half)
+    ang = positions[..., :, None].float() * freq             # [..., S, half]
+    cos = torch.cos(ang)[..., :, None, :]
+    sin = torch.sin(ang)[..., :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def _softcap(x, cap):
+    return torch.tanh(x / cap) * cap if cap else x
+
+
+def expand_kv(k, n_heads: int):
+    """[B, S, Hkv, Dh] -> [B, S, n_heads, Dh]: head i*g + j is kv head i."""
+    b, s, hkv, dh = k.shape
+    g = n_heads // hkv
+    if g == 1:
+        return k
+    return k[:, :, :, None, :].expand(b, s, hkv, g, dh).reshape(
+        b, s, hkv * g, dh)
+
+
+def to_kv(x, dtype: torch.dtype):
+    """x cast to the cache's dtype as ``jnp.astype`` casts it: for fp8
+    e4m3fn, NaN where |x| > 464 or x is ±inf (ml_dtypes; torch's cast
+    saturates to ±448 there), the plain cast elsewhere."""
+    if dtype != torch.float8_e4m3fn:
+        return x.to(dtype)
+    xf = x.float()
+    return torch.where(xf.abs() > FP8_NAN_FROM, float("nan"), xf).to(dtype)
+
+
+def _bits(t):
+    """An fp8 tensor as its bytes (for index_copy_), others as they are."""
+    return t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
+
+
+def _maybe_checkpoint(fn, *args):
+    """``fn(*args)``, recomputed in the backward when autograd records
+    (the reference's ``jax.checkpoint(policy=nothing_saveable)``)."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _attend_heads(qh, kt, vh, kv_pos, q_pos, window, softcap, causal,
+                  p_dtype):
+    """qh [B,H,Sq,D], kt [B,H,D,Skv] (f32), vh [B,H,Skv,D] -> [B,H,Sq,D]:
+    f32 scores / sqrt(D), softcap, mask to -1e30, softmax cast to
+    ``p_dtype``, then P·V in the promoted dtype."""
+    dh = qh.shape[-1]
+    scores = torch.matmul(qh.float(), kt)
+    scores = _softcap(scores / math.sqrt(dh), softcap)
+    mask = torch.ones((qh.shape[2], kt.shape[-1]), dtype=torch.bool,
+                      device=qh.device)
+    if causal:
+        mask = mask & (q_pos[:, None] >= kv_pos[None, :])
+    if window is not None:
+        mask = mask & ((q_pos[:, None] - kv_pos[None, :]) < window)
+    scores = torch.where(mask, scores, NEG_INF)
+    p = torch.softmax(scores, dim=-1).to(p_dtype)
+    dt = torch.promote_types(p.dtype, vh.dtype)
+    return torch.matmul(p.to(dt), vh.to(dt))
+
+
+def _attend(q, k, v, kv_pos, q_pos, window, softcap, causal=True):
+    """q/k/v [B,S,H,Dh] with the SAME head count (kv pre-expanded)."""
+    out = _attend_heads(q.transpose(1, 2), k.permute(0, 2, 3, 1).float(),
+                        v.transpose(1, 2), kv_pos, q_pos, window, softcap,
+                        causal, q.dtype)
+    return out.transpose(1, 2)
+
+
+def chunked_attention(q, k, v, *, window=None, softcap=None, causal=True,
+                      q_chunk=512, base_pos=0):
+    """Banded/causal attention over query chunks. q/k/v [B,S,H,Dh].
+
+    Local layers (``window`` set) slice each chunk's KV band, ``span =
+    min(skv, window + qc)`` long, its start clipped to [0, skv - span];
+    global layers see the whole KV. A length that ``q_chunk`` does not
+    divide goes single-shot, as in the reference."""
+    b, s, hq, dh = q.shape
+    skv = k.shape[1]
+    dev = q.device
+    qc = min(q_chunk, s)
+    if s % qc != 0:
+        return _attend(q, k, v, torch.arange(skv, device=dev),
+                       base_pos + torch.arange(s, device=dev), window,
+                       softcap, causal)
+    span = skv if window is None else min(skv, window + qc)
+    qh = q.transpose(1, 2)
+    kt = k.permute(0, 2, 3, 1).float()          # [B, H, Dh, Skv], once
+    vh = v.transpose(1, 2)
+    outs = []
+    for i in range(s // qc):
+        qs = i * qc
+        q_pos = base_pos + qs + torch.arange(qc, device=dev)
+        if window is None:
+            start, ki, vi = 0, kt, vh
+        else:
+            start = min(max(base_pos + qs + qc - span, 0), skv - span)
+            ki = kt[..., start:start + span]
+            vi = vh[:, :, start:start + span]
+        kv_pos = start + torch.arange(ki.shape[-1], device=dev)
+        outs.append(_maybe_checkpoint(
+            _attend_heads, qh[:, :, qs:qs + qc], ki, vi, kv_pos, q_pos,
+            window, softcap, causal, q.dtype))
+    return torch.cat(outs, dim=2).transpose(1, 2)
+
+
+# ---------------------------------------------------------------------------
+# layer / block bodies
+# ---------------------------------------------------------------------------
+def _proj_qkv(x, lp, li, cfg):
+    b, s, _ = x.shape
+    dh = cfg.hd
+
+    def p(name, h):
+        y = _mm(x, lp[f"w{name}"][li])
+        if cfg.qkv_bias:
+            y = y + lp[f"b{name}"][li]
+        return y.reshape(b, s, h, dh)
+    q = p("q", cfg.n_heads)
+    k = p("k", cfg.n_kv_heads)
+    v = p("v", cfg.n_kv_heads)
+    if cfg.qk_norm:
+        q = rms_norm(q, lp["q_norm"][li])
+        k = rms_norm(k, lp["k_norm"][li])
+    return q, k, v
+
+
+def _silu(x):
+    """``jax.nn.silu`` as JAX lowers it: x * 1 / (1 + exp(-x)), every op
+    rounded to x's dtype (in bf16, four roundings where ``F.silu`` and
+    ``torch.sigmoid`` round once)."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
+def _mlp_dense(x, lp, li):
+    h = _silu(_mm(x, lp["w_gate"][li]))
+    h = h * _mm(x, lp["w_up"][li])
+    return _mm(h, lp["w_down"][li])
+
+
+def _residual_out(x, o, m_fn, lp, li, cfg):
+    """The layer's tail shared by every path: attention output ``o`` [B,S,
+    H*Dh] through wo (and the post norm), the residual, the MLP."""
+    o = _mm(o, lp["wo"][li])
+    if cfg.post_norm:
+        o = rms_norm(o, lp["attn_post_norm"][li])
+    x = x + o
+    h = rms_norm(x, lp["mlp_norm"][li])
+    m = m_fn(h, lp, li)
+    if cfg.post_norm:
+        m = rms_norm(m, lp["mlp_post_norm"][li])
+    return x + m
+
+
+def _layer_qkv(x, lp, li, cfg, positions):
+    h = rms_norm(x, lp["attn_norm"][li])
+    q, k, v = _proj_qkv(h, lp, li, cfg)
+    return (_rope(q, positions, cfg.rope_theta),
+            _rope(k, positions, cfg.rope_theta), v)
+
+
+def _layer_attention(q, k, v, kind, cfg):
+    """Training/prefill attention of one layer -> [B, S, H*Dh]."""
+    win = cfg.window if kind == "local" else None
+    o = chunked_attention(q, expand_kv(k, cfg.n_heads),
+                          expand_kv(v, cfg.n_heads), window=win,
+                          softcap=cfg.attn_softcap, q_chunk=cfg.q_chunk)
+    return o.reshape(*o.shape[:2], -1)
+
+
+def _block(x, blk, cfg, positions):
+    for li, kind in enumerate(cfg.block_pattern):
+        q, k, v = _layer_qkv(x, blk, li, cfg, positions)
+        x = _residual_out(x, _layer_attention(q, k, v, kind, cfg),
+                          _mlp_dense, blk, li, cfg)
+    return x
+
+
+def _block_params(params, bi: int) -> dict:
+    return {k: v[bi] for k, v in params["blocks"].items()}
+
+
+# ---------------------------------------------------------------------------
+# forward passes
+# ---------------------------------------------------------------------------
+def _embed(params, tokens, cfg):
+    """The token embedding, in the residual stream's dtype: gemma's
+    ``* np.sqrt(d)`` promotes to f32 (a non-weak float64 scalar)."""
+    x = embedding_lookup(params["embed"], tokens,
+                         backend=cfg.lookup_backend).to(cfg.torch_dtype)
+    if cfg.embed_scale:
+        x = x.float() * math.sqrt(cfg.d_model)
+    return x
+
+
+def _positions(b: int, s: int, device):
+    return torch.arange(s, device=device).expand(b, s)
+
+
+def _backbone(params, tokens, cfg, positions):
+    x = _embed(params, tokens, cfg)
+    for bi in range(cfg.n_blocks):
+        blk = _block_params(params, bi)
+        if cfg.remat:
+            x = _maybe_checkpoint(_block, x, blk, cfg, positions)
+        else:
+            x = _block(x, blk, cfg, positions)
+    return rms_norm(x, params["final_norm"])
+
+
+def _logits(params, h, cfg):
+    """[..., d] -> f32 [..., vocab]: the tied table (cast per call to h's
+    promoted dtype) or the untied head, then the final softcap."""
+    if cfg.tie_embed:
+        out = _mm(h, params["embed"].T)
+    else:
+        out = _mm(h, params["lm_head"])
+    return _softcap(out.float(), cfg.final_softcap)
+
+
+def _ce_sum(params, hs, ts, cfg):
+    lg = _logits(params, hs, cfg)                          # [B, lc, V] f32
+    lse = torch.logsumexp(lg, dim=-1)
+    gold = torch.gather(lg, -1, ts[..., None].long())[..., 0]
+    return torch.sum(lse - gold)
+
+
+@_f32_sums
+def train_loss(params, batch, cfg: TransformerConfig):
+    """Causal LM loss; CE per sequence chunk. ``n_chunks = max(1, s //
+    lc)``: tokens past ``n_chunks * lc`` are not summed, and the divisor
+    is still ``b * s`` (the reference's, kept)."""
+    _dense_only(cfg)
+    tokens, targets = batch["tokens"], batch["targets"]
+    b, s = tokens.shape
+    h = _backbone(params, tokens, cfg, _positions(b, s, tokens.device))
+    lc = min(cfg.loss_chunk, s)
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(max(1, s // lc)):
+        sl = slice(i * lc, (i + 1) * lc)
+        total = total + _maybe_checkpoint(_ce_sum, params, h[:, sl],
+                                          targets[:, sl], cfg)
+    return total / (b * s)
+
+
+# ---------------------------------------------------------------------------
+# serving: cache init / prefill / decode
+# ---------------------------------------------------------------------------
+def _cache_kinds(cfg) -> dict:
+    kinds: dict = {}
+    for kind in cfg.block_pattern:
+        kinds[kind] = kinds.get(kind, 0) + 1
+    return kinds
+
+
+def _cache_length(cfg, kind: str, max_seq: int) -> int:
+    return max_seq if kind == "global" else min(cfg.window, max_seq)
+
+
+def init_cache(cfg: TransformerConfig, batch: int, max_seq: int,
+               device="cuda", generator=None) -> dict:
+    """Layer-stacked KV caches ``{"k_global", "v_global", "k_local",
+    ...}``, each [n_blocks, per_block, B, length, Hkv, Dh] in the cache
+    dtype; local layers get ring buffers of ``window`` slots. Zeros, or
+    standard normal drawn from ``generator`` (through :func:`to_kv`)."""
+    cache = {}
+    dt = cfg.kv_torch_dtype
+    for kind, n_per_block in _cache_kinds(cfg).items():
+        shp = (cfg.n_blocks, n_per_block, batch,
+               _cache_length(cfg, kind, max_seq), cfg.n_kv_heads, cfg.hd)
+        for kv in "kv":
+            if generator is None:           # +0.0 is all-zero bytes
+                t = torch.zeros(shp, dtype=torch.uint8 if dt.itemsize == 1
+                                else dt, device=device).view(dt)
+            else:
+                t = _fill_normal(torch.empty(shp, dtype=dt, device=device),
+                                 1.0, generator, cast=to_kv)
+            cache[f"{kv}_{kind}"] = t
+    return cache
+
+
+@_f32_sums
+def prefill(params, batch, cfg: TransformerConfig, max_seq: int):
+    """Process a full prompt; returns (last-position logits f32 [B, V],
+    the filled cache). The cache holds K/V cast to its dtype; attention
+    reads the unrounded K/V."""
+    _dense_only(cfg)
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    dev = tokens.device
+    positions = _positions(b, s, dev)
+    x = _embed(params, tokens, cfg)
+    cache = init_cache(cfg, b, max_seq, device=dev)
+    for bi in range(cfg.n_blocks):
+        blk = _block_params(params, bi)
+        counters = {k: 0 for k in _cache_kinds(cfg)}
+        for li, kind in enumerate(cfg.block_pattern):
+            ci = counters[kind]
+            counters[kind] += 1
+            q, k, v = _layer_qkv(x, blk, li, cfg, positions)
+            x = _residual_out(x, _layer_attention(q, k, v, kind, cfg),
+                              _mlp_dense, blk, li, cfg)
+            # ring layout: position p lives at slot p % length, so the
+            # decode step's `pos % length` writes continue seamlessly
+            length = _cache_length(cfg, kind, max_seq)
+            take = min(length, s)
+            slots = torch.as_tensor(np.arange(s - take, s) % length,
+                                    device=dev)
+            for name, val in (("k", k), ("v", v)):
+                _bits(cache[f"{name}_{kind}"][bi, ci]).index_copy_(
+                    1, slots, _bits(to_kv(val[:, s - take:],
+                                          cfg.kv_torch_dtype)))
+    h = rms_norm(x[:, -1:], params["final_norm"])
+    return _logits(params, h, cfg)[:, 0], cache
+
+
+@_f32_sums
+def decode_step(params, cache, batch, cfg: TransformerConfig):
+    """One token for every sequence. batch = {tokens [B, 1], pos int32
+    [] (a tensor on the device)}. Writes the new K/V into ``cache`` in
+    place and returns (logits f32 [B, V], cache).
+
+    Local layers write slot ``pos % length``, global ones ``pos``
+    (clamped into the buffer, as ``dynamic_update_slice`` clamps); every
+    slot below ``min(pos + 1, length)`` is attended, with no causal or
+    window mask. GQA stays grouped ([Hkv, grp]; q head h*grp + g)."""
+    _dense_only(cfg)
+    tokens, pos = batch["tokens"], batch["pos"]
+    b = tokens.shape[0]
+    dev = tokens.device
+    pos = torch.as_tensor(pos, device=dev)
+    positions = pos.reshape(1, 1).expand(b, 1)
+    x = _embed(params, tokens, cfg)
+    dt, dh = cfg.torch_dtype, cfg.hd
+    hkv = cfg.n_kv_heads
+    grp = cfg.n_heads // hkv
+    for bi in range(cfg.n_blocks):
+        blk = _block_params(params, bi)
+        counters = {k: 0 for k in _cache_kinds(cfg)}
+        for li, kind in enumerate(cfg.block_pattern):
+            ci = counters[kind]
+            counters[kind] += 1
+            q, k, v = _layer_qkv(x, blk, li, cfg, positions)
+            kc = cache[f"k_{kind}"][bi, ci]           # [B, L, Hkv, Dh] view
+            vc = cache[f"v_{kind}"][bi, ci]
+            length = kc.shape[1]
+            slot = (torch.remainder(pos, length) if kind == "local"
+                    else torch.clamp(pos, 0, length - 1)).reshape(1).long()
+            _bits(kc).index_copy_(1, slot, _bits(to_kv(k, kc.dtype)))
+            _bits(vc).index_copy_(1, slot, _bits(to_kv(v, vc.dtype)))
+            mask = (torch.arange(length, device=dev)
+                    < torch.clamp(pos + 1, max=length))
+            qh = q.reshape(b, hkv, grp, dh)
+            dense = torch.contiguous_format
+            kf = kc.permute(0, 2, 1, 3).to(torch.float32, memory_format=dense)
+            scores = torch.matmul(qh.float(), kf.transpose(-1, -2))
+            del kf
+            scores = _softcap(scores / math.sqrt(dh), cfg.attn_softcap)
+            scores = torch.where(mask, scores, NEG_INF)
+            p = torch.softmax(scores, dim=-1).to(dt)   # [B, Hkv, grp, L]
+            ve = vc.permute(0, 2, 1, 3).to(dt, memory_format=dense)
+            o = torch.matmul(p, ve).reshape(b, 1, cfg.n_heads * dh)
+            x = _residual_out(x, o, _mlp_dense, blk, li, cfg)
+    h = rms_norm(x, params["final_norm"])
+    return _logits(params, h, cfg)[:, 0], cache

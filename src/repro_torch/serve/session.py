@@ -428,25 +428,27 @@ class RecsysSession(Session):
 
 
 class ArchSession(Session):
-    """Serve and retrieval cells of the recsys architectures
+    """Serve, retrieval, prefill and decode cells of the architectures
     (``launch.steps.build_cell``): smoke width by default, the full
-    published width with ``smoke=False`` (on the card: dlrm-mlperf-baco's
-    24.1 GB of codebooks and tables fit one 80 GB H100).
+    published width with ``smoke=False`` on the card (dlrm-mlperf-baco's
+    24.1 GB of tables; the dense LMs at one card's cuts, ``cuts`` such as
+    ``batch=4``, see ``steps.LM_ONE_CARD``).
 
     Each request runs the cell's step on its arguments, which stay on the
-    device for the session's life. Decode cells (the reference's LM
-    family) would thread their cache through ``Cell.next_args``; the port
-    has none, so ``donates_cache`` is False.
+    device for the session's life. A decode cell returns (logits, cache)
+    and its cache goes on to the next request through ``Cell.next_args``:
+    the step updates it in place, the port's counterpart of the
+    reference's donated buffer (``donates_cache`` is True).
     """
 
     def __init__(self, arch_id: str, shape: str = "serve_p99",
                  backend: Optional[str] = None, smoke: bool = True,
-                 device="cuda"):
+                 device="cuda", **cuts):
         from repro_torch.launch.steps import build_cell
         self.device = resolve_device(device)
         self.cell = build_cell(arch_id, shape, smoke=smoke,
                                lookup_backend=normalize_backend(backend),
-                               device=self.device)
+                               device=self.device, **cuts)
         self._args = self.cell.args
         self._lat = LatencyRecorder()
         self._warm = False
@@ -479,8 +481,21 @@ class ArchSession(Session):
         self._args = self.cell.next_args(self._args, out)
         return out
 
+    def tokens_per_request(self) -> Optional[int]:
+        """Tokens a prefill (B x S) or decode (B) request processes."""
+        if self.cell.kind not in ("prefill", "decode"):
+            return None
+        return int(self.cell.args[-1]["tokens"].numel())
+
     def stats(self) -> dict:
-        return {"kind": self.cell.kind, "arch": self.cell.arch_id,
-                "shape": self.cell.shape_name,
-                "cache_donated": self.donates_cache,
-                "compiles": self.compile_count, **self._lat.summary()}
+        out = {"kind": self.cell.kind, "arch": self.cell.arch_id,
+               "shape": self.cell.shape_name,
+               "cache_donated": self.donates_cache,
+               "compiles": self.compile_count, **self._lat.summary()}
+        tokens = self.tokens_per_request()
+        if tokens is not None and self._lat.count:
+            out["tokens_per_request"] = tokens
+            out["tokens_per_s"] = tokens / (self._lat.percentile(50) / 1e3)
+        if self.cell.reduced:
+            out["reduced"] = list(self.cell.reduced)
+        return out

@@ -13,8 +13,8 @@ package at smoke width on the CPU, and the architectures' entry points.
     0, and with no device given it raises where there is no CUDA.
   * The CLIs: ``launch.train --arch sasrec-baco --shape train_batch
     --device cpu`` and ``launch.serve --arch dlrm-mlperf-baco --device
-    cpu`` in subprocesses; an LM arch raises NotImplementedError naming
-    ROADMAP Queue 1 #6.
+    cpu`` in subprocesses; a MoE LM arch raises NotImplementedError naming
+    ROADMAP Queue 1 #7c.
 """
 import os
 import subprocess
@@ -137,8 +137,8 @@ def test_serve_cli_arch_on_the_cpu():
     assert "3 requests" in r.stdout
 
 
-@pytest.mark.parametrize("arch", ["gemma2-9b", "qwen1.5-32b"])
+@pytest.mark.parametrize("arch", ["dbrx-132b", "kimi-k2-1t-a32b"])
 def test_train_cli_lm_arch_raises_naming_the_roadmap(arch):
     from repro_torch.launch import train
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #6"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #7c"):
         train.main(["--arch", arch, "--device", "cpu"])

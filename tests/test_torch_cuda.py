@@ -44,7 +44,13 @@ exclusions, ±0 ties, NaN rows and all -inf rows, equal torch.topk's values
 on finite scores, and never reach torch.topk; k 129 is refused. Each
 recsys arch's smoke cell (DLRM, Wide&Deep, SASRec, BERT4Rec: serve,
 retrieval, one AdamW step) on the card launches its kernels and equals
-the CPU's plain path within rtol 1e-4 / atol 1e-5.
+the CPU's plain path within rtol 1e-4 / atol 1e-5. The 16-bit
+codebook_lookup (bf16, f16: 8, 4, 2 or 1 elements a lane, unaligned
+tables) is bitwise its plain version, also at gemma2-9b's token
+embedding (256,000 x 3,584, 4 and 32,768 rows), and a 16-bit lookup
+that needs a gradient raises; each dense LM's smoke cells (train,
+prefill, decode) equal the CPU's within rtol 1e-4 / atol 1e-5, and a
+bf16 prefill within rtol 2e-2 / atol 4e-2.
 The streamed LP solve gives the in-memory solve's labels on the card (and
 the CPU's) at the 10k rung, with a lower peak of device memory, and the
 solver's ordered W(k) sum (a stable sort and one CSR gather-sum) is
@@ -1148,3 +1154,106 @@ def test_fingerprint_carries_the_power_limit(dev):
     assert fp["device_kind"] == torch.cuda.get_device_name(0)
     assert fp["power_limit_w"] > 0
     assert fingerprint_key(fp).endswith(f":{fp['power_limit_w']:g}W")
+
+
+# ---------------------------------------------------------------------------
+# 16-bit codebook_lookup (the LM token embedding) and the dense LM cells
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("h", [1, 2, 3])
+@pytest.mark.parametrize("d", [1, 3, 50, 64, 130, 256, 3584])
+@pytest.mark.parametrize("binary", [False, True])
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_codebook_lookup_kernel_16bit_bitwise(dev, dtype, h, d, binary,
+                                              aligned):
+    # 8, 4, 2 and 1 elements a lane; a codebook 2 bytes off alignment;
+    # B not a multiple of a strip; B = 0; the output in the codebook's type
+    g = torch.Generator().manual_seed(h * 1000 + d)
+    flat = (torch.randn(301 * d + 1, generator=g) * 4).to(dtype).to(dev)
+    z = (flat[:301 * d] if aligned else flat[1:]).view(301, d)
+    idx = torch.randint(0, 301, (1037, h), generator=g, dtype=torch.int32)
+    if h > 1:
+        idx[::2, -1] = idx[::2, 0]
+    idx = idx.to(dev)
+    before = codebook_lookup.launches
+    got = codebook_lookup(z, idx, binary=binary)
+    assert codebook_lookup.launches == before + 1 and got.dtype == dtype
+    assert torch.equal(got, ref.codebook_lookup(z, idx, binary=binary))
+    assert codebook_lookup(z, idx[:0], binary=binary).shape == (0, d)
+
+
+@pytest.mark.parametrize("rows", [4, 32768])
+def test_codebook_lookup_16bit_at_the_lm_shapes(dev, rows):
+    """gemma2-9b's token embedding (256,000 x 3,584 bf16): decode's B
+    rows and the prefill's 32,768, bitwise the plain version; a lookup
+    that needs a gradient raises naming the LM training item."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    table = torch.randn(256000, 3584, generator=g, device=dev).to(
+        torch.bfloat16)
+    ids = torch.randint(0, 256000, (1, rows), generator=g, device=dev)
+    eng = EmbeddingEngine(EmbeddingSpec(n_rows=256000, dim=3584))
+    before = codebook_lookup.launches
+    with torch.inference_mode():
+        out = eng.full_lookup(table, ids)
+    assert codebook_lookup.launches == before + 1
+    assert out.dtype == torch.bfloat16 and out.shape == (1, rows, 3584)
+    assert torch.equal(out[0], ref.codebook_lookup(table, ids.reshape(-1, 1)
+                                                   .int()))
+    table.requires_grad_(True)
+    with pytest.raises(TypeError, match="ROADMAP Queue 1 #7a"):
+        eng.full_lookup(table, ids)
+
+
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k"])
+@pytest.mark.parametrize("arch", ["gemma2-9b", "gemma3-12b", "qwen1.5-32b"])
+def test_lm_smoke_cells_on_the_card(dev, arch, shape):
+    """Each dense LM's smoke cell on the card (the token lookup through
+    codebook_lookup) equals the CPU's plain path on the same params:
+    logits and cache, or one AdamW step's loss and params, within rtol
+    1e-4 / atol 1e-5 (f32 GEMMs sum in another order)."""
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models import recsys as rs
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu = build_cell(arch, shape, smoke=True, device="cpu")
+    gpu = build_cell(arch, shape, smoke=True, device=dev)
+    args = (_to_device(cpu.args[0], dev),) + tuple(
+        _to_device(a, dev) for a in cpu.args[1:])
+    before = codebook_lookup.launches
+    got, want = gpu.fn(*args), cpu.fn(*cpu.args)
+    assert codebook_lookup.launches > before
+    if cpu.kind == "train":
+        pairs = [(got[2], want[2])] + [
+            (rs.flat_params(got[0])[k], v)
+            for k, v in rs.flat_params(want[0]).items()]
+    else:
+        pairs = [(got[0], want[0])] + [(got[1][k], v)
+                                       for k, v in want[1].items()]
+    for a, b in pairs:
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["gemma2-9b", "qwen1.5-32b"])
+def test_lm_bf16_prefill_on_the_card(dev, arch):
+    """A bf16 variant of the smoke config: the card's prefill (bf16 token
+    lookup through the kernel) equals the CPU's within rtol 2e-2 / atol
+    4e-2 (bf16 roundings after sums in another order), and the residual
+    stream has the reference's dtype (f32 for gemma2, bf16 for qwen)."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer as T
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(registry.get_arch(arch).smoke_config(),
+                              dtype="bfloat16")
+    params = T.init_params(torch.Generator().manual_seed(0), cfg)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 16),
+                           generator=torch.Generator().manual_seed(1),
+                           dtype=torch.int32)
+    want = T.prefill(params, {"tokens": tokens}, cfg, max_seq=16)
+    got = T.prefill(_to_device(params, dev), {"tokens": tokens.to(dev)},
+                    cfg, max_seq=16)
+    torch.testing.assert_close(got[0].cpu(), want[0], rtol=2e-2, atol=4e-2)
+    for k, v in want[1].items():
+        torch.testing.assert_close(got[1][k].cpu(), v, rtol=2e-2, atol=4e-2)

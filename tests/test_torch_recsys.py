@@ -2,9 +2,10 @@
 ``models/recsys.py``, ``launch/steps.py``) against the JAX package, on
 the CPU at smoke width.
 
-  * Registry: the port's archs are the reference's less its LM and GNN
-    ids (which raise NotImplementedError naming ROADMAP Queue 1 #6); the
-    shapes and every config (full and smoke) are equal field by field.
+  * Registry: the port's archs are the reference's less its GNN and MoE
+    LM ids (which raise NotImplementedError naming ROADMAP Queue 1 #7b
+    and #7c); the shapes and every config (full and smoke, the dense
+    LMs' too) are equal field by field.
   * Full width: each full config's param shapes and bytes equal
     ``jax.eval_shape`` of the reference's init, reckoned on the meta
     device (nothing allocated).
@@ -58,7 +59,9 @@ from repro_torch.models import recsys as rs  # noqa: E402
 from repro_torch.training.optimizer import adamw  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the recsys and cf cells (the dense LM cells: tests/test_torch_lm.py)
 CELLS = [(a, s.name) for a in registry.list_archs()
+         if registry.get_arch(a).family != "lm"
          for s in registry.get_arch(a).shapes]
 TRAIN = [c for c in CELLS
          if registry.get_arch(c[0]).shape(c[1]).kind == "train"]
@@ -94,8 +97,7 @@ def _ref_cell_by_key(key):
 
 
 _REF_CELL_OF = {}
-for _a, _s in [(a, s.name) for a in registry.list_archs()
-               for s in registry.get_arch(a).shapes]:
+for _a, _s in CELLS:
     _REF_CELL_OF.setdefault(_ref_key(_a, _s), (_a, _s))
 
 
@@ -154,14 +156,20 @@ def _port_cell(arch, shape):
 # registry and configs
 # ---------------------------------------------------------------------------
 def test_registry_equals_the_reference_less_lm_and_gnn():
+    """The reference's registry less its GNN and its MoE LMs (the dense
+    LMs are ported)."""
     ref_ids = ref_registry.list_archs()
-    lm_gnn = {a for a in ref_ids
-              if ref_registry.get_arch(a).family in ("lm", "gnn")}
-    assert set(registry.UNPORTED_ARCHS) == lm_gnn
-    assert registry.list_archs() == sorted(set(ref_ids) - lm_gnn)
+    unported = {a for a in ref_ids
+                if ref_registry.get_arch(a).family == "gnn"
+                or (ref_registry.get_arch(a).family == "lm"
+                    and ref_registry.get_arch(a).full_config().moe
+                    is not None)}
+    assert set(registry.UNPORTED_ARCHS) == unported
+    assert set(registry.WAITS_FOR) == unported
+    assert registry.list_archs() == sorted(set(ref_ids) - unported)
     assert registry.all_cells(include_variants=True) == [
         c for c in ref_registry.all_cells(include_variants=True)
-        if c[0] not in lm_gnn]
+        if c[0] not in unported]
 
 
 @pytest.mark.parametrize("arch", registry.list_archs())
@@ -184,7 +192,9 @@ def test_specs_and_configs_equal_the_reference(arch):
 
 @pytest.mark.parametrize("arch", sorted(registry.UNPORTED_ARCHS))
 def test_unported_archs_raise_naming_the_roadmap(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #6"):
+    item = {"lm": "ROADMAP Queue 1 #7c",
+            "gnn": "ROADMAP Queue 1 #7b"}[registry.UNPORTED_ARCHS[arch]]
+    with pytest.raises(NotImplementedError, match=item):
         registry.get_arch(arch)
     with pytest.raises(KeyError):
         registry.get_arch("no-such-arch")

@@ -418,12 +418,12 @@ def test_train_cli_on_the_cpu(tmp_path, capsys):
                          "--steps", "30", "--batch-size", "64", "--dim", "8",
                          "--ckpt-dir", str(tmp_path / "ck"), "--resume"])
     assert rc == 0 and "resumed at step 20" in capsys.readouterr().out
-    # the recsys archs train (tests/test_torch_archs.py holds them); an LM
-    # arch is not ported and raises
+    # the recsys archs train (tests/test_torch_archs.py holds them); a MoE
+    # LM is not ported and raises
     assert train_cli.main(["--device", "cpu", "--arch", "sasrec",
                            "--steps", "2"]) == 0
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #6"):
-        train_cli.main(["--device", "cpu", "--arch", "gemma2-9b"])
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #7c"):
+        train_cli.main(["--device", "cpu", "--arch", "dbrx-132b"])
     # every ETC method is ported (tests/test_torch_baselines.py trains
     # one); a name outside the registry stops at argument parsing
     with pytest.raises(SystemExit):
