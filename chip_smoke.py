@@ -86,8 +86,12 @@
    fused requests bitwise a fresh session's; launch counts around the
    training and the serving (codebook_lookup with items H = 2, the CSR
    gather-sum, fused_topk must run); the items' H = 2 lookup held
-   against its plain version and timed. It prints a ``baselines`` JSON
-   line.
+   against its plain version and timed; then CCE (``training/cce.py``)
+   at beauty (22,363 x 12,101, budget 0.25 x nodes, 400 steps after 100
+   warm ones, the k-means on the host) beside BACO in the same protocol,
+   codebook_lookup and the CSR gather-sum launched, and at gowalla_s the
+   card's CCE against the CPU's (the reclustered sketch equal, Recall@20
+   within ``CCE_RECALL_TOL``). It prints a ``baselines`` JSON line.
    Then the recsys architectures at their full published width
    (``ARCH_CELLS``; params from their init under ``torch.Generator``
    seed 0, each compressed field's sketch a seeded random assignment
@@ -131,9 +135,35 @@
    prompt tokens, 8 rows; tolerance by cache dtype, and two planted
    position faults that must fail it). bf16 GEMMs sum in
    f32: the model's entries turn cuBLAS's reduced-precision reduction off.
-   The smoke cells (f32, and bf16 variants of gemma2's and qwen's) then
-   run on the card against the port's CPU path. It prints an ``lm`` JSON
-   line.
+   Then gemma2-9b ``train_4k`` at full width through ``build_cell`` at
+   its one-card cut (8 of 42 layers, 8 sequences of 4,096 tokens, one a
+   microbatch, the f32 gradient accumulator; ``LM_TRAIN_CELL``): one
+   warm-up and 2 timed steps on a fixed batch; the bf16 CSR gather-sum
+   (the token lookup's backward) must launch once a microbatch, the
+   loss must be finite and fall at every step, and the peak (from a
+   reset after the warm-up) must leave 15% of the card free; the
+   warm-up's first backward call is held bitwise against its plain
+   version and timed beside ``index_add_`` into f32. The smoke cells
+   (f32, bf16 variants of gemma2's and qwen's prefill, and one bf16
+   train step of each LM: loss rtol 1e-2, gradients within 8 bf16 ulps
+   of max |g|) then run on the card against the port's CPU path. It
+   prints an ``lm`` JSON line.
+   Then SchNet (``gnn``) at its published widths (d_hidden 64, 300 RBF,
+   3 blocks, cutoff 10) through ``build_cell`` (``GNN_CELLS``):
+   ``full_graph_sm`` (2,708 nodes, d_feat 1,433), ``minibatch_lg`` (a
+   batch of the neighbor sampler over a Reddit-sized graph, 1,024 seeds,
+   fanout (15, 10)), ``molecule`` (128 graphs of 30 atoms, the atom
+   embedding through codebook_lookup) and ``ogb_products`` (2,449,029
+   nodes, 1/8 of its edges: ``GNN_ONE_CARD``), each one warm-up and 3
+   timed AdamW steps, one more step profiled. Counts zeroed just before
+   each cell and read just after: the CSR gather-sum must launch twice
+   a block (molecule: twice more), codebook_lookup once a step in
+   molecule; losses finite; peaks leave 15% of the card free. Each
+   cell's first segment sum and first gather gradient (and molecule's
+   atom lookup and its gradient) as the model called them are held
+   bitwise against the plain version and timed beside their bound and
+   ``index_add_``. The smoke cells then run on the card against the CPU path (loss and every
+   gradient, rtol 1e-4 / atol 1e-5). It prints a ``gnn`` JSON line.
 3. Drives the embedding layer's entry points (``repro_torch.embedding``) at
    the same width, on the main path's sketch (K_u 8,878 with H=2, K_v 17,136
    with H=1) and its trained d=64 codebooks: the codebook
@@ -220,8 +250,9 @@
    ``benches`` JSON line.
 
 Prints a ``stream`` JSON line, a ``frontdoor`` JSON line, a ``scale``,
-a ``baselines``, an ``arch`` and an ``lm`` JSON line, a ``kernels`` JSON
-line, a ``timer`` line
+a ``baselines``, an ``arch``, an ``lm`` and a ``gnn`` JSON line, a
+``kernels`` JSON line (the CSR gather-sum's bf16 instantiation has an
+entry of its own), a ``timer`` line
 (the timer's floor), a ``benches`` JSON line, the ``nvidia-smi``
 name/power line, and as its last
 line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -238,6 +269,7 @@ import json
 import math
 import os
 import re
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -321,6 +353,16 @@ SCALE_REFERENCE = {
 SCALE_BLOCKS = {"100k": (1 << 20, 1 << 12), "1m": (1 << 20, 1 << 14)}
 # the baselines phase: the hashing, LSH and LP sketches built at full
 # amazonbook width, and the 2-hot one trained, exported and served
+# CCE (training/cce.py) at the smallest paper-sized dataset, in table 4's
+# protocol (400 steps after 100 warm ones, batch 2,048, lr 5e-3), and
+# the card-vs-CPU check at gowalla_s: 48 steps after 16 warm ones, its
+# Recall@20 within the spread of the CPU port's seeds 0, 1 and 2 there
+# (0.11944, 0.11919, 0.11695: `python tests/test_torch_cce.py`), and the
+# reclustered sketch equal to the CPU port's
+CCE_DATASET = "beauty"
+CCE_STEPS = dict(steps=400, warm_steps=100)
+CCE_CHECK = dict(steps=48, warm_steps=16)
+CCE_RECALL_TOL = 0.0025
 BASELINE_METHODS = ("random", "frequency", "double", "hybrid", "lsh", "lp",
                     "lpab")
 BASELINE_TRAIN_STEPS = 200
@@ -534,7 +576,8 @@ def zero_counts() -> None:
         fn.launches = 0
     fa = counted_kernels()["flash_attention"]
     fa.launches_tc = fa.launches_cc = 0
-    counted_kernels()["embedding_bag"].launches_weighted = 0
+    eb = counted_kernels()["embedding_bag"]
+    eb.launches_weighted = eb.launches_16 = 0
 
 
 def flash_routes() -> dict:
@@ -1657,6 +1700,7 @@ def baselines_path(run: dict, workdir: str, device: str = "cuda",
                 and a.meta["iters"] == b.meta["iters"],
                 f"{check_dataset}: the GPU {name} sketch is not the CPU's")
     log(f"{check_dataset}: GPU lp and lpab sketches equal the CPU port's")
+    cce_res = cce_path(device, check_dataset=check_dataset)
 
     sk = sketches["double"]
     cfg = TrainConfig(steps=steps, batch_size=2048, lr=5e-3, seed=0,
@@ -1742,7 +1786,7 @@ def baselines_path(run: dict, workdir: str, device: str = "cuda",
                "bound_ms": bms, "bound_by": by,
                "max_abs_err": float((got - want).abs().max())}
         log(f"codebook_lookup items H=2 {row['shape']}: bitwise equal; {row}")
-    return {"budget": budget, "builds": builds,
+    return {"budget": budget, "builds": builds, "cce": cce_res,
             "double": {"steps": steps, "train_s": t_train,
                        "loss_first": losses[0], "loss_last": losses[-1],
                        "metrics": metrics, "baco_metrics": baco, **acct,
@@ -1755,6 +1799,94 @@ def baselines_path(run: dict, workdir: str, device: str = "cuda",
                                   + serve_launches["embedding_bag"]),
                 "fused_topk": serve_launches["fused_topk"]},
             "codebook_items_h2": row}
+
+
+def cce_path(device: str = "cuda", check_dataset: str = "gowalla_s") -> dict:
+    """CCE through ``train_cce`` on ``device`` at ``CCE_DATASET`` (budget
+    0.25 x nodes, ``CCE_STEPS``): training and eval on the card, the
+    k-means on the host (its seconds timed); Recall/NDCG@20 and params
+    beside BACO's on the same graph in the same protocol
+    (``ClusterEngine`` at ratio 0.25, 400 steps). Counts zeroed just
+    before ``train_cce`` and read just after: codebook_lookup and the CSR
+    gather-sum must run. At ``check_dataset`` the card's CCE must match
+    the CPU port's (``CCE_CHECK``): the reclustered sketch equal (the
+    CPU tests hold the CPU port's bitwise against the reference's), and
+    Recall@20 within ``CCE_RECALL_TOL``."""
+    import numpy as np
+
+    from repro_torch.core import ClusterEngine
+    from repro_torch.data import paperlike_dataset
+    from repro_torch.training import TrainConfig, Trainer, cce
+
+    t0 = time.perf_counter()
+    _, _, _, train, test = paperlike_dataset(CCE_DATASET, seed=0)
+    budget = int(0.25 * train.n_nodes)
+    kmeans_s = []
+    orig = cce._kmeans
+
+    def timed(*a, **kw):
+        t = time.perf_counter()
+        out = orig(*a, **kw)
+        kmeans_s.append(time.perf_counter() - t)
+        return out
+    cce._kmeans = timed
+    try:
+        zero_counts()
+        t = time.perf_counter()
+        m, sk, tr = cce.train_cce(train, test, budget=budget, device=device,
+                                  **CCE_STEPS)
+        sync(device)
+        cce_s = time.perf_counter() - t
+        launches = {k: v for k, v in launch_counts().items() if v}
+    finally:
+        cce._kmeans = orig
+    for name in ("codebook_lookup", "embedding_bag"):
+        require(launches.get(name, 0) > 0, f"{name} never ran in CCE")
+    require(m["params"] == sk.n_params(64) and 0 < m["recall"] <= 1,
+            f"CCE: {m}, sketch params {sk.n_params(64)}")
+    t = time.perf_counter()
+    bsk = ClusterEngine(device=device).build(train, d=64, ratio=0.25)
+    btr = Trainer(train, bsk, TrainConfig(dim=64, steps=CCE_STEPS["steps"],
+                                          batch_size=2048, lr=5e-3, seed=0),
+                  device=device)
+    btr.run(log_every=0)
+    baco = btr.evaluate(test)
+    baco["params"] = btr.n_params()
+    baco_s = time.perf_counter() - t
+    res = {"dataset": CCE_DATASET, "users": train.n_users,
+           "items": train.n_items, "budget": budget, **CCE_STEPS,
+           "cce": {**m, "k": [sk.k_users, sk.k_items], "seconds": cce_s,
+                   "kmeans_s": kmeans_s},
+           "baco": {**baco, "k": [bsk.k_users, bsk.k_items],
+                    "seconds": baco_s},
+           "launches": launches}
+    del tr, btr
+    _, _, _, small, stest = paperlike_dataset(check_dataset, seed=0)
+    b_small = int(0.25 * small.n_nodes)
+    t = time.perf_counter()
+    got = cce.train_cce(small, stest, budget=b_small, device=device,
+                        **CCE_CHECK)
+    want = cce.train_cce(small, stest, budget=b_small, device="cpu",
+                         **CCE_CHECK)
+    k_got = [got[1].k_users, got[1].k_items]
+    k_want = [want[1].k_users, want[1].k_items]
+    diff = abs(got[0]["recall"] - want[0]["recall"])
+    equal = bool(k_got == k_want
+                 and np.array_equal(got[1].user_idx, want[1].user_idx)
+                 and np.array_equal(got[1].item_idx, want[1].item_idx))
+    res["check"] = {"dataset": check_dataset, **CCE_CHECK, "k": k_got,
+                    "k_cpu": k_want, "recall": got[0]["recall"],
+                    "recall_cpu": want[0]["recall"], "recall_diff": diff,
+                    "tol": CCE_RECALL_TOL, "sketch_equal": equal,
+                    "seconds": time.perf_counter() - t}
+    require(equal, f"{check_dataset}: the card's reclustered CCE sketch "
+            f"(K {k_got}) is not the CPU's (K {k_want})")
+    require(diff <= CCE_RECALL_TOL, f"{check_dataset}: the card's CCE "
+            f"Recall@20 {got[0]['recall']} is {diff} from the CPU's "
+            f"{want[0]['recall']} (tol {CCE_RECALL_TOL})")
+    res["seconds"] = time.perf_counter() - t0
+    log(f"cce: {res}")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -1782,7 +1914,7 @@ def count_state() -> dict:
     state = {(fn, "launches"): fn.launches for fn in fns.values()}
     fa, eb = fns["flash_attention"], fns["embedding_bag"]
     for fn, attr in ((fa, "launches_tc"), (fa, "launches_cc"),
-                     (eb, "launches_weighted")):
+                     (eb, "launches_weighted"), (eb, "launches_16")):
         state[(fn, attr)] = getattr(fn, attr)
     return state
 
@@ -1802,47 +1934,78 @@ def gather_sum_inputs(g, dest, src, num_rows) -> tuple:
     return g, src[perm].int(), eb._ptr(dest_sorted, num_rows)
 
 
+def _same_call(a, kw, out) -> tuple:
+    return a, kw, out
+
+
+def _scatter_rows_call(a, kw, out) -> tuple:
+    return gather_sum_inputs(*a, **kw), {}, out
+
+
+def _segment_sum_call(a, kw, out) -> tuple:
+    """``schnet._SegmentSum.forward(ctx, x, seg, perm, ptr)``'s kernel
+    call."""
+    _, x, _, perm, ptr = a
+    return (x, perm, ptr), {}, out
+
+
+def _gather_grad_call(a, kw, out) -> tuple:
+    """``schnet._Gather.backward(ctx, g)``'s kernel call."""
+    ctx, g = a
+    perm, ptr = ctx.saved_tensors
+    return (g.contiguous(), perm, ptr), {}, out[0]
+
+
 @contextlib.contextmanager
 def first_calls(check):
     """Inside the block, the first call of each kernel wrapper on the
-    recsys path (codebook_lookup as the lookups call it, the CSR
-    gather-sum as their backward's ``scatter_rows`` calls it,
-    dot_interaction and flash_attention as the models call them) is
-    followed by ``check(name, args, kwargs, out)`` on the very tensors
-    the path passed the kernel, with every launch counter restored after
-    it: launches made to check or time a kernel do not count."""
+    recsys, LM and GNN paths (codebook_lookup as the lookups call it, the
+    CSR gather-sum as their backward's ``scatter_rows`` calls it and as
+    SchNet's segment sum and gather gradient call it, dot_interaction and
+    flash_attention as the models call them) is followed by
+    ``check(name, args, kwargs, out)`` on the very tensors the path
+    passed the kernel, with every launch counter restored after it:
+    launches made to check or time a kernel do not count. SchNet's two
+    calls are named ``embedding_bag:segment_sum`` and
+    ``embedding_bag:gather_grad``."""
     import repro_torch.kernels.ops as ops
     import repro_torch.models.recsys as rs
+    import repro_torch.models.schnet as sn
 
-    targets = ((ops, "codebook_lookup", "codebook_lookup"),
-               (ops, "scatter_rows", "embedding_bag"),
-               (rs, "_dot_kernel", "dot_interaction"),
-               (rs, "_flash_kernel", "flash_attention"))
+    targets = ((ops, "codebook_lookup", "codebook_lookup", _same_call),
+               (ops, "scatter_rows", "embedding_bag", _scatter_rows_call),
+               (rs, "_dot_kernel", "dot_interaction", _same_call),
+               (rs, "_flash_kernel", "flash_attention", _same_call),
+               (sn._SegmentSum, "forward", "embedding_bag:segment_sum",
+                _segment_sum_call),
+               (sn._Gather, "backward", "embedding_bag:gather_grad",
+                _gather_grad_call))
     seen, saved = set(), []
-    for mod, attr, name in targets:
-        orig = getattr(mod, attr)
-        saved.append((mod, attr, orig))
+    for obj, attr, name, call in targets:
+        raw = vars(obj)[attr]              # a class keeps a staticmethod
+        saved.append((obj, attr, raw))
 
-        def wrap(*a, _orig=orig, _name=name, **kw):
+        def wrap(*a, _orig=getattr(obj, attr), _name=name, _call=call,
+                 **kw):
             out = _orig(*a, **kw)
             if _name not in seen:
                 seen.add(_name)
                 state = count_state()
-                if _name == "embedding_bag":
-                    a, kw = gather_sum_inputs(*a, **kw), {}
-                check(_name, a, kw, out)
+                check(_name, *_call(a, kw, out))
                 set_count_state(state)
             return out
-        setattr(mod, attr, wrap)
+        setattr(obj, attr, staticmethod(wrap)
+                if isinstance(raw, staticmethod) else wrap)
     try:
         yield seen
     finally:
-        for mod, attr, orig in saved:
-            setattr(mod, attr, orig)
+        for obj, attr, raw in saved:
+            setattr(obj, attr, raw)
 
 
 def arch_kernel_row(name: str, a, kw, out) -> dict:
-    """One recorded call of a kernel on the recsys path held against its
+    """One recorded call of a kernel (``name``, or ``name:role``) on a
+    model path held against its
     plain version on the same device tensors (codebook_lookup and the
     CSR gather-sum bitwise; dot_interaction and flash_attention at
     ``check_close``'s f32 tolerance), and timed beside its plain version
@@ -1854,6 +2017,7 @@ def arch_kernel_row(name: str, a, kw, out) -> dict:
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import route
 
+    name = name.split(":")[0]                 # a role after the kernel
     kernel = counted_kernels()[name]          # the unwrapped wrapper
     if name == "codebook_lookup":
         z, idx = a
@@ -1890,14 +2054,27 @@ def arch_kernel_row(name: str, a, kw, out) -> dict:
             torch.arange(n_seg, device=src.device),
             (ptr[1:] - ptr[:-1]).long())
         idl = idx[:nnz].long()
-        acc = torch.zeros_like(out)
-        bms, by = bound(4 * (nnz * d + n_seg * d + nnz + n_seg + 1),
-                        nnz * d)
-        row = {"shape": f"nnz={nnz} S={n_seg} d={d}", "max_abs_err": 0.0,
+        es = src.element_size()
+        bms, by = bound(es * (nnz * d + n_seg * d) + 4 * nnz
+                        + 8 * (n_seg + 1), nnz * d)
+        if src.dtype == torch.float32 or src.shape[0] != nnz:
+            acc = torch.zeros_like(out)
+            library = lambda: acc.zero_().index_add_(  # noqa: E731
+                0, seg, src[idl])
+        else:
+            # a 16-bit lookup's gradient (each cotangent row used once):
+            # f32 sums into a dense table, one cast
+            rows_of = torch.empty_like(seg)
+            rows_of[idl] = seg                # each cotangent row's id
+            library = lambda: torch.zeros(  # noqa: E731
+                n_seg, d, device=src.device).index_add_(
+                    0, rows_of, src.float()).to(src.dtype)
+        row = {"shape": f"nnz={nnz} S={n_seg} d={d}"
+                        + ("" if es == 4 else f" {str(src.dtype)[6:]}"),
+               "max_abs_err": 0.0,
                "plain_ms": time_ms(lambda: ref.csr_gather_sum(
                    src, idx, ptr, weight), iters=10),
-               "library_ms": time_ms(lambda: acc.zero_().index_add_(
-                   0, seg, src[idl]), iters=10)}
+               "library_ms": time_ms(library, iters=10)}
     elif name == "dot_interaction":
         (x,) = a
         err = check_close(out, ref.dot_interaction(x), x.dtype,
@@ -2309,6 +2486,128 @@ def lm_cell(arch: str, shape: str, n: int) -> dict:
     return res
 
 
+# the full-width LM train cell (its LM_ONE_CARD cut), and its timed steps
+# after one untimed warm-up
+LM_TRAIN_CELL = ("gemma2-9b", "train_4k", 2)
+# the share of the card's memory a full-width cell's peak may take
+PEAK_SHARE = 0.85
+
+
+def recorded_calls(calls: dict):
+    """``first_calls``'s check that keeps a copy of each kernel's first
+    call (its inputs and output) to hold and time after the run."""
+    import torch
+
+    def keep(name, a, kw, out):
+        calls[name] = (tuple(t.clone() if torch.is_tensor(t) else t
+                             for t in a), dict(kw), out.clone())
+    return keep
+
+
+def held_rows(calls: dict) -> dict:
+    """Each recorded first call held against its plain version and timed
+    (``arch_kernel_row``), its launches not counted."""
+    state = count_state()
+    rows = {name: arch_kernel_row(name, *c) for name, c in calls.items()}
+    set_count_state(state)
+    return rows
+
+
+def require_peak(label: str, peak_bytes: float) -> None:
+    import torch
+    total = torch.cuda.get_device_properties(0).total_memory
+    require(peak_bytes <= PEAK_SHARE * total,
+            f"{label}: peak {peak_bytes / 1e9:.2f} GB leaves less than "
+            f"{1 - PEAK_SHARE:.0%} of the card's {total / 1e9:.2f} GB free")
+
+
+def lm_train_cell(arch: str, shape: str, n: int) -> dict:
+    """A dense LM's train cell at full width through ``build_cell`` at its
+    one-card cut (``LM_ONE_CARD``: gemma2-9b at 8 of 42 layers, 8
+    sequences of 4,096 tokens, one a microbatch, the f32 gradient
+    accumulator), on a fixed batch: one warm-up step and ``n`` timed
+    steps. Counts zeroed just before the warm-up and read just after the
+    last step: the CSR gather-sum's bf16 instantiation (the token
+    lookup's backward) must launch once a microbatch, as must the token
+    lookup. The loss must be finite and fall at every step. The
+    warm-up's first backward call (the first microbatch's cotangent and
+    token ids) and first lookup are kept, then held bitwise against
+    their plain versions and timed after the run (L2 flushed; the
+    gather-sum beside ``zeros(V, d, f32).index_add_(0, ids,
+    g.float()).to(bf16)``). Step ms, tokens/s and the peak GB from a
+    reset after the warm-up, which must leave 15% of the card free."""
+    import gc
+
+    import torch
+
+    from repro_torch.launch.steps import LM_ONE_CARD, build_cell
+    from repro_torch.obs import clock
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    label = f"{arch}:{shape}"
+    t0 = time.perf_counter()
+    cell = build_cell(arch, shape, smoke=False, device="cuda",
+                      **LM_ONE_CARD[(arch, shape)])
+    sync("cuda")
+    build_s = time.perf_counter() - t0
+    calls = {}
+    zero_counts()
+    t0 = time.perf_counter()
+    with first_calls(recorded_calls(calls)):
+        losses = [float(cell.fn(*cell.args)[2])]
+    warm_s = time.perf_counter() - t0
+    peak_warm = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    for _ in range(n):
+        sync("cuda")
+        t = clock.now()
+        loss = float(cell.fn(*cell.args)[2])
+        step_ms.append(clock.ms_between(t, clock.now()))
+        losses.append(loss)
+    launches = {k: v for k, v in launch_counts().items() if v}
+    launches_16 = counted_kernels()["embedding_bag"].launches_16
+    peak = torch.cuda.max_memory_allocated()
+    tokens = cell.args[2]["tokens"]
+    micro = int(re.search(r"microbatches=(\d+)", cell.notes).group(1))
+    res = {"cell": label, "reduced": list(cell.reduced), "notes": cell.notes,
+           "steps": n + 1, "microbatches": micro,
+           "tokens_per_step": int(tokens.numel()), "build_s": build_s,
+           "warmup_s": warm_s, "step_ms": step_ms,
+           "step_ms_median": statistics.median(step_ms),
+           "losses": losses, "launches": launches,
+           "launches_bf16_gather_sum": launches_16,
+           "peak_gb": peak / 1e9, "peak_warmup_gb": peak_warm / 1e9}
+    res["tokens_per_s"] = tokens.numel() / (res["step_ms_median"] / 1e3)
+    del cell, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    require(all(map(math.isfinite, losses)),
+            f"{label}: a loss is not finite: {losses}")
+    require(all(b < a for a, b in zip(losses, losses[1:])),
+            f"{label}: the loss did not fall at every step on the repeated "
+            f"batch: {losses}")
+    want = micro * (n + 1)
+    require(launches_16 == want and launches.get("embedding_bag") == want,
+            f"{label}: the bf16 CSR gather-sum launched {launches_16} times "
+            f"({launches}), want one a microbatch: {want}")
+    require(launches.get("codebook_lookup") == want,
+            f"{label}: the token lookup launched "
+            f"{launches.get('codebook_lookup')} times, want {want}")
+    require_peak(label, max(peak, peak_warm))
+    require(set(calls) == {"codebook_lookup", "embedding_bag"},
+            f"{label}: recorded calls {sorted(calls)}")
+    require(calls["embedding_bag"][0][0].dtype == torch.bfloat16,
+            f"{label}: the lookup's backward is not bf16")
+    res["kernels"] = held_rows(calls)
+    del calls
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"lm train {label}: {res}")
+    return res
+
+
 def profile_lm_request(session, label: str) -> dict:
     """One more request of a cell under ``torch.profiler`` (after its
     launch counts were read): device time by kernel, wall time, idle
@@ -2392,27 +2691,250 @@ def lm_small_reference(device: str = "cuda") -> dict:
         hold([(got[0], want[0])] + [(got[1][k], v)
                                     for k, v in want[1].items()],
              f"{arch}:bf16 prefill", 2e-2, 4e-2)
+    for arch in ("gemma2-9b", "gemma3-12b", "qwen1.5-32b"):
+        out[f"{arch}:bf16 train"] = lm_bf16_train_reference(arch, device)
     log(f"lm smoke cells, card == CPU path (max |err|): {out}")
     return out
 
 
+def lm_bf16_train_reference(arch: str, device: str) -> dict:
+    """One bf16 train step of a dense LM's smoke config (the train_4k
+    smoke shape: 4 sequences of 16 tokens) on the card against the
+    port's CPU path on the same params and tokens: the loss within rtol
+    1e-2, every param's gradient within 8 bf16 ulps of its max |g| (bf16
+    GEMMs and roundings in another order; the CPU tests hold the same
+    bound against ``jax.value_and_grad``). On the card the token lookup's
+    backward is the bf16 CSR gather-sum, which must launch."""
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import recsys as rs
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(get_arch(arch).smoke_config(),
+                              dtype="bfloat16")
+    params = T.init_params(torch.Generator().manual_seed(0), cfg)
+    g = torch.Generator().manual_seed(2)
+    b = {k: torch.randint(0, cfg.vocab_size, (4, 16), dtype=torch.int32,
+                          generator=g) for k in ("tokens", "targets")}
+    res = {}
+    for dev in ("cpu", device):
+        p = _to(params, dev)
+        flat = rs.flat_params(p)
+        leaves = [t.requires_grad_(True) for t in flat.values()]
+        before = counted_kernels()["embedding_bag"].launches_16
+        loss = T.train_loss(p, _to(b, dev), cfg)
+        grads = torch.autograd.grad(loss, leaves)
+        res[dev] = (float(loss.detach()), {k: x.detach().float().cpu()
+                                  for k, x in zip(flat, grads)},
+                    counted_kernels()["embedding_bag"].launches_16 - before)
+    (l_cpu, g_cpu, _), (l_dev, g_dev, n16) = res["cpu"], res[device]
+    require(n16 == 1, f"{arch} bf16 train: the bf16 CSR "
+            f"gather-sum launched {n16} times, want 1")
+    require(abs(l_dev - l_cpu) <= 1e-2 * abs(l_cpu),
+            f"{arch} bf16 train: loss {l_dev} on the card, {l_cpu} on the CPU")
+    worst = 0.0
+    for k, want in g_cpu.items():
+        tol = 8 * 2.0 ** -8 * float(want.abs().max())
+        err = float((g_dev[k] - want).abs().max())
+        require(err <= tol, f"{arch} bf16 train: grad {k} differs by {err} "
+                f"(tol {tol})")
+        worst = max(worst, err / max(tol, 1e-30))
+    return {"loss_cpu": l_cpu, "loss_card": l_dev,
+            "worst_grad_err_over_tol": worst}
+
+
 def lm_path() -> dict:
     """The dense LM family through its entry points at the published
-    widths on the card (:func:`lm_cell` each, ``LM_CELLS``), then the
-    smoke cells on the card against the CPU path. The token lookup's
-    kernel must run once a request in every cell."""
+    widths on the card (:func:`lm_cell` each, ``LM_CELLS``), the
+    full-width train cell (:func:`lm_train_cell`, ``LM_TRAIN_CELL``),
+    then the smoke cells on the card against the CPU path. The token
+    lookup's kernel must run once a request in every cell."""
     import torch
 
     t0 = time.perf_counter()
     res = {"cells": [lm_cell(a, s, n) for a, s, n in LM_CELLS]}
+    res["serve_s"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    res["train"] = lm_train_cell(*LM_TRAIN_CELL)
+    res["train_s"] = time.perf_counter() - t1
+    total = {}
+    for c in res["cells"] + [res["train"]]:
+        for k, v in c["launches"].items():
+            total[k] = total.get(k, 0) + v
+    res["launches"] = total
+    t1 = time.perf_counter()
+    res["small_reference"] = lm_small_reference()
+    res["small_reference_s"] = time.perf_counter() - t1
+    res["seconds"] = time.perf_counter() - t0
+    log(f"lm phase: {res['seconds']:.1f} s, launches {total}")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# the GNN family (SchNet) at full published width
+# ---------------------------------------------------------------------------
+# SchNet's four train cells, each at its one-card cut
+# (launch.steps.GNN_ONE_CARD), with the timed steps after one warm-up
+GNN_CELLS = (("full_graph_sm", 3), ("minibatch_lg", 3), ("molecule", 3),
+             ("ogb_products", 3))
+
+
+def gnn_cell(shape: str, n: int) -> dict:
+    """One SchNet train cell at the published widths (d_hidden 64, 300
+    RBF, 3 blocks, cutoff 10) through ``build_cell``: one warm-up step
+    and ``n`` timed AdamW steps on a fixed batch. Counts zeroed just
+    before the warm-up and read just after the last step: the CSR
+    gather-sum runs twice a block (the receivers' segment sum, the
+    gather's gradient), and in ``molecule`` once more for the per-graph
+    energies and once for the atom embedding's gradient, after
+    codebook_lookup's lookup. The warm-up's first segment sum and first
+    gather gradient (and in ``molecule`` the atom lookup and its
+    gradient) are recorded (:func:`first_calls`), then held bitwise
+    against the plain version and timed beside it, their bound and
+    ``index_add_`` (:func:`held_rows`). Losses finite; step ms, peak GB
+    from a reset after the warm-up (15% of the card left free), the cut,
+    and one more step under ``torch.profiler`` (device ms by kernel)."""
+    import gc
+
+    import torch
+
+    from repro_torch.launch.steps import GNN_ONE_CARD, build_cell
+    from repro_torch.obs import clock
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    label = f"schnet:{shape}"
+    t0 = time.perf_counter()
+    cell = build_cell("schnet", shape, smoke=False, device="cuda",
+                      **GNN_ONE_CARD.get(("schnet", shape), {}))
+    sync("cuda")
+    build_s = time.perf_counter() - t0
+    calls = {}
+    zero_counts()
+    with first_calls(recorded_calls(calls)):
+        losses = [float(cell.fn(*cell.args)[2])]
+    peak_warm = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    for _ in range(n):
+        sync("cuda")
+        t = clock.now()
+        losses.append(float(cell.fn(*cell.args)[2]))
+        step_ms.append(clock.ms_between(t, clock.now()))
+    launches = {k: v for k, v in launch_counts().items() if v}
+    peak = torch.cuda.max_memory_allocated()
+    b = cell.args[2]
+    molecule = shape == "molecule"
+    blocks = len(cell.args[0]["blocks"])
+    per_step = 2 * blocks + (2 if molecule else 0)
+    res = {"cell": label, "reduced": list(cell.reduced), "notes": cell.notes,
+           "nodes": int(b["z" if molecule else "feat"].shape[0]),
+           "edges": int(b["edge_src"].shape[0]), "steps": n + 1,
+           "build_s": build_s, "step_ms": step_ms,
+           "step_ms_median": statistics.median(step_ms),
+           "losses": losses, "launches": launches,
+           "peak_gb": peak / 1e9, "peak_warmup_gb": peak_warm / 1e9}
+    require(all(map(math.isfinite, losses)),
+            f"{label}: a loss is not finite: {losses}")
+    require(launches.get("embedding_bag") == per_step * (n + 1),
+            f"{label}: the CSR gather-sum launched {launches} times, want "
+            f"{per_step} a step")
+    require(launches.get("codebook_lookup", 0) == (n + 1 if molecule else 0),
+            f"{label}: codebook_lookup launched {launches}, want one a step "
+            f"in molecule only")
+    require_peak(label, max(peak, peak_warm))
+    want = {"embedding_bag:segment_sum", "embedding_bag:gather_grad"} | (
+        {"codebook_lookup", "embedding_bag"} if molecule else set())
+    require(set(calls) == want, f"{label}: recorded {sorted(calls)}, want "
+            f"{sorted(want)}")
+    res["kernels"] = held_rows(calls)
+    res["profile"] = profile_step(cell, label)
+    del cell, b, calls
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"gnn {label}: {res}")
+    return res
+
+
+def profile_step(cell, label: str) -> dict:
+    """One more step of a train cell under ``torch.profiler`` (after its
+    launch counts were read): device time by kernel, wall time, idle
+    share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sync("cuda")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        cell.fn(*cell.args)
+        sync("cuda")
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    per_kernel = device_times(prof, 1)
+    busy = sum(per_kernel.values())
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
+    log(f"profile ({label}, one step): device busy {busy:.3f} ms of "
+        f"{wall_ms:.3f} ms")
+    for name, ms in top:
+        log(f"  {ms:9.4f} ms  {100 * ms / max(busy, 1e-9):5.1f}%  {name}")
+    return {"device_ms": busy, "wall_ms": wall_ms,
+            "idle_share": 1.0 - busy / wall_ms, "top_kernels_ms": dict(top)}
+
+
+def gnn_small_reference(device: str = "cuda") -> dict:
+    """Each SchNet smoke cell on the card against the port's CPU path on
+    the same params and batch: the loss, and every param's gradient,
+    within rtol 1e-4 / atol 1e-5 (f32 GEMMs sum in another order; the
+    segment sums add in one order on both)."""
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models import schnet as S
+
+    out = {}
+    for shape, _ in GNN_CELLS:
+        cpu = build_cell("schnet", shape, smoke=True, device="cpu")
+        molecule = shape == "molecule"
+        cfg = dataclasses.replace(get_arch("schnet").smoke_config(),
+                                  d_feat=0 if molecule else 16)
+        loss_fn = S.train_loss if molecule else S.node_train_loss
+        got = {}
+        for dev in ("cpu", device):
+            p = _to(cpu.args[0], dev)
+            flat = S.flat_params(p)
+            leaves = [t.requires_grad_(True) for t in flat.values()]
+            loss = loss_fn(p, _to(cpu.args[2], dev), cfg)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            got[dev] = [loss.detach()] + [
+                torch.zeros(t.shape) if x is None else x.detach()
+                for t, x in zip(leaves, grads)]
+        err = 0.0
+        for a, b in zip(got[device], got["cpu"]):
+            a = a.cpu()
+            require(torch.allclose(a, b, rtol=1e-4, atol=1e-5),
+                    f"schnet:{shape} smoke: the card differs from the CPU "
+                    f"path")
+            err = max(err, float((a - b).abs().max()))
+        out[shape] = err
+    log(f"gnn smoke cells, card == CPU path (max |err|): {out}")
+    return out
+
+
+def gnn_path() -> dict:
+    """SchNet through its entry points at the published widths on the
+    card (:func:`gnn_cell` each, ``GNN_CELLS``), then its smoke cells on
+    the card against the CPU path."""
+    t0 = time.perf_counter()
+    res = {"cells": [gnn_cell(s, n) for s, n in GNN_CELLS]}
     total = {}
     for c in res["cells"]:
         for k, v in c["launches"].items():
             total[k] = total.get(k, 0) + v
     res["launches"] = total
-    res["small_reference"] = lm_small_reference()
+    res["small_reference"] = gnn_small_reference()
     res["seconds"] = time.perf_counter() - t0
-    log(f"lm phase: {res['seconds']:.1f} s, launches {total}")
+    log(f"gnn phase: {res['seconds']:.1f} s, launches {total}")
     return res
 
 
@@ -2756,7 +3278,10 @@ def check_codebook_lookup(run: dict) -> dict:
                          + run["frontdoor"]["launches"]["codebook_lookup"]
                          + run["baselines"]["launches"]["codebook_lookup"]
                          + run["arch"]["launches"]["codebook_lookup"]
-                         + run["lm"]["launches"]["codebook_lookup"]),
+                         + run["lm"]["launches"]["codebook_lookup"]
+                         + run["gnn"]["launches"].get("codebook_lookup", 0)
+                         + run["baselines"]["cce"]["launches"][
+                             "codebook_lookup"]),
             "launches_by_path": {
                 "serving": run["launches"]["codebook_lookup"],
                 "training": run["training"]["launches"]["codebook_lookup"],
@@ -2766,7 +3291,10 @@ def check_codebook_lookup(run: dict) -> dict:
                 "baselines":
                     run["baselines"]["launches"]["codebook_lookup"],
                 "arch": run["arch"]["launches"]["codebook_lookup"],
-                "lm": run["lm"]["launches"]["codebook_lookup"]},
+                "lm": run["lm"]["launches"]["codebook_lookup"],
+                "gnn": run["gnn"]["launches"].get("codebook_lookup", 0),
+                "cce": run["baselines"]["cce"]["launches"][
+                    "codebook_lookup"]},
             "max_abs_err": max_err, "ms": main["ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
@@ -2774,7 +3302,10 @@ def check_codebook_lookup(run: dict) -> dict:
             "items_h2": run["baselines"]["codebook_items_h2"],
             "arch_path": arch_rows(run, "codebook_lookup"),
             "lm_path": {c["cell"]: c["kernels"]["codebook_lookup"]
-                        for c in run["lm"]["cells"]}}
+                        for c in run["lm"]["cells"] + [run["lm"]["train"]]},
+            "gnn_path": {c["cell"]: c["kernels"]["codebook_lookup"]
+                         for c in run["gnn"]["cells"]
+                         if "codebook_lookup" in c["kernels"]}}
 
 
 def check_fused_topk(run: dict) -> dict:
@@ -3162,7 +3693,10 @@ def check_embedding_bag(run: dict, emb_run: dict) -> dict:
         "cluster": run["cluster_launches"],
         "scale": run["scale"]["launches"]["embedding_bag"],
         "baselines": run["baselines"]["launches"]["embedding_bag"],
-        "arch": run["arch"]["launches"].get("embedding_bag", 0)}
+        "arch": run["arch"]["launches"].get("embedding_bag", 0),
+        "lm (bf16)": run["lm"]["launches"].get("embedding_bag", 0),
+        "gnn": run["gnn"]["launches"].get("embedding_bag", 0),
+        "cce": run["baselines"]["cce"]["launches"].get("embedding_bag", 0)}
     return {"name": "embedding_bag", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/embedding_bag.cu",
             "replaces": "src/repro/kernels/embedding_bag.py:56",
@@ -3178,7 +3712,31 @@ def check_embedding_bag(run: dict, emb_run: dict) -> dict:
             "segment_sum": {r: run["scale"][r]["segment_sum"]
                             for r in run["scale"]
                             if "segment_sum" in run["scale"].get(r, {})},
-            "arch_path": arch_rows(run, "embedding_bag")}
+            "arch_path": arch_rows(run, "embedding_bag"),
+            "gnn_path": {f"{c['cell']} {k}": row
+                         for c in run["gnn"]["cells"]
+                         for k, row in c["kernels"].items()
+                         if k.startswith("embedding_bag")}}
+
+
+def check_embedding_bag16(run: dict) -> dict:
+    """The CSR gather-sum's bf16 instantiation, the token lookup's
+    backward in the LM train cell: its launches there, and that cell's
+    first-microbatch call held bitwise against the plain version and
+    timed (:func:`lm_train_cell`). bf16 and f16 at the ``cuda`` tests'
+    shapes are held by ``tests/test_torch_cuda.py`` and
+    ``tools/gather_parity.py``."""
+    train = run["lm"]["train"]
+    row = train["kernels"]["embedding_bag"]
+    return {"name": "embedding_bag_bf16", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/embedding_bag.cu",
+            "replaces": "src/repro/kernels/embedding_bag.py:56",
+            "launches": train["launches_bf16_gather_sum"],
+            "launches_by_path": {
+                train["cell"]: train["launches_bf16_gather_sum"]},
+            "max_abs_err": row["max_abs_err"],
+            **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms", "shape")}}
 
 
 def cumsum_route(src_t, idx, w, ptr):
@@ -3876,6 +4434,7 @@ def main() -> int:
             run["baselines"] = baselines_path(run, workdir)
             run["arch"] = arch_path()
             run["lm"] = lm_path()
+            run["gnn"] = gnn_path()
             emb_run = embedding_path(run)
             bench_run = bench_path()
             floor = timer_floor_ms()
@@ -3883,6 +4442,7 @@ def main() -> int:
             kernels = [check_codebook_lookup(run), check_fused_topk(run),
                        check_fused_topk_codebook(run, emb_run),
                        check_embedding_bag(run, emb_run),
+                       check_embedding_bag16(run),
                        check_dot_interaction(bench_run, run),
                        check_flash_attention(bench_run, run)]
             prof = profile_requests(run)
@@ -3900,6 +4460,7 @@ def main() -> int:
     print(json.dumps({"baselines": run["baselines"]}))
     print(json.dumps({"arch": run["arch"]}))
     print(json.dumps({"lm": run["lm"]}))
+    print(json.dumps({"gnn": run["gnn"]}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"timer": {"floor_ms": floor,
                                 "spin_cycles": spin_cycles()}}))

@@ -8,10 +8,10 @@ Each ``configs/<arch>.py`` module of the port registers an ArchSpec with:
                      builders in launch/steps.py
 
 The port registers the recsys family (DLRM, Wide&Deep, SASRec,
-BERT4Rec), the paper's own backbone (``lightgcn-baco``, family "cf")
-and the dense LM family (gemma2-9b, gemma3-12b, qwen1.5-32b). The
-reference's MoE LMs and its GNN are not ported: ``get_arch`` names the
-ROADMAP item each waits for (``WAITS_FOR``).
+BERT4Rec), the paper's own backbone (``lightgcn-baco``, family "cf"),
+the dense LM family (gemma2-9b, gemma3-12b, qwen1.5-32b) and the GNN
+(schnet). The reference's MoE LMs are not ported: ``get_arch`` names the
+ROADMAP item they wait for (``WAITS_FOR``).
 
 Shape kinds: train | prefill | decode | serve | retrieval.
 """
@@ -52,25 +52,22 @@ class ArchSpec:
 
 _REGISTRY: Dict[str, ArchSpec] = {}
 
-_MODULES = ["gemma3_12b", "gemma2_9b", "qwen15_32b", "dlrm_mlperf", "sasrec",
-            "wide_deep", "bert4rec", "lightgcn_baco"]
+_MODULES = ["gemma3_12b", "gemma2_9b", "qwen15_32b", "schnet", "dlrm_mlperf",
+            "sasrec", "wide_deep", "bert4rec", "lightgcn_baco"]
 
-# the reference's archs the port has not ported yet (its MoE LMs and
-# SchNet), with their family, and the ROADMAP item each waits for
-UNPORTED_ARCHS = {"kimi-k2-1t-a32b": "lm", "dbrx-132b": "lm",
-                  "schnet": "gnn"}
+# the reference's archs the port has not ported yet (its MoE LMs), with
+# their family, and the ROADMAP item each waits for
+UNPORTED_ARCHS = {"kimi-k2-1t-a32b": "lm", "dbrx-132b": "lm"}
 MOE_ITEM = "ROADMAP Queue 1 #7c"
-GNN_ITEM = "ROADMAP Queue 1 #7b"
-WAITS_FOR = {"kimi-k2-1t-a32b": MOE_ITEM, "dbrx-132b": MOE_ITEM,
-             "schnet": GNN_ITEM}
+WAITS_FOR = {"kimi-k2-1t-a32b": MOE_ITEM, "dbrx-132b": MOE_ITEM}
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:
-    """The error for an arch, family or feature the port does not have
-    yet, naming the ROADMAP item it waits for."""
+    """The error for an arch or feature the port does not have yet,
+    naming the ROADMAP item it waits for."""
     return NotImplementedError(
-        f"{what} is not ported yet: the port runs the recsys, cf and dense "
-        f"LM families; this waits for {item}")
+        f"{what} is not ported yet: the port runs the recsys, cf, GNN and "
+        f"dense LM families; this waits for {item}")
 
 
 def register(spec: ArchSpec):

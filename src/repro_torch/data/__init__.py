@@ -1,3 +1,4 @@
+from .neighbor_sampler import random_regular_csr, sample_subgraph
 from .sampler import (BPRSampler, DeviceBPRSampler, available_samplers,
                       make_sampler)
 from .synthetic import (DATASET_PRESETS, DriftStream, StreamStep,
@@ -8,4 +9,4 @@ __all__ = ["DATASET_PRESETS", "paperlike_dataset", "planted_coclusters",
            "synthetic_bipartite",
            "drifting_coclusters", "DriftStream", "StreamStep",
            "BPRSampler", "DeviceBPRSampler", "available_samplers",
-           "make_sampler"]
+           "make_sampler", "random_regular_csr", "sample_subgraph"]

@@ -77,17 +77,11 @@ template <int V> struct LaneF32 {
   }
 };
 
-template <int V> struct Bits16;
-template <> struct Bits16<1> { using T = unsigned short; };
-template <> struct Bits16<2> { using T = unsigned int; };
-template <> struct Bits16<4> { using T = uint2; };
-template <> struct Bits16<8> { using T = uint4; };
-
 // A lane's V consecutive 16-bit columns of type E (__nv_bfloat16 or
 // __half), loaded as one V x 2-byte word; each element adds in f32 and
 // rounds back to E.
 template <typename E, int V> struct Lane16 {
-  using vec = typename Bits16<V>::T;
+  using vec = typename gather::Bits16<V>::T;
   static constexpr int kV = V;
   static constexpr int kStep = V == 1 ? 32 : 64 / V;   // 128 B in flight
   static __device__ __forceinline__ vec zero() {
@@ -209,22 +203,11 @@ void launch(const void* codebook, const int32_t* idx, void* out,
                                         binary, strip_rows);
 }
 
-// Elements a lane owns in a 16-bit row (8, 4, 2 or 1), as gather::
-// vec_width does for floats: the widest that divides the row and whose
-// alignment every pointer has, narrowed until a row spreads over more
-// than 16 lanes.
-inline int vec_width16(int dim, uintptr_t addr_bits) {
-  if (dim % 8 == 0 && addr_bits % 16 == 0 && dim > 128) return 8;
-  if (dim % 4 == 0 && addr_bits % 8 == 0 && dim > 64) return 4;
-  if (dim % 2 == 0 && addr_bits % 4 == 0 && dim > 32) return 2;
-  return 1;
-}
-
 template <typename E>
 void dispatch16(const void* codebook, const int32_t* idx, void* out,
                 int64_t rows, int n_hot, int dim, int binary,
                 cudaStream_t stream) {
-  switch (vec_width16(dim, reinterpret_cast<uintptr_t>(codebook) |
+  switch (gather::vec_width16(dim, reinterpret_cast<uintptr_t>(codebook) |
                                reinterpret_cast<uintptr_t>(out))) {
     case 8:
       launch<Lane16<E, 8>>(codebook, idx, out, rows, n_hot, dim, binary,

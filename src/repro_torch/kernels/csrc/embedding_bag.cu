@@ -73,11 +73,28 @@
 // threshold, the ring's depth and size and the long-row blocks per SM
 // were chosen by sweeps on an H100 80GB HBM3 at 700 W (PERF.md).
 //
+// 16-bit rows (bf16, f16: the LM token embedding's gradient, a bf16
+// cotangent [B x S, 3,584] summed into 256,000 rows) run the same kernel
+// under another lane policy (Lane16): a lane loads up to 8 elements as
+// one 16-byte word and widens each exactly to f32, every column is the
+// same __fadd_rn fold in j order in f32 registers, and the sum is
+// rounded to the 16-bit type once, at the store. The long rows' rings
+// hold the raw 16-bit rows (twice the values a stage) and widen them as
+// they fold. So a 16-bit result is the f32 sum of the plain version
+// (kernels/ref.py) rounded once, bit for bit. (XLA's CPU segment_sum of a
+// bf16 cotangent rounds after every add instead; this is the more
+// accurate of the two, ROADMAP Queue 3 #9.) The weighted kernel is f32
+// only.
+//
 // C interface (loaded with ctypes): the launch runs on the caller's
 // stream, allocates nothing, and returns cudaGetLastError().
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <tuple>
+#include <type_traits>
+
+#include "f32_convert.cuh"
 #include "gather.cuh"
 
 namespace {
@@ -95,7 +112,8 @@ constexpr int64_t kLongRow = 32;                   // values
 constexpr int kStages = 4;
 constexpr int kLongBlocksPerSm = 8;
 constexpr int kStageFloats = 4096;                 // floats a stage
-constexpr int kMaxTile = 512;                      // floats of a column tile
+constexpr int kStageBytes = kStageFloats * 4;
+constexpr int kMaxTile = 512;                      // elements of a column tile
 constexpr int kMaxPer = kLongThreads;              // values a stage
 // the rows' and the indices' rings, and the weighted kernel's weights
 template <bool W>
@@ -105,18 +123,24 @@ static_assert(kRowsPerWarp >= 1 && kRowsPerWarp <= 31, "strip of 1..31 rows");
 static_assert(kStages >= 2, "a ring of at least two stages");
 static_assert(kMaxTile % kLongThreads == 0 && kMaxTile <= kStageFloats,
               "a column tile of whole columns per thread that fits a stage");
-static_assert(kStageFloats % (4 * kLongThreads) == 0,
+static_assert(kStageBytes % (16 * kLongThreads) == 0,
               "whole copies per thread");
 
 template <int BYTES>
 __device__ __forceinline__ void cp_async(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  if constexpr (BYTES == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-                 "l"(gmem));
+  if constexpr (BYTES == 2) {     // below cp.async's 4 bytes: a plain copy
+    *static_cast<unsigned short*>(smem) =
+        *static_cast<const unsigned short*>(gmem);
+    return;
   } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
-                 "l"(gmem), "n"(BYTES));
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+    if constexpr (BYTES == 16) {
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                   "l"(gmem));
+    } else {
+      asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
+                   "l"(gmem), "n"(BYTES));
+    }
   }
 }
 
@@ -141,16 +165,74 @@ __device__ __forceinline__ float4 vscale(float4 a, float s) {
                      __fmul_rn(a.z, s), __fmul_rn(a.w, s));
 }
 
+// Lane policies of the short rows: a lane loads V consecutive elements
+// of type E as one `raw` word and folds them into an f32 accumulator.
+// f32: the accumulator is the loaded vector itself.
+template <int V> struct LaneF32 {
+  using E = float;
+  using raw = typename gather::Vec<V>::T;
+  using acc = raw;
+  static constexpr int kV = V;
+  static __device__ __forceinline__ raw zero_raw() { return vzero(raw()); }
+  static __device__ __forceinline__ acc zero() { return vzero(acc()); }
+  static __device__ __forceinline__ acc add(acc a, raw b) {
+    return vadd(a, b);
+  }
+  static __device__ __forceinline__ acc add_scaled(acc a, raw b, float w) {
+    return vadd(a, vscale(b, w));
+  }
+  static __device__ __forceinline__ raw store(acc a) { return a; }
+};
+
+// 16-bit (E = __nv_bfloat16 or __half): each element widens exactly to
+// f32 and adds with __fadd_rn; the store rounds each sum to E once (no
+// add_scaled: the weighted kernel is f32 only).
+template <typename E_, int V> struct Lane16 {
+  using E = E_;
+  using raw = typename gather::Bits16<V>::T;
+  struct acc { float v[V]; };
+  static constexpr int kV = V;
+  static __device__ __forceinline__ raw zero_raw() {
+    raw z;
+    unsigned short* p = reinterpret_cast<unsigned short*>(&z);
+#pragma unroll
+    for (int i = 0; i < V; ++i) p[i] = 0;   // +0 in bf16 and f16
+    return z;
+  }
+  static __device__ __forceinline__ acc zero() {
+    acc a;
+#pragma unroll
+    for (int i = 0; i < V; ++i) a.v[i] = 0.0f;
+    return a;
+  }
+  static __device__ __forceinline__ acc add(acc a, raw b) {
+    const E* pb = reinterpret_cast<const E*>(&b);
+#pragma unroll
+    for (int i = 0; i < V; ++i) a.v[i] = __fadd_rn(a.v[i], to_f32(pb[i]));
+    return a;
+  }
+  static __device__ __forceinline__ raw store(acc a) {
+    raw r;
+    E* pr = reinterpret_cast<E*>(&r);
+#pragma unroll
+    for (int i = 0; i < V; ++i) pr[i] = from_f32<E>(a.v[i]);
+    return r;
+  }
+};
+
 // One warp: the short rows of the strip [r0, r0 + kRowsPerWarp).
-template <int V, bool W>
-__device__ void warp_strip(const float* __restrict__ src,
+template <typename L, bool W>
+__device__ void warp_strip(const void* __restrict__ src,
                            const int32_t* __restrict__ idx,
                            const float* __restrict__ wt,
                            const int64_t* __restrict__ ptr,
-                           float* __restrict__ out, int64_t rows, int dim,
+                           void* __restrict__ out, int64_t rows, int dim,
                            int64_t r0, int lane) {
-  using vec = typename gather::Vec<V>::T;
-  constexpr int kStep = gather::kStepFloats / V;   // row loads per step
+  using raw = typename L::raw;
+  using acc_t = typename L::acc;
+  // row loads a lane keeps in flight: 128 bytes (at most 32 loads)
+  constexpr int kStep = lesser(
+      32, gather::kStepFloats * 4 / static_cast<int>(sizeof(raw)));
   const int nr = static_cast<int>(
       lesser<int64_t>(kRowsPerWarp, rows - r0));
   // lane k holds [p, pn) = the values of row r0 + k (k < nr)
@@ -160,13 +242,13 @@ __device__ void warp_strip(const float* __restrict__ src,
   const unsigned long_rows = __ballot_sync(kFull, is_long);
   const int64_t beg = __shfl_sync(kFull, p, 0);
   const int64_t end = __shfl_sync(kFull, p, nr);
-  const int cols = dim / V;
-  const vec* s = reinterpret_cast<const vec*>(src);
-  vec* o = reinterpret_cast<vec*>(out);
+  const int cols = dim / L::kV;
+  const raw* s = static_cast<const raw*>(src);
+  raw* o = static_cast<raw*>(out);
   for (int c0 = 0; c0 < cols; c0 += 32) {
     const int c = c0 + lane;
     const bool active = c < cols;
-    vec acc = vzero(vec());
+    acc_t acc = L::zero();
     int cur = 0;                                  // the row acc sums
     int64_t cur_end = __shfl_sync(kFull, pn, 0);
     // close every row that ends at or before value j (warp-uniform):
@@ -174,9 +256,9 @@ __device__ void warp_strip(const float* __restrict__ src,
     auto close_to = [&](int64_t j) {
       while (cur < nr && cur_end <= j) {
         if (active && !((long_rows >> cur) & 1u)) {
-          o[(r0 + cur) * cols + c] = acc;
+          o[(r0 + cur) * cols + c] = L::store(acc);
         }
-        acc = vzero(vec());
+        acc = L::zero();
         ++cur;
         cur_end = __shfl_sync(kFull, pn, cur & 31);
       }
@@ -197,7 +279,7 @@ __device__ void warp_strip(const float* __restrict__ src,
       float wl = 0.0f;
       if constexpr (W) wl = lane < n ? wt[j0 + lane] : 0.0f;
       for (int t0 = 0; t0 < n; t0 += kStep) {
-        vec buf[kStep];
+        raw buf[kStep];
         float wb[W ? kStep : 1];
 #pragma unroll
         for (int u = 0; u < kStep; ++u) {
@@ -205,16 +287,16 @@ __device__ void warp_strip(const float* __restrict__ src,
           if constexpr (W) wb[u] = __shfl_sync(kFull, wl, (t0 + u) & 31);
           buf[u] = (active && t0 + u < n)
                        ? s[static_cast<int64_t>(r) * cols + c]
-                       : vzero(vec());
+                       : L::zero_raw();
         }
 #pragma unroll
         for (int u = 0; u < kStep; ++u) {
           if (t0 + u < n) {
             close_to(j0 + t0 + u);
             if constexpr (W) {
-              acc = vadd(acc, vscale(buf[u], wb[u]));
+              acc = L::add_scaled(acc, buf[u], wb[u]);
             } else {
-              acc = vadd(acc, buf[u]);
+              acc = L::add(acc, buf[u]);
             }
           }
         }
@@ -260,27 +342,29 @@ struct Cursor {
 // copied A = kStages - 1 iterations before its gathered rows, and those
 // A iterations before they are folded, so one cp.async.wait_group and
 // one barrier per stage serve both rings, and one row's tail overlaps
-// the next row's head.
-template <int VL, bool W>
-__device__ void block_stream(const float* __restrict__ src,
+// the next row's head. E: the element type of src and out (the ring
+// holds raw E; the fold widens to f32).
+template <typename E, int VL, bool W>
+__device__ void block_stream(const E* __restrict__ src,
                              const int32_t* __restrict__ idx,
                              const float* __restrict__ wt,
-                             float* __restrict__ out, int dim,
+                             E* __restrict__ out, int dim,
                              const int64_t* row_id, const int64_t* row_lo,
                              const int64_t* row_len, int n, int col0, int w) {
   constexpr int V = VL;
   constexpr int A = kStages - 1;
-  constexpr int kEpt = kStageFloats / V / kLongThreads;   // copies a thread
+  constexpr int kStageElems = kStageBytes / static_cast<int>(sizeof(E));
+  constexpr int kEpt = kStageElems / V / kLongThreads;    // copies a thread
   constexpr int kCpt = kMaxTile / kLongThreads;           // its columns
   extern __shared__ __align__(16) float smem[];
-  float* ring = smem;
+  E* ring = reinterpret_cast<E*>(smem);
   int32_t* iring = reinterpret_cast<int32_t*>(smem + kStages * kStageFloats);
   // the weighted kernel's weights: stage d's in slot d mod kStages,
   // copied with its rows
   float* wring = smem + kStages * (kStageFloats + kMaxPer);
   const int tid = threadIdx.x;
   const int wv = w / V;                               // w is a multiple of V
-  const int per = lesser(kStageFloats / w, kMaxPer);  // values a stage
+  const int per = lesser(kStageElems / w, kMaxPer);   // values a stage
   int64_t stages = 0;
   for (int k = 0; k < n; ++k) stages += (row_len[k] + per - 1) / per;
   // this thread's copies of a stage: value val[i], vector vk[i]
@@ -315,7 +399,7 @@ __device__ void block_stream(const float* __restrict__ src,
     if (d >= 0 && d < stages) {   // gathered rows of stage d
       const int cnt = cd.count(per);
       const int32_t* si = iring + (d % kStages) * kMaxPer;
-      float* slot = ring + (d % kStages) * kStageFloats;
+      E* slot = ring + (d % kStages) * kStageElems;
       if constexpr (W) {
         if (tid < cnt) {
           cp_async<4>(wring + (d % kStages) * kMaxPer + tid,
@@ -325,9 +409,10 @@ __device__ void block_stream(const float* __restrict__ src,
 #pragma unroll
       for (int i = 0; i < kEpt; ++i) {
         if (val[i] >= 0 && val[i] < cnt) {
-          cp_async<4 * V>(slot + val[i] * w + vk[i] * V,
-                          src + static_cast<int64_t>(si[val[i]]) * dim +
-                              col0 + vk[i] * V);
+          cp_async<static_cast<int>(sizeof(E)) * V>(
+              slot + val[i] * w + vk[i] * V,
+              src + static_cast<int64_t>(si[val[i]]) * dim + col0 +
+                  vk[i] * V);
         }
       }
       cd.next(row_lo, row_len, n, per);
@@ -336,7 +421,7 @@ __device__ void block_stream(const float* __restrict__ src,
     const int64_t f = it - 2 * A;
     if (f >= 0) {                 // fold stage f, in value order
       const int cnt = cf.count(per);
-      const float* fs = ring + (f % kStages) * kStageFloats;
+      const E* fs = ring + (f % kStages) * kStageElems;
       const float* ws = wring + (f % kStages) * kMaxPer;
 #pragma unroll
       for (int c = 0; c < kCpt; ++c) {
@@ -350,7 +435,9 @@ __device__ void block_stream(const float* __restrict__ src,
             }
           } else {
 #pragma unroll 16
-            for (int v = 0; v < cnt; ++v) a = __fadd_rn(a, fs[v * w + col]);
+            for (int v = 0; v < cnt; ++v) {
+              a = __fadd_rn(a, to_f32(fs[v * w + col]));
+            }
           }
           acc[c] = a;
         }
@@ -359,7 +446,9 @@ __device__ void block_stream(const float* __restrict__ src,
 #pragma unroll
         for (int c = 0; c < kCpt; ++c) {
           const int col = tid + c * kLongThreads;
-          if (col < w) out[row_id[cf.k] * dim + col0 + col] = acc[c];
+          if (col < w) {
+            out[row_id[cf.k] * dim + col0 + col] = from_f32<E>(acc[c]);
+          }
           acc[c] = 0.0f;
         }
       }
@@ -372,13 +461,13 @@ __device__ void block_stream(const float* __restrict__ src,
 
 // Long-row block b of nb: the rows r = b mod nb with more than kLongRow
 // values, listed kLongThreads candidates at a time and streamed through
-// the block's rings, a column tile of up to kMaxTile floats at a time.
-template <int VL, bool W>
-__device__ void long_rows(const float* __restrict__ src,
+// the block's rings, a column tile of up to kMaxTile elements at a time.
+template <typename E, int VL, bool W>
+__device__ void long_rows(const E* __restrict__ src,
                           const int32_t* __restrict__ idx,
                           const float* __restrict__ wt,
                           const int64_t* __restrict__ ptr,
-                          float* __restrict__ out, int64_t rows, int dim,
+                          E* __restrict__ out, int64_t rows, int dim,
                           int nb) {
   __shared__ int64_t row_id[kLongThreads];
   __shared__ int64_t row_lo[kLongThreads];
@@ -405,8 +494,8 @@ __device__ void long_rows(const float* __restrict__ src,
     const int n = count;
     if (n > 0) {
       for (int col0 = 0; col0 < dim; col0 += kMaxTile) {
-        block_stream<VL, W>(src, idx, wt, out, dim, row_id, row_lo, row_len,
-                            n, col0, lesser(kMaxTile, dim - col0));
+        block_stream<E, VL, W>(src, idx, wt, out, dim, row_id, row_lo,
+                               row_len, n, col0, lesser(kMaxTile, dim - col0));
       }
     }
     __syncthreads();              // the list is rewritten next
@@ -415,19 +504,22 @@ __device__ void long_rows(const float* __restrict__ src,
 
 // One grid: the first long_blocks blocks take the long rows (so they
 // start first), the rest give each warp a strip of kRowsPerWarp rows.
-// V: floats per lane of the short rows' loads; VL: floats per cp.async
-// of the long rows' copies; W: each value scaled by its weight wt[j]
-// (wt is not read when W is false).
-template <int V, int VL, bool W>
+// L: the short rows' lane policy (L::kV elements a lane); VL: elements
+// per cp.async of the long rows' copies; W: each value scaled by its
+// weight wt[j] (wt is not read when W is false; f32 only).
+template <typename L, int VL, bool W>
 __global__ void __launch_bounds__(kThreads)
-    csr_gather_sum_kernel(const float* __restrict__ src,
+    csr_gather_sum_kernel(const typename L::E* __restrict__ src,
                           const int32_t* __restrict__ idx,
                           const float* __restrict__ wt,
                           const int64_t* __restrict__ ptr,
-                          float* __restrict__ out, int64_t rows, int dim,
-                          int long_blocks) {
+                          typename L::E* __restrict__ out, int64_t rows,
+                          int dim, int long_blocks) {
+  static_assert(!W || std::is_same<typename L::E, float>::value,
+                "the weighted kernel is f32 only");
   if (static_cast<int>(blockIdx.x) < long_blocks) {
-    long_rows<VL, W>(src, idx, wt, ptr, out, rows, dim, long_blocks);
+    long_rows<typename L::E, VL, W>(src, idx, wt, ptr, out, rows, dim,
+                                    long_blocks);
     return;
   }
   const int64_t strip =
@@ -435,18 +527,19 @@ __global__ void __launch_bounds__(kThreads)
       threadIdx.x / 32;
   const int64_t r0 = strip * kRowsPerWarp;
   if (r0 < rows) {
-    warp_strip<V, W>(src, idx, wt, ptr, out, rows, dim, r0,
+    warp_strip<L, W>(src, idx, wt, ptr, out, rows, dim, r0,
                      threadIdx.x % 32);
   }
 }
 
-template <int V, int VL, bool W>
-void launch(const float* src, const int32_t* idx, const float* wt,
-            const int64_t* ptr, float* out, int64_t rows, int dim, int sms,
+template <typename L, int VL, bool W>
+void launch(const void* src, const int32_t* idx, const float* wt,
+            const int64_t* ptr, void* out, int64_t rows, int dim, int sms,
             int dev, cudaStream_t stream) {
+  using E = typename L::E;
   static bool sized[64] = {false};   // the shared-memory limit, by device
   if (!sized[dev & 63]) {
-    cudaFuncSetAttribute(csr_gather_sum_kernel<V, VL, W>,
+    cudaFuncSetAttribute(csr_gather_sum_kernel<L, VL, W>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          kSmemBytes<W>);
     sized[dev & 63] = true;
@@ -455,9 +548,10 @@ void launch(const float* src, const int32_t* idx, const float* wt,
       lesser<int64_t>(rows, static_cast<int64_t>(kLongBlocksPerSm) * sms));
   const int64_t per_block = static_cast<int64_t>(kWarps) * kRowsPerWarp;
   const int64_t blocks = long_blocks + (rows + per_block - 1) / per_block;
-  csr_gather_sum_kernel<V, VL, W>
+  csr_gather_sum_kernel<L, VL, W>
       <<<static_cast<unsigned>(blocks), kThreads, kSmemBytes<W>, stream>>>(
-          src, idx, wt, ptr, out, rows, dim, long_blocks);
+          static_cast<const E*>(src), idx, wt, ptr, static_cast<E*>(out),
+          rows, dim, long_blocks);
 }
 
 int sm_count(int dev) {
@@ -467,34 +561,51 @@ int sm_count(int dev) {
   return n > 0 ? n : 1;
 }
 
-template <bool W>
-void dispatch(const float* src, const int32_t* idx, const float* wt,
-              const int64_t* ptr, float* out, int64_t rows, int dim,
+// The short rows' lane policy for element type E, V elements a lane.
+template <typename E, int V> struct LaneFor { using T = Lane16<E, V>; };
+template <int V> struct LaneFor<float, V> { using T = LaneF32<V>; };
+
+// One (VL, V) pair of dispatch's switch. An f32 row never takes 8
+// elements a vector (copy_width stops at 4), so those are not built.
+template <typename E, int VL, int V, bool W>
+void launch_at(const void* src, const int32_t* idx, const float* wt,
+               const int64_t* ptr, void* out, int64_t rows, int dim, int sms,
+               int dev, cudaStream_t stream) {
+  if constexpr (sizeof(E) == 2 || VL <= 4) {
+    launch<typename LaneFor<E, V>::T, VL, W>(src, idx, wt, ptr, out, rows,
+                                             dim, sms, dev, stream);
+  }
+}
+
+// A row of `dim` elements of E: the long rows' copies take VL elements
+// (copy_width), the short rows' lanes V (vec_width); V <= VL.
+template <typename E, bool W>
+void dispatch(const void* src, const int32_t* idx, const float* wt,
+              const int64_t* ptr, void* out, int64_t rows, int dim,
               cudaStream_t stream) {
   int dev = 0;
   cudaGetDevice(&dev);
   const int sms = sm_count(dev);
   const uintptr_t bits = reinterpret_cast<uintptr_t>(src) |
                          reinterpret_cast<uintptr_t>(out);
-  const int v = gather::vec_width(dim, bits);
-  switch (gather::copy_width(dim, bits) * 10 + v) {
-    case 44:
-      launch<4, 4, W>(src, idx, wt, ptr, out, rows, dim, sms, dev, stream);
-      break;
-    case 42:
-      launch<2, 4, W>(src, idx, wt, ptr, out, rows, dim, sms, dev, stream);
-      break;
-    case 41:
-      launch<1, 4, W>(src, idx, wt, ptr, out, rows, dim, sms, dev, stream);
-      break;
-    case 22:
-      launch<2, 2, W>(src, idx, wt, ptr, out, rows, dim, sms, dev, stream);
-      break;
-    case 21:
-      launch<1, 2, W>(src, idx, wt, ptr, out, rows, dim, sms, dev, stream);
-      break;
-    default:
-      launch<1, 1, W>(src, idx, wt, ptr, out, rows, dim, sms, dev, stream);
+  constexpr bool kF32 = sizeof(E) == 4;
+  const int vl = kF32 ? gather::copy_width(dim, bits)
+                      : gather::copy_width16(dim, bits);
+  const int v = kF32 ? gather::vec_width(dim, bits)
+                     : gather::vec_width16(dim, bits);
+  const auto a = std::make_tuple(src, idx, wt, ptr, out, rows, dim, sms, dev,
+                                 stream);
+  switch (vl * 10 + v) {
+    case 88: std::apply(launch_at<E, 8, 8, W>, a); break;
+    case 84: std::apply(launch_at<E, 8, 4, W>, a); break;
+    case 82: std::apply(launch_at<E, 8, 2, W>, a); break;
+    case 81: std::apply(launch_at<E, 8, 1, W>, a); break;
+    case 44: std::apply(launch_at<E, 4, 4, W>, a); break;
+    case 42: std::apply(launch_at<E, 4, 2, W>, a); break;
+    case 41: std::apply(launch_at<E, 4, 1, W>, a); break;
+    case 22: std::apply(launch_at<E, 2, 2, W>, a); break;
+    case 21: std::apply(launch_at<E, 2, 1, W>, a); break;
+    default: std::apply(launch_at<E, 1, 1, W>, a);
   }
 }
 
@@ -508,7 +619,7 @@ extern "C" int csr_gather_sum_launch(const float* src, const int32_t* idx,
                                      int64_t rows, int dim,
                                      cudaStream_t stream) {
   if (rows > 0 && dim > 0) {
-    dispatch<false>(src, idx, nullptr, ptr, out, rows, dim, stream);
+    dispatch<float, false>(src, idx, nullptr, ptr, out, rows, dim, stream);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -521,7 +632,25 @@ extern "C" int csr_gather_sum_weighted_launch(const float* src,
                                               int64_t rows, int dim,
                                               cudaStream_t stream) {
   if (rows > 0 && dim > 0) {
-    dispatch<true>(src, idx, wt, ptr, out, rows, dim, stream);
+    dispatch<float, true>(src, idx, wt, ptr, out, rows, dim, stream);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// 16-bit rows: dtype 1 bf16, 2 f16 (platform.DTYPES); src and out have
+// that type, the sums are f32 rounded once.
+extern "C" int csr_gather_sum16_launch(const void* src, const int32_t* idx,
+                                       const int64_t* ptr, void* out,
+                                       int64_t rows, int dim, int dtype,
+                                       cudaStream_t stream) {
+  if (dtype != 1 && dtype != 2) return static_cast<int>(cudaErrorInvalidValue);
+  if (rows > 0 && dim > 0) {
+    if (dtype == 1) {
+      dispatch<__nv_bfloat16, false>(src, idx, nullptr, ptr, out, rows, dim,
+                                      stream);
+    } else {
+      dispatch<__half, false>(src, idx, nullptr, ptr, out, rows, dim, stream);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,5 +1,5 @@
 // Row gathers of the sum kernels (embedding_bag.cu, codebook_lookup.cu):
-// each lane of a warp loads V consecutive floats of a gathered row, and
+// each lane of a warp loads V consecutive elements of a gathered row, and
 // every output column is one __fadd_rn fold from +0.0f in the caller's
 // order, so a result is bitwise the plain version's.
 #pragma once
@@ -13,7 +13,7 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kStepFloats = 32;
 
 template <typename T>
-__host__ __device__ __forceinline__ T lesser(T a, T b) {
+__host__ __device__ __forceinline__ constexpr T lesser(T a, T b) {
   return a < b ? a : b;
 }
 
@@ -55,6 +55,29 @@ inline int copy_width(int dim, uintptr_t addr_bits) {
 inline int vec_width(int dim, uintptr_t addr_bits) {
   if (dim % 4 == 0 && addr_bits % 16 == 0 && dim > 64) return 4;
   if (dim % 2 == 0 && addr_bits % 8 == 0 && dim > 32) return 2;
+  return 1;
+}
+
+// 16-bit rows (bf16, f16): V elements loaded as one V x 2-byte word.
+template <int V> struct Bits16;
+template <> struct Bits16<1> { using T = unsigned short; };
+template <> struct Bits16<2> { using T = unsigned int; };
+template <> struct Bits16<4> { using T = uint2; };
+template <> struct Bits16<8> { using T = uint4; };
+
+// copy_width16 / vec_width16: copy_width and vec_width for a row of `dim`
+// 16-bit elements (8, 4, 2 or 1 a vector: 16, 8, 4 or 2 bytes).
+inline int copy_width16(int dim, uintptr_t addr_bits) {
+  if (dim % 8 == 0 && addr_bits % 16 == 0) return 8;
+  if (dim % 4 == 0 && addr_bits % 8 == 0) return 4;
+  if (dim % 2 == 0 && addr_bits % 4 == 0) return 2;
+  return 1;
+}
+
+inline int vec_width16(int dim, uintptr_t addr_bits) {
+  if (dim % 8 == 0 && addr_bits % 16 == 0 && dim > 128) return 8;
+  if (dim % 4 == 0 && addr_bits % 8 == 0 && dim > 64) return 4;
+  if (dim % 2 == 0 && addr_bits % 4 == 0 && dim > 32) return 2;
   return 1;
 }
 

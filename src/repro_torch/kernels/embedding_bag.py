@@ -6,11 +6,14 @@ order, serves the bag forward (:func:`embedding_bag`) and both backward
 passes of the embedding layer (:func:`scatter_rows`, used by
 ``kernels/ops.py``). Its weighted instantiation, ``Σ_j w[j]·src[idx[j]]``
 with each product rounded on its own, is the LightGCN propagation,
-forward and backward (``models/lightgcn.py``). On a CUDA tensor a wrapper
-launches the kernel (or raises); on a CPU tensor it runs the plain
-version, ``ref.csr_gather_sum``, which the kernel equals bit for bit.
-``csr_gather_sum.launches`` counts kernel launches, weighted or not;
-``csr_gather_sum.launches_weighted`` the weighted ones alone.
+forward and backward (``models/lightgcn.py``). Its 16-bit instantiation
+(bf16, f16 rows summed in f32 and rounded once) is the backward of the
+LM token lookup. On a CUDA tensor a wrapper launches the kernel (or
+raises); on a CPU tensor it runs the plain version,
+``ref.csr_gather_sum``, which the kernel equals bit for bit.
+``csr_gather_sum.launches`` counts kernel launches, of every kind;
+``csr_gather_sum.launches_weighted`` and ``.launches_16`` the weighted
+and the 16-bit ones alone.
 """
 from __future__ import annotations
 
@@ -28,21 +31,27 @@ _NAME = "embedding_bag"
 
 
 @functools.cache
-def _entry(weighted: bool):
-    """The C entry point, bound once per process."""
+def _entry(kind: str):
+    """The C entry point of ``kind`` ("f32", "weighted" or "16": bf16 and
+    f16 rows), bound once per process."""
     lib = platform.load(_NAME)
-    fn = (lib.csr_gather_sum_weighted_launch if weighted
-          else lib.csr_gather_sum_launch)
+    fn = {"f32": lib.csr_gather_sum_launch,
+          "weighted": lib.csr_gather_sum_weighted_launch,
+          "16": lib.csr_gather_sum16_launch}[kind]
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * (5 if weighted else 4)
-                   + [ctypes.c_int64, ctypes.c_int, ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * (5 if kind == "weighted" else 4)
+                   + [ctypes.c_int64, ctypes.c_int]
+                   + ([ctypes.c_int] if kind == "16" else [])
+                   + [ctypes.c_void_p])
     return fn
 
 
 def csr_gather_sum(src: torch.Tensor, idx: torch.Tensor, ptr: torch.Tensor,
                    weight: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """src f32 [R, d], idx int32 [nnz], ptr int64 [S + 1] -> f32 [S, d];
-    with ``weight`` f32 [nnz], value j is scaled by weight[j] first.
+    """src f32, bf16 or f16 [R, d], idx int32 [nnz], ptr int64 [S + 1] ->
+    [S, d] in src's dtype; with ``weight`` f32 [nnz] (f32 src only),
+    value j is scaled by weight[j] first. 16-bit rows are summed in f32
+    and rounded to the dtype once.
 
     ptr must ascend from 0 (values past ptr[S] are not read) and idx lie
     in [0, R); the kernel checks neither (the callers here build both)."""
@@ -53,6 +62,9 @@ def csr_gather_sum(src: torch.Tensor, idx: torch.Tensor, ptr: torch.Tensor,
     if weight is not None and weight.shape != idx.shape:
         raise ValueError(f"weight must be [nnz] like idx, got "
                          f"{tuple(weight.shape)} and {tuple(idx.shape)}")
+    if weight is not None and src.dtype in (torch.bfloat16, torch.float16):
+        raise TypeError(f"the weighted csr_gather_sum takes f32 src, not "
+                        f"{src.dtype}")
     if src.device.type == "cpu":
         return ref.csr_gather_sum(src, idx, ptr, weight)
     dev = src.device
@@ -62,36 +74,43 @@ def csr_gather_sum(src: torch.Tensor, idx: torch.Tensor, ptr: torch.Tensor,
                          f"one CUDA device, got {src.device}, {idx.device}, "
                          f"{ptr.device} and "
                          f"{None if weight is None else weight.device}")
-    if (src.dtype != torch.float32 or idx.dtype != torch.int32
+    if (src.dtype not in platform.DTYPES or idx.dtype != torch.int32
             or ptr.dtype != torch.int64 or (
                 weight is not None and weight.dtype != torch.float32)):
-        raise TypeError(f"csr_gather_sum takes f32 src, int32 idx, int64 ptr "
-                        f"and f32 weight, got {src.dtype}, {idx.dtype}, "
-                        f"{ptr.dtype} and "
+        raise TypeError(f"csr_gather_sum takes f32, bf16 or f16 src, int32 "
+                        f"idx, int64 ptr and f32 weight, got {src.dtype}, "
+                        f"{idx.dtype}, {ptr.dtype} and "
                         f"{None if weight is None else weight.dtype}")
     src = src.contiguous()
     idx = idx.contiguous()
     ptr = ptr.contiguous()
     rows = int(ptr.shape[0]) - 1
-    out = torch.empty(rows, src.shape[1], dtype=torch.float32, device=dev)
+    out = torch.empty(rows, src.shape[1], dtype=src.dtype, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if weight is None:
-        status = _entry(False)(src.data_ptr(), idx.data_ptr(), ptr.data_ptr(),
-                               out.data_ptr(), rows, src.shape[1], stream)
-    else:
+    args = (src.data_ptr(), idx.data_ptr(), ptr.data_ptr(), out.data_ptr(),
+            rows, src.shape[1])
+    if weight is not None:
         weight = weight.contiguous()
-        status = _entry(True)(src.data_ptr(), idx.data_ptr(),
-                              weight.data_ptr(), ptr.data_ptr(),
-                              out.data_ptr(), rows, src.shape[1], stream)
+        status = _entry("weighted")(src.data_ptr(), idx.data_ptr(),
+                                    weight.data_ptr(), ptr.data_ptr(),
+                                    out.data_ptr(), rows, src.shape[1],
+                                    stream)
+    elif src.dtype == torch.float32:
+        status = _entry("f32")(*args, stream)
+    else:
+        status = _entry("16")(*args, platform.DTYPES[src.dtype], stream)
     platform.check(status, _NAME)
     csr_gather_sum.launches += 1
     if weight is not None:
         csr_gather_sum.launches_weighted += 1
+    elif src.dtype != torch.float32:
+        csr_gather_sum.launches_16 += 1
     return out
 
 
 csr_gather_sum.launches = 0
 csr_gather_sum.launches_weighted = 0
+csr_gather_sum.launches_16 = 0
 
 
 def _ptr(sorted_ids: torch.Tensor, n: int) -> torch.Tensor:
@@ -142,7 +161,8 @@ def embedding_bag(table: torch.Tensor, values: torch.Tensor,
 def scatter_rows(g: torch.Tensor, dest: torch.Tensor, src: torch.Tensor,
                  num_rows: int) -> torch.Tensor:
     """out[r] = Σ_{j: dest[j] == r} g[src[j]], added in j order from +0.0
-    (the order of ``jax.ops.segment_sum`` on the CPU): the backward of a
+    (the order of ``jax.ops.segment_sum`` on the CPU), in g's dtype (a
+    16-bit g is summed in f32 and rounded once): the backward of a
     gather. A stable sort by ``dest`` keeps equal rows in j order, and
     the CSR gather-sum adds them; no float atomics. g [M, d]; dest and
     src int [J] with dest in [0, num_rows] and src in [0, M): an entry

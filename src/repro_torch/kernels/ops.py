@@ -20,9 +20,10 @@ ids (masked entries sorted past the last row) and sums the cotangent
 rows into each table row with the CSR gather-sum kernel
 (:func:`.embedding_bag.scatter_rows`); nothing in it waits on the host.
 With a stable sort, equal rows add in the reference's index order, and
-two runs are bitwise equal: no float atomics. The CSR gather-sum takes
-f32 only, so a bf16 or f16 lookup on the card that needs a gradient
-raises a TypeError (the LM serving path runs without one).
+two runs are bitwise equal: no float atomics. A bf16 or f16 table's
+gradient has its dtype: its rows are summed in f32 and rounded once (the
+reference's ``segment_sum`` of a bf16 cotangent on XLA's CPU rounds
+after every add; ROADMAP Queue 3 records the difference).
 """
 from __future__ import annotations
 
@@ -76,14 +77,6 @@ class _CodebookSum(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, codebook, idx, binary):
-        if (ctx.needs_input_grad[0] and codebook.device.type == "cuda"
-                and codebook.dtype != torch.float32):
-            # the backward's CSR gather-sum kernel takes f32 only
-            raise TypeError(
-                f"a {codebook.dtype} lookup that needs a gradient has no "
-                f"kernel backward on the card yet: the 16-bit CSR "
-                f"gather-sum waits for the LM training slice, ROADMAP "
-                f"Queue 1 #7a")
         ctx.save_for_backward(idx)
         ctx.binary = binary
         ctx.k_rows = codebook.shape[0]

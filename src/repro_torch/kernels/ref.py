@@ -107,13 +107,17 @@ def csr_gather_sum(src: torch.Tensor, idx: torch.Tensor, ptr: torch.Tensor,
     from +0.0: the CSR kernel's contract. ptr int [S + 1], ascending from
     0; values past ptr[S] are not read. With ``weight`` [nnz] each row is
     ``src[idx[j]] * weight[j]``, every product rounded on its own before
-    it is added (the weighted kernel's contract)."""
+    it is added (the weighted kernel's contract). 16-bit rows (bf16,
+    f16) are widened to f32, summed in that order, and rounded to src's
+    dtype once (the 16-bit kernel's contract)."""
     n_seg = int(ptr.shape[0]) - 1
     lens = (ptr[1:] - ptr[:-1]).long()
     seg = torch.repeat_interleave(torch.arange(n_seg, device=src.device), lens)
     rows = src[idx[:seg.shape[0]].long()]
     if weight is not None:
         rows = rows * weight[:seg.shape[0], None]
+    if rows.dtype in (torch.bfloat16, torch.float16):
+        return segment_sum(rows.float(), seg, n_seg).to(src.dtype)
     return segment_sum(rows, seg, n_seg)
 
 

@@ -32,8 +32,17 @@ cache dtype with ``pos = seq_len - 1``, so every step reads a full
 cache. ``batch=`` and ``n_layers=`` cut a full-width cell to one card
 (``LM_ONE_CARD``; each cut is listed in ``Cell.reduced``).
 
-There is no mesh: the GNN family and the MoE LMs raise
-NotImplementedError naming their ROADMAP items.
+The GNN family (``_gnn_cell``): SchNet's four train cells. Smoke draws
+are the reference's ``_materialize``; at full width (``_gnn_batch``) the
+inputs are drawn on the host from numpy seed 0 at the published shapes,
+node and edge counts padded to the pod width as in the reference
+(``pad_rows``; pad nodes are masked out, pad edges lie past the cutoff),
+``minibatch_lg``'s batch from the real neighbor sampler. ``n_edges=``
+cuts a cell's edges (``GNN_ONE_CARD``: ``ogb_products`` keeps 1/8 of
+them on one card).
+
+There is no mesh: the MoE LMs raise NotImplementedError naming their
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -44,15 +53,18 @@ from typing import Any, Callable, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.registry import (GNN_ITEM, ArchSpec, ShapeSpec,
-                                          get_arch, not_ported)
+from repro_torch.configs.registry import ArchSpec, ShapeSpec, get_arch
+from repro_torch.data.neighbor_sampler import (random_regular_csr,
+                                               sample_subgraph)
 from repro_torch.device import resolve_device
 from repro_torch.models import lightgcn as LG
 from repro_torch.models import recsys as R
+from repro_torch.models import schnet as S
 from repro_torch.models import transformer as T
 from repro_torch.training import optimizer as opt_lib
 
-__all__ = ["Cell", "build_cell", "param_shapes", "LM_ONE_CARD"]
+__all__ = ["Cell", "build_cell", "param_shapes", "LM_ONE_CARD",
+           "GNN_ONE_CARD"]
 
 
 @dataclasses.dataclass
@@ -136,10 +148,15 @@ def _full_batch(batch: dict, device, seed: int = 0) -> dict:
 # ---------------------------------------------------------------------------
 # LM family (dense)
 # ---------------------------------------------------------------------------
-# one H100's cuts of the full-width serving cells (80 GB; PERF.md §4): the
-# batch (global_batch 32 / 128 otherwise), and qwen1.5-32b's depth (its
-# 64 layers are 70.4 GB of bf16 params and its fp8 cache 21.5 GB a row)
-LM_ONE_CARD = {("gemma2-9b", "prefill_32k"): {"batch": 1},
+# one H100's cuts of the full-width cells (80 GB; PERF.md §4): the batch
+# (global_batch 32 / 128 otherwise), and qwen1.5-32b's depth (its 64
+# layers are 70.4 GB of bf16 params and its fp8 cache 21.5 GB a row).
+# gemma2-9b's train_4k keeps 8 of its 42 layers (four local/global pairs:
+# 2.50e9 params at 16 bytes each with the f32 accumulator and the two f32
+# AdamW moments) and 8 of its 256 sequences, one a microbatch as in the
+# reference's 8 microbatches.
+LM_ONE_CARD = {("gemma2-9b", "train_4k"): {"batch": 8, "n_layers": 8},
+               ("gemma2-9b", "prefill_32k"): {"batch": 1},
                ("gemma2-9b", "decode_32k"): {"batch": 4},
                ("gemma3-12b", "decode_32k"): {"batch": 8},
                ("qwen1.5-32b", "decode_32k"): {"batch": 2, "n_layers": 32}}
@@ -149,6 +166,13 @@ def _lm_optimizer(cfg):
     """The reference's choice (``repro/launch/steps.py:194-198``) for a
     dense model: AdamW (its Adafactor is for MoEs of 128+ experts)."""
     return "adamw", opt_lib.adamw(lr=3e-4, grad_clip=1.0)
+
+
+def _lm_acc_dtype(cfg) -> torch.dtype:
+    """The gradient accumulator's dtype (``repro/launch/steps.py:234-239``
+    with no mesh): bf16 when the config's bf16 params pass 8e9 bytes (the
+    reference shards those over 'data' too), else f32."""
+    return torch.bfloat16 if T.count_params(cfg) * 2 > 8e9 else torch.float32
 
 
 def _lm_train_step(cfg, opt, n_micro: int, acc_dtype):
@@ -172,9 +196,11 @@ def _lm_train_step(cfg, opt, n_micro: int, acc_dtype):
                                    *v.shape[1:])[m] for k, v in b.items()}
                 lm = T.train_loss(params, mb, cfg)
                 g = torch.autograd.grad(lm, leaves)
-                acc = [a + x.to(acc_dtype) for a, x in zip(acc, g)]
+                for a, x in zip(acc, g):
+                    a.add_(x.to(acc_dtype))
+                del g
                 loss = loss + lm.detach()
-            grads = [a / n_micro for a in acc]
+            grads = [a.div_(n_micro) for a in acc]
             loss = loss / n_micro
         for p in leaves:
             p.requires_grad_(False)
@@ -216,14 +242,16 @@ def _lm_cell(spec: ArchSpec, shape: ShapeSpec, smoke: bool, lookup_backend,
         bt = _draw_batch(specs, smoke, device)
         # gradient accumulation (the reference's rule), and its f32
         # accumulator, bf16 where the params would be FSDP-sharded (over 8
-        # GB of bf16 on one model shard, as every full LM config is)
+        # GB of bf16 on one model shard, as every uncut full LM config
+        # is). The rule reads the config after a depth cut, so the cut
+        # moves it: gemma2-9b at 8 layers (5.0e9 bytes) accumulates in f32
         n_micro = dims.get("microbatches") or (
             8 if not smoke and shape.name == "train_4k" else 1)
-        fsdp = T.count_params(cfg) * 2 > 8e9
-        acc = torch.bfloat16 if fsdp else torch.float32
+        acc = _lm_acc_dtype(cfg)
         return cell(_lm_train_step(cfg, opt, n_micro, acc),
                     (params, opt_state, bt), donate=(0, 1),
-                    notes=f"optimizer={opt_name},microbatches={n_micro}")
+                    notes=f"optimizer={opt_name},microbatches={n_micro},"
+                          f"accumulator={str(acc).split('.')[-1]}")
 
     if shape.kind == "prefill":
         bt = _draw_batch({"tokens": tok((b, seq))}, smoke, device)
@@ -254,6 +282,147 @@ def _lm_cell(spec: ArchSpec, shape: ShapeSpec, smoke: bool, lookup_backend,
 
     return cell(decode, (params, cache, bt), donate=(1,),
                 notes="KV cache updated in place")
+
+
+# ---------------------------------------------------------------------------
+# GNN family (schnet)
+# ---------------------------------------------------------------------------
+# one H100's cut: ogb_products' 61,859,140 edges would need ~370 GB (its
+# [E, 300] f32 radial basis alone is 74.2 GB); 1/8 of them fit (PERF.md §4)
+GNN_ONE_CARD = {("schnet", "ogb_products"): {"n_edges": 61_859_140 // 8}}
+# the minibatch_lg cell's graph, Reddit's size (232,965 nodes, 114.6M
+# edges: mean degree 492), sampled from 1,024 seeds at fanout (15, 10)
+GNN_SAMPLED_GRAPH = {"n_nodes": 232_965, "avg_deg": 492}
+# QM9's elements (H, C, N, O, F) for the molecule cell's atoms
+GNN_ELEMENTS = (1, 6, 7, 8, 9)
+
+
+def _gnn_batch(shape_name: str, dims: dict, n: int, e: int, d_feat: int,
+               cfg, device) -> Tuple[dict, Tuple[str, ...]]:
+    """A full-width batch, drawn on the host from ``default_rng(0)``:
+    ``n`` / ``e`` are the padded node and edge counts. Edge distances are
+    uniform in [0, 1.2 x cutoff), so some edges lie past the cutoff and
+    carry nothing; pad edges (``e`` past the real count) join node 0 to
+    itself at 2 x cutoff. Node features and targets are standard normal;
+    ``node_mask`` is 1 on the real nodes (``minibatch_lg``: on the 1,024
+    seeds, the nodes the sampled batch trains) and 0 on pad nodes.
+    ``molecule``: 128 graphs of 30 atoms of QM9's elements, each graph's
+    edges within it. Returns the batch and its notes."""
+    rng = np.random.default_rng(0)
+    i32, f32 = np.int32, np.float32
+    src = np.zeros(e, i32)
+    dst = np.zeros(e, i32)
+    dist = np.full(e, 2.0 * cfg.cutoff, f32)
+    notes = ()
+    if shape_name == "molecule":
+        g, atoms, per = dims["batch"], dims["n_nodes"], dims["n_edges"]
+        base = np.repeat(np.arange(g) * atoms, per)
+        src[:g * per] = base + rng.integers(0, atoms, g * per)
+        dst[:g * per] = base + rng.integers(0, atoms, g * per)
+        dist[:g * per] = rng.uniform(0.0, 1.2 * cfg.cutoff, g * per)
+        if n != g * atoms:       # a pad atom would join some graph
+            raise ValueError(f"molecule: {g} graphs of {atoms} atoms pad "
+                             f"to {n} nodes")
+        z = rng.choice(GNN_ELEMENTS, n).astype(i32)
+        gid = (np.arange(n) // atoms).astype(i32)
+        b = {"edge_src": src, "edge_dst": dst, "edge_dist": dist, "z": z,
+             "graph_id": gid,
+             "targets": rng.standard_normal(g).astype(f32)}
+    else:
+        mask = np.zeros(n, f32)
+        if shape_name == "minibatch_lg":
+            graph = GNN_SAMPLED_GRAPH
+            indptr, indices = random_regular_csr(graph["n_nodes"],
+                                                 graph["avg_deg"], seed=0)
+            seeds = rng.choice(graph["n_nodes"], dims["batch_nodes"],
+                               replace=False)
+            nodes, s_l, d_l = sample_subgraph(indptr, indices, seeds,
+                                              dims["fanout"], seed=0)
+            n_real, e_real = len(nodes), len(s_l)
+            mask[:len(seeds)] = 1.0
+            notes = (f"sampled {n_real} nodes, {e_real} edges from "
+                     f"{graph['n_nodes']} nodes at mean degree "
+                     f"{graph['avg_deg']}",)
+        else:
+            n_real, e_real = dims["n_nodes"], min(e, dims["n_edges"])
+            s_l = rng.integers(0, n_real, e_real)
+            d_l = rng.integers(0, n_real, e_real)
+            mask[:n_real] = 1.0
+        src[:e_real], dst[:e_real] = s_l, d_l
+        dist[:e_real] = rng.uniform(0.0, 1.2 * cfg.cutoff, e_real)
+        b = {"edge_src": src, "edge_dst": dst, "edge_dist": dist,
+             "feat": rng.standard_normal((n, d_feat), dtype=f32),
+             "node_targets": rng.standard_normal(n, dtype=f32),
+             "node_mask": mask}
+    return {k: torch.as_tensor(v, device=device) for k, v in b.items()}, notes
+
+
+def _gnn_cell(spec: ArchSpec, shape: ShapeSpec, smoke: bool, lookup_backend,
+              device, n_edges: Optional[int] = None) -> Cell:
+    base = spec.smoke_config() if smoke else spec.full_config()
+    if lookup_backend is not None:
+        base = dataclasses.replace(base, lookup_backend=lookup_backend)
+    dims = dict(shape.dims)
+    if smoke:
+        scale = {"full_graph_sm": (64, 256), "minibatch_lg": (128, 512),
+                 "ogb_products": (128, 512), "molecule": (30, 64)}
+        dims["n_nodes"], dims["n_edges"] = scale[shape.name]
+        dims["batch"] = 4
+        if "d_feat" in dims:
+            dims["d_feat"] = 16
+    reduced = []
+    if n_edges is not None and n_edges != dims["n_edges"]:
+        reduced.append(f"n_edges {dims['n_edges']} -> {n_edges}")
+        dims["n_edges"] = n_edges
+
+    molecule = shape.name == "molecule"
+    d_feat = 0 if molecule else dims["d_feat"]
+    cfg = dataclasses.replace(base, d_feat=d_feat)
+    if molecule:
+        n_graphs = dims["batch"]
+        n = dims["n_nodes"] * n_graphs
+        e = dims["n_edges"] * n_graphs
+    else:
+        n, e = dims["n_nodes"], dims["n_edges"]
+    if not smoke:
+        # the reference pads node and edge counts to the pod width so its
+        # row sharding divides; the port keeps the padded shapes (pad
+        # nodes masked out, pad edges past the cutoff: zero contribution)
+        n = R.pad_rows(n)
+        e = R.pad_rows(e)
+
+    params = S.init_params(torch.Generator(device=device).manual_seed(0),
+                           cfg)
+    opt = opt_lib.adamw(lr=1e-3)
+    opt_state = opt.init(R.flat_params(params))
+    i32, f32 = torch.int32, torch.float32
+    specs = {"edge_src": _Spec((e,), i32), "edge_dst": _Spec((e,), i32),
+             "edge_dist": _Spec((e,), f32)}
+    if molecule:
+        specs["z"] = _Spec((n,), i32)
+        specs["graph_id"] = _Spec((n,), i32)
+        specs["targets"] = _Spec((n_graphs,), f32)
+        loss = S.train_loss
+    else:
+        specs["feat"] = _Spec((n, d_feat), f32)
+        specs["node_targets"] = _Spec((n,), f32)
+        specs["node_mask"] = _Spec((n,), f32)
+        loss = S.node_train_loss
+    notes = ()
+    if smoke:
+        b = _materialize(specs, device)
+    else:
+        b, notes = _gnn_batch(shape.name, dims, n, e, d_feat, cfg, device)
+        b = {k: b[k] for k in specs}
+    step = _adamw_step(lambda p, s, bb: loss(p, bb, cfg), opt,
+                       unread=("embed",) if d_feat else ())
+
+    def train_step(params, opt_state, batch):
+        return step(params, opt_state, None, batch)
+
+    return Cell(spec.arch_id, shape.name, "train", train_step,
+                (params, opt_state, b), donate=(0, 1),
+                notes=",".join(notes), reduced=tuple(reduced))
 
 
 # ---------------------------------------------------------------------------
@@ -339,19 +508,25 @@ def _draw_batch(specs: dict, smoke: bool, device) -> dict:
     return batch
 
 
-def _adamw_step(loss_fn, opt):
+def _adamw_step(loss_fn, opt, unread: Tuple[str, ...] = ()):
     """The reference's train step: loss and grads of every param, one
-    AdamW update (in place on the params and the optimizer state)."""
+    AdamW update (in place on the params and the optimizer state). The
+    params named in ``unread`` are ones the loss does not read (SchNet's
+    atom embedding under dense features): their gradient is zero, as
+    under jax.grad. Any other param the loss does not read raises."""
     def train_step(params, opt_state, statics, b):
         flat = R.flat_params(params)
-        leaves = list(flat.values())
-        for p in leaves:
-            p.requires_grad_(True)
+        read = [k for k in flat if k not in unread]
+        for k in read:
+            flat[k].requires_grad_(True)
         loss = loss_fn(params, statics, b)
-        grads = torch.autograd.grad(loss, leaves)
-        for p in leaves:
-            p.requires_grad_(False)
-        opt.update(dict(zip(flat, grads)), opt_state, flat)
+        grads = dict(zip(read, torch.autograd.grad(
+            loss, [flat[k] for k in read])))
+        for k in read:
+            flat[k].requires_grad_(False)
+        grads = {k: grads[k] if k in grads else torch.zeros_like(p)
+                 for k, p in flat.items()}
+        opt.update(grads, opt_state, flat)
         return params, opt_state, loss.detach()
     return train_step
 
@@ -466,7 +641,8 @@ def _cf_cell(spec: ArchSpec, shape: ShapeSpec, smoke: bool, lookup_backend,
 # ---------------------------------------------------------------------------
 # dispatcher
 # ---------------------------------------------------------------------------
-_FAMILY = {"lm": _lm_cell, "recsys": _recsys_cell, "cf": _cf_cell}
+_FAMILY = {"lm": _lm_cell, "gnn": _gnn_cell, "recsys": _recsys_cell,
+           "cf": _cf_cell}
 
 
 def build_cell(arch_id: str, shape_name: str, smoke: bool = False,
@@ -475,17 +651,14 @@ def build_cell(arch_id: str, shape_name: str, smoke: bool = False,
     """The (arch, shape) cell on ``device`` (default the CUDA device;
     raises without one). ``lookup_backend``: explicit EmbeddingEngine
     backend override ("gather" | "onehot" | "cuda"); None auto-selects
-    by device. ``cuts`` (LM cells: ``batch``, ``n_layers``) cut the cell,
-    each cut listed in ``Cell.reduced`` (``LM_ONE_CARD`` holds the cuts
-    that fit one H100)."""
+    by device. ``cuts`` (LM cells: ``batch``, ``n_layers``; GNN cells:
+    ``n_edges``) cut the cell, each cut listed in ``Cell.reduced``
+    (``LM_ONE_CARD`` and ``GNN_ONE_CARD`` hold the cuts that fit one
+    H100)."""
     spec = get_arch(arch_id)
     shape = spec.shape(shape_name)
-    if spec.family not in _FAMILY:
-        raise not_ported(f"the {spec.family!r} family", GNN_ITEM)
     device = resolve_device(device)
-    if spec.family != "lm":
-        if cuts:
-            raise TypeError(f"{arch_id} takes no cuts, got {sorted(cuts)}")
-        return _FAMILY[spec.family](spec, shape, smoke, lookup_backend,
-                                    device)
-    return _lm_cell(spec, shape, smoke, lookup_backend, device, **cuts)
+    if spec.family not in ("lm", "gnn") and cuts:
+        raise TypeError(f"{arch_id} takes no cuts, got {sorted(cuts)}")
+    return _FAMILY[spec.family](spec, shape, smoke, lookup_backend, device,
+                                **cuts)

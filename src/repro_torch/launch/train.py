@@ -5,11 +5,12 @@ Two modes:
   * paper pipeline (default), below;
   * ``--arch <id> [--shape train_batch]``: N train steps of an
     architecture's cell (``launch.steps.build_cell``: DLRM, Wide&Deep,
-    SASRec, BERT4Rec, ``lightgcn-baco``'s ``bpr_train``, or a dense LM's
-    ``train_4k``: gemma2-9b, gemma3-12b, qwen1.5-32b), at smoke width
-    (the full width runs through ``build_cell(..., smoke=False)``; LM
-    training at full width waits for ROADMAP Queue 1 #7a). The MoE LMs
-    and SchNet are not ported and raise.
+    SASRec, BERT4Rec, ``lightgcn-baco``'s ``bpr_train``, a dense LM's
+    ``train_4k`` (gemma2-9b, gemma3-12b, qwen1.5-32b), or SchNet's
+    ``full_graph_sm``, ``minibatch_lg``, ``ogb_products`` and
+    ``molecule``), at smoke width (the full width runs through
+    ``build_cell(..., smoke=False)`` with ``LM_ONE_CARD`` /
+    ``GNN_ONE_CARD``'s cuts). The MoE LMs are not ported and raise.
 
 Compresses a synthetic interaction graph — BACO through the port's
 ClusterEngine (``--method baco``, solver ``--cluster-solver``), any other

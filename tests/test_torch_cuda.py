@@ -72,6 +72,7 @@ import torch
 from repro_torch.embedding import (EmbeddingEngine, EmbeddingSpec,
                                    embed_lookup)
 from repro_torch.embedding import embedding_bag as te_embedding_bag
+from repro_torch.embedding import embedding_lookup
 from repro_torch.kernels import (codebook_lookup, csr_gather_sum,
                                  dot_interaction, embedding_bag,
                                  flash_attention, fused_topk,
@@ -277,6 +278,65 @@ def test_embedding_bag_kernel_bitwise(dev, case, d, aligned):
     assert torch.equal(got, ref.csr_gather_sum(table, idx, ptr))
     assert torch.equal(got, csr_gather_sum(table, idx, ptr))
     assert csr_gather_sum.launches == before + 2
+
+
+@pytest.mark.parametrize("case", ["skewed", "repeats", "no_values",
+                                  "no_rows"])
+@pytest.mark.parametrize("d", [1, 3, 64, 129, 3584])
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_csr_gather_sum_16bit_kernel_bitwise(dev, dtype, case, d, aligned):
+    """The 16-bit instantiation (f32 sums rounded once to the dtype)
+    bitwise its plain version: skewed bags (4,000-value rows, empty
+    rows), one row of 1,000 repeats of one id between two empty rows (a
+    frequent token), no values, no rows; at d 3,584 (the LM token
+    table), odd widths, and a table 2 bytes off alignment."""
+    g = torch.Generator().manual_seed(11 + d)
+    n_src = 1000
+    flat = (torch.randn(n_src * d + 1, generator=g) * 3).to(dtype).to(dev)
+    src = (flat[:n_src * d] if aligned else flat[1:]).view(n_src, d)
+    if case == "skewed":
+        idx, ptr = _skewed_csr(600, n_src, g)
+    elif case == "repeats":
+        idx = torch.full((1000,), 7, dtype=torch.int32)
+        ptr = torch.tensor([0, 0, 1000, 1000], dtype=torch.int64)
+    else:
+        rows = {"no_values": 5, "no_rows": 0}[case]
+        idx = torch.zeros(0, dtype=torch.int32)
+        ptr = torch.zeros(rows + 1, dtype=torch.int64)
+    idx, ptr = idx.to(dev), ptr.to(dev)
+    before = (csr_gather_sum.launches, csr_gather_sum.launches_16)
+    got = csr_gather_sum(src, idx, ptr)
+    assert (csr_gather_sum.launches, csr_gather_sum.launches_16) == (
+        before[0] + 1, before[1] + 1)
+    assert got.dtype == dtype and got.shape == (ptr.numel() - 1, d)
+    assert torch.equal(got, ref.csr_gather_sum(src, idx, ptr))
+    if case == "repeats":
+        want = src[7].float() * 1000          # exact: 1,000 x one value
+        assert torch.equal(got[1], want.to(dtype))
+        assert not got[0].any() and not got[2].any()
+    with pytest.raises(TypeError, match="f32 src"):
+        csr_gather_sum(src, idx, ptr, torch.ones(idx.shape, device=dev))
+
+
+def test_bf16_lookup_gradient_runs_the_16bit_kernel(dev):
+    """A bf16 token lookup's gradient on the card (the "cuda" backend):
+    the 16-bit CSR gather-sum, once, bitwise the CPU's plain path."""
+    g = torch.Generator().manual_seed(3)
+    table = torch.randn(5000, 256, generator=g).to(torch.bfloat16)
+    ids = torch.randint(0, 5000, (4, 512), generator=g)
+    ids[:, ::3] = 11                                  # a frequent token
+    cot = torch.randn(4, 512, 256, generator=g).to(torch.bfloat16)
+    grads = []
+    for device in ("cpu", dev):
+        t = table.to(device).detach().requires_grad_(True)
+        out = embedding_lookup(t, ids.to(device), backend="cuda")
+        before = csr_gather_sum.launches_16
+        out.backward(cot.to(device))
+        grads.append(t.grad.cpu())
+    assert csr_gather_sum.launches_16 == before + 1
+    assert grads[1].dtype == torch.bfloat16
+    assert torch.equal(grads[0], grads[1])
 
 
 @pytest.mark.parametrize("mode", ["sum", "mean"])
@@ -1186,7 +1246,8 @@ def test_codebook_lookup_kernel_16bit_bitwise(dev, dtype, h, d, binary,
 def test_codebook_lookup_16bit_at_the_lm_shapes(dev, rows):
     """gemma2-9b's token embedding (256,000 x 3,584 bf16): decode's B
     rows and the prefill's 32,768, bitwise the plain version; a lookup
-    that needs a gradient raises naming the LM training item."""
+    that needs a gradient runs the 16-bit CSR gather-sum backward,
+    bitwise its plain version."""
     g = torch.Generator(device=dev).manual_seed(0)
     table = torch.randn(256000, 3584, generator=g, device=dev).to(
         torch.bfloat16)
@@ -1200,8 +1261,17 @@ def test_codebook_lookup_16bit_at_the_lm_shapes(dev, rows):
     assert torch.equal(out[0], ref.codebook_lookup(table, ids.reshape(-1, 1)
                                                    .int()))
     table.requires_grad_(True)
-    with pytest.raises(TypeError, match="ROADMAP Queue 1 #7a"):
-        eng.full_lookup(table, ids)
+    out = eng.full_lookup(table, ids)
+    cot = torch.randn(out.shape, generator=g, device=dev).to(torch.bfloat16)
+    before = csr_gather_sum.launches_16
+    out.backward(cot)
+    assert csr_gather_sum.launches_16 == before + 1
+    flat = ids.reshape(-1)
+    order = torch.sort(flat, stable=True)
+    want = ref.csr_gather_sum(cot.reshape(-1, 3584), order.indices.int(),
+                              torch.searchsorted(order.values, torch.arange(
+                                  256001, device=dev)))
+    assert torch.equal(table.grad, want)
 
 
 @pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k"])

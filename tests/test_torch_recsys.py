@@ -2,10 +2,10 @@
 ``models/recsys.py``, ``launch/steps.py``) against the JAX package, on
 the CPU at smoke width.
 
-  * Registry: the port's archs are the reference's less its GNN and MoE
-    LM ids (which raise NotImplementedError naming ROADMAP Queue 1 #7b
-    and #7c); the shapes and every config (full and smoke, the dense
-    LMs' too) are equal field by field.
+  * Registry: the port's archs are the reference's less its MoE LM ids
+    (which raise NotImplementedError naming ROADMAP Queue 1 #7c); the
+    shapes and every config (full and smoke, the dense LMs' and SchNet's
+    too) are equal field by field.
   * Full width: each full config's param shapes and bytes equal
     ``jax.eval_shape`` of the reference's init, reckoned on the meta
     device (nothing allocated).
@@ -59,9 +59,10 @@ from repro_torch.models import recsys as rs  # noqa: E402
 from repro_torch.training.optimizer import adamw  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# the recsys and cf cells (the dense LM cells: tests/test_torch_lm.py)
+# the recsys and cf cells (the dense LM cells: tests/test_torch_lm.py;
+# SchNet's: tests/test_torch_gnn.py)
 CELLS = [(a, s.name) for a in registry.list_archs()
-         if registry.get_arch(a).family != "lm"
+         if registry.get_arch(a).family in ("recsys", "cf")
          for s in registry.get_arch(a).shapes]
 TRAIN = [c for c in CELLS
          if registry.get_arch(c[0]).shape(c[1]).kind == "train"]
@@ -156,14 +157,12 @@ def _port_cell(arch, shape):
 # registry and configs
 # ---------------------------------------------------------------------------
 def test_registry_equals_the_reference_less_lm_and_gnn():
-    """The reference's registry less its GNN and its MoE LMs (the dense
-    LMs are ported)."""
+    """The reference's registry less its MoE LMs (the dense LMs and the
+    GNN are ported)."""
     ref_ids = ref_registry.list_archs()
     unported = {a for a in ref_ids
-                if ref_registry.get_arch(a).family == "gnn"
-                or (ref_registry.get_arch(a).family == "lm"
-                    and ref_registry.get_arch(a).full_config().moe
-                    is not None)}
+                if ref_registry.get_arch(a).family == "lm"
+                and ref_registry.get_arch(a).full_config().moe is not None}
     assert set(registry.UNPORTED_ARCHS) == unported
     assert set(registry.WAITS_FOR) == unported
     assert registry.list_archs() == sorted(set(ref_ids) - unported)
@@ -192,8 +191,7 @@ def test_specs_and_configs_equal_the_reference(arch):
 
 @pytest.mark.parametrize("arch", sorted(registry.UNPORTED_ARCHS))
 def test_unported_archs_raise_naming_the_roadmap(arch):
-    item = {"lm": "ROADMAP Queue 1 #7c",
-            "gnn": "ROADMAP Queue 1 #7b"}[registry.UNPORTED_ARCHS[arch]]
+    item = {"lm": "ROADMAP Queue 1 #7c"}[registry.UNPORTED_ARCHS[arch]]
     with pytest.raises(NotImplementedError, match=item):
         registry.get_arch(arch)
     with pytest.raises(KeyError):

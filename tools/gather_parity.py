@@ -10,10 +10,12 @@ in one call (a check made when the kernels are rewritten).
     done
     python3 tools/gather_parity.py build/parent
 
-The other sources must have the same C interfaces
-(``csr_gather_sum_launch``, ``codebook_lookup_launch``). Both builds fold
-every output column with __fadd_rn in value order from +0.0f, so they
-must agree bit for bit on any input. The cases:
+(Copy the commit's ``gather.cuh`` and ``f32_convert.cuh`` there too: a
+source's own directory is searched for its headers first.) The other
+sources must have the same C interfaces (``csr_gather_sum_launch``,
+``csr_gather_sum_weighted_launch``, ``codebook_lookup_launch``). Both
+builds fold every output column with __fadd_rn in value order from
++0.0f, so they must agree bit for bit on any input. The cases:
 
 - the embedding path's shapes, as ``chip_smoke.csr_cases`` builds them
   from the amazonbook train split and the GPU sketch: the bag forward
@@ -22,6 +24,17 @@ must agree bit for bit on any input. The cases:
   codebook_lookup on both sides (binary Y); and the kernel bench's
   bags (``kernel/embedding_bag``: 65,536 values in 8,192 sorted random
   bags over a [200,000, 128] table);
+- the other gather-sums of the port's paths (``more_inputs``), timed:
+  the weighted LightGCN propagation of both sides (547,067 edges,
+  ``csr_gather_sum_weighted_launch``), the ordered W(k) sum (800,000
+  weights into 1,000,000 labels, d 1), SASRec's item-table backward
+  (3,211,264 values into 250,112 rows, d 50) and Wide&Deep's wide table
+  (65,536 values into 250,112 rows, d 1);
+- the 16-bit instantiation (``csr_gather_sum16_launch``; this build
+  only) against its plain version: bf16 and f16 at the ``cuda`` tests'
+  shapes and the LM token embedding's gradient (a Zipf-skewed draw of
+  4,096 token ids over 256,000 rows, d 3,584, one microbatch of
+  gemma2-9b's train_4k), timed beside ``index_add_`` in f32;
 - bags of one length each (``synthetic_inputs``), timed too: one row
   of 100,000 values, 132 rows of 20,000 (the long-row blocks), 52,643
   rows of 0, 1, 4, 16 (the short-row warps);
@@ -63,17 +76,26 @@ def bind(path: str):
         path % "embedding_bag", "csr_gather_sum_launch",
         [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_int,
                                  ctypes.c_void_p])
+    wbag = parity_build.entry(
+        path % "embedding_bag", "csr_gather_sum_weighted_launch",
+        [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_int,
+                                 ctypes.c_void_p])
     cb = parity_build.entry(
         path % "codebook_lookup", "codebook_lookup_launch",
         [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int, ctypes.c_int,
                                  ctypes.c_int, ctypes.c_void_p])
 
-    def gather_sum(src, idx, ptr):
+    def gather_sum(src, idx, ptr, weight=None):
         rows = ptr.numel() - 1
         out = torch.empty(rows, src.shape[1], device=src.device)
-        status = bag(src.data_ptr(), idx.data_ptr(), ptr.data_ptr(),
-                     out.data_ptr(), rows, src.shape[1],
-                     torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if weight is None:
+            status = bag(src.data_ptr(), idx.data_ptr(), ptr.data_ptr(),
+                         out.data_ptr(), rows, src.shape[1], stream)
+        else:
+            status = wbag(src.data_ptr(), idx.data_ptr(), weight.data_ptr(),
+                          ptr.data_ptr(), out.data_ptr(), rows, src.shape[1],
+                          stream)
         if status:
             raise RuntimeError(f"{path % 'embedding_bag'}: launch {status}")
         return out
@@ -125,7 +147,86 @@ def path_inputs():
         chip_smoke.csr_ptr(segs.cuda(), 8192))
     lookups = {side: (emb[side]["z"], emb[side]["sketch"])
                for side in ("users", "items")}
-    return bags, lookups
+    return bags, lookups, train
+
+
+def more_inputs(train):
+    """(src, idx, ptr, weight) of the other gather-sums on the port's
+    paths: the weighted propagation of both sides over the amazonbook
+    train split (weights 1/sqrt(deg_u deg_v), edges stably sorted by the
+    summing side), the ordered W(k) sum, SASRec's item-table backward and
+    Wide&Deep's wide table (ids uniform, seeded)."""
+    import numpy as np
+    import torch
+    g = torch.Generator(device="cpu").manual_seed(31)
+    dev = torch.device("cuda")
+    eu = np.asarray(train.edge_u, np.int64)
+    ev = np.asarray(train.edge_v, np.int64)
+    du = np.bincount(eu, minlength=train.n_users).astype(np.float32)
+    dv = np.bincount(ev, minlength=train.n_items).astype(np.float32)
+    norm = (1.0 / np.sqrt(du[eu] * dv[ev])).astype(np.float32)
+    out = {}
+    for side, dest, src_ids, n_dest, n_src in (
+            ("user", eu, ev, train.n_users, train.n_items),
+            ("item", ev, eu, train.n_items, train.n_users)):
+        order = np.argsort(dest, kind="stable")
+        out[f"propagation {side} side (weighted)"] = (
+            torch.randn(n_src, 64, generator=g).to(dev),
+            torch.as_tensor(src_ids[order], dtype=torch.int32, device=dev),
+            chip_smoke.csr_ptr(torch.as_tensor(dest[order], device=dev),
+                               n_dest),
+            torch.as_tensor(norm[order], device=dev))
+    for what, nnz, rows, n_src, d in (
+            ("ordered W(k) sum", 800_000, 1_000_000, 800_000, 1),
+            ("SASRec items backward", 3_211_264, 250_112, 3_211_264, 50),
+            ("Wide&Deep wide backward", 65_536, 250_112, 65_536, 1)):
+        dest = torch.randint(0, rows, (nnz,), generator=g)
+        dest_sorted, perm = torch.sort(dest, stable=True)
+        out[what] = (torch.randn(n_src, d, generator=g).to(dev),
+                     perm.int().to(dev),
+                     chip_smoke.csr_ptr(dest_sorted.to(dev), rows), None)
+    return out
+
+
+def inputs16():
+    """(name, src, idx, ptr) of the 16-bit cases: the ``cuda`` tests'
+    skewed bags in bf16 and f16 (an empty segment and a row of 1,000
+    repeats among them), and the LM token embedding's gradient: the
+    bf16 cotangent of one gemma2-9b microbatch (4,096 tokens, d 3,584)
+    summed into 256,000 rows, token ids drawn from a Zipf law (rank r
+    with weight 1 / r) as a frequent token repeats."""
+    import torch
+    dev = torch.device("cuda")
+    g = torch.Generator(device="cpu").manual_seed(37)
+    out = []
+    for dtype in (torch.bfloat16, torch.float16):
+        name = str(dtype).split(".")[-1]
+        for d in (1, 3, 64, 129, 3584):
+            idx, ptr = chip_smoke.skewed_csr(5000, 1000, g, dev)
+            src = torch.randn(1000, d, generator=g).to(dev, dtype)
+            out.append((f"{name} skewed d={d}", src, idx, ptr))
+        rep = torch.zeros(1000, dtype=torch.int32, device=dev)
+        ptr = torch.tensor([0, 0, 1000, 1000], dtype=torch.int64,
+                           device=dev)
+        out.append((f"{name} 1,000 repeats + empty rows",
+                    torch.randn(1, 3584, generator=g).to(dev, dtype), rep,
+                    ptr))
+    out.append(("bfloat16 LM token gradient",) + lm_token_gradient(g))
+    return out
+
+
+def lm_token_gradient(g, tokens: int = 4096, vocab: int = 256_000,
+                      d: int = 3584):
+    """(g bf16 [tokens, d], idx int32 [tokens], ptr int64 [vocab + 1]):
+    the token lookup's backward of one microbatch as ``scatter_rows``
+    hands it to the kernel, ids Zipf-skewed."""
+    import torch
+    w = 1.0 / torch.arange(1, vocab + 1, dtype=torch.float64)
+    ids = torch.multinomial(w, tokens, replacement=True, generator=g)
+    cot = torch.randn(tokens, d, generator=g).to(torch.bfloat16).cuda()
+    ids_sorted, perm = torch.sort(ids, stable=True)
+    return (cot, perm.int().cuda(),
+            chip_smoke.csr_ptr(ids_sorted.cuda(), vocab))
 
 
 def synthetic_inputs():
@@ -198,10 +299,12 @@ def main(other_dir: str) -> int:
     old_bag, old_lookup = bind(
         os.path.join(parity_build.OUT_DIR, "lib%s_other.so"))
 
-    bags, lookups = path_inputs()
+    bags, lookups, train = path_inputs()
+    more = more_inputs(train)
     synthetic = synthetic_inputs()
     edge_bags, edge_lookups = edge_inputs()
-    counts = {n: {"cases": 0, "bitwise": 0} for n in NAMES}
+    counts = {n: {"cases": 0, "bitwise": 0}
+              for n in NAMES + ("embedding_bag 16-bit",)}
     unequal = []
 
     def tally(name, what, *results):
@@ -217,6 +320,13 @@ def main(other_dir: str) -> int:
     for what, src, idx, ptr in edge_bags:
         tally("embedding_bag", what, csr_gather_sum(src, idx, ptr),
               old_bag(src, idx, ptr))
+    for what, (src, idx, ptr, w) in more.items():
+        tally("embedding_bag", what, csr_gather_sum(src, idx, ptr, w),
+              old_bag(src, idx, ptr, w), ref.csr_gather_sum(src, idx, ptr, w))
+    cases16 = inputs16()
+    for what, src, idx, ptr in cases16:
+        tally("embedding_bag 16-bit", what, csr_gather_sum(src, idx, ptr),
+              ref.csr_gather_sum(src, idx, ptr))
     for what, (src, idx, ptr) in synthetic.items():
         tally("embedding_bag", what, csr_gather_sum(src, idx, ptr),
               old_bag(src, idx, ptr))
@@ -237,6 +347,24 @@ def main(other_dir: str) -> int:
                          for _ in range(2)]
         row["old_ms"].append(t(lambda: old_bag(src, idx, ptr)))
         times[f"embedding_bag {what}"] = row
+    for what, (src, idx, ptr, w) in more.items():
+        row = {"plain_ms": t(lambda: ref.csr_gather_sum(src, idx, ptr, w),
+                             iters=5)}
+        row["old_ms"] = [t(lambda: old_bag(src, idx, ptr, w))]
+        row["new_ms"] = [t(lambda: csr_gather_sum(src, idx, ptr, w))
+                         for _ in range(2)]
+        row["old_ms"].append(t(lambda: old_bag(src, idx, ptr, w)))
+        times[f"embedding_bag {what}"] = row
+    what, src, idx, ptr = cases16[-1]
+    ids = torch.empty(idx.numel(), dtype=torch.int64, device=idx.device)
+    ids[idx.long()] = torch.repeat_interleave(      # each row's token id
+        torch.arange(ptr.numel() - 1, device=ptr.device), ptr[1:] - ptr[:-1])
+    times[f"embedding_bag 16-bit {what}"] = {
+        "new_ms": t(lambda: csr_gather_sum(src, idx, ptr)),
+        "plain_ms": t(lambda: ref.csr_gather_sum(src, idx, ptr), iters=5),
+        "library_ms": t(lambda: torch.zeros(
+            ptr.numel() - 1, src.shape[1], device=src.device).index_add_(
+                0, ids, src.float()).to(src.dtype))}
     for what, (src, idx, ptr) in synthetic.items():
         row = {"old_ms": t(lambda: old_bag(src, idx, ptr)),
                "new_ms": t(lambda: csr_gather_sum(src, idx, ptr))}
