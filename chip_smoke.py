@@ -1944,16 +1944,30 @@ def _scatter_rows_call(a, kw, out) -> tuple:
 
 def _segment_sum_call(a, kw, out) -> tuple:
     """``schnet._SegmentSum.forward(ctx, x, seg, perm, ptr)``'s kernel
-    call."""
+    call (and ``transformer._Combine.forward``'s, the same signature)."""
     _, x, _, perm, ptr = a
     return (x, perm, ptr), {}, out
 
 
 def _gather_grad_call(a, kw, out) -> tuple:
-    """``schnet._Gather.backward(ctx, g)``'s kernel call."""
+    """``schnet._Gather.backward(ctx, g)``'s kernel call (and
+    ``transformer._Gather.backward``'s)."""
     ctx, g = a
     perm, ptr = ctx.saved_tensors
     return (g.contiguous(), perm, ptr), {}, out[0]
+
+
+class UnpackedOnce:
+    """An autograd ``ctx`` whose saved tensors are unpacked once, for a
+    backward and a check that both read them (a checkpointed block's
+    saved tensors may be unpacked only once)."""
+
+    def __init__(self, ctx):
+        self._ctx = ctx
+        self.saved_tensors = ctx.saved_tensors
+
+    def __getattr__(self, name):
+        return getattr(self._ctx, name)
 
 
 @contextlib.contextmanager
@@ -1967,10 +1981,13 @@ def first_calls(check):
     passed the kernel, with every launch counter restored after it:
     launches made to check or time a kernel do not count. SchNet's two
     calls are named ``embedding_bag:segment_sum`` and
-    ``embedding_bag:gather_grad``."""
+    ``embedding_bag:gather_grad``, the MoE's token combine and its
+    dispatch gather's gradient ``embedding_bag:moe_combine`` and
+    ``embedding_bag:moe_gather_grad``."""
     import repro_torch.kernels.ops as ops
     import repro_torch.models.recsys as rs
     import repro_torch.models.schnet as sn
+    import repro_torch.models.transformer as tf
 
     targets = ((ops, "codebook_lookup", "codebook_lookup", _same_call),
                (ops, "scatter_rows", "embedding_bag", _scatter_rows_call),
@@ -1979,6 +1996,10 @@ def first_calls(check):
                (sn._SegmentSum, "forward", "embedding_bag:segment_sum",
                 _segment_sum_call),
                (sn._Gather, "backward", "embedding_bag:gather_grad",
+                _gather_grad_call),
+               (tf._Combine, "forward", "embedding_bag:moe_combine",
+                _segment_sum_call),
+               (tf._Gather, "backward", "embedding_bag:moe_gather_grad",
                 _gather_grad_call))
     seen, saved = set(), []
     for obj, attr, name, call in targets:
@@ -1986,7 +2007,9 @@ def first_calls(check):
         saved.append((obj, attr, raw))
 
         def wrap(*a, _orig=getattr(obj, attr), _name=name, _call=call,
-                 **kw):
+                 _backward=attr == "backward", **kw):
+            if _backward:                  # the check reads saved tensors too
+                a = (UnpackedOnce(a[0]),) + a[1:]
             out = _orig(*a, **kw)
             if _name not in seen:
                 seen.add(_name)
@@ -2316,17 +2339,25 @@ def arch_path() -> dict:
     return res
 
 
-# the dense LM cells at their published widths, each cut to one H100
+# the LM cells at their published widths, each cut to one H100
 # (launch.steps.LM_ONE_CARD), with the requests each serves after its
-# warm-up
-LM_CELLS = (("gemma2-9b", "prefill_32k", 2),
+# warm-up: the dense LMs, gemma's long_500k decode, the MoE LMs
+LM_CELLS = (("gemma2-9b", "prefill_32k", 1),
             ("gemma2-9b", "decode_32k", 5),
             ("gemma3-12b", "decode_32k", 5),
-            ("qwen1.5-32b", "decode_32k", 5))
+            ("qwen1.5-32b", "decode_32k", 5),
+            ("gemma3-12b", "long_500k", 5),
+            ("gemma2-9b", "long_500k", 5),
+            ("dbrx-132b", "decode_32k", 5),
+            ("dbrx-132b", "prefill_32k", 1),
+            ("kimi-k2-1t-a32b", "decode_32k", 5),
+            ("kimi-k2-1t-a32b", "prefill_32k", 1))
 # the full-width decode-after-prefill check: rows, prompt tokens, and the
-# logit tolerance by cache dtype (see lm_decode_after_prefill)
+# logit tolerance by cache dtype, and for the MoE LMs' bf16 stream (see
+# lm_decode_after_prefill)
 LM_CHECK_ROWS, LM_CHECK_PROMPT = 8, 64
-LM_CHECK_ATOL = {"bfloat16": 0.08, "float8_e4m3fn": 0.25}
+LM_CHECK_ATOL = {"bfloat16": 0.08, "float8_e4m3fn": 0.25,
+                 "bfloat16 moe": 0.15}
 
 
 def lm_config(arch: str, shape: str):
@@ -2355,11 +2386,29 @@ def lm_decode_after_prefill(params, cfg) -> dict:
     must fail the |diff| gate: decoding at ``pos`` S - 1 (the last
     prompt slot overwritten, the mask one slot short, RoPE one back) and
     at S + 1 (RoPE one ahead); on the same card they read 0.96-1.35
-    (bf16) and 0.34-0.64 (fp8)."""
+    (bf16) and 0.34-0.64 (fp8).
+
+    A MoE's capacity depends on the tokens a call carries, so at the
+    published capacity factor the S- and (S+1)-token prefills and the
+    8-token decode would drop different assignments: the check runs on
+    the cell's params with ``capacity_factor = n_experts / top_k``
+    (cap == t: nothing drops), and reports the assignments the published
+    capacity drops on the (S+1)-token prefill's tokens (:func:`moe_drops`;
+    on the card 1,245 of 16,640 for dbrx-132b's 8 layers, 644 of 4,160
+    for kimi-k2's one, at cap 14 against a mean load of 10.8). Its
+    tolerance, 0.15, is 3x the larger reading on an H100 80GB HBM3
+    (0.0508 for dbrx-132b, 0.0469 for kimi-k2: the MoE's logits move
+    more than a dense model's when the rounded K/V shifts a router's
+    near-tie); its planted faults read 1.35-2.97."""
     import torch
 
     from repro_torch.models import transformer as T
 
+    published = cfg
+    if cfg.moe is not None:
+        no_drop = cfg.moe.n_experts / cfg.moe.top_k
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=no_drop))
     s, b = LM_CHECK_PROMPT, LM_CHECK_ROWS
     dev = params["embed"].device
     g = torch.Generator(device=dev).manual_seed(1)
@@ -2379,8 +2428,10 @@ def lm_decode_after_prefill(params, cfg) -> dict:
         dec = decode_at(s)
         planted = {f"pos {p - s:+d}": float((decode_at(p) - full).abs().max())
                    for p in (s - 1, s + 1)}
+        drops = (None if cfg.moe is None
+                 else moe_drops(params, tok, published, cfg))
     kv = cfg.kv_cache_dtype or cfg.dtype
-    atol = LM_CHECK_ATOL[kv]
+    atol = LM_CHECK_ATOL[kv + (" moe" if cfg.moe is not None else "")]
     require(bool(torch.isfinite(full).all() & torch.isfinite(dec).all()),
             f"{cfg.name}: decode-after-prefill logits not finite")
     diff = float((dec - full).abs().max())
@@ -2393,6 +2444,8 @@ def lm_decode_after_prefill(params, cfg) -> dict:
            "logit_std": float(full.float().std()), "greedy_equal": same,
            "top2_gap": gap, "greedy_rows_checked": sum(binding),
            "planted_max_abs_diff": planted}
+    if drops is not None:
+        res["moe"] = drops
     require(diff <= atol, f"{cfg.name}: decode after prefill differs from "
             f"the longer prefill by {diff} (atol {atol}): {res}")
     require(any(binding), f"{cfg.name}: every row is a near-tie, the "
@@ -2407,14 +2460,70 @@ def lm_decode_after_prefill(params, cfg) -> dict:
     return res
 
 
+def moe_drops(params, tok, cfg, no_drop_cfg) -> dict:
+    """The assignments a prefill of ``tok`` drops at ``cfg``'s (the
+    published) capacity and at ``no_drop_cfg``'s, summed over its MoE
+    layers (each layer's ``moe_route`` wrapped to count ``~keep``)."""
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    t = tok.numel()
+    res = {}
+    orig = T.moe_route
+    for label, c in (("published", cfg), ("check", no_drop_cfg)):
+        counts = []
+
+        def route(xt, router, moe, _counts=counts):
+            r = orig(xt, router, moe)
+            _counts.append((~r.keep).sum())
+            return r
+        T.moe_route = route
+        try:
+            T.prefill(params, {"tokens": tok}, c, max_seq=tok.shape[1])
+        finally:
+            T.moe_route = orig
+        res[label] = {"capacity_factor": c.moe.capacity_factor,
+                      "cap": T.moe_capacity(t, c.moe),
+                      "dropped": int(torch.stack(counts).sum()),
+                      "assignments": len(counts) * t * c.moe.top_k}
+    res["tokens"] = t
+    res["mean_load"] = t * cfg.moe.top_k / cfg.moe.n_experts
+    require(res["check"]["dropped"] == 0 and res["check"]["cap"] == t,
+            f"{cfg.name}: the no-drop check capacity dropped: {res}")
+    return res
+
+
+def lm_step_bytes(cell, cfg) -> int:
+    """Bytes one decode step must read: every param (the token embedding
+    only at the batch's rows, unless the head is tied to it and reads it
+    all; a MoE's every expert, as the batched expert GEMMs read them) and
+    the whole cache."""
+    from repro_torch.models.recsys import flat_params
+
+    params, cache, b = cell.args
+    size = lambda t: t.numel() * t.element_size()  # noqa: E731
+    total = sum(map(size, flat_params(params).values()))
+    total += sum(map(size, cache.values()))
+    if not cfg.tie_embed:
+        emb = params["embed"]
+        total -= size(emb) - b["tokens"].numel() * size(emb[0])
+    return total
+
+
 def lm_cell(arch: str, shape: str, n: int) -> dict:
-    """One dense LM cell at full width on the card through
-    ``ArchSession`` (one card's cut): counts zeroed just before the
-    warm-up and read just after the last request; the warm-up's token
-    lookup (codebook_lookup's 16-bit kernel) held bitwise against its
-    plain version and timed (:func:`first_calls`); p50/p99, tokens/s,
-    peak device bytes from a reset after the warm-up. A decode cell's
-    arch then runs :func:`lm_decode_after_prefill` on its params."""
+    """One LM cell at full width on the card through ``ArchSession`` (one
+    card's cut): counts zeroed just before the warm-up and read just
+    after the last request; the token lookup (codebook_lookup's 16-bit
+    kernel) must launch once a request and, for a MoE, the 16-bit CSR
+    gather-sum (the token combine) once a MoE layer a request, and no
+    other time; the warm-up's first token lookup and first combine held
+    bitwise against their plain versions and timed (:func:`first_calls`);
+    p50/p99, tokens/s, peak device bytes from a reset after the warm-up
+    (at most ``PEAK_SHARE`` of the card). A decode cell reports the
+    bytes one step must read (:func:`lm_step_bytes`) and that time at
+    the HBM rate beside its p50, and runs :func:`lm_decode_after_prefill`
+    on its params."""
     import gc
 
     import torch
@@ -2444,12 +2553,14 @@ def lm_cell(arch: str, shape: str, n: int) -> dict:
         out = session()
     sync("cuda")
     launches = {k: v for k, v in launch_counts().items() if v}
+    launches_16 = counted_kernels()["embedding_bag"].launches_16
     peak_calls = torch.cuda.max_memory_allocated() / 1e9
     label = f"{arch}:{shape}"
     cell = session.cell
     logits = out[0]
     b = cell.args[-1]["tokens"].shape[0]
     cfg = lm_config(arch, shape)
+    want_16 = (n + 1) * (cfg.n_layers if cfg.moe is not None else 0)
     require(tuple(logits.shape) == (b, cfg.vocab_size)
             and logits.dtype == torch.float32
             and bool(torch.isfinite(logits).all()),
@@ -2460,17 +2571,28 @@ def lm_cell(arch: str, shape: str, n: int) -> dict:
             f"{n + 1} requests (want one a request)")
     require("codebook_lookup" in kernels,
             f"codebook_lookup: no call recorded on {label}")
+    require(launches.get("embedding_bag", 0) == launches_16 == want_16,
+            f"{label}: the CSR gather-sum launched "
+            f"{launches.get('embedding_bag', 0)} times ({launches_16} "
+            f"16-bit) in {n + 1} requests, want {want_16} (one a MoE "
+            f"layer a request)")
+    require(want_16 == 0 or "embedding_bag:moe_combine" in kernels,
+            f"embedding_bag: no MoE combine recorded on {label}")
     res = {"cell": label, "kind": cell.kind, "calls": n + 1,
+           "reduced": list(cell.reduced),
            "build_s": build_s, "warmup_s": warm_s, "batch": b,
            "seq_len": int(cell.args[-1]["tokens"].shape[1]
                           if cell.kind == "prefill"
                           else cell.args[1]["k_global"].shape[3]),
            "n_layers": cfg.n_layers, "launches": launches,
+           "launches_bf16_gather_sum": launches_16,
            "launches_per_call": {k: v / (n + 1)
                                  for k, v in launches.items()},
            "kernels": kernels, **session.stats(),
            "peak_calls_gb": peak_calls}
     if cell.kind == "decode":
+        res["step_bytes"] = lm_step_bytes(cell, cfg)
+        res["step_bytes_ms"] = res["step_bytes"] / HBM_BYTES_PER_S * 1e3
         res["profile"] = profile_lm_request(session, label)
         cache = out[1]
         require(all(bool(torch.isfinite(cache[k][:, :, :, -1].float()).all())
@@ -2483,12 +2605,16 @@ def lm_cell(arch: str, shape: str, n: int) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     log(f"lm {label}: {res}")
+    require_peak(label, res["peak_gb"] * 1e9)
     return res
 
 
-# the full-width LM train cell (its LM_ONE_CARD cut), and its timed steps
-# after one untimed warm-up
+# the full-width LM train cells (their LM_ONE_CARD cuts), and the timed
+# steps after one untimed warm-up: a dense LM and a MoE
 LM_TRAIN_CELL = ("gemma2-9b", "train_4k", 2)
+LM_MOE_TRAIN_CELL = ("dbrx-132b", "train_4k", 4)
+# the cell one card cannot hold, with the reckoning chip_smoke prints
+LM_NOT_RUN = ("kimi-k2-1t-a32b", "train_4k")
 # the share of the card's memory a full-width cell's peak may take
 PEAK_SHARE = 0.85
 
@@ -2521,20 +2647,32 @@ def require_peak(label: str, peak_bytes: float) -> None:
             f"{1 - PEAK_SHARE:.0%} of the card's {total / 1e9:.2f} GB free")
 
 
-def lm_train_cell(arch: str, shape: str, n: int) -> dict:
-    """A dense LM's train cell at full width through ``build_cell`` at its
-    one-card cut (``LM_ONE_CARD``: gemma2-9b at 8 of 42 layers, 8
-    sequences of 4,096 tokens, one a microbatch, the f32 gradient
-    accumulator), on a fixed batch: one warm-up step and ``n`` timed
-    steps. Counts zeroed just before the warm-up and read just after the
-    last step: the CSR gather-sum's bf16 instantiation (the token
-    lookup's backward) must launch once a microbatch, as must the token
-    lookup. The loss must be finite and fall at every step. The
-    warm-up's first backward call (the first microbatch's cotangent and
-    token ids) and first lookup are kept, then held bitwise against
-    their plain versions and timed after the run (L2 flushed; the
-    gather-sum beside ``zeros(V, d, f32).index_add_(0, ids,
-    g.float()).to(bf16)``). Step ms, tokens/s and the peak GB from a
+def lm_train_cell(arch: str, shape: str, n: int,
+                  every_step: bool = True) -> dict:
+    """An LM's train cell at full width through ``build_cell`` at its
+    one-card cut (``LM_ONE_CARD``: gemma2-9b at 8 of 42 layers with the
+    f32 gradient accumulator, dbrx-132b at 1 of 40 with the bf16 one; 8
+    sequences of 4,096 tokens, one a microbatch), on a fixed batch: one
+    warm-up step and ``n`` timed steps. Counts zeroed just before the
+    warm-up and read just after the last step: the token lookup must
+    launch once a microbatch, and the CSR gather-sum's bf16
+    instantiation once a microbatch for the token lookup's backward and,
+    for a MoE, three times a MoE layer a microbatch (the token combine in
+    the forward and again in the block's recompute, the dispatch
+    gather's gradient in the backward), and no other time. The loss must
+    be finite and fall at every step (``every_step``), or else fall at
+    the first update and end below where it began: at dbrx-132b's one
+    layer AdamW's first steps at lr 3e-4 move every one of the 1.23e9
+    embedding and head weights by about lr, and the third loss rose
+    above the second on the card (12.010, 8.123, 8.859: an overshoot
+    of the repeated batch, not a wrong gradient; the CPU tests hold the
+    gradients against ``jax.value_and_grad``). The warm-up's first
+    backward call
+    of the lookup (the first microbatch's cotangent and token ids), first
+    lookup, first combine and first dispatch-gather gradient are kept,
+    then held bitwise against their plain versions and timed after the
+    run (L2 flushed; a gather-sum beside ``zeros(S, d, f32).index_add_(0,
+    ids, g.float()).to(bf16)``). Step ms, tokens/s and the peak GB from a
     reset after the warm-up, which must leave 15% of the card free."""
     import gc
 
@@ -2585,18 +2723,33 @@ def lm_train_cell(arch: str, shape: str, n: int) -> dict:
     torch.cuda.empty_cache()
     require(all(map(math.isfinite, losses)),
             f"{label}: a loss is not finite: {losses}")
-    require(all(b < a for a, b in zip(losses, losses[1:])),
-            f"{label}: the loss did not fall at every step on the repeated "
-            f"batch: {losses}")
+    if every_step:
+        require(all(b < a for a, b in zip(losses, losses[1:])),
+                f"{label}: the loss did not fall at every step on the "
+                f"repeated batch: {losses}")
+    else:
+        require(losses[1] < losses[0] and losses[-1] < losses[0],
+                f"{label}: the loss did not fall at the first update and "
+                f"end below its start on the repeated batch: {losses}")
     want = micro * (n + 1)
-    require(launches_16 == want and launches.get("embedding_bag") == want,
+    cfg = lm_config(arch, shape)
+    moe = cfg.moe is not None
+    want_16 = want * (1 + (3 * cfg.n_layers if moe else 0))
+    res["launches_bf16_gather_sum_want"] = want_16
+    require(launches_16 == want_16
+            and launches.get("embedding_bag") == want_16,
             f"{label}: the bf16 CSR gather-sum launched {launches_16} times "
-            f"({launches}), want one a microbatch: {want}")
+            f"({launches}), want {want_16}: one a microbatch"
+            + (", and three a MoE layer a microbatch" if moe else ""))
     require(launches.get("codebook_lookup") == want,
             f"{label}: the token lookup launched "
             f"{launches.get('codebook_lookup')} times, want {want}")
     require_peak(label, max(peak, peak_warm))
-    require(set(calls) == {"codebook_lookup", "embedding_bag"},
+    want_calls = {"codebook_lookup", "embedding_bag"}
+    if moe:
+        want_calls |= {"embedding_bag:moe_combine",
+                       "embedding_bag:moe_gather_grad"}
+    require(set(calls) == want_calls,
             f"{label}: recorded calls {sorted(calls)}")
     require(calls["embedding_bag"][0][0].dtype == torch.bfloat16,
             f"{label}: the lookup's backward is not bf16")
@@ -2632,14 +2785,21 @@ def profile_lm_request(session, label: str) -> dict:
             "idle_share": 1.0 - busy / wall_ms, "top_kernels_ms": dict(top)}
 
 
+# the LM archs whose smoke cells the card holds against the CPU path
+LM_ARCHS = ("gemma2-9b", "gemma3-12b", "qwen1.5-32b", "dbrx-132b",
+            "kimi-k2-1t-a32b")
+
+
 def lm_small_reference(device: str = "cuda") -> dict:
-    """Each dense LM's smoke cells on the card against the port's CPU path
-    (held against the JAX package by the CPU tests) on the same params
-    and inputs: prefill and decode logits and cache, and one AdamW step's
-    loss and params, within rtol 1e-4 / atol 1e-5 (f32); a bf16 variant of
-    gemma2's and qwen's smoke config, prefill within rtol 2e-2 / atol
-    4e-2 (bf16 roundings after sums in another order), with the
-    reference's residual dtype (f32 for gemma2, bf16 for qwen)."""
+    """Each LM's smoke cells (the dense LMs and the MoE LMs) on the card
+    against the port's CPU path (held against the JAX package by the CPU
+    tests) on the same params and inputs: prefill and decode logits and
+    cache, and one AdamW step's loss and params, within rtol 1e-4 / atol
+    1e-5 (f32); a bf16 variant of gemma2's and qwen's smoke config,
+    prefill within rtol 2e-2 / atol 4e-2 (bf16 roundings after sums in
+    another order), with the reference's residual dtype (f32 for gemma2,
+    bf16 for qwen); a bf16 train step of each
+    (:func:`lm_bf16_train_reference`)."""
     import torch
 
     from repro_torch.configs.registry import get_arch
@@ -2659,7 +2819,7 @@ def lm_small_reference(device: str = "cuda") -> dict:
             err = max(err, float((g - w).abs().max()))
         out[label] = err
 
-    for arch in ("gemma2-9b", "gemma3-12b", "qwen1.5-32b"):
+    for arch in LM_ARCHS:
         for shape in ("train_4k", "prefill_32k", "decode_32k"):
             cpu = build_cell(arch, shape, smoke=True, device="cpu")
             gpu = build_cell(arch, shape, smoke=True, device=device)
@@ -2691,20 +2851,22 @@ def lm_small_reference(device: str = "cuda") -> dict:
         hold([(got[0], want[0])] + [(got[1][k], v)
                                     for k, v in want[1].items()],
              f"{arch}:bf16 prefill", 2e-2, 4e-2)
-    for arch in ("gemma2-9b", "gemma3-12b", "qwen1.5-32b"):
+    for arch in LM_ARCHS:
         out[f"{arch}:bf16 train"] = lm_bf16_train_reference(arch, device)
     log(f"lm smoke cells, card == CPU path (max |err|): {out}")
     return out
 
 
 def lm_bf16_train_reference(arch: str, device: str) -> dict:
-    """One bf16 train step of a dense LM's smoke config (the train_4k
-    smoke shape: 4 sequences of 16 tokens) on the card against the
-    port's CPU path on the same params and tokens: the loss within rtol
-    1e-2, every param's gradient within 8 bf16 ulps of its max |g| (bf16
-    GEMMs and roundings in another order; the CPU tests hold the same
-    bound against ``jax.value_and_grad``). On the card the token lookup's
-    backward is the bf16 CSR gather-sum, which must launch."""
+    """One bf16 train step of an LM's smoke config (the train_4k smoke
+    shape: 4 sequences of 16 tokens) on the card against the port's CPU
+    path on the same params and tokens: the loss within rtol 1e-2, every
+    param's gradient within 8 bf16 ulps of its max |g| (bf16 GEMMs and
+    roundings in another order; the CPU tests hold the same bound against
+    ``jax.value_and_grad``). On the card the token lookup's backward is
+    the bf16 CSR gather-sum, which must launch once, and for a MoE three
+    times more a layer (the combine, its recompute, the dispatch
+    gather's gradient)."""
     import torch
 
     from repro_torch.configs.registry import get_arch
@@ -2729,8 +2891,9 @@ def lm_bf16_train_reference(arch: str, device: str) -> dict:
                                   for k, x in zip(flat, grads)},
                     counted_kernels()["embedding_bag"].launches_16 - before)
     (l_cpu, g_cpu, _), (l_dev, g_dev, n16) = res["cpu"], res[device]
-    require(n16 == 1, f"{arch} bf16 train: the bf16 CSR "
-            f"gather-sum launched {n16} times, want 1")
+    want = 1 + (3 * cfg.n_layers if cfg.moe is not None else 0)
+    require(n16 == want, f"{arch} bf16 train: the bf16 CSR "
+            f"gather-sum launched {n16} times, want {want}")
     require(abs(l_dev - l_cpu) <= 1e-2 * abs(l_cpu),
             f"{arch} bf16 train: loss {l_dev} on the card, {l_cpu} on the CPU")
     worst = 0.0
@@ -2744,12 +2907,38 @@ def lm_bf16_train_reference(arch: str, device: str) -> dict:
             "worst_grad_err_over_tol": worst}
 
 
+def lm_not_run(arch: str, shape: str) -> dict:
+    """The reckoning that keeps a train cell off one card: one layer's
+    bf16 params and gradients (with the embedding and the head), before
+    any optimizer state or activation, against ``PEAK_SHARE`` of the
+    card; it must pass it."""
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import transformer as T
+
+    cfg = get_arch(arch).full_config()
+    one = dataclasses.replace(cfg, n_layers=cfg.layers_per_block)
+    need = T.count_params(one) * 2 * 2
+    room = PEAK_SHARE * torch.cuda.get_device_properties(0).total_memory
+    res = {"cell": f"{arch}:{shape}", "run": False,
+           "n_layers": one.n_layers, "params": T.count_params(one),
+           "params_and_grads_gb": need / 1e9, "room_gb": room / 1e9,
+           "why": "one layer's bf16 params and gradients alone pass "
+                  f"{PEAK_SHARE:.0%} of the card"}
+    require(need > room, f"{arch}:{shape} would fit one card: {res}")
+    log(f"lm {arch}:{shape}: not run: {res}")
+    return res
+
+
 def lm_path() -> dict:
-    """The dense LM family through its entry points at the published
-    widths on the card (:func:`lm_cell` each, ``LM_CELLS``), the
-    full-width train cell (:func:`lm_train_cell`, ``LM_TRAIN_CELL``),
-    then the smoke cells on the card against the CPU path. The token
-    lookup's kernel must run once a request in every cell."""
+    """The LM family through its entry points at the published widths
+    on the card (:func:`lm_cell` each, ``LM_CELLS``: the dense LMs,
+    gemma's long_500k, the MoE LMs), the full-width train cells
+    (:func:`lm_train_cell`: ``LM_TRAIN_CELL``, ``LM_MOE_TRAIN_CELL``),
+    the train cell one card cannot hold (:func:`lm_not_run`), then the
+    smoke cells on the card against the CPU path. The token lookup's
+    kernel must run once a request in every cell."""
     import torch
 
     t0 = time.perf_counter()
@@ -2757,9 +2946,11 @@ def lm_path() -> dict:
     res["serve_s"] = time.perf_counter() - t0
     t1 = time.perf_counter()
     res["train"] = lm_train_cell(*LM_TRAIN_CELL)
+    res["train_moe"] = lm_train_cell(*LM_MOE_TRAIN_CELL, every_step=False)
     res["train_s"] = time.perf_counter() - t1
+    res["not_run"] = lm_not_run(*LM_NOT_RUN)
     total = {}
-    for c in res["cells"] + [res["train"]]:
+    for c in res["cells"] + [res["train"], res["train_moe"]]:
         for k, v in c["launches"].items():
             total[k] = total.get(k, 0) + v
     res["launches"] = total
@@ -3302,7 +3493,8 @@ def check_codebook_lookup(run: dict) -> dict:
             "items_h2": run["baselines"]["codebook_items_h2"],
             "arch_path": arch_rows(run, "codebook_lookup"),
             "lm_path": {c["cell"]: c["kernels"]["codebook_lookup"]
-                        for c in run["lm"]["cells"] + [run["lm"]["train"]]},
+                        for c in run["lm"]["cells"] + [
+                            run["lm"]["train"], run["lm"]["train_moe"]]},
             "gnn_path": {c["cell"]: c["kernels"]["codebook_lookup"]
                          for c in run["gnn"]["cells"]
                          if "codebook_lookup" in c["kernels"]}}
@@ -3720,23 +3912,32 @@ def check_embedding_bag(run: dict, emb_run: dict) -> dict:
 
 
 def check_embedding_bag16(run: dict) -> dict:
-    """The CSR gather-sum's bf16 instantiation, the token lookup's
-    backward in the LM train cell: its launches there, and that cell's
-    first-microbatch call held bitwise against the plain version and
-    timed (:func:`lm_train_cell`). bf16 and f16 at the ``cuda`` tests'
-    shapes are held by ``tests/test_torch_cuda.py`` and
+    """The CSR gather-sum's bf16 instantiation on the LM path: the token
+    lookup's backward in the LM train cells, the MoE's token combine in
+    every MoE request and train step, and its dispatch gather's
+    gradient. Its launches by cell, and each cell's first call of each
+    role held bitwise against the plain version and timed
+    (:func:`lm_cell`, :func:`lm_train_cell`); the lead row is the dense
+    train cell's first token gradient. bf16 and f16 at the ``cuda``
+    tests' shapes are held by ``tests/test_torch_cuda.py`` and
     ``tools/gather_parity.py``."""
-    train = run["lm"]["train"]
+    lm = run["lm"]
+    train = lm["train"]
     row = train["kernels"]["embedding_bag"]
+    cells = lm["cells"] + [train, lm["train_moe"]]
+    by_path = {c["cell"]: c["launches_bf16_gather_sum"] for c in cells
+               if c["launches_bf16_gather_sum"]}
+    roles = {f"{c['cell']} {k}": r for c in cells
+             for k, r in c["kernels"].items() if k.startswith("embedding_bag")}
     return {"name": "embedding_bag_bf16", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/embedding_bag.cu",
             "replaces": "src/repro/kernels/embedding_bag.py:56",
-            "launches": train["launches_bf16_gather_sum"],
-            "launches_by_path": {
-                train["cell"]: train["launches_bf16_gather_sum"]},
-            "max_abs_err": row["max_abs_err"],
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "max_abs_err": max(r["max_abs_err"] for r in roles.values()),
             **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                   "library_ms", "shape")}}
+                                   "library_ms", "shape")},
+            "lm_path": roles}
 
 
 def cumsum_route(src_t, idx, w, ptr):

@@ -1,6 +1,6 @@
 """repro_torch.configs — the architecture registry (port of
 ``repro.configs``): the recsys family, the paper's LightGCN backbone, the
-dense LM family and the GNN."""
+LM family (dense and MoE) and the GNN."""
 from .registry import (ArchSpec, ShapeSpec, all_cells, get_arch, list_archs,
                        register)
 

@@ -7,11 +7,13 @@ Each ``configs/<arch>.py`` module of the port registers an ArchSpec with:
   * family:          "lm" | "gnn" | "recsys" | "cf" — selects the step
                      builders in launch/steps.py
 
-The port registers the recsys family (DLRM, Wide&Deep, SASRec,
-BERT4Rec), the paper's own backbone (``lightgcn-baco``, family "cf"),
-the dense LM family (gemma2-9b, gemma3-12b, qwen1.5-32b) and the GNN
-(schnet). The reference's MoE LMs are not ported: ``get_arch`` names the
-ROADMAP item they wait for (``WAITS_FOR``).
+The port registers every arch of the reference: the recsys family
+(DLRM, Wide&Deep, SASRec, BERT4Rec), the paper's own backbone
+(``lightgcn-baco``, family "cf"), the LM family (gemma2-9b, gemma3-12b,
+qwen1.5-32b and the MoE LMs dbrx-132b and kimi-k2-1t-a32b, on one card)
+and the GNN (schnet). ``UNPORTED_ARCHS`` is empty; ``not_ported`` names
+the ROADMAP item a feature still waits for (``SHARDED_ITEM``: the
+sharded path).
 
 Shape kinds: train | prefill | decode | serve | retrieval.
 """
@@ -22,7 +24,8 @@ import importlib
 from typing import Callable, Dict, Optional, Tuple
 
 __all__ = ["ArchSpec", "ShapeSpec", "register", "get_arch", "list_archs",
-           "all_cells", "UNPORTED_ARCHS", "WAITS_FOR", "not_ported"]
+           "all_cells", "UNPORTED_ARCHS", "WAITS_FOR", "SHARDED_ITEM",
+           "not_ported"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,22 +55,24 @@ class ArchSpec:
 
 _REGISTRY: Dict[str, ArchSpec] = {}
 
-_MODULES = ["gemma3_12b", "gemma2_9b", "qwen15_32b", "schnet", "dlrm_mlperf",
-            "sasrec", "wide_deep", "bert4rec", "lightgcn_baco"]
+_MODULES = ["gemma3_12b", "gemma2_9b", "qwen15_32b", "kimi_k2", "dbrx",
+            "schnet", "dlrm_mlperf", "sasrec", "wide_deep", "bert4rec",
+            "lightgcn_baco"]
 
-# the reference's archs the port has not ported yet (its MoE LMs), with
-# their family, and the ROADMAP item each waits for
-UNPORTED_ARCHS = {"kimi-k2-1t-a32b": "lm", "dbrx-132b": "lm"}
-MOE_ITEM = "ROADMAP Queue 1 #7c"
-WAITS_FOR = {"kimi-k2-1t-a32b": MOE_ITEM, "dbrx-132b": MOE_ITEM}
+# the reference's archs the port has not ported yet, with their family,
+# and the ROADMAP item each waits for: none
+UNPORTED_ARCHS: Dict[str, str] = {}
+WAITS_FOR: Dict[str, str] = {}
+# what the sharded path brings (a mesh, several ranks)
+SHARDED_ITEM = "ROADMAP Queue 1 #7c-ii"
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:
     """The error for an arch or feature the port does not have yet,
     naming the ROADMAP item it waits for."""
     return NotImplementedError(
-        f"{what} is not ported yet: the port runs the recsys, cf, GNN and "
-        f"dense LM families; this waits for {item}")
+        f"{what} is not ported yet: the port runs every arch on one card; "
+        f"this waits for {item}")
 
 
 def register(spec: ArchSpec):
@@ -84,9 +89,6 @@ def _load():
 
 def get_arch(arch_id: str) -> ArchSpec:
     _load()
-    if arch_id in UNPORTED_ARCHS:
-        raise not_ported(f"arch {arch_id!r} (family "
-                         f"{UNPORTED_ARCHS[arch_id]!r})", WAITS_FOR[arch_id])
     if arch_id not in _REGISTRY:
         raise KeyError(f"unknown arch {arch_id!r}; have {sorted(_REGISTRY)}")
     return _REGISTRY[arch_id]

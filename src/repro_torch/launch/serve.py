@@ -10,8 +10,9 @@ launcher prints p50/p99 latency.
 
 For the architectures, ``--arch <id> --shape <shape>`` serves the cell
 through ``ArchSession``: a recsys arch's serve_p99|serve_bulk|
-retrieval_cand, or a dense LM's (gemma2-9b, gemma3-12b, qwen1.5-32b)
-prefill_32k|decode_32k, at smoke width (the published width runs through
+retrieval_cand, or an LM's (gemma2-9b, gemma3-12b, qwen1.5-32b, and the
+MoE LMs dbrx-132b and kimi-k2-1t-a32b) prefill_32k|decode_32k (gemma's
+long_500k too), at smoke width (the published width runs through
 ``ArchSession(..., smoke=False)``). It prints p50/p99 and, for the LM
 cells, tokens/s.
 

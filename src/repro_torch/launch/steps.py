@@ -1,5 +1,5 @@
 """Step builders: (arch x shape) -> a Cell of (step fn, args) (port of
-``repro.launch.steps``, the dense LM, recsys and cf families).
+``repro.launch.steps``: the LM, GNN, recsys and cf families).
 
 Every builder returns a ``Cell``:
     fn:      the step (train / serve / retrieval) on tensors
@@ -22,15 +22,17 @@ smoke rule, numpy seed 0; the repo holds no Criteo or MovieLens data),
 and batches with ids uniform over each field's vocabulary, dense inputs
 standard normal, labels in {0, 1}.
 
-The dense LM family (``_lm_cell``): train, prefill and decode cells of
-``models.transformer``. Smoke draws are one ``default_rng(0)`` over the
-args in ``jax.tree.map`` order (decode: the cache's keys sorted, then
-``pos``, then ``tokens``). At full width the params come from
-``init_params`` under generator seed 0, tokens uniform over the
-vocabulary, and a decode cell's cache is drawn standard normal in the
-cache dtype with ``pos = seq_len - 1``, so every step reads a full
-cache. ``batch=`` and ``n_layers=`` cut a full-width cell to one card
-(``LM_ONE_CARD``; each cut is listed in ``Cell.reduced``).
+The LM family (``_lm_cell``): train, prefill and decode cells of
+``models.transformer``, dense and MoE. Smoke draws are one
+``default_rng(0)`` over the args in ``jax.tree.map`` order (decode: the
+cache's keys sorted, then ``pos``, then ``tokens``). At full width the
+params come from ``init_params`` under generator seed 0, tokens uniform
+over the vocabulary, and a decode cell's cache is drawn standard normal
+in the cache dtype with ``pos = seq_len - 1``, so every step reads a
+full cache. ``batch=`` and ``n_layers=`` cut a full-width cell to one card
+(``LM_ONE_CARD``; each cut is listed in ``Cell.reduced``); a MoE is cut
+by layers and batch only, never by experts (that would change the
+routing).
 
 The GNN family (``_gnn_cell``): SchNet's four train cells. Smoke draws
 are the reference's ``_materialize``; at full width (``_gnn_batch``) the
@@ -41,8 +43,8 @@ node and edge counts padded to the pod width as in the reference
 cuts a cell's edges (``GNN_ONE_CARD``: ``ogb_products`` keeps 1/8 of
 them on one card).
 
-There is no mesh: the MoE LMs raise NotImplementedError naming their
-ROADMAP item.
+There is no mesh: every cell runs on one device (the reference's
+sharded layouts wait for ROADMAP Queue 1 #7c-ii).
 """
 from __future__ import annotations
 
@@ -146,25 +148,50 @@ def _full_batch(batch: dict, device, seed: int = 0) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# LM family (dense)
+# LM family
 # ---------------------------------------------------------------------------
-# one H100's cuts of the full-width cells (80 GB; PERF.md §4): the batch
-# (global_batch 32 / 128 otherwise), and qwen1.5-32b's depth (its 64
-# layers are 70.4 GB of bf16 params and its fp8 cache 21.5 GB a row).
-# gemma2-9b's train_4k keeps 8 of its 42 layers (four local/global pairs:
-# 2.50e9 params at 16 bytes each with the f32 accumulator and the two f32
-# AdamW moments) and 8 of its 256 sequences, one a microbatch as in the
-# reference's 8 microbatches.
+# one H100's cuts of the full-width cells (80 GB; PERF.md §4), each
+# reckoned from count_params (bf16), the cache and the decode's
+# transients (an f32 copy of one layer's K, a bf16 copy of its V, gemma's
+# tied head cast to f32) against 85% of the card: the batch
+# (global_batch 32 / 128 otherwise), and the depth where the params
+# alone pass it. qwen1.5-32b: 64 layers are 70.4 GB of params, its fp8
+# cache 21.5 GB a row. gemma2-9b's train_4k keeps 8 of its 42 layers
+# (four local/global pairs: 2.50e9 params at 16 bytes each with the f32
+# accumulator and the two f32 AdamW moments) and 8 of its 256 sequences,
+# one a microbatch as in the reference's 8 microbatches. long_500k: gemma3
+# uncut (23.5 GB of params, 34.7 GB of cache, 10.5 GB of transients);
+# gemma2-9b at 22 of 42 layers (its 21 global layers alone are 90 GB of
+# cache). dbrx-132b: 6.52 GB a layer and 2.47 GB of embedding and head;
+# decode at 8 layers and B 8 (K/V 134 MB a layer a row), prefill at 6
+# (~12 GB of MoE transients at 32,768 tokens), train_4k at 1 layer (4.49e9
+# params: params, the bf16 accumulator, one microbatch's gradients and
+# the f32 AdamW moments are 62.8 GB). kimi-k2-1t-a32b: 34.06 GB a layer
+# and 4.70 GB of embedding and head, so 1 layer; decode at B 64 (K/V
+# 117 MB a row and its f32 K copy 117 MB). kimi's train_4k does not fit:
+# one layer's params and gradients alone are 77.5 GB.
 LM_ONE_CARD = {("gemma2-9b", "train_4k"): {"batch": 8, "n_layers": 8},
                ("gemma2-9b", "prefill_32k"): {"batch": 1},
                ("gemma2-9b", "decode_32k"): {"batch": 4},
+               ("gemma2-9b", "long_500k"): {"batch": 1, "n_layers": 22},
                ("gemma3-12b", "decode_32k"): {"batch": 8},
-               ("qwen1.5-32b", "decode_32k"): {"batch": 2, "n_layers": 32}}
+               ("gemma3-12b", "long_500k"): {"batch": 1},
+               ("qwen1.5-32b", "decode_32k"): {"batch": 2, "n_layers": 32},
+               ("dbrx-132b", "train_4k"): {"batch": 8, "n_layers": 1},
+               ("dbrx-132b", "prefill_32k"): {"batch": 1, "n_layers": 6},
+               ("dbrx-132b", "decode_32k"): {"batch": 8, "n_layers": 8},
+               ("kimi-k2-1t-a32b", "prefill_32k"): {"batch": 1,
+                                                    "n_layers": 1},
+               ("kimi-k2-1t-a32b", "decode_32k"): {"batch": 64,
+                                                   "n_layers": 1}}
 
 
 def _lm_optimizer(cfg):
-    """The reference's choice (``repro/launch/steps.py:194-198``) for a
-    dense model: AdamW (its Adafactor is for MoEs of 128+ experts)."""
+    """The reference's choice (``repro/launch/steps.py:194-198``):
+    Adafactor for a MoE of 128 experts or more (kimi-k2's 384: full Adam
+    moments would not fit), AdamW otherwise."""
+    if cfg.moe is not None and cfg.moe.n_experts >= 128:
+        return "adafactor", opt_lib.adafactor(lr=1e-2)
     return "adamw", opt_lib.adamw(lr=3e-4, grad_clip=1.0)
 
 

@@ -5,12 +5,13 @@ Two modes:
   * paper pipeline (default), below;
   * ``--arch <id> [--shape train_batch]``: N train steps of an
     architecture's cell (``launch.steps.build_cell``: DLRM, Wide&Deep,
-    SASRec, BERT4Rec, ``lightgcn-baco``'s ``bpr_train``, a dense LM's
-    ``train_4k`` (gemma2-9b, gemma3-12b, qwen1.5-32b), or SchNet's
+    SASRec, BERT4Rec, ``lightgcn-baco``'s ``bpr_train``, an LM's
+    ``train_4k`` (gemma2-9b, gemma3-12b, qwen1.5-32b, dbrx-132b,
+    kimi-k2-1t-a32b; an LM's shape defaults to it), or SchNet's
     ``full_graph_sm``, ``minibatch_lg``, ``ogb_products`` and
     ``molecule``), at smoke width (the full width runs through
     ``build_cell(..., smoke=False)`` with ``LM_ONE_CARD`` /
-    ``GNN_ONE_CARD``'s cuts). The MoE LMs are not ported and raise.
+    ``GNN_ONE_CARD``'s cuts).
 
 Compresses a synthetic interaction graph — BACO through the port's
 ClusterEngine (``--method baco``, solver ``--cluster-solver``), any other
@@ -157,6 +158,9 @@ def main(argv=None):
     except KeyError as e:
         ap.error(str(e.args[0]))
     if args.arch:
+        from repro_torch.configs.registry import get_arch
+        if get_arch(args.arch).family == "lm" and args.shape == "train_batch":
+            args.shape = "train_4k"           # the reference's LM default
         return arch_pipeline(args)
     return paper_pipeline(args)
 

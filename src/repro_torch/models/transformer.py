@@ -1,6 +1,7 @@
-"""Decoder-only transformer, dense (port of ``repro.models.transformer``).
+"""Decoder-only transformer (port of ``repro.models.transformer``).
 
-One config drives gemma2-9b, gemma3-12b and qwen1.5-32b:
+One config drives gemma2-9b, gemma3-12b, qwen1.5-32b, dbrx-132b and
+kimi-k2-1t-a32b:
   * GQA with any (n_heads, n_kv_heads); optional QKV bias (qwen)
   * per-block layer patterns (gemma3 = 5 local + 1 global per block,
     gemma2 = (local, global)); params are stacked
@@ -9,6 +10,8 @@ One config drives gemma2-9b, gemma3-12b and qwen1.5-32b:
   * sliding-window local attention is BANDED: each query chunk slices
     only its KV span, ``min(skv, window + q_chunk)`` long
   * optional attn/final logit softcap (gemma2), QK-norm (gemma3)
+  * MoE FFN with the reference's sort-based capacity dispatch (dbrx,
+    kimi-k2; :func:`_mlp_moe`), its token combine on the CSR gather-sum
   * cross-entropy in sequence chunks, so [B, S, vocab] never exists
 
 Dtypes follow JAX's promotion, made explicit (torch's ``bf16 * float``
@@ -43,8 +46,9 @@ the EmbeddingEngine: on the card the codebook_lookup kernel at H = 1 (its
 Training: ``jax.checkpoint`` (a block under ``cfg.remat``, each attention
 chunk, each CE chunk) is ``torch.utils.checkpoint`` whenever autograd
 records. The reference's ``shard(...)`` calls are the identity off a
-mesh and are dropped. MoE configs raise (ROADMAP Queue 1 #7c): the
-reference's local MoE is a ``shard_map`` and goes with the sharded path.
+mesh and are dropped. Its ``_mlp_moe_local`` (a ``shard_map`` over the
+model axis) returns ``_mlp_moe`` when no mesh is set, so on one card the
+two are one path, :func:`_mlp_moe`.
 """
 from __future__ import annotations
 
@@ -59,11 +63,13 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.embedding import embedding_lookup
+from repro_torch.kernels.embedding_bag import csr_gather_sum
 
 __all__ = ["TransformerConfig", "MoEConfig", "init_params", "count_params",
            "params_from_numpy", "tensor_from_numpy", "rms_norm", "expand_kv",
            "chunked_attention", "to_kv", "train_loss", "init_cache",
-           "prefill", "decode_step"]
+           "prefill", "decode_step", "MoERoute", "moe_route",
+           "moe_capacity"]
 
 NEG_INF = -1e30          # masked scores, as in the reference
 FP8_NAN_FROM = 464.0     # ml_dtypes' e4m3fn cast gives NaN above this
@@ -134,12 +140,6 @@ class TransformerConfig:
             f"{self.n_layers} layers not divisible by pattern "
             f"{self.block_pattern}")
         return self.n_layers // self.layers_per_block
-
-
-def _dense_only(cfg: TransformerConfig) -> None:
-    if cfg.moe is not None:
-        from repro_torch.configs.registry import MOE_ITEM, not_ported
-        raise not_ported(f"the MoE FFN of {cfg.name!r}", MOE_ITEM)
 
 
 # ---------------------------------------------------------------------------
@@ -217,7 +217,6 @@ def init_params(generator, cfg: TransformerConfig, device=None) -> dict:
     ``generator`` and cast to ``cfg.dtype`` (the reference's rule; its
     jax.random values differ). ``device`` defaults to the generator's;
     on "meta" nothing is allocated."""
-    _dense_only(cfg)
     if device is None:
         if generator is None:
             raise ValueError("give a generator or a device")
@@ -456,6 +455,135 @@ def _mlp_dense(x, lp, li):
     return _mm(h, lp["w_down"][li])
 
 
+# ---------------------------------------------------------------------------
+# MoE FFN: sort-based capacity dispatch
+# ---------------------------------------------------------------------------
+class _Gather(torch.autograd.Function):
+    """``xt[tok]``; dxt[i] = Σ_{j: tok[j] == i} g[j] in j order (the
+    reference's VJP, a scatter-add in row order), on the CSR gather-sum
+    over the plan (perm, ptr) of ``tok``: no float atomics."""
+
+    @staticmethod
+    def forward(ctx, xt, tok, perm, ptr):
+        ctx.save_for_backward(perm, ptr)
+        return xt.index_select(0, tok)
+
+    @staticmethod
+    def backward(ctx, g):
+        perm, ptr = ctx.saved_tensors
+        return csr_gather_sum(g.contiguous(), perm, ptr), None, None, None
+
+
+class _Combine(torch.autograd.Function):
+    """``jax.ops.segment_sum(rows, tok, num_segments=t)``: out[i] =
+    Σ_{j: tok[j] == i} rows[j] in j order, on the CSR gather-sum (16-bit
+    rows are summed in f32 and rounded once, where XLA's CPU segment_sum
+    rounds every add: ROADMAP Queue 3 #9); drows = g[tok]."""
+
+    @staticmethod
+    def forward(ctx, rows, tok, perm, ptr):
+        ctx.save_for_backward(tok)
+        return csr_gather_sum(rows, perm, ptr)
+
+    @staticmethod
+    def backward(ctx, g):
+        (tok,) = ctx.saved_tensors
+        return g.index_select(0, tok), None, None, None
+
+
+@dataclasses.dataclass(frozen=True)
+class MoERoute:
+    """One MoE call's routing and dispatch plan over t tokens x k choices.
+
+    ``idx`` / ``gate`` [t, k]: the routed experts in ``lax.top_k``'s order
+    and their renormalised gates (x's dtype). The assignments, flattened
+    token-major and stably sorted by expert: ``order`` (flat assignment
+    of each sorted slot), ``se`` its expert, ``tok`` its token, ``pos``
+    its place in the expert's queue, ``keep`` = ``pos < cap``.
+    ``perm`` / ``ptr``: the stable sort of ``tok`` and its pointers over
+    the t tokens (k slots each), the plan of the combine and of the
+    dispatch gather's gradient."""
+    idx: torch.Tensor
+    gate: torch.Tensor
+    cap: int
+    order: torch.Tensor
+    se: torch.Tensor
+    tok: torch.Tensor
+    pos: torch.Tensor
+    keep: torch.Tensor
+    perm: torch.Tensor
+    ptr: torch.Tensor
+
+
+def moe_capacity(t: int, moe: MoEConfig) -> int:
+    """Slots an expert takes a call (the reference's rule, on the host
+    from shapes only)."""
+    cap = math.ceil(t * moe.top_k / moe.n_experts * moe.capacity_factor)
+    return max(8, min(cap, t))
+
+
+def moe_route(xt, router, moe: MoEConfig) -> MoERoute:
+    """xt [t, d]: the router's logits in xt's dtype, an f32 softmax as
+    ``jax.nn.softmax`` computes it (exp(x - max) over its sum), the top k
+    of each row by a stable descending sort (``torch.topk`` promises no
+    tie order: highest first, lowest expert id among equals), the gate
+    renormalised and cast to xt's dtype; then the sort-based plan. No
+    host sync."""
+    t = xt.shape[0]
+    e, k = moe.n_experts, moe.top_k
+    dev = xt.device
+    z = torch.matmul(xt, router.to(xt.dtype)).float()
+    ex = torch.exp(z - z.amax(-1, keepdim=True).detach())
+    probs = ex / ex.sum(-1, keepdim=True)
+    vals, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate, idx = vals[:, :k], ids[:, :k]
+    gate = (gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+            ).to(xt.dtype)
+    cap = moe_capacity(t, moe)
+    se, order = torch.sort(idx.reshape(-1), stable=True)
+    tok = order // k
+    starts = torch.searchsorted(se, torch.arange(e, device=dev))
+    pos = torch.arange(t * k, device=dev) - starts[se]
+    perm = torch.sort(tok, stable=True).indices.int()
+    ptr = torch.arange(0, t * k + 1, k, device=dev)
+    return MoERoute(idx, gate, cap, order, se, tok, pos, pos < cap, perm,
+                    ptr)
+
+
+def _mlp_moe(x, lp, li, cfg):
+    """The reference's ``_mlp_moe``: each token's k assignments go to
+    their experts' capacity buffers [e, cap, d] (an assignment past
+    ``cap`` is dropped: written to a trash row that is sliced off), the
+    three expert GEMMs run batched over the experts, and each kept
+    assignment's output, times its gate, is summed back into its token
+    (:class:`_Combine`)."""
+    b, s, d = x.shape
+    e = cfg.moe.n_experts
+    xt = x.reshape(b * s, d)
+    r = moe_route(xt, lp["router"][li], cfg.moe)
+    cap = r.cap
+    dest = torch.where(r.keep, r.se * cap + r.pos, e * cap)
+    buf = torch.zeros(e * cap + 1, d, dtype=x.dtype, device=x.device)
+    buf.index_copy_(0, dest, _Gather.apply(xt, r.tok, r.perm, r.ptr))
+    buf = buf[:e * cap].view(e, cap, d)
+    h = _silu(_mm(buf, lp["w_gate"][li]))
+    h = h * _mm(buf, lp["w_up"][li])
+    del buf                           # free each transient once read
+    out = _mm(h, lp["w_down"][li])    # [e, cap, d]
+    del h
+    rows = out.reshape(e * cap, d).index_select(
+        0, r.se * cap + torch.clamp(r.pos, max=cap - 1))
+    del out
+    rows = torch.where(r.keep[:, None], rows, 0)
+    rows = rows * r.gate.reshape(-1).index_select(0, r.order)[:, None]
+    return _Combine.apply(rows, r.tok, r.perm, r.ptr).reshape(b, s, d)
+
+
+def _mlp(cfg):
+    """The layer's FFN, ``fn(h, lp, li)``: the MoE's or the dense one."""
+    return functools.partial(_mlp_moe, cfg=cfg) if cfg.moe else _mlp_dense
+
+
 def _residual_out(x, o, m_fn, lp, li, cfg):
     """The layer's tail shared by every path: attention output ``o`` [B,S,
     H*Dh] through wo (and the post norm), the residual, the MLP."""
@@ -490,7 +618,7 @@ def _block(x, blk, cfg, positions):
     for li, kind in enumerate(cfg.block_pattern):
         q, k, v = _layer_qkv(x, blk, li, cfg, positions)
         x = _residual_out(x, _layer_attention(q, k, v, kind, cfg),
-                          _mlp_dense, blk, li, cfg)
+                          _mlp(cfg), blk, li, cfg)
     return x
 
 
@@ -548,7 +676,6 @@ def train_loss(params, batch, cfg: TransformerConfig):
     """Causal LM loss; CE per sequence chunk. ``n_chunks = max(1, s //
     lc)``: tokens past ``n_chunks * lc`` are not summed, and the divisor
     is still ``b * s`` (the reference's, kept)."""
-    _dense_only(cfg)
     tokens, targets = batch["tokens"], batch["targets"]
     b, s = tokens.shape
     h = _backbone(params, tokens, cfg, _positions(b, s, tokens.device))
@@ -602,7 +729,6 @@ def prefill(params, batch, cfg: TransformerConfig, max_seq: int):
     """Process a full prompt; returns (last-position logits f32 [B, V],
     the filled cache). The cache holds K/V cast to its dtype; attention
     reads the unrounded K/V."""
-    _dense_only(cfg)
     tokens = batch["tokens"]
     b, s = tokens.shape
     dev = tokens.device
@@ -617,7 +743,7 @@ def prefill(params, batch, cfg: TransformerConfig, max_seq: int):
             counters[kind] += 1
             q, k, v = _layer_qkv(x, blk, li, cfg, positions)
             x = _residual_out(x, _layer_attention(q, k, v, kind, cfg),
-                              _mlp_dense, blk, li, cfg)
+                              _mlp(cfg), blk, li, cfg)
             # ring layout: position p lives at slot p % length, so the
             # decode step's `pos % length` writes continue seamlessly
             length = _cache_length(cfg, kind, max_seq)
@@ -642,7 +768,6 @@ def decode_step(params, cache, batch, cfg: TransformerConfig):
     (clamped into the buffer, as ``dynamic_update_slice`` clamps); every
     slot below ``min(pos + 1, length)`` is attended, with no causal or
     window mask. GQA stays grouped ([Hkv, grp]; q head h*grp + g)."""
-    _dense_only(cfg)
     tokens, pos = batch["tokens"], batch["pos"]
     b = tokens.shape[0]
     dev = tokens.device
@@ -678,6 +803,6 @@ def decode_step(params, cache, batch, cfg: TransformerConfig):
             p = torch.softmax(scores, dim=-1).to(dt)   # [B, Hkv, grp, L]
             ve = vc.permute(0, 2, 1, 3).to(dt, memory_format=dense)
             o = torch.matmul(p, ve).reshape(b, 1, cfg.n_heads * dh)
-            x = _residual_out(x, o, _mlp_dense, blk, li, cfg)
+            x = _residual_out(x, o, _mlp(cfg), blk, li, cfg)
     h = rms_norm(x, params["final_norm"])
     return _logits(params, h, cfg)[:, 0], cache

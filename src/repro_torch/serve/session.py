@@ -431,7 +431,7 @@ class ArchSession(Session):
     """Serve, retrieval, prefill and decode cells of the architectures
     (``launch.steps.build_cell``): smoke width by default, the full
     published width with ``smoke=False`` on the card (dlrm-mlperf-baco's
-    24.1 GB of tables; the dense LMs at one card's cuts, ``cuts`` such as
+    24.1 GB of tables; the LMs at one card's cuts, ``cuts`` such as
     ``batch=4``, see ``steps.LM_ONE_CARD``).
 
     Each request runs the cell's step on its arguments, which stay on the

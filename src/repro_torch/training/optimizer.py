@@ -11,6 +11,13 @@ params)`` updates ``params`` and ``state`` IN PLACE under
 buffers) and returns them. Math is in f32 whatever the parameters'
 dtype, as in the reference; ``state["step"]`` is an int32 scalar tensor
 on the parameters' device, so an update never waits on the host.
+
+Memory: the gradient clip scales one leaf at a time (never a scaled copy
+of every gradient), and AdamW's elementwise update runs over flat slices
+of ``_SLICE`` elements, so its f32 temporaries stay at 256 MB each
+whatever the leaf (dbrx-132b's expert weights hold 1.06e9 elements a
+leaf). Every element gets the same operations in the same order, so the
+result is the same to the bit.
 """
 from __future__ import annotations
 
@@ -32,17 +39,44 @@ def _leaves(tree: dict):
     return [(k, tree[k]) for k in sorted(tree)]
 
 
+# elements of a leaf AdamW updates at a time (256 MB f32 temporaries)
+_SLICE = 1 << 26
+
+
 def global_norm(grads: dict) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for _, g in _leaves(grads)))
+    """sqrt(Σ_leaves Σ g²) in f32; each leaf's f32 copy is squared in
+    place (one f32 temporary a leaf, not two)."""
+    return torch.sqrt(sum(
+        torch.sum(g.to(torch.float32, copy=True).square_())
+        for _, g in _leaves(grads)))
 
 
-def _clip(grads: dict, grad_clip: Optional[float]) -> dict:
+def _clip_scale(grads: dict, grad_clip: Optional[float]):
+    """The global-norm clip's scale (an f32 scalar tensor), or None: the
+    caller multiplies each gradient by it as it reads the gradient."""
     if grad_clip is None:
-        return grads
+        return None
     gn = global_norm(grads)
-    scale = torch.clamp(grad_clip / torch.clamp(gn, min=1e-9), max=1.0)
-    return {k: g * scale for k, g in grads.items()}
+    return torch.clamp(grad_clip / torch.clamp(gn, min=1e-9), max=1.0)
+
+
+def _clipped(g: torch.Tensor, scale) -> torch.Tensor:
+    """``g * scale`` (the clip), or g."""
+    return g if scale is None else g * scale
+
+
+def _slices(*ts):
+    """Same-shaped tensors as matching flat slices of at most ``_SLICE``
+    elements (views: writes reach the tensors), or whole when they fit
+    one slice or one is not contiguous. (A 0-dim leaf stays 0-dim: a
+    0-dim bf16 gradient times the f32 clip scale promotes to f32, a
+    1-element slice of it would not.)"""
+    if ts[0].numel() <= _SLICE or not all(t.is_contiguous() for t in ts):
+        yield ts
+        return
+    flat = [t.view(-1) for t in ts]
+    for s in range(0, flat[0].numel(), _SLICE):
+        yield tuple(f[s:s + _SLICE] for f in flat)
 
 
 def _step(params: dict) -> torch.Tensor:
@@ -78,18 +112,19 @@ def adamw(lr: float = 1e-3, b1: float = 0.9, b2: float = 0.999,
     @torch.no_grad()
     def update(grads, state, params):
         state["step"].add_(1)
-        grads = _clip(grads, grad_clip)
+        scale = _clip_scale(grads, grad_clip)
         t = state["step"].float()
         bc1 = 1 - torch.pow(b1, t)
         bc2 = 1 - torch.pow(b2, t)
         for k, p in _leaves(params):
-            g32 = grads[k].float()
-            m, v = state["m"][k], state["v"][k]
-            m.copy_(b1 * m + (1 - b1) * g32)
-            v.copy_(b2 * v + (1 - b2) * torch.square(g32))
-            delta = lr * ((m / bc1) / (torch.sqrt(v / bc2) + eps)
-                          + weight_decay * p.float())
-            p.copy_((p.float() - delta).to(p.dtype))
+            for ps, gs, m, v in _slices(p, grads[k], state["m"][k],
+                                        state["v"][k]):
+                g32 = _clipped(gs, scale).float()
+                m.copy_(b1 * m + (1 - b1) * g32)
+                v.copy_(b2 * v + (1 - b2) * torch.square(g32))
+                delta = lr * ((m / bc1) / (torch.sqrt(v / bc2) + eps)
+                              + weight_decay * ps.float())
+                ps.copy_((ps.float() - delta).to(ps.dtype))
         return params, state
 
     return Optimizer(init, update)
@@ -118,11 +153,11 @@ def adafactor(lr: float = 1e-2, decay: float = 0.8, eps: float = 1e-30,
     @torch.no_grad()
     def update(grads, state, params):
         state["step"].add_(1)
-        grads = _clip(grads, grad_clip)
+        scale = _clip_scale(grads, grad_clip)
         t = state["step"].float()
         beta = 1.0 - torch.pow(t, -decay)
         for (k, p), s in zip(_leaves(params), state["fac"]):
-            g32 = grads[k].float()
+            g32 = _clipped(grads[k], scale).float()
             g2 = torch.square(g32) + eps
             if p.dim() >= 2:
                 s["vr"].copy_(beta * s["vr"] + (1 - beta) * g2.mean(dim=-1))

@@ -20,7 +20,8 @@ behind a trainer-backend registry:
   default selects (the reference's ``:170-193``).
 
 The reference's ``fused_sharded`` (data parallel over a device mesh) is
-not ported; asking for it raises the registry's ``KeyError``.
+not ported; asking for it raises the registry's ``KeyError``, naming the
+ROADMAP item it waits for.
 
 Fault tolerance: ``CheckpointManager`` captures (params, optimizer
 state, sampler state) in the reference's layout; ``maybe_resume``
@@ -36,6 +37,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.configs.registry import SHARDED_ITEM, not_ported
 from repro_torch.core.graph import BipartiteGraph
 from repro_torch.core.sketch import Sketch
 from repro_torch.data.sampler import make_sampler
@@ -110,6 +112,9 @@ def normalize_trainer_backend(name: Optional[str]) -> Optional[str]:
     """None/'auto' -> None (Trainer picks 'host'); validates otherwise."""
     if name is None or name == "auto":
         return None
+    if name == "fused_sharded":
+        raise KeyError(not_ported(f"the trainer backend {name!r}",
+                                  SHARDED_ITEM).args[0])
     if name not in _TRAINER_BACKENDS:
         raise KeyError(f"unknown trainer backend {name!r}: "
                        f"expected one of {available_trainer_backends()}")

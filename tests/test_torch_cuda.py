@@ -48,9 +48,13 @@ the CPU's plain path within rtol 1e-4 / atol 1e-5. The 16-bit
 codebook_lookup (bf16, f16: 8, 4, 2 or 1 elements a lane, unaligned
 tables) is bitwise its plain version, also at gemma2-9b's token
 embedding (256,000 x 3,584, 4 and 32,768 rows), and a 16-bit lookup
-that needs a gradient raises; each dense LM's smoke cells (train,
-prefill, decode) equal the CPU's within rtol 1e-4 / atol 1e-5, and a
-bf16 prefill within rtol 2e-2 / atol 4e-2.
+that needs a gradient raises; each LM's smoke cells (train, prefill,
+decode; the MoE LMs too) equal the CPU's within rtol 1e-4 / atol 1e-5,
+and a bf16 prefill within rtol 2e-2 / atol 4e-2. The MoE's token
+combine and dispatch-gather gradient (the 16-bit CSR gather-sum, k rows
+a token, d 6,144 and 7,168) are bitwise their plain version at the MoE
+LMs' shapes, and the MoE FFN makes no host sync. The sliced AdamW update
+and the per-leaf clip are bitwise the update before them on CUDA leaves.
 The streamed LP solve gives the in-memory solve's labels on the card (and
 the CPU's) at the 10k rung, with a lower peak of device memory, and the
 solver's ordered W(k) sum (a stable sort and one CSR gather-sum) is
@@ -1275,10 +1279,12 @@ def test_codebook_lookup_16bit_at_the_lm_shapes(dev, rows):
 
 
 @pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k"])
-@pytest.mark.parametrize("arch", ["gemma2-9b", "gemma3-12b", "qwen1.5-32b"])
+@pytest.mark.parametrize("arch", ["gemma2-9b", "gemma3-12b", "qwen1.5-32b",
+                                  "dbrx-132b", "kimi-k2-1t-a32b"])
 def test_lm_smoke_cells_on_the_card(dev, arch, shape):
-    """Each dense LM's smoke cell on the card (the token lookup through
-    codebook_lookup) equals the CPU's plain path on the same params:
+    """Each LM's smoke cell on the card (the token lookup through
+    codebook_lookup; a MoE's token combine and dispatch gradient through
+    the CSR gather-sum) equals the CPU's plain path on the same params:
     logits and cache, or one AdamW step's loss and params, within rtol
     1e-4 / atol 1e-5 (f32 GEMMs sum in another order)."""
     from repro_torch.launch.steps import build_cell
@@ -1290,8 +1296,15 @@ def test_lm_smoke_cells_on_the_card(dev, arch, shape):
     args = (_to_device(cpu.args[0], dev),) + tuple(
         _to_device(a, dev) for a in cpu.args[1:])
     before = codebook_lookup.launches
+    before_eb = csr_gather_sum.launches
     got, want = gpu.fn(*args), cpu.fn(*cpu.args)
     assert codebook_lookup.launches > before
+    # the token gradient once a train step; a MoE's combine once a layer
+    # (2 layers), in training also its recompute and the dispatch gradient
+    train = cpu.kind == "train"
+    moe_layers = 2 if arch in ("dbrx-132b", "kimi-k2-1t-a32b") else 0
+    assert csr_gather_sum.launches == before_eb + int(train) + moe_layers * (
+        3 if train else 1)
     if cpu.kind == "train":
         pairs = [(got[2], want[2])] + [
             (rs.flat_params(got[0])[k], v)
@@ -1327,3 +1340,104 @@ def test_lm_bf16_prefill_on_the_card(dev, arch):
     torch.testing.assert_close(got[0].cpu(), want[0], rtol=2e-2, atol=4e-2)
     for k, v in want[1].items():
         torch.testing.assert_close(got[1][k].cpu(), v, rtol=2e-2, atol=4e-2)
+
+
+@pytest.mark.parametrize("t,k,d", [(8, 4, 6144), (64, 8, 7168),
+                                   (4096, 4, 6144), (32768, 4, 6144),
+                                   (32768, 8, 7168)])
+def test_csr_gather_sum_16bit_at_the_moe_shapes(dev, t, k, d):
+    """The MoE's token combine and its dispatch gather's gradient at the
+    MoE LMs' shapes (dbrx's decode, kimi-k2's decode, dbrx's train
+    microbatch, dbrx's and kimi-k2's prefill: t tokens of k rows each,
+    bf16 rows of d 6,144 or 7,168 walked in column tiles, the rows in a
+    random expert-sorted order): ``transformer._Combine`` forward and
+    ``transformer._Gather`` backward each launch the 16-bit kernel once,
+    bitwise its plain version (f32 sums in row order, one rounding); the
+    combine's backward and the gather's forward are ``index_select``."""
+    from repro_torch.models import transformer as T
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    tok = torch.randperm(t * k, generator=g, device=dev) // k
+    perm = torch.sort(tok, stable=True).indices.int()
+    ptr = torch.arange(0, t * k + 1, k, device=dev)
+    rows = torch.randn(t * k, d, generator=g, device=dev).to(torch.bfloat16)
+    want = ref.csr_gather_sum(rows, perm, ptr)
+    xt = torch.randn(t, d, generator=g, device=dev).to(torch.bfloat16)
+    for fn, x in ((T._Combine, rows), (T._Gather, xt)):
+        x = x.clone().requires_grad_(True)
+        before = csr_gather_sum.launches_16
+        out = fn.apply(x, tok, perm, ptr)
+        if fn is T._Combine:
+            assert csr_gather_sum.launches_16 == before + 1
+            assert out.shape == (t, d) and torch.equal(out, want)
+            cot = torch.randn(t, d, generator=g, device=dev).to(x.dtype)
+        else:
+            assert torch.equal(out, xt[tok])
+            cot = rows
+        before = csr_gather_sum.launches_16
+        out.backward(cot)
+        if fn is T._Combine:
+            assert torch.equal(x.grad, cot[tok])
+        else:
+            assert csr_gather_sum.launches_16 == before + 1
+            assert torch.equal(x.grad, want)
+
+
+def test_moe_ffn_makes_no_host_sync(dev):
+    """The MoE FFN (routing, the sort-based plan, the dispatch with its
+    trash row, the expert GEMMs, the combine) runs under
+    ``torch.cuda.set_sync_debug_mode("error")``: decode stays free of
+    syncs."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(registry.get_arch("kimi-k2-1t-a32b")
+                              .smoke_config(), dtype="bfloat16")
+    params = T.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    lp = {k: v[0] for k, v in params["blocks"].items()}
+    x = torch.randn(8, 1, cfg.d_model, device=dev).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.inference_mode():
+            y = T._mlp_moe(x, lp, 0, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert y.shape == x.shape and bool(torch.isfinite(y).all())
+
+
+@pytest.mark.parametrize("name", ["adamw", "adafactor"])
+def test_optimizer_update_bitwise_the_unsliced_one_on_the_card(dev, name,
+                                                               monkeypatch):
+    """The AdamW update over flat slices (``optimizer._SLICE`` set to
+    4,096, so the 3 x 5,000-element leaf spans four) and the clip applied
+    a leaf at a time, on CUDA leaves (f32, bf16, 0-dim, strided), against
+    the update as it was (``tests/torch_optimizer_before.py``): params
+    and state bitwise after 3 updates; Adafactor too."""
+    import torch_optimizer_before as before
+
+    from repro_torch.training import optimizer
+
+    monkeypatch.setattr(optimizer, "_SLICE", 4096)
+    g = torch.Generator().manual_seed(0)
+    params, grads = before.random_leaves(g, dev)
+    params["w"] = torch.randn(3, 5000, generator=g).to(torch.bfloat16).to(dev)
+    grads["w"] = torch.randn(3, 5000, generator=g).to(torch.bfloat16).to(dev)
+    old_params = {k: v.clone() for k, v in params.items()}
+    kw = {"grad_clip": 1.0}
+    opt = getattr(optimizer, name)(**kw)
+    state, old_state = opt.init(params), opt.init(old_params)
+    old_update = {"adamw": before.adamw_update,
+                  "adafactor": before.adafactor_update}[name]
+    for _ in range(3):
+        opt.update(grads, state, params)
+        old_update(grads, old_state, old_params, **kw)
+    for k in params:
+        assert torch.equal(params[k], old_params[k]), k
+    leaves = (lambda st: [v for k in ("m", "v") for _, v in
+                          sorted(st[k].items())]) if name == "adamw" else (
+        lambda st: [v for f in st["fac"] for _, v in sorted(f.items())])
+    for a, b in zip(leaves(state), leaves(old_state)):
+        assert torch.equal(a, b)

@@ -1,10 +1,10 @@
-"""The dense LM family of the port (``models/transformer.py``, the LM
-configs, the LM half of ``launch/steps.py``) against the JAX package, on
-the CPU at the smoke configs, with the reference's params carried over
-(``transformer.params_from_numpy``) and the reference's token lookup on
-its "gather" backend.
+"""The LM family of the port (``models/transformer.py``, the LM configs,
+the LM half of ``launch/steps.py``), dense and MoE, against the JAX
+package, on the CPU at the smoke configs, with the reference's params
+carried over (``transformer.params_from_numpy``) and the reference's
+token lookup on its "gather" backend.
 
-  * Draws: each dense arch's train, prefill and decode smoke cells draw
+  * Draws: each LM arch's train, prefill and decode smoke cells draw
     bitwise the reference's ``_materialize(cell.args)``.
   * Prefill: logits and cache within rtol 1e-4 / atol 1e-5 (f32).
     Decode: logits and the updated cache, the same. Training: the loss
@@ -26,8 +26,16 @@ its "gather" backend.
   * codebook_lookup at 16 bits: the plain version at bf16 and f16, H 1
     and 2, binary or not, equals the reference's Pallas kernel in
     interpret mode bitwise.
-  * Entry points: full width without CUDA raises, MoE raises naming its
-    ROADMAP item, the serve and train CLIs run the smoke cells.
+  * The MoE FFN (dbrx-132b, kimi-k2-1t-a32b) against the reference's
+    ``_mlp_moe``: the routed expert ids (planted exact ties among the
+    router's logits included) and the kept/dropped mask bitwise, at a
+    capacity that drops too; the output within f32 rounding. Its bf16
+    token combine sums in f32 and rounds once (ROADMAP Queue 3 #9).
+    The optimizer rule: Adafactor for kimi-k2's 384 experts, AdamW for
+    dbrx's 16.
+  * Entry points: full width without CUDA raises, the serve and train
+    CLIs run the smoke cells, the sharded trainer names its ROADMAP
+    item.
 """
 import dataclasses
 import functools
@@ -58,7 +66,8 @@ from repro_torch.models import transformer as T  # noqa: E402
 for _m in ref_registry._MODULES:
     importlib.import_module(f"repro.configs.{_m}")
 
-ARCHS = ("gemma2-9b", "gemma3-12b", "qwen1.5-32b")
+ARCHS = ("gemma2-9b", "gemma3-12b", "qwen1.5-32b", "dbrx-132b",
+         "kimi-k2-1t-a32b")
 SHAPES = ("train_4k", "prefill_32k", "decode_32k")
 TOKENS = ("drawn", "vocab")        # the smoke draws; tokens over the vocab
 
@@ -182,12 +191,27 @@ def test_build_cell_full_width_raises_without_cuda():
 
 
 def test_moe_raises_naming_the_roadmap():
+    """The MoE FFN is ported: a dense config given a MoE gets the
+    reference's expert params and runs prefill and decode, as do the two
+    MoE archs' smoke cells; what still waits (the sharded path) raises
+    naming ROADMAP Queue 1 #7c-ii."""
+    from repro_torch.training.train_loop import normalize_trainer_backend
+
     cfg = dataclasses.replace(_cfg("qwen1.5-32b"), moe=T.MoEConfig(4, 2))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #7c"):
-        T.init_params(torch.Generator().manual_seed(0), cfg)
+    params = T.init_params(torch.Generator().manual_seed(0), cfg)
+    n = cfg.n_layers
+    assert params["blocks"]["w_gate"].shape == (n, 1, 4, 64, 128)
+    assert params["blocks"]["router"].shape == (n, 1, 64, 4)
+    tok = torch.zeros((2, 8), dtype=torch.int32)
+    logits, cache = T.prefill(params, {"tokens": tok}, cfg, max_seq=9)
+    logits2, _ = T.decode_step(params, cache, {"tokens": tok[:, :1],
+                                               "pos": torch.tensor(8)}, cfg)
+    assert bool(torch.isfinite(logits).all() & torch.isfinite(logits2).all())
     for arch in ("dbrx-132b", "kimi-k2-1t-a32b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #7c"):
-            steps.build_cell(arch, "decode_32k", smoke=True, device="cpu")
+        cell = steps.build_cell(arch, "decode_32k", smoke=True, device="cpu")
+        assert bool(torch.isfinite(cell.fn(*cell.args)[0]).all())
+    with pytest.raises(KeyError, match="ROADMAP Queue 1 #7c-ii"):
+        normalize_trainer_backend("fused_sharded")
 
 
 def test_smoke_cells_cut_and_list_their_cuts():
@@ -591,7 +615,8 @@ def test_16bit_lookup_gradient_rounds_once(dtype):
         assert abs(exact[0, 0] - 37.50198) < 1e-5
 
 
-@pytest.mark.parametrize("arch", ["gemma2-9b", "qwen1.5-32b"])
+@pytest.mark.parametrize("arch", ["gemma2-9b", "qwen1.5-32b", "dbrx-132b",
+                                  "kimi-k2-1t-a32b"])
 def test_bf16_train_step_equals_jax_value_and_grad(arch):
     """A bf16 smoke train step (the token lookup's backward on the CSR
     gather-sum's plain version) against one jitted ``jax.value_and_grad``
@@ -600,7 +625,9 @@ def test_bf16_train_step_equals_jax_value_and_grad(arch):
     norm scale within 8 bf16 ulps of max|g| (bf16 GEMMs and roundings in
     another order, compounded through qwen's bf16 residual stream, where
     ~5 ulps were seen; the lookup's part sums in f32 once where the
-    reference rounds each add)."""
+    reference rounds each add). For the MoE LMs the router's and the
+    expert weights' gradients too (the bf16 combine and the dispatch
+    gather's gradient sum in f32 once: ROADMAP Queue 3 #9)."""
     rcfg = dataclasses.replace(ref_registry.get_arch(arch).smoke_config(),
                                dtype="bfloat16", lookup_backend="gather")
     cfg = dataclasses.replace(_cfg(arch), dtype="bfloat16",
@@ -621,8 +648,10 @@ def test_bf16_train_step_equals_jax_value_and_grad(arch):
     np.testing.assert_allclose(float(loss.detach()), float(want_loss),
                                rtol=1e-2)
     assert grads["embed"].dtype == torch.bfloat16
-    other = sorted(k for k in flat if k.startswith("blocks/"))[0]
-    for k in ("embed", other):
+    held = ["embed", sorted(k for k in flat if k.startswith("blocks/"))[0]]
+    if cfg.moe is not None:
+        held += ["blocks/router", "blocks/w_gate", "blocks/w_down"]
+    for k in held:
         scale = float(np.abs(want_g[k]).max())
         _close(grads[k], want_g[k], 0, 8 * 2.0 ** -8 * scale, k)
 
@@ -663,6 +692,156 @@ def test_accumulator_dtype_follows_the_reference_rule(arch, n_layers,
 
 
 # ---------------------------------------------------------------------------
+# the MoE FFN: routing, drops, the combine; the optimizer rule
+# ---------------------------------------------------------------------------
+def _moe_case(case, e=8, k=2, b=2, s=24, d=16, f=24):
+    """A one-layer MoE FFN's input and params. ``ties``: integer-valued x
+    and router, so every logit is an exact integer in both packages and
+    many rows tie at the k-th choice; otherwise standard normal."""
+    rng = np.random.default_rng(3)
+    if case == "ties":
+        x = rng.integers(-1, 2, (b, s, d)).astype(np.float32)
+        router = rng.integers(-1, 2, (d, e)).astype(np.float32)
+    else:
+        x = rng.standard_normal((b, s, d)).astype(np.float32)
+        router = rng.standard_normal((d, e)).astype(np.float32)
+    lp = {"router": router[None],
+          "w_gate": rng.standard_normal((1, e, d, f)).astype(np.float32) / 4,
+          "w_up": rng.standard_normal((1, e, d, f)).astype(np.float32) / 4,
+          "w_down": rng.standard_normal((1, e, f, d)).astype(np.float32) / 5}
+    kw = dict(name="moe", n_layers=1, d_model=d, n_heads=2, n_kv_heads=1,
+              d_ff=f, vocab_size=64, dtype="float32")
+    cf = 0.5 if case == "drops" else 1.25
+    return (x, lp, T.TransformerConfig(moe=T.MoEConfig(e, k, cf), **kw),
+            RT.TransformerConfig(moe=RT.MoEConfig(e, k, cf), **kw))
+
+
+def _ref_mlp_moe(x, lp, rcfg, monkeypatch):
+    """The reference's ``_mlp_moe`` run op by op, with its routed expert
+    ids (``lax.top_k``'s) and its kept mask (the condition of its first
+    ``jnp.where``, ``pos < cap`` over the expert-sorted assignments)
+    recorded on the way."""
+    t = x.shape[0] * x.shape[1]
+    tk = t * rcfg.moe.top_k
+    seen = {}
+    top_k, where = jax.lax.top_k, jnp.where
+
+    def spy_top_k(a, k):
+        out = top_k(a, k)
+        seen.setdefault("idx", np.asarray(out[1]))
+        return out
+
+    def spy_where(c, *a, **kw):
+        c_np = np.asarray(c)
+        if c_np.dtype == bool and c_np.shape == (tk,):
+            seen.setdefault("keep", c_np)
+        return where(c, *a, **kw)
+
+    with monkeypatch.context() as m:
+        m.setattr(jax.lax, "top_k", spy_top_k)
+        m.setattr(jnp, "where", spy_where)
+        y = RT._mlp_moe(jnp.asarray(x), _to_jnp(lp), 0, rcfg)
+    return np.asarray(y), seen["idx"], seen["keep"]
+
+
+@pytest.mark.parametrize("case", ["ties", "drops", "random"])
+def test_moe_routing_equals_the_reference_bitwise(case, monkeypatch):
+    """``moe_route`` / ``_mlp_moe`` against ``repro.models.transformer.
+    _mlp_moe`` (never against ``_mlp_moe_local`` on a mesh: ROADMAP Queue
+    3 #4) on the same inputs: the routed expert ids in ``lax.top_k``'s
+    order bitwise (``ties``: a third of the rows tie at the k-th choice,
+    and the lowest expert id must win), the kept/dropped mask bitwise
+    (``drops``: capacity factor 0.5, cap 8 against a mean load of 6
+    tokens an expert), the output within rtol 1e-5 / atol 1e-6."""
+    x, lp, cfg, rcfg = _moe_case(case)
+    t, k = x.shape[0] * x.shape[1], cfg.moe.top_k
+    want, want_idx, want_keep = _ref_mlp_moe(x, lp, rcfg, monkeypatch)
+    plp = _port(lp)
+    r = T.moe_route(torch.as_tensor(x).reshape(t, -1), plp["router"][0],
+                    cfg.moe)
+    assert r.cap == T.moe_capacity(t, cfg.moe)
+    assert r.cap == max(8, min(int(np.ceil(t * k / 8 * rcfg.moe
+                                           .capacity_factor)), t))
+    np.testing.assert_array_equal(r.idx.numpy(), want_idx)
+    np.testing.assert_array_equal(r.keep.numpy(), want_keep)
+    logits = x.reshape(t, -1) @ lp["router"][0]
+    top = -np.sort(-logits, axis=1)
+    if case == "ties":
+        assert (top[:, k - 1] == top[:, k]).sum() >= t // 4
+    if case == "drops":
+        assert int((~r.keep).sum()) >= t * k // 4
+    got = T._mlp_moe(torch.as_tensor(x), plp, 0, cfg)
+    _close(got, want, 1e-5, 1e-6, "moe output")
+
+
+def test_bf16_moe_combine_rounds_once():
+    """The token combine at bf16 (512 tokens, k 8 rows each, d 64, rows
+    in a random expert-sorted order). The reference's
+    ``jax.ops.segment_sum`` of bf16 rows on XLA's CPU rounds after every
+    add; the port's CSR gather-sum sums in f32 in row order and rounds
+    once (ROADMAP Queue 3 #9). Held: the port equals that f32 sum
+    rounded once, bitwise, and lies within one bf16 ulp of the exact sum
+    (half an ulp of the result plus the f32 sum's rounding); the
+    reference within (k + 1) ulps of the largest partial sum. Pinned on
+    this draw: 17,151 of 32,768 elements differ; at (5, 25) the port
+    gives -6.75, the reference -6.8125, the exact sum -6.75293."""
+    rng = np.random.default_rng(0)
+    t, k, d = 512, 8, 64
+    tok = (rng.permutation(t * k) // k).astype(np.int32)
+    rows = np.asarray(jnp.asarray(
+        rng.standard_normal((t * k, d)).astype(np.float32), jnp.bfloat16))
+    want = np.asarray(jax.jit(lambda x, i: jax.ops.segment_sum(
+        x, i, num_segments=t))(jnp.asarray(rows), jnp.asarray(tok))
+        .astype(jnp.float32))
+    tt = torch.as_tensor(tok).long()
+    got = T._Combine.apply(T.tensor_from_numpy(rows, "cpu"), tt,
+                           torch.sort(tt, stable=True).indices.int(),
+                           torch.arange(0, t * k + 1, k))
+    assert got.dtype == torch.bfloat16
+    once = np.zeros((t, d), np.float32)
+    np.add.at(once, tok, rows.astype(np.float32))          # row order
+    assert torch.equal(got, torch.as_tensor(once).to(torch.bfloat16))
+    got = got.float().numpy()
+    exact = np.zeros((t, d))
+    np.add.at(exact, tok, rows.astype(np.float64))
+    peak = np.zeros((t, d))
+    part = np.zeros((t, d))
+    for i, row in zip(tok, rows.astype(np.float64)):
+        part[i] += row
+        peak[i] = np.maximum(peak[i], np.abs(part[i]))
+    u = 2.0 ** -8
+    assert (np.abs(got - exact) <= u * np.abs(exact)
+            + k * 2.0 ** -24 * peak * 1.01).all()
+    assert (np.abs(want - exact) <= (k + 1) * u * peak).all()
+    assert int((got != want).sum()) == 17151
+    assert (got[5, 25], want[5, 25]) == (-6.75, -6.8125)
+    assert abs(exact[5, 25] + 6.75293) < 1e-5
+    assert np.abs(got - exact).mean() < np.abs(want - exact).mean()
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_optimizer_rule_equals_the_reference(arch, monkeypatch):
+    """``_lm_optimizer``: Adafactor at lr 1e-2 for a MoE of 128 experts or
+    more (kimi-k2's 384), AdamW otherwise (dbrx's 16, the dense LMs), as
+    the reference chooses on the full config; a full-width train cell
+    names it (built with its params on the meta device)."""
+    full = registry.get_arch(arch).full_config()
+    name, opt = steps._lm_optimizer(full)
+    want, _ = ref_steps._lm_optimizer(ref_registry.get_arch(arch)
+                                      .full_config())
+    assert name == want
+    assert name == ("adafactor" if arch == "kimi-k2-1t-a32b" else "adamw")
+    orig = T.init_params
+    monkeypatch.setattr(T, "init_params",
+                        lambda gen, c: orig(None, c, device="meta"))
+    cell = steps.build_cell(arch, "train_4k", device="cpu", batch=8,
+                            n_layers=full.layers_per_block)
+    assert cell.notes.startswith(f"optimizer={name},")
+    state = cell.args[1]
+    assert ("fac" in state) == (name == "adafactor")
+
+
+# ---------------------------------------------------------------------------
 # the CLIs
 # ---------------------------------------------------------------------------
 def test_serve_cli_lm_cells_on_the_cpu(capsys):
@@ -673,6 +852,16 @@ def test_serve_cli_lm_cells_on_the_cpu(capsys):
         out = capsys.readouterr().out
         assert f"gemma3-12b:{shape} smoke on cpu" in out
         assert "3 requests" in out and "tokens/s" in out
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "kimi-k2-1t-a32b"])
+def test_serve_cli_moe_cells_on_the_cpu(arch, capsys):
+    from repro_torch.launch import serve
+    for shape in ("prefill_32k", "decode_32k"):
+        assert serve.main(["--arch", arch, "--shape", shape, "--device",
+                           "cpu", "--n-requests", "2"]) == 0
+        out = capsys.readouterr().out
+        assert f"{arch}:{shape} smoke on cpu" in out and "tokens/s" in out
 
 
 def test_train_cli_lm_on_the_cpu(capsys):

@@ -2,10 +2,9 @@
 ``models/recsys.py``, ``launch/steps.py``) against the JAX package, on
 the CPU at smoke width.
 
-  * Registry: the port's archs are the reference's less its MoE LM ids
-    (which raise NotImplementedError naming ROADMAP Queue 1 #7c); the
-    shapes and every config (full and smoke, the dense LMs' and SchNet's
-    too) are equal field by field.
+  * Registry: the port's archs are the reference's, all of them (the
+    MoE LMs too); the shapes and every config (full and smoke, the LMs'
+    and SchNet's too) are equal field by field.
   * Full width: each full config's param shapes and bytes equal
     ``jax.eval_shape`` of the reference's init, reckoned on the meta
     device (nothing allocated).
@@ -157,18 +156,17 @@ def _port_cell(arch, shape):
 # registry and configs
 # ---------------------------------------------------------------------------
 def test_registry_equals_the_reference_less_lm_and_gnn():
-    """The reference's registry less its MoE LMs (the dense LMs and the
-    GNN are ported)."""
-    ref_ids = ref_registry.list_archs()
-    unported = {a for a in ref_ids
-                if ref_registry.get_arch(a).family == "lm"
-                and ref_registry.get_arch(a).full_config().moe is not None}
-    assert set(registry.UNPORTED_ARCHS) == unported
-    assert set(registry.WAITS_FOR) == unported
-    assert registry.list_archs() == sorted(set(ref_ids) - unported)
-    assert registry.all_cells(include_variants=True) == [
-        c for c in ref_registry.all_cells(include_variants=True)
-        if c[0] not in unported]
+    """The reference's whole registry: every arch is ported (the MoE LMs
+    last), so nothing is left unported."""
+    import importlib
+    for m in ref_registry._MODULES:   # all of them, whatever loaded first
+        importlib.import_module(f"repro.configs.{m}")
+    assert registry.UNPORTED_ARCHS == {} and registry.WAITS_FOR == {}
+    assert registry.list_archs() == ref_registry.list_archs()
+    assert (registry.all_cells(include_variants=True)
+            == ref_registry.all_cells(include_variants=True))
+    assert (registry.all_cells(include_skipped=False)
+            == ref_registry.all_cells(include_skipped=False))
 
 
 @pytest.mark.parametrize("arch", registry.list_archs())
@@ -189,13 +187,21 @@ def test_specs_and_configs_equal_the_reference(arch):
             assert got.table_rows == exp.table_rows
 
 
-@pytest.mark.parametrize("arch", sorted(registry.UNPORTED_ARCHS))
+@pytest.mark.parametrize("arch", ["dbrx-132b", "kimi-k2-1t-a32b"])
 def test_unported_archs_raise_naming_the_roadmap(arch):
-    item = {"lm": "ROADMAP Queue 1 #7c"}[registry.UNPORTED_ARCHS[arch]]
-    with pytest.raises(NotImplementedError, match=item):
-        registry.get_arch(arch)
+    """The two archs that waited for ROADMAP Queue 1 #7c are ported: their
+    specs and configs equal the reference's; an unknown arch raises
+    KeyError, and ``not_ported`` names the item that still waits."""
+    spec, want = registry.get_arch(arch), ref_registry.get_arch(arch)
+    assert spec.family == want.family == "lm"
+    assert (dataclasses.asdict(spec.full_config())
+            == dataclasses.asdict(want.full_config()))
+    assert spec.full_config().moe is not None
     with pytest.raises(KeyError):
         registry.get_arch("no-such-arch")
+    err = registry.not_ported("a mesh", registry.SHARDED_ITEM)
+    assert isinstance(err, NotImplementedError)
+    assert "ROADMAP Queue 1 #7c-ii" in str(err)
 
 
 def test_embedding_spec_table_rows():

@@ -15,7 +15,9 @@ Tolerances, and why:
     the backward is the forward's exact adjoint.
   * Optimizers against the reference's ``sgd`` / ``adamw`` /
     ``adafactor`` (with and without clip), 3 updates: rtol 1e-5 / atol
-    1e-7 (f32 math in both; pow and rsqrt may round an ulp apart).
+    1e-7 (f32 math in both; pow and rsqrt may round an ulp apart). The
+    sliced AdamW update and the per-leaf clip against the port's update
+    before them: bitwise.
   * A 200-step ``Trainer(host, sampler="numpy")`` against the
     reference's, from one state carried through a reference checkpoint:
     every loss rtol 1e-4; Recall@20 and NDCG@20 within 0.005.
@@ -232,6 +234,52 @@ def test_optimizer_updates_match_reference(name, kw):
         np.testing.assert_allclose(flat_t[k], flat_j[k], rtol=1e-5, atol=1e-7)
 
 
+def _bits(t):
+    """A float tensor's bits (so -0.0 and NaN payloads compare too)."""
+    return t.contiguous().view({2: torch.int16, 4: torch.int32}[
+        t.element_size()])
+
+
+@pytest.mark.parametrize("slice_elems", [None, 64])
+@pytest.mark.parametrize("name,kw", [
+    ("adamw", {"lr": 1e-2}),
+    ("adamw", {"lr": 1e-2, "weight_decay": 0.1, "grad_clip": 1.0}),
+    ("adafactor", {}), ("adafactor", {"grad_clip": 1.0})],
+    ids=["adamw", "adamw-clip", "adafactor", "adafactor-clip"])
+def test_update_is_bitwise_the_update_before_slicing(name, kw, slice_elems,
+                                                     monkeypatch):
+    """AdamW's update over flat slices (``optimizer._SLICE`` elements;
+    also at 64, so every leaf here spans several) and the clip applied
+    one leaf at a time, against the update as it was (every gradient
+    clipped into a new dict, each leaf updated whole:
+    ``tests/torch_optimizer_before.py``): params and state equal to the
+    bit after 3 updates, on f32 and bf16 leaves of 0 to 4 dims, one of
+    them strided, with the clip binding."""
+    import torch_optimizer_before as before
+
+    if slice_elems is not None:
+        monkeypatch.setattr(optimizer, "_SLICE", slice_elems)
+    g = torch.Generator().manual_seed(0)
+    params, grads = before.random_leaves(g)
+    old_params = {k: v.clone() for k, v in params.items()}
+    opt = getattr(optimizer, name)(**kw)
+    state, old_state = opt.init(params), opt.init(old_params)
+    old_update = {"adamw": before.adamw_update,
+                  "adafactor": before.adafactor_update}[name]
+    if kw.get("grad_clip"):
+        assert float(optimizer.global_norm(grads)) > 10 * kw["grad_clip"]
+    for _ in range(3):
+        opt.update(grads, state, params)
+        old_update(grads, old_state, old_params, **kw)
+    for k in params:
+        assert torch.equal(_bits(params[k]), _bits(old_params[k])), k
+    flat = checkpoint._flatten_with_paths(state)
+    old_flat = checkpoint._flatten_with_paths(old_state)
+    assert set(flat) == set(old_flat)
+    for k in flat:
+        np.testing.assert_array_equal(flat[k], old_flat[k], err_msg=k)
+
+
 # ---------------------------------------------------------------------------
 # checkpoints across the packages
 # ---------------------------------------------------------------------------
@@ -418,12 +466,12 @@ def test_train_cli_on_the_cpu(tmp_path, capsys):
                          "--steps", "30", "--batch-size", "64", "--dim", "8",
                          "--ckpt-dir", str(tmp_path / "ck"), "--resume"])
     assert rc == 0 and "resumed at step 20" in capsys.readouterr().out
-    # the recsys archs train (tests/test_torch_archs.py holds them); a MoE
-    # LM is not ported and raises
+    # the recsys archs train (tests/test_torch_archs.py holds them), and
+    # so do the MoE LMs (their shape defaults to train_4k)
     assert train_cli.main(["--device", "cpu", "--arch", "sasrec",
                            "--steps", "2"]) == 0
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #7c"):
-        train_cli.main(["--device", "cpu", "--arch", "dbrx-132b"])
+    assert train_cli.main(["--device", "cpu", "--arch", "dbrx-132b",
+                           "--steps", "1"]) == 0
     # every ETC method is ported (tests/test_torch_baselines.py trains
     # one); a name outside the registry stops at argument parsing
     with pytest.raises(SystemExit):
