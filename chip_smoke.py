@@ -23,6 +23,16 @@
    32 and resume from its checkpoint bitwise equal to 64 uninterrupted
    steps. Fused and dense top-k must agree (ids equal up to near-ties),
    and two GPU solves must give identical labels.
+   Then the same path over a ``torch.distributed`` world of 1 (NCCL on
+   the card, on a localhost store, destroyed when the phase ends):
+   ``ClusterEngine(solver="torch_sharded", mesh=cluster_mesh())`` must
+   give the main path's sketch bitwise in as many sweeps (both build
+   times printed), and ``fused_sharded`` must train bitwise ``fused``
+   over 64 steps (chunks of 16, interleaved and timed, one under
+   sync-debug "error") with equal launches a step; the compression
+   functions on the card must equal the CPU's (a gloo world of 1). It
+   prints a ``sharded`` JSON line; its solve and sharded training count
+   into the kernels line's launches.
    Then the stream (``repro_torch.stream``) at amazonbook's width
    (``STREAM_ARGS``: 52,643 users, 91,599 items, k_true 300, 4 waves
    after a warm prefix of 31,586 x 54,959): BACO (d 64, ratio 0.25) and
@@ -856,6 +866,164 @@ def train_path(train, test, sketch, workdir: str, device: str = "cuda",
 
 
 # ---------------------------------------------------------------------------
+# phase 2a: the main path over a torch.distributed world (NCCL, 1 rank)
+# ---------------------------------------------------------------------------
+SHARDED_STEPS = 64
+SHARDED_CHUNK = 16
+
+
+def compress_results(grads: dict, up: dict, device: str) -> dict:
+    """``compress_decompress`` (bf16; int8 with the given ``up`` mask) and
+    ``mean_grads_compressed`` (bf16, int8) under a "data" mesh over the
+    current world, on ``device``; results on the host."""
+    from repro_torch.distributed import data_mesh, use_mesh
+    from repro_torch.training.compress import (compress_decompress,
+                                               mean_grads_compressed)
+    g = {k: v.to(device) for k, v in grads.items()}
+    out = {"decompress bf16": compress_decompress(g, "bf16"),
+           "decompress int8": compress_decompress(g, "int8", up=up)}
+    with use_mesh(data_mesh(device=device)):
+        for method in ("bf16", "int8"):
+            out[f"mean {method}"] = mean_grads_compressed(g, method)
+    return {name: {k: v.cpu() for k, v in r.items()}
+            for name, r in out.items()}
+
+
+def sharded_path(run: dict, device: str = "cuda",
+                 steps: int = SHARDED_STEPS, chunk: int = SHARDED_CHUNK
+                 ) -> dict:
+    """The main path over a ``torch.distributed`` world of 1 (NCCL on the
+    card, on a localhost store; destroyed when the phase ends, also when
+    it fails): ``ClusterEngine(solver="torch_sharded",
+    mesh=cluster_mesh())`` at amazonbook width must give the main path's
+    sketch bitwise (indices, K, gamma) in as many sweeps; then
+    ``fused_sharded`` and ``fused`` train from the same ``init_params``
+    for ``steps`` steps in chunks of ``chunk``, interleaved chunk by
+    chunk (which goes first alternates) and timed, each trainer's second
+    chunk under sync-debug "error"; losses, params and the
+    kernels' launches a step must be equal. Then ``training.compress`` on
+    one of the trainer's gradients: every function on the card bitwise
+    the same function on the CPU (a gloo world of 1 after the NCCL one).
+    Launch counts are zeroed just before the sharded solve; the kernels
+    line counts the solve's and the sharded trainer's launches."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import ClusterEngine
+    from repro_torch.distributed import cluster_mesh, world
+    from repro_torch.training import TrainConfig, Trainer
+
+    train, want = run["train"], run["sketch"]
+    require(not dist.is_initialized(),
+            "a process group is alive before the sharded phase")
+    t_phase = time.perf_counter()
+    with world(device) as dev:
+        backend = dist.get_backend()
+        zero_counts()
+        engine = ClusterEngine(solver="torch_sharded",
+                               mesh=cluster_mesh(device=dev), device=str(dev))
+        t0 = time.perf_counter()
+        sketch = engine.build(train, d=64, ratio=0.25)
+        sync(device)
+        t_build = time.perf_counter() - t0
+        solve_launches = launch_counts()["embedding_bag"]
+        same = (sketch.meta["solver"] == "torch_sharded"
+                and np.array_equal(sketch.user_idx, want.user_idx)
+                and np.array_equal(sketch.item_idx, want.item_idx)
+                and (sketch.k_users, sketch.k_items, sketch.meta["gamma"])
+                == (want.k_users, want.k_items, want.meta["gamma"])
+                and engine.stats["sweeps"] == run["stats"]["sweeps"])
+        require(same, "the torch_sharded sketch on a world of 1 is not the "
+                "main path's")
+        require(solve_launches > 0,
+                "embedding_bag never ran in the torch_sharded solve")
+        log(f"sharded ({backend}, world of {dist.get_world_size()}): "
+            f"torch_sharded build {t_build:.2f} s, the main path's torch "
+            f"build {run['cluster_s']:.2f} s; sketch bitwise equal "
+            f"(K_u={sketch.k_users} K_v={sketch.k_items} gamma="
+            f"{sketch.meta['gamma']}, {engine.stats['sweeps']} sweeps); "
+            f"{solve_launches} CSR gather-sum launches (partial W(k))")
+
+        cfg = TrainConfig(steps=steps, batch_size=2048, lr=5e-3, seed=0,
+                          chunk_size=chunk)
+        names = ("fused", "fused_sharded")
+        trainers = {b: Trainer(train, want, dataclasses.replace(
+            cfg, backend=b), device=dev) for b in names}
+        losses = {b: [] for b in names}
+        ms = {b: [] for b in names}
+        launches = {b: {"codebook_lookup": 0, "embedding_bag": 0}
+                    for b in names}
+        for c in range(steps // chunk):
+            for b in (names if c % 2 == 0 else names[::-1]):
+                tr = trainers[b]
+                sync(device)
+                before = launch_counts()
+                t0 = time.perf_counter()
+                if c == 1:
+                    out = sync_free_chunk(tr, chunk, device)
+                else:
+                    out = tr.backend.chunk(tr, chunk).tolist()
+                ms[b].append((time.perf_counter() - t0) * 1e3 / chunk)
+                losses[b] += out
+                after = launch_counts()
+                for k in launches[b]:
+                    launches[b][k] += after[k] - before[k]
+        sharded = trainers["fused_sharded"]
+        require(all(math.isfinite(x) for x in losses["fused"])
+                and losses["fused"] == losses["fused_sharded"],
+                "fused_sharded losses on a world of 1 are not fused's")
+        require(all(torch.equal(sharded.params[k], v)
+                    for k, v in trainers["fused"].params.items()),
+                "fused_sharded params on a world of 1 are not fused's")
+        require(launches["fused"] == launches["fused_sharded"]
+                and all(launches["fused"].values()),
+                f"launches differ or are missing: {launches}")
+        med = {b: statistics.median(ms[b][1:]) for b in names}
+        log(f"sharded: {steps} steps of fused_sharded bitwise fused (losses "
+            f"{losses['fused'][0]:.5f} -> {losses['fused'][-1]:.5f}); "
+            f"median ms a step (chunks after the first, interleaved): "
+            f"fused {med['fused']:.4f}, fused_sharded "
+            f"{med['fused_sharded']:.4f}; {sharded.backend.allreduce_bytes}"
+            f" bytes all-reduced a step; launches a step "
+            f"{ {k: v / steps for k, v in launches['fused'].items()} }; "
+            f"each trainer's second chunk ran under sync-debug 'error'")
+
+        u, p, n = sharded.sampler.sample_fn(sharded.sampler.seed, steps)
+        _, grads = sharded.loss_and_grads({"user": u, "pos": p, "neg": n})
+        grads = {k: g.cpu() for k, g in zip(sorted(sharded.params), grads)}
+        gen = torch.Generator().manual_seed(0)
+        up = {k: torch.rand(g.shape, generator=gen) < 0.5
+              for k, g in grads.items()}
+        on_card = compress_results(grads, up, str(dev))
+    require(not dist.is_initialized(), "the NCCL world outlived its phase")
+    with world("cpu"):
+        on_cpu = compress_results(grads, up, "cpu")
+    require(not dist.is_initialized(), "the gloo world outlived its phase")
+    for name, r in on_card.items():
+        require(all(torch.equal(v, on_cpu[name][k]) for k, v in r.items()),
+                f"compress: {name} on the card is not the CPU's")
+    log(f"compress: {sorted(on_card)} on the card bitwise the CPU's, on "
+        f"the gradients of {sorted(grads)}")
+    seconds = time.perf_counter() - t_phase
+    log(f"sharded phase: {seconds:.1f} s")
+    return {"backend": backend, "world_size": 1, "seconds": seconds,
+            "build_s": t_build, "main_build_s": run["cluster_s"],
+            "sweeps": engine.stats["sweeps"],
+            "ms_per_step": med, "ms_per_step_chunks": ms,
+            "allreduce_bytes_per_step": sharded.backend.allreduce_bytes,
+            "loss_first": losses["fused"][0],
+            "loss_last": losses["fused"][-1],
+            "launches_per_step": {k: v / steps
+                                  for k, v in launches["fused"].items()},
+            "compress_checked": sorted(on_card),
+            "launches": {"codebook_lookup":
+                         launches["fused_sharded"]["codebook_lookup"],
+                         "embedding_bag": solve_launches
+                         + launches["fused_sharded"]["embedding_bag"]}}
+
+
+# ---------------------------------------------------------------------------
 # phase 2b: the stream (cold-start assignment, refresh, deltas, hot swap)
 # ---------------------------------------------------------------------------
 def digest(a) -> str:
@@ -1525,9 +1693,11 @@ def scale_path(device: str = "cuda", rungs=("100k", "1m"),
     in-memory solve has touched, then the in-memory "torch" solve (its
     peak from a reset, with the device edge lists dropped before and
     after); at 100k also "torch_hostloop" and the minhash cold-assign
-    experiment. Labels and sweeps must be equal across the solves and
-    the reference's (``SCALE_REFERENCE``), and at the smaller block size
-    the streamed peak device bytes must lie below the in-memory solve's.
+    experiment; the shard balance at 8 shards (host numpy, the
+    reference's ``shard_imbalance_*``). Labels and sweeps must be equal
+    across the solves and the reference's (``SCALE_REFERENCE``), and at
+    the smaller block size the streamed peak device bytes must lie below
+    the in-memory solve's.
     Launch counts are zeroed just before the first solve and read just
     after the last; the CSR gather-sum (the ordered W(k) sums) must have
     run. Then the ordered W(k) sum on each rung's final labels is held
@@ -1553,6 +1723,12 @@ def scale_path(device: str = "cuda", rungs=("100k", "1m"),
         g, build_s, (wu, wv) = graphs[rung]
         rec = {"n_nodes": g.n_nodes, "n_edges": g.n_edges,
                "build_s": build_s, "streamed": {}}
+        # host numpy: the reference's shard balance at 8 shards
+        rec["shard_imbalance_uniform"], rec["shard_imbalance_aligned"] = \
+            cs.shard_balance(g)
+        log(f"scale {rung}: shard imbalance at 8 shards (max / mean "
+            f"edges): uniform node ranges {rec['shard_imbalance_uniform']}, "
+            f"node-aligned bounds {rec['shard_imbalance_aligned']}")
         labels = {}
         for be in blocks[rung]:
             lab, it, st, sec = cs.solve_streamed(g, wu, wv, be, device)
@@ -3465,6 +3641,7 @@ def check_codebook_lookup(run: dict) -> dict:
             "replaces": "src/repro/kernels/codebook_lookup.py:98",
             "launches": (run["launches"]["codebook_lookup"]
                          + run["training"]["launches"]["codebook_lookup"]
+                         + run["sharded"]["launches"]["codebook_lookup"]
                          + run["stream"]["launches"]["codebook_lookup"]
                          + run["frontdoor"]["launches"]["codebook_lookup"]
                          + run["baselines"]["launches"]["codebook_lookup"]
@@ -3476,6 +3653,7 @@ def check_codebook_lookup(run: dict) -> dict:
             "launches_by_path": {
                 "serving": run["launches"]["codebook_lookup"],
                 "training": run["training"]["launches"]["codebook_lookup"],
+                "sharded": run["sharded"]["launches"]["codebook_lookup"],
                 "stream": run["stream"]["launches"]["codebook_lookup"],
                 "frontdoor":
                     run["frontdoor"]["launches"]["codebook_lookup"],
@@ -3879,6 +4057,7 @@ def check_embedding_bag(run: dict, emb_run: dict) -> dict:
     path_launches = {
         "serving": run["launches"]["embedding_bag"],
         "training": run["training"]["launches"]["embedding_bag"],
+        "sharded": run["sharded"]["launches"]["embedding_bag"],
         "embedding_layer": emb_run["launches"]["embedding_bag"],
         "stream": run["stream"]["launches"]["embedding_bag"],
         "frontdoor": run["frontdoor"]["launches"]["embedding_bag"],
@@ -4629,6 +4808,7 @@ def main() -> int:
         with tempfile.TemporaryDirectory(dir=os.path.join(
                 ROOT, "build")) as workdir:
             run = main_path(workdir)
+            run["sharded"] = sharded_path(run)
             run["stream"] = stream_path()
             run["frontdoor"] = frontdoor_path(run)
             run["scale"] = scale_path()
@@ -4655,6 +4835,7 @@ def main() -> int:
             subprocess.CalledProcessError) as e:
         log(f"FAIL: {type(e).__name__}: {e}")
         return 1
+    print(json.dumps({"sharded": run["sharded"]}))
     print(json.dumps({"stream": run["stream"]}))
     print(json.dumps({"frontdoor": run["frontdoor"]}))
     print(json.dumps({"scale": run["scale"]}))

@@ -19,9 +19,18 @@ Solvers (registry):
   * "numpy"          the paper-faithful sequential Algorithm 1 sweep
                      (``solver_numpy``, host only; ``device`` is ignored).
 
-Only "torch" is auto-eligible, so auto-selection (solver=None/"auto")
-picks it. The reference's "jax_sharded" has no counterpart yet; a
-reference name raises the registry's ``KeyError``.
+  * "torch_sharded"  the edge-partitioned solve over the ranks of a 1-D
+                     mesh (``solver_sharded.lp_solve_sharded``): each
+                     rank sorts only its own edge block, one all-reduce
+                     a half-step combines the per-label weight totals;
+                     bit for bit "torch" on a world of 1. Takes the
+                     engine's ``mesh`` (default: every rank of the
+                     current world).
+
+Auto-selection (solver=None/"auto") is the reference's rule:
+"torch_sharded" when the engine has a mesh or an initialised
+``torch.distributed`` world has more than one rank, else "torch". A
+reference name (e.g. "jax_sharded") raises the registry's ``KeyError``.
 
 The engine carries its ``device`` ("cuda" unless the caller says
 otherwise; a missing CUDA device raises) and a ``stats`` dict into which
@@ -35,11 +44,12 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.device import resolve_device
 from repro_torch.obs.trace import get_tracer
 
-from . import solver_numpy, solver_torch
+from . import solver_numpy, solver_sharded, solver_torch
 from .graph import BipartiteGraph
 from .sketch import Sketch, compact_labels
 from .weights import make_weights
@@ -59,6 +69,7 @@ class ClusterSolver:
     name: str = "?"
     batched_grid: bool = False    # solve_many runs the grid in one call
     accepts_block_edges: bool = False   # solve(..., block_edges=) meaningful
+    accepts_mesh: bool = False    # solve(..., mesh=) meaningful
     auto_eligible: bool = True    # may be picked by auto-selection
 
     def solve(self, graph, wu, wv, gamma, budget=None, max_iters=8,
@@ -157,6 +168,17 @@ class _TorchHostloopSolver(ClusterSolver):
                                               device=device, stats=stats)
 
 
+class _TorchShardedSolver(ClusterSolver):
+    name = "torch_sharded"
+    accepts_mesh = True
+
+    def solve(self, graph, wu, wv, gamma, budget=None, max_iters=8,
+              init_labels=None, *, device, stats, mesh=None):
+        return solver_sharded.lp_solve_sharded(
+            graph, wu, wv, gamma, budget, max_iters, init_labels, mesh=mesh,
+            device=device, stats=stats)
+
+
 class _NumpySolver(ClusterSolver):
     name = "numpy"
     auto_eligible = False     # paper-faithful reference, orders slower
@@ -177,6 +199,7 @@ class _NumpySolver(ClusterSolver):
 register_solver(_TorchSolver())
 register_solver(_TorchHostloopSolver())
 register_solver(_TorchStreamedSolver())
+register_solver(_TorchShardedSolver())
 register_solver(_NumpySolver())
 
 
@@ -294,8 +317,11 @@ def _secondary_torch(graph: BipartiteGraph, labels, wu, wv, gamma, device):
 class ClusterEngine:
     """Routes co-clustering work through the selected solver.
 
-    solver: explicit override ("torch" | "torch_streamed" |
-            "torch_hostloop" | "numpy" | None/"auto").
+    solver: explicit override ("torch" | "torch_sharded" |
+            "torch_streamed" | "torch_hostloop" | "numpy" | None/"auto").
+    mesh:   1-D device mesh for "torch_sharded" (default: every rank of
+            the current world); passing a mesh also steers
+            auto-selection to the sharded solver.
     device: where the solves run ("cuda" by default; raises without a
             CUDA device unless the caller passes "cpu").
     candidates: "exact" (default) scores every neighbor label;
@@ -310,6 +336,7 @@ class ClusterEngine:
             hostloop solves need).
     """
     solver: Optional[str] = None
+    mesh: object = None
     device: Optional[str] = "cuda"
     candidates: str = "exact"
     block_edges: Optional[int] = None
@@ -327,6 +354,10 @@ class ClusterEngine:
     def resolve(self) -> ClusterSolver:
         if self.solver is not None and self.solver != "auto":
             return get_solver(self.solver)
+        if self.mesh is not None or (dist.is_available()
+                                     and dist.is_initialized()
+                                     and dist.get_world_size() > 1):
+            return get_solver("torch_sharded")
         return get_solver("torch")
 
     @staticmethod
@@ -337,6 +368,8 @@ class ClusterEngine:
 
     def _kw(self, solver: ClusterSolver) -> dict:
         kw = {"device": self.device, "stats": self.stats}
+        if solver.accepts_mesh:
+            kw["mesh"] = self.mesh
         if solver.accepts_block_edges and self.block_edges:
             kw["block_edges"] = int(self.block_edges)
         return kw

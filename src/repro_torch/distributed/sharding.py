@@ -1,0 +1,242 @@
+"""The paper pipeline's sharding helpers on ``torch.distributed`` (port of
+the edge-partition half of ``repro.distributed.sharding``).
+
+The reference is one controller over a ``jax`` device mesh; here each
+device is one process (a rank), as torch does it. A rank learns its
+world from the launcher (``torchrun``'s ``env://`` rendezvous) or, run
+alone, makes a world of 1 on a localhost store. A ``cuda`` device means
+NCCL and a ``cpu`` device means gloo; there is no fallback from one to
+the other.
+
+  * :func:`world` joins or makes the world and tears down what it made;
+    :func:`cluster_mesh` / :func:`data_mesh` are 1-D
+    ``torch.distributed.device_mesh.DeviceMesh`` objects over it, and
+    raise outside one (no call here leaves a process group behind);
+  * :func:`use_mesh` is the reference's ``with mesh:``; the code under
+    it reads the mesh with :func:`current_mesh` and its data-parallel
+    axes with :func:`batch_axes` (``training.compress``);
+  * :func:`edge_partition` and :func:`pad_to_shards` cut the edge blocks
+    and node ranges that ``core.solver_sharded`` splits one LP half-step
+    over.
+
+The reference's logical-axis layouts of the model cells (``shard_map``,
+``shard``, ``named_sharding``, ``logical_to_spec``, ``logical_mapping``,
+``current_mapping``) belong to the LM side of the sharded path and are
+not ported yet (ROADMAP Queue 1 #7c-ii).
+"""
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import os
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.device import resolve_device
+
+__all__ = ["world", "entry_world", "cluster_mesh", "data_mesh", "use_mesh",
+           "current_mesh", "batch_axes", "edge_partition", "pad_to_shards"]
+
+# what torchrun's env:// rendezvous sets for every rank
+_RENDEZVOUS_ENV = ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE")
+
+_BACKEND = {"cuda": "nccl", "cpu": "gloo"}
+
+
+def _launched_by_torchrun() -> bool:
+    """Whether the launcher set this process's rank and world."""
+    return all(k in os.environ for k in _RENDEZVOUS_ENV)
+
+
+def _backend(dev: torch.device) -> str:
+    if dev.type not in _BACKEND:
+        raise ValueError(f"no process-group backend for device {dev}")
+    return _BACKEND[dev.type]
+
+
+def _rank_device(dev: torch.device) -> torch.device:
+    """The device this rank runs on: under torchrun a CUDA rank takes the
+    card of its ``LOCAL_RANK``."""
+    if dev.type != "cuda":
+        return dev
+    if _launched_by_torchrun():
+        return torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+    return torch.device("cuda", torch.cuda.current_device()
+                        if dev.index is None else dev.index)
+
+
+def _check_world(dev: torch.device) -> None:
+    got = dist.get_backend()
+    if got != _backend(dev):
+        raise RuntimeError(f"the process group runs {got!r}, but device "
+                           f"{dev} needs {_backend(dev)!r}")
+
+
+def _init_world(dev: torch.device) -> torch.device:
+    dev = _rank_device(dev)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    if _launched_by_torchrun():
+        dist.init_process_group(_backend(dev), init_method="env://")
+    else:
+        # port 0: the OS picks a free port, so two runs never collide
+        store = dist.TCPStore("127.0.0.1", 0, 1, True)
+        dist.init_process_group(_backend(dev), store=store, rank=0,
+                                world_size=1)
+    return dev
+
+
+@contextlib.contextmanager
+def world(device="cuda"):
+    """Join the launcher's world, or make a world of 1 on a localhost
+    store; yields this rank's device. A world this call made is
+    destroyed when the block ends, also when it raises; a world that
+    was already there is only checked against the device's backend."""
+    dev = resolve_device(device)
+    if dist.is_initialized():
+        _check_world(dev)
+        yield _rank_device(dev)
+        return
+    dev = _init_world(dev)
+    try:
+        yield dev
+    finally:
+        dist.destroy_process_group()
+
+
+def entry_world(device, sharded: bool):
+    """The entry points' world: the launcher's under torchrun, a world of
+    1 when a sharded solver or trainer was asked for, else none (the
+    context then yields the resolved device)."""
+    if sharded or _launched_by_torchrun():
+        return world(device)
+    return contextlib.nullcontext(resolve_device(device))
+
+
+def cluster_mesh(n_devices: Optional[int] = None, axis: str = "edge",
+                 device="cuda"):
+    """1-D device mesh over the current world, named ``axis``; raises
+    when no process group is initialised (open one with :func:`world`).
+    ``n_devices``, when given, must be the world size."""
+    from torch.distributed.device_mesh import init_device_mesh
+    if not dist.is_initialized():
+        raise RuntimeError("no torch.distributed world: run under "
+                           "repro_torch.distributed.world(device) or "
+                           "torchrun")
+    dev = resolve_device(device)
+    _check_world(dev)
+    n = dist.get_world_size()
+    if n_devices is not None and int(n_devices) != n:
+        raise ValueError(f"a mesh of {n_devices} devices needs a world of "
+                         f"{n_devices} ranks, this world has {n}")
+    return init_device_mesh(dev.type, (n,), mesh_dim_names=(axis,))
+
+
+def data_mesh(n_devices: Optional[int] = None, device="cuda"):
+    """1-D "data" mesh over the world: the fused_sharded trainer splits
+    each BPR batch across it and all-reduces the gradients."""
+    return cluster_mesh(n_devices, axis="data", device=device)
+
+
+_MESH = contextvars.ContextVar("repro_torch_mesh", default=None)
+
+
+@contextlib.contextmanager
+def use_mesh(mesh):
+    """The reference's ``with mesh:``: code in the block sees ``mesh`` as
+    :func:`current_mesh`."""
+    token = _MESH.set(mesh)
+    try:
+        yield mesh
+    finally:
+        _MESH.reset(token)
+
+
+def current_mesh():
+    """The mesh of the innermost :func:`use_mesh` block, or None."""
+    return _MESH.get()
+
+
+def batch_axes(mesh) -> tuple:
+    """Mesh axes implementing the logical batch axis."""
+    names = mesh.mesh_dim_names or ()
+    return tuple(a for a in ("pod", "data") if a in names)
+
+
+# ---------------------------------------------------------------------------
+# edge-partitioned co-clustering (ClusterEngine "torch_sharded" solver)
+#
+# The LP half-step updates one side of the bipartite graph from its
+# incident edges. Edges arrive sorted by the updating-side node, so a
+# contiguous partition of that side's node range induces a contiguous
+# edge partition: each rank owns a node range plus exactly the edges
+# into it, computes the per-(node, candidate-label) counts locally, and
+# only the per-label opposite-side weight totals, one f32[n_labels]
+# vector, cross ranks, through one all-reduce.
+# ---------------------------------------------------------------------------
+def edge_partition(node_of_edge: np.ndarray, opp_of_edge: np.ndarray,
+                   n_side: int, n_shards: int, bounds=None):
+    """Split edges (sorted by updating-side node) into per-shard blocks.
+
+    Default (bounds=None): nodes are partitioned into ``n_shards``
+    contiguous ranges of ``nodes_per_shard``; each shard's edge block is
+    the contiguous run of edges into its range, padded to the max block
+    length with sentinel edges (local node id == nodes_per_shard) at
+    its tail. Returns (node_local int32[S*Emax], opp int32[S*Emax],
+    nodes_per_shard), flat, shard s at ``[s*Emax, (s+1)*Emax)``.
+
+    bounds: optional node-aligned EDGE offsets (``node_aligned_bounds``
+    / ``graph.edge_block_bounds``) of length ``n_shards + 1``. Shards
+    then own edge-balanced blocks, node alignment is validated, and the
+    return gains each shard's first owned node: (node_local, opp,
+    nodes_per_shard, node_starts int64[S + 1]) with local ids relative
+    to ``node_starts[s]``.
+    """
+    if bounds is None:
+        nps = max(1, -(-n_side // n_shards))
+        bounds = np.searchsorted(
+            node_of_edge, np.arange(n_shards + 1, dtype=np.int64) * nps)
+        emax = max(1, int(np.max(np.diff(bounds))))
+        node_local = np.full((n_shards, emax), nps, dtype=np.int32)
+        opp = np.zeros((n_shards, emax), dtype=np.int32)
+        for s in range(n_shards):
+            lo, hi = int(bounds[s]), int(bounds[s + 1])
+            node_local[s, :hi - lo] = node_of_edge[lo:hi] - s * nps
+            opp[s, :hi - lo] = opp_of_edge[lo:hi]
+        return node_local.reshape(-1), opp.reshape(-1), nps
+    bounds = np.asarray(bounds, np.int64)
+    e = int(node_of_edge.shape[0])
+    if bounds.size != n_shards + 1 or bounds[0] != 0 or bounds[-1] != e:
+        raise ValueError(f"bounds must be {n_shards + 1} offsets covering "
+                         f"[0, {e}], got shape {bounds.shape}")
+    cuts = bounds[1:-1]
+    inner = cuts[(cuts > 0) & (cuts < e)]
+    if inner.size and np.any(node_of_edge[inner - 1] == node_of_edge[inner]):
+        raise ValueError("bounds are not node-aligned: a node's edge run "
+                         "straddles a shard cut")
+    node_starts = np.full(n_shards + 1, n_side, np.int64)
+    if e:
+        node_starts[:-1] = node_of_edge[np.minimum(bounds[:-1], e - 1)]
+    else:
+        node_starts[:-1] = 0
+    nps = max(1, int(np.max(np.diff(node_starts))))
+    emax = max(1, int(np.max(np.diff(bounds))))
+    node_local = np.full((n_shards, emax), nps, dtype=np.int32)
+    opp = np.zeros((n_shards, emax), dtype=np.int32)
+    for s in range(n_shards):
+        lo, hi = int(bounds[s]), int(bounds[s + 1])
+        node_local[s, :hi - lo] = node_of_edge[lo:hi] - node_starts[s]
+        opp[s, :hi - lo] = opp_of_edge[lo:hi]
+    return node_local.reshape(-1), opp.reshape(-1), nps, node_starts
+
+
+def pad_to_shards(x: np.ndarray, n_shards: int, per_shard: int,
+                  fill=0) -> np.ndarray:
+    """Pad a per-node host array to n_shards*per_shard (shard s owns
+    ``[s*per_shard, (s+1)*per_shard)``)."""
+    out = np.full(n_shards * per_shard, fill, dtype=x.dtype)
+    out[:x.shape[0]] = x
+    return out

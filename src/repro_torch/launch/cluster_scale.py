@@ -20,8 +20,10 @@ block)). Per rung the record holds:
     candidate build time, recall of the exact argmax, candidates per
     node against the label universe).
 
-The reference's node-aligned vs uniform shard balance
-(``shard_imbalance_*``) waits for the port of the sharding layer.
+  * the shard balance at 8 shards (:func:`shard_balance`, host numpy):
+    the largest shard's edge count over the mean for uniform node ranges
+    (``shard_imbalance_uniform``) and for node-aligned edge-balanced
+    bounds (``shard_imbalance_aligned``).
 
     python -m repro_torch.launch.cluster_scale --device cpu --rungs 10k
     python -m repro_torch.launch.cluster_scale --rungs 100k,1m --json
@@ -106,6 +108,30 @@ def solve_inmem(graph, wu, wv, device: str, solver: str = "torch"):
     return labels, sweeps, seconds, peak
 
 
+def shard_balance(graph, n_shards: int = 8):
+    """(uniform, aligned): max/mean per-shard edge count for uniform node
+    ranges and for the node-aligned edge-balanced bounds that
+    ``edge_partition(bounds=...)`` takes (the reference's
+    ``_shard_balance``)."""
+    from repro_torch.core.graph import node_aligned_bounds
+    from repro_torch.distributed.sharding import edge_partition
+    indptr = graph.user_csr()[0]
+    e = graph.n_edges
+    if e == 0:
+        return 1.0, 1.0
+    nps = -(-graph.n_users // n_shards)
+    cuts = np.minimum(np.arange(n_shards + 1, dtype=np.int64) * nps,
+                      graph.n_users)
+    uni = np.diff(indptr[cuts]).astype(np.float64)
+    bounds = node_aligned_bounds(indptr, -(-e // n_shards))
+    # the composed partition validates the bounds' node alignment
+    edge_partition(graph.edge_u, graph.edge_v, graph.n_users,
+                   bounds.size - 1, bounds=bounds)
+    ali = np.diff(bounds).astype(np.float64)
+    mean = e / n_shards
+    return float(uni.max() / mean), float(ali.max() / mean)
+
+
 def _best_of_2(fn):
     dt = float("inf")
     out = None
@@ -167,8 +193,7 @@ def cold_experiment(graph, labels, device: str) -> dict:
 
 def bench_rung(rung: str, block_edges: int, inmem_max_edges: int,
                device: str, log=print) -> dict:
-    """One rung's record (the reference's keys, less the shard
-    balance)."""
+    """One rung's record (the reference's keys)."""
     from repro_torch.core import make_weights
     from repro_torch.core.metrics import bipartite_modularity
 
@@ -193,6 +218,8 @@ def bench_rung(rung: str, block_edges: int, inmem_max_edges: int,
         rec["modularity_inmem"] = bipartite_modularity(g, ref)
         log(f"[scale] {rung}: in-memory parity "
             f"bitwise={rec['bitwise_equal_inmem']}")
+    rec["shard_imbalance_uniform"], rec["shard_imbalance_aligned"] = \
+        shard_balance(g)
     rec["cold"] = c = cold_experiment(g, labels, device)
     log(f"[scale] {rung}: cold-assign {c['n_cold_users']} users, "
         f"labels={c['n_labels']}, candidates/node={c['mean_candidates']:.1f} "

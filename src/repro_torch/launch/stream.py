@@ -16,7 +16,10 @@ hot-swap serving stack (``repro_torch.stream``), in one process:
 The stream is the drifting planted-co-cluster generator
 (``repro_torch.data.drifting_coclusters``); ``--artifact DIR`` also
 publishes the final bundle. Runs on the CUDA device by default
-(``--device cpu`` runs the kernels' plain versions on the CPU).
+(``--device cpu`` runs the kernels' plain versions on the CPU). Under
+``torchrun`` every rank joins the launcher's ``torch.distributed`` world
+and the solves shard over it ("torch_sharded"); run alone,
+``--cluster-solver torch_sharded`` runs on a world of 1.
 """
 from __future__ import annotations
 
@@ -47,27 +50,34 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--cluster-solver", default="auto",
                     help="ClusterEngine solver: auto | torch | "
-                         "torch_streamed | torch_hostloop | numpy")
+                         "torch_sharded | torch_streamed | torch_hostloop "
+                         "| numpy (auto picks torch_sharded on a world of "
+                         "several ranks)")
     ap.add_argument("--artifact", default=None,
                     help="publish the final artifact here")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    from repro_torch.core import ClusterEngine, normalize_solver
-    from repro_torch.data import drifting_coclusters
-    from repro_torch.device import resolve_device
-    from repro_torch.stream import ReplayConfig, StreamUpdater, replay
-    from repro_torch.training import TrainConfig, Trainer
-
-    device = resolve_device(args.device)
+    from repro_torch.core import normalize_solver
+    from repro_torch.distributed import entry_world
     try:
         solver = normalize_solver(args.cluster_solver)
     except KeyError as e:
         ap.error(str(e.args[0]))
+    with entry_world(args.device, solver == "torch_sharded") as device:
+        return _replay(args, solver, device)
+
+
+def _replay(args, solver, device):
+    from repro_torch.core import ClusterEngine
+    from repro_torch.data import drifting_coclusters
+    from repro_torch.stream import ReplayConfig, StreamUpdater, replay
+    from repro_torch.training import TrainConfig, Trainer
+
     stream = drifting_coclusters(args.n_users, args.n_items, args.k_true,
                                  args.avg_deg, T=args.t_steps,
                                  drift=args.drift, seed=args.seed)
-    engine = ClusterEngine(solver=solver, device=device)
+    engine = ClusterEngine(solver=solver, device=str(device))
     print(f"[stream] warm prefix {stream.n_warm_users}x"
           f"{stream.n_warm_items} ({stream.base.n_edges} edges); "
           f"{args.t_steps} waves to {args.n_users}x{args.n_items} "
@@ -86,7 +96,16 @@ def main(argv=None):
             "k_users": args.n_users // 2, "k_items": args.n_items // 2,
             "n_edges": stream.base.n_edges
             + sum(s.edge_u.size for s in stream.steps)}
-    updater = StreamUpdater.from_trainer(tr, engine=engine, capacity=caps)
+    # capacity-padded refresh solves run the in-memory solver; a pinned
+    # solver other than "torch" must really be used, so it forgoes them
+    # (the reference's rule)
+    updater_caps = caps if solver in (None, "torch") else None
+    if updater_caps is None:
+        print(f"[stream] note: --cluster-solver={args.cluster_solver} "
+              f"pins refresh solves to that solver; capacity-stable "
+              f"refresh needs the torch solver")
+    updater = StreamUpdater.from_trainer(tr, engine=engine,
+                                         capacity=updater_caps)
     session = art.session(k=args.k, capacity=caps, device=device)
     session.warmup(8)
     allocated = session.state_allocations

@@ -31,6 +31,16 @@ Fault-tolerance knobs:
 
 Runs on the CUDA device by default (``--device cpu`` runs the kernels'
 plain versions on the CPU).
+
+Several ranks: under ``torchrun`` every rank joins the launcher's
+``torch.distributed`` world (NCCL on ``--device cuda``, each rank on the
+card of its ``LOCAL_RANK``; gloo on ``--device cpu``), auto-selection
+then picks the "torch_sharded" solver, and ``--trainer-backend
+fused_sharded`` trains data parallel; rank 0 alone checkpoints and
+exports. Run alone, a sharded solver or trainer runs on a world of 1:
+
+    torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
+        --trainer-backend fused_sharded
 """
 from __future__ import annotations
 
@@ -40,10 +50,21 @@ import time
 
 
 def paper_pipeline(args):
+    from repro_torch.distributed import entry_world
+    sharded = (args.cluster_solver == "torch_sharded"
+               or args.trainer_backend == "fused_sharded")
+    with entry_world(args.device, sharded) as device:
+        return _paper_pipeline(args, device)
+
+
+def _paper_pipeline(args, device):
+    import torch.distributed as dist
+
     from repro_torch.core import ClusterEngine, build_sketch, normalize_solver
     from repro_torch.data import paperlike_dataset
     from repro_torch.training import TrainConfig, Trainer
 
+    rank = dist.get_rank() if dist.is_initialized() else 0
     g, uc, ic, train, test = paperlike_dataset(args.dataset, seed=args.seed)
     print(f"[train] dataset={args.dataset}: {train.n_users} users, "
           f"{train.n_items} items, {train.n_edges} edges")
@@ -51,15 +72,18 @@ def paper_pipeline(args):
         sketch = None
     elif args.method == "baco":
         engine = ClusterEngine(solver=normalize_solver(args.cluster_solver),
-                               device=args.device)
+                               device=str(device))
         sketch = engine.build(train, d=args.dim, ratio=args.ratio,
                               batched_gamma=args.batched_gamma)
     else:
         sketch = build_sketch(args.method, train,
                               budget=int(args.ratio * train.n_nodes),
-                              device=args.device)
+                              device=device)
     if sketch is not None:
-        print(f"[train] sketch {sketch.method}: K_u={sketch.k_users} "
+        solver = (sketch.meta or {}).get("solver")
+        print(f"[train] sketch {sketch.method}"
+              + (f" (solver {solver})" if solver else "")
+              + f": K_u={sketch.k_users} "
               f"K_v={sketch.k_items} ({sketch.n_params(args.dim)} params, "
               f"{sketch.compression_ratio(args.dim) * 100:.1f}% of full)")
     cfg = TrainConfig(dim=args.dim, steps=args.steps,
@@ -67,9 +91,11 @@ def paper_pipeline(args):
                       ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
                       seed=args.seed, backend=args.trainer_backend,
                       chunk_size=args.chunk_size, sampler=args.sampler)
-    tr = Trainer(train, sketch, cfg, device=args.device)
+    tr = Trainer(train, sketch, cfg, device=device)
+    world = (f" rank={rank}/{dist.get_world_size()}"
+             if dist.is_initialized() else "")
     print(f"[train] backend={tr.backend.name} sampler={tr.sampler.name} "
-          f"chunk={cfg.chunk_size} device={tr.device}")
+          f"chunk={cfg.chunk_size} device={tr.device}{world}")
     if args.resume and tr.maybe_resume():
         print(f"[train] resumed at step {tr.step}")
     t_start = time.time()
@@ -88,7 +114,7 @@ def paper_pipeline(args):
     print(f"[train] method={args.method} params={tr.n_params()} "
           f"recall@20={m['recall']:.4f} ndcg@20={m['ndcg']:.4f} "
           f"({time.time() - t_start:.1f}s)")
-    if args.export:
+    if args.export and rank == 0:
         tr.export(args.export)
         print(f"[train] exported artifact to {args.export}")
     return 0
@@ -133,16 +159,20 @@ def main(argv=None):
     ap.add_argument("--step-timeout", type=float, default=0)
     ap.add_argument("--trainer-backend", default="auto",
                     help="trainer backend: auto | host (per-step host "
-                         "sync) | fused (chunks with no host sync)")
+                         "sync) | fused (chunks with no host sync) | "
+                         "fused_sharded (data parallel over the ranks of "
+                         "the torch.distributed world)")
     ap.add_argument("--chunk-size", type=int, default=16,
-                    help="steps per chunk (fused backend)")
+                    help="steps per chunk (fused backends)")
     ap.add_argument("--sampler", default=None, choices=["numpy", "device"],
                     help="BPR sampler (default: the backend's own)")
     ap.add_argument("--export", default=None,
                     help="publish the trained CompressedArtifact here")
     ap.add_argument("--cluster-solver", default="auto",
                     help="ClusterEngine solver for --method baco: auto | "
-                         "torch | torch_streamed | torch_hostloop | numpy")
+                         "torch | torch_sharded | torch_streamed | "
+                         "torch_hostloop | numpy (auto picks torch_sharded "
+                         "on a world of several ranks)")
     ap.add_argument("--batched-gamma", action="store_true",
                     help="solve the gamma grid in blocks of lanes "
                          "(identical selection to the sequential walk)")

@@ -8,7 +8,9 @@ registered trainer backend. The baseline row is ``host_seed``, the
 frozen seed step (``index_add_`` propagation, six readout gathers) in
 the host loop; ``host`` is the same loop over the current step (the
 weighted CSR gather-sum kernel on CUDA); ``fused`` runs chunks of steps
-with the device sampler and one host copy a chunk. Rounds are
+with the device sampler and one host copy a chunk; ``fused_sharded`` is
+``fused`` data parallel over the ``torch.distributed`` world (a world of
+1 unless the bench runs under ``torchrun``). Rounds are
 interleaved across backends and medianed, so drift hits every backend
 equally; each round ends in a device synchronize. A backend that cannot
 run becomes an ``error`` row.
@@ -45,13 +47,19 @@ def _sync(device) -> None:
 def bench(dataset: str = "synth_xs", dim: int = 16, batch: int = 1024,
           steps: int = 32, rounds: int = 5, ratio: float = 0.25,
           chunks=CHUNKS, device="cuda"):
-    """-> list of JSON-able {backend, chunk, steps_per_s, speedups}."""
+    """-> list of JSON-able {backend, chunk, steps_per_s, speedups}.
+    Runs in a ``torch.distributed`` world (``distributed.world``) for the
+    ``fused_sharded`` rows."""
+    from repro_torch.distributed import world
+    with world(device) as dev:
+        return _bench(dataset, dim, batch, steps, rounds, ratio, chunks, dev)
+
+
+def _bench(dataset, dim, batch, steps, rounds, ratio, chunks, dev):
     from repro_torch.core import ClusterEngine
     from repro_torch.data import paperlike_dataset
-    from repro_torch.device import resolve_device
     from repro_torch.training import (TrainConfig, Trainer,
                                       available_trainer_backends)
-    dev = resolve_device(device)
     _, _, _, train, _ = paperlike_dataset(dataset, seed=0)
     sketch = ClusterEngine(device=dev).build(train, d=dim, ratio=ratio)
 

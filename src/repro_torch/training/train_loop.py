@@ -14,14 +14,18 @@ behind a trainer-backend registry:
   host once. Chunks never straddle a checkpoint multiple, so the save
   points (and bitwise resume) are the host backend's.
 
+* ``fused_sharded`` — ``fused`` data parallel over the ranks of a
+  ``torch.distributed`` world (the reference's ``:268-319``): params are
+  replicated, every rank draws the identical global batch for
+  (seed, step) and takes its contiguous slice, and the gradients of all
+  leaves and the loss go through ONE all-reduce a step over one flat
+  buffer, divided by the world size, before the same AdamW update. On a
+  world of 1 it is bitwise ``fused``. Only rank 0 writes checkpoints.
+
 * ``host_seed`` — the host loop over the frozen seed step
   (``lightgcn.bpr_loss_fn_seed``: ``index_add_`` propagation, six
   readout gathers): the benchmarks' "seed host loop" baseline, which no
   default selects (the reference's ``:170-193``).
-
-The reference's ``fused_sharded`` (data parallel over a device mesh) is
-not ported; asking for it raises the registry's ``KeyError``, naming the
-ROADMAP item it waits for.
 
 Fault tolerance: ``CheckpointManager`` captures (params, optimizer
 state, sampler state) in the reference's layout; ``maybe_resume``
@@ -36,8 +40,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from repro_torch.configs.registry import SHARDED_ITEM, not_ported
 from repro_torch.core.graph import BipartiteGraph
 from repro_torch.core.sketch import Sketch
 from repro_torch.data.sampler import make_sampler
@@ -66,13 +70,14 @@ class TrainConfig:
     eval_k: int = 20
     # EmbeddingEngine backend for all table lookups (None -> auto)
     lookup_backend: Optional[str] = None
-    # trainer backend: host | host_seed | fused (None/auto -> host)
+    # trainer backend: host | host_seed | fused | fused_sharded
+    # (None/auto -> host)
     backend: Optional[str] = None
-    # steps per chunk (fused backend)
+    # steps per chunk (fused backends)
     chunk_size: int = 16
     # sampler: numpy | device (None -> the backend's default)
     sampler: Optional[str] = None
-    # the reference's device count of fused_sharded (not ported)
+    # fused_sharded: the world size it requires (None -> the whole world)
     n_devices: Optional[int] = None
     # streaming evaluation: items scored per block
     eval_item_block: int = 4096
@@ -87,6 +92,7 @@ class TrainerBackend:
 
     name = "?"
     default_sampler = "numpy"
+    saves = True          # this process writes the checkpoints
 
     def setup(self, trainer: "Trainer"):
         """Check what the backend needs of the trainer."""
@@ -112,9 +118,6 @@ def normalize_trainer_backend(name: Optional[str]) -> Optional[str]:
     """None/'auto' -> None (Trainer picks 'host'); validates otherwise."""
     if name is None or name == "auto":
         return None
-    if name == "fused_sharded":
-        raise KeyError(not_ported(f"the trainer backend {name!r}",
-                                  SHARDED_ITEM).args[0])
     if name not in _TRAINER_BACKENDS:
         raise KeyError(f"unknown trainer backend {name!r}: "
                        f"expected one of {available_trainer_backends()}")
@@ -200,10 +203,14 @@ class FusedBackend(TrainerBackend):
         losses = torch.empty(n, dtype=torch.float32, device=trainer.device)
         for i in range(n):
             u, p, neg = sample(seed, trainer.step + i)
-            losses[i] = trainer.train_step({"user": u, "pos": p, "neg": neg})
+            losses[i] = self.step(trainer, {"user": u, "pos": p, "neg": neg})
         trainer.step += n
         trainer.sampler.step = trainer.step
         return losses
+
+    def step(self, trainer, batch: dict) -> torch.Tensor:
+        """One step on a global batch; the loss as a 0-d device tensor."""
+        return trainer.train_step(batch)
 
     def run(self, trainer, steps, log_every):
         losses = []
@@ -216,6 +223,53 @@ class FusedBackend(TrainerBackend):
             if log_every and trainer.step // log_every > prev // log_every:
                 _log(losses, trainer.step, log_every, t0)
         return losses
+
+
+@register_trainer_backend
+class FusedShardedBackend(FusedBackend):
+    """``fused`` data parallel over the ranks of a "data" mesh: each rank
+    takes its contiguous slice of the global batch, and one all-reduce a
+    step sums the gradients and the loss (mean over equal local means ==
+    the global batch mean). The all-reduce is enqueued on the device like
+    every other step op, so a chunk still makes no host sync. Needs an
+    open world (``distributed.world`` or torchrun); the trainer raises
+    outside one."""
+
+    name = "fused_sharded"
+    default_sampler = "device"
+
+    def setup(self, trainer):
+        from repro_torch.distributed.sharding import data_mesh
+        super().setup(trainer)
+        mesh = data_mesh(trainer.cfg.n_devices, device=trainer.device)
+        n_dev = mesh.size()
+        batch = int(trainer.cfg.batch_size)
+        if batch % n_dev:
+            raise ValueError(f"batch_size {batch} not divisible by the "
+                             f"{n_dev}-device data mesh")
+        self.local = batch // n_dev
+        self.lo = mesh.get_local_rank() * self.local
+        self.group = mesh.get_group()
+        self.saves = mesh.get_local_rank() == 0
+        # a device tensor: dividing by a host scalar on CUDA multiplies
+        # by its reciprocal, which is not the reference's division
+        self.world = torch.full((), float(n_dev), dtype=torch.float32,
+                                device=trainer.device)
+        numel = sum(int(p.numel()) for p in trainer.params.values())
+        self.allreduce_bytes = 4 * (numel + 1)
+
+    def step(self, trainer, batch):
+        local = {k: v[self.lo:self.lo + self.local] for k, v in batch.items()}
+        names = sorted(trainer.params)
+        loss, grads = trainer.loss_and_grads(local)
+        flat = torch.cat([g.reshape(-1) for g in grads] + [loss.reshape(1)])
+        dist.all_reduce(flat, group=self.group)
+        flat = flat / self.world
+        parts = flat.split([int(g.numel()) for g in grads] + [1])
+        trainer.optimizer.update(
+            {k: part.view(g.shape) for k, part, g in zip(names, parts, grads)},
+            trainer.opt_state, trainer.params)
+        return parts[-1][0]
 
 
 class Trainer:
@@ -254,15 +308,21 @@ class Trainer:
     def _on(self, x) -> torch.Tensor:
         return torch.as_tensor(x, device=self.device)
 
-    def train_step(self, batch: dict) -> torch.Tensor:
-        """One BPR step in place: loss, gradients of both tables, AdamW.
-        Returns the loss as a 0-d device tensor."""
+    def loss_and_grads(self, batch: dict):
+        """The BPR loss (0-d, detached) and the gradients of the params in
+        sorted-name order."""
         names = sorted(self.params)
         loss = self._loss_fn(self.params, self.statics, batch, self.mcfg)
         grads = torch.autograd.grad(loss, [self.params[k] for k in names])
-        self.optimizer.update(dict(zip(names, grads)), self.opt_state,
-                              self.params)
-        return loss.detach()
+        return loss.detach(), grads
+
+    def train_step(self, batch: dict) -> torch.Tensor:
+        """One BPR step in place: loss, gradients of both tables, AdamW.
+        Returns the loss as a 0-d device tensor."""
+        loss, grads = self.loss_and_grads(batch)
+        self.optimizer.update(dict(zip(sorted(self.params), grads)),
+                              self.opt_state, self.params)
+        return loss
 
     # -- checkpoint glue -----------------------------------------------------
     def _state_tree(self):
@@ -270,7 +330,7 @@ class Trainer:
 
     def _maybe_checkpoint(self, prev_step: Optional[int] = None,
                           force: bool = False):
-        if self.ckpt is not None:
+        if self.ckpt is not None and self.backend.saves:
             self.ckpt.maybe_save(self.step, self._state_tree(),
                                  extra={"sampler":
                                         self.sampler.state_dict()},

@@ -417,7 +417,8 @@ def test_train_bench_rows_cover_every_backend(tmp_path, capsys):
     payload = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     keys = [(r["backend"], r["chunk"]) for r in payload["records"]]
     assert keys == [("host_seed", 1), ("host", 1), ("fused", 1),
-                    ("fused", 8), ("fused", 32)]
+                    ("fused", 8), ("fused", 32), ("fused_sharded", 1),
+                    ("fused_sharded", 8), ("fused_sharded", 32)]
     seed_row = payload["records"][0]
     assert seed_row["speedup_vs_seed"] == 1.0
     assert all(r["steps_per_s"] > 0 for r in payload["records"])

@@ -15,7 +15,9 @@ version on skewed bags with zero, -0.0 and negative weights, one row of
 100,000 values, all rows empty and no rows; ``_Propagate``'s forward and
 backward are bitwise equal across two runs and within 1e-6 of the CPU's
 (the same fold, in the same order); the fused trainer is bitwise the host trainer
-with the device sampler, and a warm chunk runs under sync-debug "error".
+with the device sampler, and a warm chunk runs under sync-debug "error";
+on an NCCL world of 1 the torch_sharded sketch and the fused_sharded
+trainer are bitwise their unsharded twins.
 A capacity-padded fused session (fp32 and int8) serves bitwise what an
 unpadded one serves, a swap within the rungs allocates no device
 state and then serves what a fresh session serves, and the
@@ -942,6 +944,45 @@ def test_fused_trainer_equals_host_on_the_card(dev, tmp_path):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert torch.isfinite(losses).all()
+
+
+def test_sharded_world_of_one_on_the_card(dev):
+    """An NCCL world of 1: the torch_sharded sketch and the fused_sharded
+    trainer (its all-reduce on the card, a warm chunk free of host syncs)
+    bitwise their unsharded twins; the world ends with the block."""
+    import torch.distributed as dist
+
+    from repro_torch.core import ClusterEngine
+    from repro_torch.distributed import world
+    from repro_torch.training import TrainConfig, Trainer
+    g, sk = _small_training_setup()
+    cfg = TrainConfig(dim=32, steps=24, batch_size=256, lr=5e-3,
+                      chunk_size=8)
+    with world("cuda") as d:
+        assert dist.get_backend() == "nccl"
+        a = ClusterEngine(device=str(d)).build(g, d=32, ratio=0.3)
+        b = ClusterEngine(solver="torch_sharded", device=str(d)).build(
+            g, d=32, ratio=0.3)
+        assert np.array_equal(a.user_idx, b.user_idx)
+        assert np.array_equal(a.item_idx, b.item_idx)
+        assert a.meta["gamma"] == b.meta["gamma"]
+        out = {}
+        for backend in ("fused", "fused_sharded"):
+            tr = Trainer(g, sk, TrainConfig(**{**cfg.__dict__,
+                                               "backend": backend}), device=d)
+            out[backend] = (tr.run(log_every=0), tr)
+        assert out["fused"][0] == out["fused_sharded"][0]
+        for k, v in out["fused"][1].params.items():
+            assert torch.equal(out["fused_sharded"][1].params[k], v)
+        tr = out["fused_sharded"][1]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            losses = tr.backend.chunk(tr, 8)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert torch.isfinite(losses).all()
+    assert not dist.is_initialized()
 
 
 def _stream_artifacts(dev):

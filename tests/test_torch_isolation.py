@@ -55,7 +55,7 @@ def test_port_imports_neither_jax_nor_reference():
 def test_port_mirrors_reference_subpackages():
     for sub in ("core", "data", "embedding", "kernels", "models", "serve",
                 "obs", "launch", "training", "stream", "frontdoor",
-                "results"):
+                "results", "distributed"):
         assert (PORT / sub / "__init__.py").exists(), sub
         assert (REPO / "src" / "repro" / sub).is_dir(), sub
 

@@ -206,14 +206,14 @@ def test_numpy_secondary_and_build_equal_reference(small):
 # ---------------------------------------------------------------------------
 def test_registry_and_normalize_solver():
     assert available_solvers() == ("numpy", "torch", "torch_hostloop",
-                                   "torch_streamed")
+                                   "torch_sharded", "torch_streamed")
     assert normalize_solver(None) is None and normalize_solver("auto") is None
     assert normalize_solver("torch_streamed") == "torch_streamed"
     with pytest.raises(KeyError, match="torch_streamed"):
         normalize_solver("jax_streamed")
     assert ClusterEngine(device="cpu").resolve().name == "torch"
     assert [n for n in available_solvers()
-            if get_solver(n).auto_eligible] == ["torch"]
+            if get_solver(n).auto_eligible] == ["torch", "torch_sharded"]
     assert get_solver("torch_streamed").accepts_block_edges
     with pytest.raises(ValueError):
         ClusterEngine(block_edges=0, device="cpu")

@@ -423,13 +423,15 @@ def test_gather_backend_backward_is_deterministic_across_threads():
 
 def test_backend_registry(setup):
     _, gt, sk, _, _ = setup
-    assert available_trainer_backends() == ("fused", "host", "host_seed")
-    for name in ("fused_sharded", "nope"):
-        with pytest.raises(KeyError):
-            Trainer(gt, sk, TrainConfig(**_cfg(backend=name)), device="cpu")
-    with pytest.raises(ValueError):
-        Trainer(gt, sk, TrainConfig(**_cfg(backend="fused",
-                                           sampler="numpy")), device="cpu")
+    assert available_trainer_backends() == ("fused", "fused_sharded",
+                                            "host", "host_seed")
+    with pytest.raises(KeyError):
+        Trainer(gt, sk, TrainConfig(**_cfg(backend="nope")), device="cpu")
+    for name in ("fused", "fused_sharded"):
+        with pytest.raises(ValueError):
+            Trainer(gt, sk, TrainConfig(**_cfg(backend=name,
+                                               sampler="numpy")),
+                    device="cpu")
 
 
 def test_export_loads_in_both_packages(setup, tmp_path):
