@@ -158,6 +158,28 @@
    train step of each LM: loss rtol 1e-2, gradients within 8 bf16 ulps
    of max |g|) then run on the card against the port's CPU path. It
    prints an ``lm`` JSON line.
+   Then the LM cells over a mesh (``lm_mesh``): an NCCL world of 1 under
+   ``launch.mesh.make_host_mesh()``, each cell through ``build_cell(...,
+   mesh=...)`` at the lm phase's one-card cut beside its unsharded twin
+   on the same params and inputs: gemma2-9b decode_32k (B 4; the tensor-
+   parallel path) and dbrx-132b decode_32k (8 layers, B 8; the expert-
+   parallel path), one warm-up and ``n`` timed calls each, logits and the
+   cache slots the step writes bitwise the twin's; one dbrx-132b
+   train_4k step (1 layer, 8 x 4,096; the backward through the tensor-
+   and expert-parallel Functions), its loss and a digest of every
+   updated param bitwise the twin's (each cell drawn afresh from seed
+   0); one ``build_pp_train_cell`` step of qwen1.5-32b at train_4k's
+   sequence (1 stage, 8 microbatches of one sequence; its depth
+   reckoned against 85% of the card, ``lm_pp_layers``) against the
+   microbatched one-card step at the same cut: loss within rtol 1e-5,
+   at most 1% of the params different, each by at most 2 lr + 2^-7 |p|
+   (the pipeline sums each param's gradient over the microbatches in
+   bf16, the one-card step in f32; ``tests/test_torch_mesh.py`` holds the
+   same bound on the CPU). Counts are zeroed just before each mesh run
+   and read just after: the token lookup once a call or microbatch, the
+   bf16 CSR gather-sum as the one-card cells run it; the collectives
+   and the bytes they all-reduce a call or step are printed. It prints
+   an ``lm_mesh`` JSON line; its launches count into the kernels line.
    Then SchNet (``gnn``) at its published widths (d_hidden 64, 300 RBF,
    3 blocks, cutoff 10) through ``build_cell`` (``GNN_CELLS``):
    ``full_graph_sm`` (2,708 nodes, d_feat 1,433), ``minibatch_lg`` (a
@@ -260,7 +282,8 @@
    ``benches`` JSON line.
 
 Prints a ``stream`` JSON line, a ``frontdoor`` JSON line, a ``scale``,
-a ``baselines``, an ``arch``, an ``lm`` and a ``gnn`` JSON line, a
+a ``baselines``, an ``arch``, an ``lm``, an ``lm_mesh`` and a ``gnn`` JSON
+line, a
 ``kernels`` JSON line (the CSR gather-sum's bf16 instantiation has an
 entry of its own), a ``timer`` line
 (the timer's floor), a ``benches`` JSON line, the ``nvidia-smi``
@@ -2650,8 +2673,8 @@ def moe_drops(params, tok, cfg, no_drop_cfg) -> dict:
     for label, c in (("published", cfg), ("check", no_drop_cfg)):
         counts = []
 
-        def route(xt, router, moe, _counts=counts):
-            r = orig(xt, router, moe)
+        def route(xt, router, moe, *a, _counts=counts):
+            r = orig(xt, router, moe, *a)
             _counts.append((~r.keep).sum())
             return r
         T.moe_route = route
@@ -3135,6 +3158,343 @@ def lm_path() -> dict:
     res["small_reference_s"] = time.perf_counter() - t1
     res["seconds"] = time.perf_counter() - t0
     log(f"lm phase: {res['seconds']:.1f} s, launches {total}")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# the LM cells over a mesh (an NCCL world of 1)
+# ---------------------------------------------------------------------------
+# the decode cells and their timed calls after one warm-up, and the train
+# cell, each at its LM_ONE_CARD cut
+LM_MESH_DECODE = (("gemma2-9b", "decode_32k", 5), ("dbrx-132b", "decode_32k", 5))
+LM_MESH_TRAIN = ("dbrx-132b", "train_4k")
+# GPipe: qwen1.5-32b at train_4k's sequence, 8 sequences in 8
+# microbatches on one stage; bytes a param of the twin step (bf16 param
+# and gradient, f32 accumulator, f32 AdamW moments) and the headroom
+# left for activations and transients, against PEAK_SHARE of the card
+LM_PP = ("qwen1.5-32b", "train_4k", 8, 8)
+LM_PP_BYTES_PER_PARAM = 16
+LM_PP_HEADROOM = 8e9
+LM_PP_LR = 3e-4
+
+
+def tensors_digest(tensors) -> str:
+    """A digest of tensors' bits reckoned on the card (no copy to the
+    host): each tensor's words, as int64, dotted with fixed weights in
+    chunks (wrapping), then the sha256 of those sums."""
+    import torch
+
+    words = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    chunk = 1 << 24
+    w = None
+    sums = []
+    for t in tensors:
+        flat = t.detach().contiguous().view(-1).view(words[t.element_size()])
+        if w is None:
+            w = (torch.arange(1, chunk + 1, dtype=torch.int64,
+                              device=flat.device) * 2654435761) % 2147483647
+        acc = torch.zeros((), dtype=torch.int64, device=flat.device)
+        for i in range(0, flat.numel(), chunk):
+            part = flat[i:i + chunk].to(torch.int64)
+            acc = acc * 1000003 + (part * w[:part.numel()]).sum()
+        sums.append(acc)
+    return digest(torch.stack(sums).cpu().numpy())
+
+
+def written_slots(cache: dict, pos: int) -> dict:
+    """The cache slots a decode step at ``pos`` writes (copies)."""
+    out = {}
+    for k, t in cache.items():
+        length = t.shape[3]
+        slot = pos % length if k.endswith("local") else min(pos, length - 1)
+        out[k] = t[:, :, :, slot].clone()
+    return out
+
+
+def timed_calls(fn, args, n: int) -> tuple:
+    """One warm-up and ``n`` timed calls: (last output, ms of each)."""
+    from repro_torch.obs import clock
+
+    out = fn(*args)
+    ms = []
+    for _ in range(n):
+        sync("cuda")
+        t = clock.now()
+        out = fn(*args)
+        sync("cuda")
+        ms.append(clock.ms_between(t, clock.now()))
+    return out, ms
+
+
+def mesh_counts() -> dict:
+    from repro_torch.distributed import parallel as par
+    return dict(par.COUNTS)
+
+
+def zero_mesh_counts() -> None:
+    from repro_torch.distributed import parallel as par
+    zero_counts()
+    par.zero_counts()
+
+
+def lm_mesh_decode(mesh, arch: str, shape: str, n: int) -> dict:
+    """A decode cell on the mesh beside its one-card twin, on the twin's
+    params, cache and batch (on a world of 1 the mesh cell's blocks are
+    those tensors): logits and written slots bitwise."""
+    import gc
+
+    import torch
+
+    from repro_torch.launch.steps import LM_ONE_CARD, build_cell
+
+    label = f"{arch}:{shape}"
+    cut = LM_ONE_CARD[(arch, shape)]
+    t0 = time.perf_counter()
+    one = build_cell(arch, shape, smoke=False, device="cuda", **cut)
+    sync("cuda")
+    build_s = time.perf_counter() - t0
+    pos = int(one.args[2]["pos"])
+    out, one_ms = timed_calls(one.fn, one.args, n)
+    want_logits = out[0].clone()
+    want_slots = written_slots(out[1], pos)
+    del out
+    cell = build_cell(arch, shape, mesh=mesh, smoke=False, device="cuda",
+                      args=one.args, **cut)
+    require(cell.args[0]["embed"] is one.args[0]["embed"]
+            and all(cell.args[1][k] is v for k, v in one.args[1].items()),
+            f"{label}: the mesh cell does not hold the twin's tensors")
+    zero_mesh_counts()
+    out, mesh_ms = timed_calls(cell.fn, cell.args, n)
+    sync("cuda")
+    launches = {k: v for k, v in launch_counts().items() if v}
+    launches_16 = counted_kernels()["embedding_bag"].launches_16
+    coll = mesh_counts()
+    cfg = lm_config(arch, shape)
+    calls = n + 1
+    require(torch.equal(out[0], want_logits),
+            f"{label}: the mesh cell's logits are not the one-card cell's")
+    got_slots = written_slots(out[1], pos)
+    require(all(torch.equal(got_slots[k], v) for k, v in want_slots.items()),
+            f"{label}: the cache slots the mesh step wrote differ")
+    want_16 = calls * (cfg.n_layers if cfg.moe is not None else 0)
+    require(launches.get("codebook_lookup") == calls,
+            f"{label}: codebook_lookup launched {launches} in {calls} calls")
+    require(launches_16 == want_16
+            and launches.get("embedding_bag", 0) == want_16,
+            f"{label}: the bf16 CSR gather-sum launched {launches_16} "
+            f"({launches}), want {want_16}")
+    res = {"cell": label, "reduced": list(cell.reduced), "notes": cell.notes,
+           "calls": calls, "build_s": build_s,
+           "ms": mesh_ms, "ms_median": statistics.median(mesh_ms),
+           "one_card_ms": one_ms,
+           "one_card_ms_median": statistics.median(one_ms),
+           "launches": launches, "launches_bf16_gather_sum": launches_16,
+           "collectives_per_call": coll["collectives"] / calls,
+           "all_reduce_bytes_per_call": coll["all_reduce_bytes"] / calls,
+           "all_gather_bytes_per_call": coll["all_gather_bytes"] / calls,
+           "logits_digest": digest(want_logits.cpu().numpy()),
+           "slots_digest": tensors_digest(want_slots.values()),
+           "bitwise": True}
+    del one, cell, out, want_slots
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"lm_mesh {label}: {res}")
+    return res
+
+
+def lm_mesh_train(mesh, arch: str, shape: str) -> dict:
+    """One train step of the cell on the mesh and of its one-card twin,
+    each drawn afresh from seed 0: loss and every updated param
+    bitwise."""
+    import gc
+
+    import torch
+
+    from repro_torch.launch.steps import LM_ONE_CARD, build_cell
+    from repro_torch.models.recsys import flat_params
+    from repro_torch.obs import clock
+
+    label = f"{arch}:{shape}"
+    cut = LM_ONE_CARD[(arch, shape)]
+    res = {"cell": label}
+    for name, kw in (("one_card", {}), ("mesh", {"mesh": mesh})):
+        torch.cuda.empty_cache()
+        cell = build_cell(arch, shape, smoke=False, device="cuda", **kw,
+                          **cut)
+        sync("cuda")
+        zero_mesh_counts()
+        t = clock.now()
+        loss = cell.fn(*cell.args)[2]
+        sync("cuda")
+        ms = clock.ms_between(t, clock.now())
+        res[name] = {"step_ms": ms, "loss": float(loss),
+                     "params_digest": tensors_digest(
+                         flat_params(cell.args[0]).values()),
+                     "launches": {k: v for k, v in launch_counts().items()
+                                  if v},
+                     "launches_bf16_gather_sum":
+                         counted_kernels()["embedding_bag"].launches_16,
+                     **{f"{k}_per_step": v for k, v in
+                        mesh_counts().items()}}
+        if name == "mesh":
+            res["notes"] = cell.notes
+            res["reduced"] = list(cell.reduced)
+        del cell, loss
+        gc.collect()
+    one, m = res["one_card"], res["mesh"]
+    require(m["loss"] == one["loss"]
+            and m["params_digest"] == one["params_digest"],
+            f"{label}: the mesh step's loss or params differ from the "
+            f"one-card step's: {one} / {m}")
+    require(m["launches"] == one["launches"]
+            and m["launches_bf16_gather_sum"]
+            == one["launches_bf16_gather_sum"],
+            f"{label}: launches differ: {one['launches']} / {m['launches']}")
+    require(m["launches"].get("codebook_lookup", 0) > 0
+            and m["launches_bf16_gather_sum"] > 0,
+            f"{label}: a kernel of the path did not run: {m['launches']}")
+    res["launches"] = m["launches"]
+    res["launches_bf16_gather_sum"] = m["launches_bf16_gather_sum"]
+    res["bitwise"] = True
+    torch.cuda.empty_cache()
+    log(f"lm_mesh train {label}: {res}")
+    return res
+
+
+def lm_pp_layers(arch: str) -> dict:
+    """The pipeline check's depth: the most layers whose params, at
+    ``LM_PP_BYTES_PER_PARAM`` bytes each, leave ``LM_PP_HEADROOM`` within
+    ``PEAK_SHARE`` of the card (the twin step holds params, gradients,
+    an f32 accumulator and two f32 moments)."""
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import transformer as T
+
+    cfg = get_arch(arch).full_config()
+    room = PEAK_SHARE * torch.cuda.get_device_properties(0).total_memory
+    n = 0
+    for layers in range(1, cfg.n_layers + 1):
+        c = dataclasses.replace(cfg, n_layers=layers)
+        if (T.count_params(c) * LM_PP_BYTES_PER_PARAM + LM_PP_HEADROOM
+                > room):
+            break
+        n = layers
+    require(n >= 1, f"{arch}: not one layer fits the pipeline check")
+    c = dataclasses.replace(cfg, n_layers=n)
+    return {"n_layers": n, "params": T.count_params(c),
+            "bytes": T.count_params(c) * LM_PP_BYTES_PER_PARAM,
+            "headroom": LM_PP_HEADROOM, "room": room}
+
+
+def lm_mesh_pp(mesh) -> dict:
+    """qwen1.5-32b's GPipe step on one stage against the microbatched
+    one-card step at the same cut, same params (seed 0) and batch."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.pipeline import build_pp_train_cell
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models.recsys import flat_params
+    from repro_torch.obs import clock
+
+    arch, shape, batch, n_micro = LM_PP
+    reckon = lm_pp_layers(arch)
+    n_layers = reckon["n_layers"]
+    full = get_arch(arch).full_config()
+    seq = get_arch(arch).shape(shape).dims["seq_len"]
+    label = f"{arch}:{shape} gpipe"
+    res = {"cell": label, "reckoning": reckon,
+           "reduced": [f"global_batch 256 -> {batch}",
+                       f"n_layers {full.n_layers} -> {n_layers}"],
+           "microbatches": n_micro, "stages": 1}
+    torch.cuda.empty_cache()
+    one = build_cell(arch, shape, smoke=False, device="cuda", batch=batch,
+                     n_layers=n_layers)
+    require(f"microbatches={n_micro}" in one.notes,
+            f"{label}: the twin runs {one.notes}")
+    sync("cuda")
+    t = clock.now()
+    want_loss = float(one.fn(*one.args)[2])
+    sync("cuda")
+    res["one_card_step_ms"] = clock.ms_between(t, clock.now())
+    want = {k: v.cpu() for k, v in flat_params(one.args[0]).items()}
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(full, n_layers=n_layers)
+    cell = build_pp_train_cell(cfg, global_batch=batch, seq=seq, mesh=mesh,
+                               n_micro=n_micro, device="cuda")
+    sync("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    zero_mesh_counts()
+    t = clock.now()
+    loss = float(cell.fn(*cell.args)[2])
+    sync("cuda")
+    res["step_ms"] = clock.ms_between(t, clock.now())
+    res["launches"] = {k: v for k, v in launch_counts().items() if v}
+    res["launches_bf16_gather_sum"] = \
+        counted_kernels()["embedding_bag"].launches_16
+    res.update({f"{k}_per_step": v for k, v in mesh_counts().items()})
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    res["loss"], res["one_card_loss"] = loss, want_loss
+    n_diff = n_all = 0
+    worst = 0.0
+    for k, v in flat_params(cell.args[0]).items():
+        w = want[k].to(v.device).float()
+        d = (v.float() - w).abs()
+        n_diff += int((d > 0).sum())
+        n_all += d.numel()
+        worst = max(worst, float((d - 2 * LM_PP_LR
+                                  - w.abs() * 2.0 ** -7).max()))
+    res["params_differing"] = n_diff / n_all
+    res["worst_over_bound"] = worst
+    res["tolerance"] = ("loss rtol 1e-5; at most 1% of params differ, each "
+                        "by at most 2 lr + 2^-7 |p|")
+    del cell, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    require(abs(loss - want_loss) <= 1e-5 * abs(want_loss),
+            f"{label}: loss {loss} vs the microbatched step's {want_loss}")
+    require(res["params_differing"] <= 0.01 and worst <= 0,
+            f"{label}: params differ beyond the bound: {res}")
+    require(res["launches"].get("codebook_lookup") == n_micro
+            and res["launches_bf16_gather_sum"] == n_micro
+            and res["launches"].get("embedding_bag") == n_micro,
+            f"{label}: the lookup and its bf16 backward must launch once a "
+            f"microbatch: {res['launches']}")
+    log(f"lm_mesh {label}: {res}")
+    return res
+
+
+def lm_mesh_path() -> dict:
+    """The LM cells over an NCCL world of 1 (module docstring)."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import world
+    from repro_torch.launch.mesh import make_host_mesh
+
+    require(not dist.is_initialized(),
+            "a process group is alive before the lm_mesh phase")
+    t0 = time.perf_counter()
+    with world("cuda"):
+        mesh = make_host_mesh("cuda")
+        res = {"decode": [lm_mesh_decode(mesh, *c) for c in LM_MESH_DECODE],
+               "train": lm_mesh_train(mesh, *LM_MESH_TRAIN),
+               "gpipe": lm_mesh_pp(mesh)}
+    require(not dist.is_initialized(), "the NCCL world outlived its phase")
+    total = {}
+    for c in res["decode"] + [res["train"], res["gpipe"]]:
+        for k, v in c["launches"].items():
+            total[k] = total.get(k, 0) + v
+    res["launches"] = total
+    res["launches_bf16_gather_sum"] = sum(
+        c["launches_bf16_gather_sum"]
+        for c in res["decode"] + [res["train"], res["gpipe"]])
+    res["seconds"] = time.perf_counter() - t0
+    log(f"lm_mesh phase: {res['seconds']:.1f} s, launches {total}")
     return res
 
 
@@ -3647,6 +4007,7 @@ def check_codebook_lookup(run: dict) -> dict:
                          + run["baselines"]["launches"]["codebook_lookup"]
                          + run["arch"]["launches"]["codebook_lookup"]
                          + run["lm"]["launches"]["codebook_lookup"]
+                         + run["lm_mesh"]["launches"]["codebook_lookup"]
                          + run["gnn"]["launches"].get("codebook_lookup", 0)
                          + run["baselines"]["cce"]["launches"][
                              "codebook_lookup"]),
@@ -3661,6 +4022,7 @@ def check_codebook_lookup(run: dict) -> dict:
                     run["baselines"]["launches"]["codebook_lookup"],
                 "arch": run["arch"]["launches"]["codebook_lookup"],
                 "lm": run["lm"]["launches"]["codebook_lookup"],
+                "lm_mesh": run["lm_mesh"]["launches"]["codebook_lookup"],
                 "gnn": run["gnn"]["launches"].get("codebook_lookup", 0),
                 "cce": run["baselines"]["cce"]["launches"][
                     "codebook_lookup"]},
@@ -4066,6 +4428,7 @@ def check_embedding_bag(run: dict, emb_run: dict) -> dict:
         "baselines": run["baselines"]["launches"]["embedding_bag"],
         "arch": run["arch"]["launches"].get("embedding_bag", 0),
         "lm (bf16)": run["lm"]["launches"].get("embedding_bag", 0),
+        "lm_mesh (bf16)": run["lm_mesh"]["launches"].get("embedding_bag", 0),
         "gnn": run["gnn"]["launches"].get("embedding_bag", 0),
         "cce": run["baselines"]["cce"]["launches"].get("embedding_bag", 0)}
     return {"name": "embedding_bag", "route": "cuda",
@@ -4106,6 +4469,10 @@ def check_embedding_bag16(run: dict) -> dict:
     cells = lm["cells"] + [train, lm["train_moe"]]
     by_path = {c["cell"]: c["launches_bf16_gather_sum"] for c in cells
                if c["launches_bf16_gather_sum"]}
+    mesh = run["lm_mesh"]
+    by_path.update({f"lm_mesh {c['cell']}": c["launches_bf16_gather_sum"]
+                    for c in mesh["decode"] + [mesh["train"], mesh["gpipe"]]
+                    if c["launches_bf16_gather_sum"]})
     roles = {f"{c['cell']} {k}": r for c in cells
              for k, r in c["kernels"].items() if k.startswith("embedding_bag")}
     return {"name": "embedding_bag_bf16", "route": "cuda",
@@ -4815,6 +5182,7 @@ def main() -> int:
             run["baselines"] = baselines_path(run, workdir)
             run["arch"] = arch_path()
             run["lm"] = lm_path()
+            run["lm_mesh"] = lm_mesh_path()
             run["gnn"] = gnn_path()
             emb_run = embedding_path(run)
             bench_run = bench_path()
@@ -4842,6 +5210,7 @@ def main() -> int:
     print(json.dumps({"baselines": run["baselines"]}))
     print(json.dumps({"arch": run["arch"]}))
     print(json.dumps({"lm": run["lm"]}))
+    print(json.dumps({"lm_mesh": run["lm_mesh"]}))
     print(json.dumps({"gnn": run["gnn"]}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"timer": {"floor_ms": floor,

@@ -12,8 +12,8 @@ The port registers every arch of the reference: the recsys family
 (``lightgcn-baco``, family "cf"), the LM family (gemma2-9b, gemma3-12b,
 qwen1.5-32b and the MoE LMs dbrx-132b and kimi-k2-1t-a32b, on one card)
 and the GNN (schnet). ``UNPORTED_ARCHS`` is empty; ``not_ported`` names
-the ROADMAP item a feature still waits for (``SHARDED_ITEM``: the LM
-side of the sharded path).
+the ROADMAP item a feature still waits for (``SHARDED_ITEM``: what the
+sharded path still lacks).
 
 Shape kinds: train | prefill | decode | serve | retrieval.
 """
@@ -63,17 +63,16 @@ _MODULES = ["gemma3_12b", "gemma2_9b", "qwen15_32b", "kimi_k2", "dbrx",
 # and the ROADMAP item each waits for: none
 UNPORTED_ARCHS: Dict[str, str] = {}
 WAITS_FOR: Dict[str, str] = {}
-# what the LM side of the sharded path brings (the production mesh,
-# the cells' layouts over several ranks)
-SHARDED_ITEM = "ROADMAP Queue 1 #7c-ii"
+# what the sharded path still lacks: the data-axis layouts (ZeRO-1,
+# FSDP), the dry run, the recsys, GNN and cf cells on a mesh
+SHARDED_ITEM = "ROADMAP Queue 1 #7c-ii-c"
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:
     """The error for an arch or feature the port does not have yet,
     naming the ROADMAP item it waits for."""
-    return NotImplementedError(
-        f"{what} is not ported yet: the port runs every arch on one card; "
-        f"this waits for {item}")
+    return NotImplementedError(f"{what} is not ported yet: this waits for "
+                               f"{item}")
 
 
 def register(spec: ArchSpec):

@@ -1,0 +1,301 @@
+"""Tensor, data and pipeline parallelism over the ranks of a mesh: the
+collectives the reference's GSPMD and ``shard_map`` insert, called
+explicitly, and the autograd Functions that carry gradients across them.
+
+A :class:`RankGroups` is one rank's view of a mesh under the logical
+mapping: its "model" group (tensor and expert parallelism, the stage
+axis of the pipeline) and its data group (the batch axes, flattened
+when there are two). Model code reads it with :func:`current_groups`
+inside :func:`use_groups` (the cells enter it); off a mesh there is
+none and every model function runs its one-card path.
+
+Gradients (Megatron-LM's conjugate pair and its vocabulary-parallel
+cross-entropy):
+  * :func:`copy_to_model` (*f*): identity forward, all-reduce of the
+    cotangent over "model" backward; every replicated tensor that enters
+    the model-parallel region (an activation, or a replicated param such
+    as a norm scale or the router read there) goes through it, so the
+    partial cotangents of the column-parallel branches are summed;
+  * :func:`reduce_from_model` (*g*): all-reduce forward, identity
+    backward (a row-parallel output, the expert combine);
+  * :func:`mean_over_data`: the loss's mean over the data ranks (sum /
+    n forward, cotangent / n backward), so the rank's gradients sum over
+    the data ranks to the global batch's;
+  * :func:`vocab_parallel_ce`: log-sum-exp by a max and a sum
+    all-reduce, the gold logit by a masked gather and a sum all-reduce;
+    its backward is softmax minus one-hot on the rank's vocabulary
+    slice, with no collective;
+  * :func:`gather_over_data`: all-gather forward, the rank's slice of
+    the summed cotangent backward (the MoE whose experts do not divide
+    the model axis runs on the global tokens, as the reference's GSPMD
+    ``_mlp_moe`` does).
+``torch.distributed.nn.functional.all_reduce`` is not used: its backward
+all-reduces again, which over-counts a replicated gradient n times.
+
+Every collective passes through :func:`all_reduce`,
+:func:`all_gather_cat` or :func:`ring_exchange`, which count calls and
+bytes in :data:`COUNTS` (``chip_smoke.py`` reads them a step).
+"""
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import dataclasses
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.distributed.sharding import (batch_axes, current_mapping,
+                                              mesh_shape)
+
+__all__ = ["RankGroups", "rank_groups", "axes_group", "use_groups",
+           "current_groups",
+           "COUNTS", "zero_counts", "all_reduce", "all_gather_cat",
+           "ring_exchange", "copy_to_model", "reduce_from_model",
+           "mean_over_data", "vocab_parallel_ce", "gather_over_data"]
+
+# collectives issued, and the bytes each kind moved in (all-reduce,
+# all-gather) or sent (ring)
+COUNTS = {"collectives": 0, "all_reduce_bytes": 0, "all_gather_bytes": 0,
+          "p2p_bytes": 0}
+
+
+def zero_counts() -> None:
+    for k in COUNTS:
+        COUNTS[k] = 0
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """``t`` reduced over ``group`` in place (counted); returns ``t``."""
+    COUNTS["collectives"] += 1
+    COUNTS["all_reduce_bytes"] += _nbytes(t)
+    dist.all_reduce(t, op=op, group=group)
+    return t
+
+
+def all_gather_cat(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Every rank's ``t`` of ``group``, concatenated along ``dim`` in
+    group-rank order (counted)."""
+    n = dist.get_world_size(group)
+    t = t.contiguous()
+    COUNTS["collectives"] += 1
+    COUNTS["all_gather_bytes"] += _nbytes(t) * n
+    out = torch.empty(n * t.numel(), dtype=t.dtype, device=t.device)
+    dist.all_gather_into_tensor(out, t.reshape(-1), group=group)
+    return torch.cat(out.view((n,) + tuple(t.shape)).unbind(0), dim=dim)
+
+
+def ring_exchange(x: torch.Tensor, to: int, frm: int) -> torch.Tensor:
+    """Send ``x`` to global rank ``to`` and receive a tensor like it from
+    ``frm``, as one ``batch_isend_irecv`` pair; a pair with this rank on
+    both ends is a local copy (``ppermute``'s ``(i, i)``)."""
+    COUNTS["collectives"] += 1
+    COUNTS["p2p_bytes"] += _nbytes(x)
+    me = dist.get_rank()
+    if to == me and frm == me:
+        return x.clone()
+    x = x.contiguous()
+    buf = torch.empty_like(x)
+    for w in dist.batch_isend_irecv([dist.P2POp(dist.isend, x, to),
+                                     dist.P2POp(dist.irecv, buf, frm)]):
+        w.wait()
+    return buf
+
+
+# ---------------------------------------------------------------------------
+# one rank's groups
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class RankGroups:
+    """A rank's coordinates on the "model" axis and on the data axes.
+
+    ``model_group`` / ``data_group`` are None where the mapping gives no
+    such axis (and then ``n_*`` is 1); ``n_data`` counts the shards of
+    the batch, 1 when the cell's batch is replicated over the data axes
+    (it does not divide them)."""
+    n_model: int
+    model_rank: int
+    model_group: Optional[object]
+    n_data: int
+    data_rank: int
+    data_group: Optional[object]
+
+    def model_peer(self, model_rank: int) -> int:
+        """The global rank at ``model_rank`` on this rank's model axis."""
+        return dist.get_process_group_ranks(self.model_group)[model_rank]
+
+
+def axes_group(mesh, axes: tuple):
+    """The process group over ``axes`` of ``mesh`` (one axis's, or the
+    axes flattened, the first major); None for no axis."""
+    if not axes:
+        return None
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    return mesh[axes]._flatten().get_group()
+
+
+def rank_groups(mesh, batch: Optional[int] = None) -> RankGroups:
+    """This rank's :class:`RankGroups` on ``mesh`` under the current
+    logical mapping ("tp": "model" for tensor parallelism, the batch
+    axes for data; "dp": no model axis, every axis for data). ``batch``:
+    the cell's global batch; when the data axes do not divide it, the
+    batch stays whole on every rank (the reference's ``_fit_spec``)."""
+    sizes = mesh_shape(mesh)
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    tp = current_mapping() == "tp" and "model" in sizes
+    daxes = batch_axes(mesh)
+    if not tp and "model" in sizes:
+        daxes = daxes + ("model",)
+    n_data = 1
+    data_rank = 0
+    for a in daxes:
+        n_data *= sizes[a]
+        data_rank = data_rank * sizes[a] + coord[a]
+    if batch is not None and batch % n_data:
+        daxes, n_data, data_rank = (), 1, 0
+    return RankGroups(
+        sizes["model"] if tp else 1, coord["model"] if tp else 0,
+        mesh.get_group("model") if tp else None, n_data, data_rank,
+        axes_group(mesh, daxes))
+
+
+_GROUPS = contextvars.ContextVar("repro_torch_rank_groups", default=None)
+
+
+@contextlib.contextmanager
+def use_groups(groups: Optional[RankGroups]):
+    """Model code in the block runs on ``groups`` (None: one card)."""
+    token = _GROUPS.set(groups)
+    try:
+        yield groups
+    finally:
+        _GROUPS.reset(token)
+
+
+def current_groups() -> Optional[RankGroups]:
+    return _GROUPS.get()
+
+
+# ---------------------------------------------------------------------------
+# autograd Functions across the collectives
+# ---------------------------------------------------------------------------
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.clone(), ctx.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x.clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _MeanOverData(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n):
+        ctx.n = n
+        return all_reduce(x.clone(), group) / n
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None, None
+
+
+def copy_to_model(x: torch.Tensor, groups: RankGroups) -> torch.Tensor:
+    """Megatron's *f*: ``x`` as it is; its cotangent all-reduced over the
+    model axis."""
+    if groups.model_group is None:
+        return x
+    return _CopyToModel.apply(x, groups.model_group)
+
+
+def reduce_from_model(x: torch.Tensor, groups: RankGroups) -> torch.Tensor:
+    """Megatron's *g*: the sum of every model rank's ``x``; the cotangent
+    passes through."""
+    if groups.model_group is None:
+        return x
+    return _ReduceFromModel.apply(x, groups.model_group)
+
+
+def mean_over_data(x: torch.Tensor, groups: RankGroups) -> torch.Tensor:
+    """The mean of ``x`` over the data ranks (each holds an equal share of
+    the batch); the cotangent divided by their count."""
+    if groups.data_group is None:
+        return x
+    return _MeanOverData.apply(x, groups.data_group, groups.n_data)
+
+
+class _VocabCE(torch.autograd.Function):
+    """lg [..., V_loc] f32: this rank's vocabulary slice [lo, lo + V_loc)
+    of the logits; targets [...] global ids. Returns log-sum-exp minus
+    the gold logit, [...], over the whole vocabulary: the ops of
+    ``torch.logsumexp`` (amax, exp of the shifted logits, sum, log, +
+    max) with the max and the sum all-reduced between."""
+
+    @staticmethod
+    def forward(ctx, lg, targets, lo, group):
+        v_loc = lg.shape[-1]
+        m = all_reduce(lg.amax(-1), group, dist.ReduceOp.MAX)
+        m = m.masked_fill(m.abs() == float("inf"), 0)
+        s = all_reduce(torch.sum(torch.exp(lg - m[..., None]), dim=-1),
+                       group)
+        lse = torch.log(s) + m
+        local = targets.long() - lo
+        inr = (local >= 0) & (local < v_loc)
+        local = torch.where(inr, local, 0)
+        gold = torch.gather(lg, -1, local[..., None])[..., 0]
+        gold = all_reduce(torch.where(inr, gold, 0), group)
+        ctx.save_for_backward(lg, lse, local, inr)
+        return lse - gold
+
+    @staticmethod
+    def backward(ctx, g):
+        lg, lse, local, inr = ctx.saved_tensors
+        d = g[..., None] * torch.exp(lg - lse[..., None])
+        d.scatter_add_(-1, local[..., None],
+                       torch.where(inr, -g, 0)[..., None])
+        return d, None, None, None
+
+
+def vocab_parallel_ce(lg: torch.Tensor, targets: torch.Tensor, lo: int,
+                      groups: RankGroups) -> torch.Tensor:
+    """Per-position cross-entropy over the vocabulary split across the
+    model axis (this rank's logits ``lg`` hold ids [lo, lo + V_loc))."""
+    return _VocabCE.apply(lg, targets, lo, groups.model_group)
+
+
+class _GatherOverData(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, rank):
+        ctx.group, ctx.rank, ctx.b = group, rank, x.shape[0]
+        return all_gather_cat(x, group, 0)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = all_reduce(g.contiguous().clone(), ctx.group)
+        return g.narrow(0, ctx.rank * ctx.b, ctx.b), None, None
+
+
+def gather_over_data(x: torch.Tensor, groups: RankGroups) -> torch.Tensor:
+    """Every data rank's ``x`` (its batch rows) concatenated on dim 0, in
+    the batch's order; backward, this rank's rows of the summed
+    cotangent."""
+    if groups.data_group is None:
+        return x
+    return _GatherOverData.apply(x, groups.data_group, groups.data_rank)

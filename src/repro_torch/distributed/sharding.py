@@ -1,5 +1,6 @@
-"""The paper pipeline's sharding helpers on ``torch.distributed`` (port of
-the edge-partition half of ``repro.distributed.sharding``).
+"""Sharding helpers over ``torch.distributed`` (port of
+``repro.distributed.sharding``): the edge partition of the paper
+pipeline, and the logical-axis layouts of the model cells.
 
 The reference is one controller over a ``jax`` device mesh; here each
 device is one process (a rank), as torch does it. A rank learns its
@@ -12,6 +13,7 @@ the other.
     :func:`cluster_mesh` / :func:`data_mesh` are 1-D
     ``torch.distributed.device_mesh.DeviceMesh`` objects over it, and
     raise outside one (no call here leaves a process group behind);
+    ``launch.mesh`` makes the LM cells' 2-D and 3-D meshes;
   * :func:`use_mesh` is the reference's ``with mesh:``; the code under
     it reads the mesh with :func:`current_mesh` and its data-parallel
     axes with :func:`batch_axes` (``training.compress``);
@@ -19,17 +21,34 @@ the other.
     and node ranges that ``core.solver_sharded`` splits one LP half-step
     over.
 
-The reference's logical-axis layouts of the model cells (``shard_map``,
-``shard``, ``named_sharding``, ``logical_to_spec``, ``logical_mapping``,
-``current_mapping``) belong to the LM side of the sharded path and are
-not ported yet (ROADMAP Queue 1 #7c-ii).
+The logical axes. Model code names each tensor dim by a logical axis
+("batch", "model", "seq", "data", "vocab" or None);
+:func:`logical_to_spec` maps them to mesh axes under the mapping of
+:func:`logical_mapping` ("tp", the default, or "dp"), :func:`fit_spec`
+drops any partition whose factor does not divide its dim (the
+reference's ``launch/steps.py::_fit_spec``), and
+:func:`named_sharding` gives the :class:`Layout` of one tensor: the
+mesh and its spec, with :meth:`Layout.local_block` (this rank's block
+of a full tensor) and :meth:`Layout.gather` (the full tensor, by
+all-gathers). A spec is a tuple with one entry a dim: a mesh axis name,
+a tuple of names (major first), or None; it stands for the reference's
+``PartitionSpec``, whose entries it holds.
+
+GSPMD has no counterpart here, so nothing takes a sharding constraint:
+:func:`shard` is the identity on a rank's local tensor (the model code
+keeps the reference's call sites), and where the reference lets GSPMD
+insert collectives, the port's model code calls them itself
+(``distributed.parallel``). The reference's ``shard_map`` has no
+counterpart either: in a one-process-per-rank design every body is
+already per-rank, and :meth:`Layout.local_block` and :meth:`Layout.gather`
+do what its ``in_specs`` and ``out_specs`` did.
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
 import os
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -38,7 +57,9 @@ import torch.distributed as dist
 from repro_torch.device import resolve_device
 
 __all__ = ["world", "entry_world", "cluster_mesh", "data_mesh", "use_mesh",
-           "current_mesh", "batch_axes", "edge_partition", "pad_to_shards"]
+           "current_mesh", "batch_axes", "edge_partition", "pad_to_shards",
+           "logical_mapping", "current_mapping", "logical_to_spec",
+           "fit_spec", "named_sharding", "shard", "mesh_shape", "Layout"]
 
 # what torchrun's env:// rendezvous sets for every rank
 _RENDEZVOUS_ENV = ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE")
@@ -164,6 +185,168 @@ def batch_axes(mesh) -> tuple:
     """Mesh axes implementing the logical batch axis."""
     names = mesh.mesh_dim_names or ()
     return tuple(a for a in ("pod", "data") if a in names)
+
+
+# ---------------------------------------------------------------------------
+# logical axes -> mesh axes
+# ---------------------------------------------------------------------------
+_MAPPING = contextvars.ContextVar("repro_torch_mapping", default="tp")
+
+
+@contextlib.contextmanager
+def logical_mapping(mode: str):
+    """'tp' (the default) or 'dp': under "dp", "batch" goes over every
+    mesh axis and "model"/"seq" dims are replicated (pure data
+    parallelism)."""
+    if mode not in ("tp", "dp"):
+        raise ValueError(mode)
+    token = _MAPPING.set(mode)
+    try:
+        yield
+    finally:
+        _MAPPING.reset(token)
+
+
+def current_mapping() -> str:
+    return _MAPPING.get()
+
+
+def mesh_shape(mesh) -> dict:
+    """{axis name: size} of a ``DeviceMesh`` (or of any object with
+    ``mesh_dim_names`` and ``shape``, such as ``launch.mesh.AbstractMesh``)."""
+    return dict(zip(mesh.mesh_dim_names, (int(n) for n in mesh.shape)))
+
+
+def _one_or_tuple(axes: tuple):
+    return axes if len(axes) > 1 else (axes[0] if axes else None)
+
+
+def logical_to_spec(mesh, axes: Sequence[Optional[str]]) -> tuple:
+    """One spec entry for each logical axis (the reference's rule)."""
+    names = tuple(mesh.mesh_dim_names)
+    dp = current_mapping() == "dp"
+    out = []
+    for a in axes:
+        if a is None:
+            out.append(None)
+        elif a == "batch":
+            ba = batch_axes(mesh)
+            if dp and "model" in names:
+                ba = ba + ("model",)
+            out.append(_one_or_tuple(ba))
+        elif a in ("model", "seq"):
+            out.append(None if dp or "model" not in names else "model")
+        elif a == "data":
+            out.append("data" if "data" in names else None)
+        elif a == "vocab":
+            # giant embedding tables: rows over the whole pod (data x
+            # model), replicated across pods
+            out.append(_one_or_tuple(tuple(
+                x for x in ("data", "model") if x in names)))
+        else:
+            raise ValueError(f"unknown logical axis {a!r}")
+    return tuple(out)
+
+
+def _entry_axes(part) -> tuple:
+    return part if isinstance(part, tuple) else ((part,) if part else ())
+
+
+def fit_spec(mesh, spec: Sequence, shape) -> tuple:
+    """Downgrade any partition whose factor does not divide its dim:
+    ('data', 'model') -> 'data' -> 'model' -> replicated, and a mesh axis
+    in one dim only (the reference's ``_fit_spec``)."""
+    sizes = mesh_shape(mesh)
+    out = []
+    used = set()
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    for i, part in enumerate(spec):
+        if part is None:
+            out.append(None)
+            continue
+        cands = [part] + (list(part) if isinstance(part, tuple) else [])
+        cands.append(None)
+        chosen = None
+        for c in cands:
+            axes = _entry_axes(c)
+            if any(a in used for a in axes):
+                continue
+            if shape[i] % int(np.prod([sizes[a] for a in axes])) == 0:
+                chosen = c
+                break
+        used.update(_entry_axes(chosen))
+        out.append(chosen)
+    return tuple(out)
+
+
+class Layout:
+    """One tensor's layout over a mesh: its spec, fitted to a shape when
+    given one (``named_sharding(mesh, *axes, shape=...)``). A dim of
+    entry ``(a, b)`` is cut into ``|a| x |b|`` blocks, ``a`` major, as
+    ``PartitionSpec`` cuts it."""
+
+    def __init__(self, mesh, spec: tuple):
+        self.mesh = mesh
+        self.spec = tuple(spec)
+
+    def __repr__(self) -> str:
+        return f"Layout({self.spec})"
+
+    @property
+    def axes(self) -> tuple:
+        """Every mesh axis some dim is split over."""
+        return tuple(a for part in self.spec for a in _entry_axes(part))
+
+    def _block(self, dim: int, size: int):
+        """(start, length) of this rank's block of ``dim``."""
+        sizes = mesh_shape(self.mesh)
+        coord = dict(zip(self.mesh.mesh_dim_names,
+                         self.mesh.get_coordinate()))
+        idx, n = 0, 1
+        for a in _entry_axes(self.spec[dim]):
+            idx = idx * sizes[a] + coord[a]
+            n *= sizes[a]
+        if size % n:
+            raise ValueError(f"dim {dim} of {size} does not split {n} ways "
+                             f"(spec {self.spec}: fit it first)")
+        return idx * (size // n), size // n
+
+    def local_block(self, full: torch.Tensor) -> torch.Tensor:
+        """This rank's block of ``full``: a view (the tensor itself when
+        no dim is split)."""
+        out = full
+        for dim, part in enumerate(self.spec):
+            if part is not None:
+                start, length = self._block(dim, full.shape[dim])
+                out = out.narrow(dim, start, length)
+        return out
+
+    def gather(self, block: torch.Tensor) -> torch.Tensor:
+        """The full tensor from every rank's block: one all-gather over
+        each split axis, minor axis first."""
+        from repro_torch.distributed import parallel
+
+        out = block
+        for dim, part in enumerate(self.spec):
+            for a in reversed(_entry_axes(part)):
+                out = parallel.all_gather_cat(out, self.mesh.get_group(a),
+                                              dim)
+        return out
+
+
+def named_sharding(mesh, *axes: Optional[str], shape=None) -> Layout:
+    """The :class:`Layout` of a tensor whose dims carry ``axes``: its spec
+    by :func:`logical_to_spec`, fitted to ``shape`` when given."""
+    spec = logical_to_spec(mesh, axes)
+    return Layout(mesh, spec if shape is None else
+                  fit_spec(mesh, spec, shape))
+
+
+def shard(x, *axes: Optional[str]):
+    """The identity: a rank's tensor is already its block (the reference
+    constrains GSPMD's layout here; the port's layouts and explicit
+    collectives place the data)."""
+    return x
 
 
 # ---------------------------------------------------------------------------

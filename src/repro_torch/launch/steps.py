@@ -43,8 +43,19 @@ node and edge counts padded to the pod width as in the reference
 cuts a cell's edges (``GNN_ONE_CARD``: ``ogb_products`` keeps 1/8 of
 them on one card).
 
-There is no mesh: every cell runs on one device (the reference's
-sharded layouts wait for ROADMAP Queue 1 #7c-ii).
+``mesh=`` (a ``DeviceMesh`` over the world: ``launch.mesh``) runs an LM
+cell over (data, model) ranks, one process a rank: ``Cell.fn`` runs on
+this rank's blocks of the args (``models.transformer.param_layouts``:
+the reference's ``param_logical_axes`` -> ``logical_to_spec`` ->
+``fit_spec``; the batch over the data axes; the decode cache by batch
+and K/V heads) and returns what the unsharded cell returns (the logits
+of the whole batch, the loss over it; the cache and the params stay
+this rank's blocks, ``Cell.gather`` assembles them). Each rank draws
+the unsharded cell's values and keeps its blocks, or takes ``args=``,
+the unsharded cell's args, and cuts them. The params are sharded over
+"model" and replicated over the data axes: the reference's ZeRO-1 and
+FSDP layouts over "data" wait for ROADMAP Queue 1 #7c-ii-c (the numbers
+are the same), as do the GNN, recsys and cf cells on a mesh.
 """
 from __future__ import annotations
 
@@ -55,10 +66,12 @@ from typing import Any, Callable, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.registry import ArchSpec, ShapeSpec, get_arch
+from repro_torch.configs.registry import (SHARDED_ITEM, ArchSpec, ShapeSpec,
+                                          get_arch, not_ported)
 from repro_torch.data.neighbor_sampler import (random_regular_csr,
                                                sample_subgraph)
 from repro_torch.device import resolve_device
+from repro_torch.distributed import parallel as par
 from repro_torch.models import lightgcn as LG
 from repro_torch.models import recsys as R
 from repro_torch.models import schnet as S
@@ -79,6 +92,17 @@ class Cell:
     donate: Tuple[int, ...] = ()
     notes: str = ""
     reduced: Tuple[str, ...] = ()    # cuts of a full-width cell
+    mesh: Any = None                 # the cell's mesh (None: one device)
+    layouts: Optional[dict] = None   # {"params": ..., "cache": ...} trees
+
+    def gather(self, name: str, tree):
+        """The whole of a tree this rank holds blocks of (``name``:
+        "params" or "cache"), by all-gathers: every rank of the mesh
+        calls it. Off a mesh, the tree itself."""
+        if self.mesh is None:
+            return tree
+        return _map_layouts(lambda lay, t: lay.gather(t),
+                            self.layouts[name], tree)
 
     def next_args(self, args: Tuple[Any, ...], out) -> Tuple[Any, ...]:
         """Thread one request's outputs into the next request's args.
@@ -186,13 +210,24 @@ LM_ONE_CARD = {("gemma2-9b", "train_4k"): {"batch": 8, "n_layers": 8},
                                                    "n_layers": 1}}
 
 
-def _lm_optimizer(cfg):
+def _lm_optimizer(cfg, groups=None, layouts=None):
     """The reference's choice (``repro/launch/steps.py:194-198``):
     Adafactor for a MoE of 128 experts or more (kimi-k2's 384: full Adam
-    moments would not fit), AdamW otherwise."""
+    moments would not fit), AdamW otherwise. On a mesh AdamW clips by
+    the norm over every rank's blocks (:func:`mesh_norm`); Adafactor's
+    factored moments of a param split over "model" would need their row
+    and column means over the ranks, which is not ported."""
     if cfg.moe is not None and cfg.moe.n_experts >= 128:
+        if groups is not None and groups.n_model > 1:
+            raise not_ported(f"{cfg.name}: Adafactor over a model axis of "
+                             f"{groups.n_model}", SHARDED_ITEM)
         return "adafactor", opt_lib.adafactor(lr=1e-2)
-    return "adamw", opt_lib.adamw(lr=3e-4, grad_clip=1.0)
+    norm = None
+    if groups is not None:
+        sharded = {k for k, lay in R.flat_params(layouts["params"]).items()
+                   if "model" in lay.axes}
+        norm = mesh_norm(groups, sharded)
+    return "adamw", opt_lib.adamw(lr=3e-4, grad_clip=1.0, norm=norm)
 
 
 def _lm_acc_dtype(cfg) -> torch.dtype:
@@ -202,42 +237,112 @@ def _lm_acc_dtype(cfg) -> torch.dtype:
     return torch.bfloat16 if T.count_params(cfg) * 2 > 8e9 else torch.float32
 
 
-def _lm_train_step(cfg, opt, n_micro: int, acc_dtype):
+class _LMTrainStep:
     """Loss and grads of every param (summed over ``n_micro`` equal
-    microbatches in ``acc_dtype``, then divided), one update in place."""
-    def train_step(params, opt_state, b):
+    microbatches in ``acc_dtype``, then divided), one update in place.
+    On a mesh (``groups``) each rank runs its blocks and its batch rows,
+    and the gradients are summed over the data ranks before the
+    division (the loss's mean over them already divided each)."""
+
+    def __init__(self, cfg, opt, n_micro: int, acc_dtype, groups=None):
+        self.cfg, self.opt, self.n_micro = cfg, opt, n_micro
+        self.acc_dtype, self.groups = acc_dtype, groups
+
+    def value_and_grad(self, params, b):
+        """(loss, {flat key: gradient}) of the step, before the update."""
         flat = R.flat_params(params)
         leaves = list(flat.values())
         for p in leaves:
             p.requires_grad_(True)
-        if n_micro == 1:
-            loss = T.train_loss(params, b, cfg)
-            grads = torch.autograd.grad(loss, leaves)
-        else:
-            acc = [torch.zeros(p.shape, dtype=acc_dtype, device=p.device)
-                   for p in leaves]
-            loss = torch.zeros((), dtype=torch.float32,
-                               device=leaves[0].device)
-            for m in range(n_micro):
-                mb = {k: v.reshape(n_micro, v.shape[0] // n_micro,
-                                   *v.shape[1:])[m] for k, v in b.items()}
-                lm = T.train_loss(params, mb, cfg)
-                g = torch.autograd.grad(lm, leaves)
-                for a, x in zip(acc, g):
-                    a.add_(x.to(acc_dtype))
-                del g
-                loss = loss + lm.detach()
-            grads = [a.div_(n_micro) for a in acc]
-            loss = loss / n_micro
+        n_micro, cfg = self.n_micro, self.cfg
+        with par.use_groups(self.groups):
+            if n_micro == 1:
+                loss = T.train_loss(params, b, cfg)
+                grads = list(torch.autograd.grad(loss, leaves))
+            else:
+                grads = [torch.zeros(p.shape, dtype=self.acc_dtype,
+                                     device=p.device) for p in leaves]
+                loss = torch.zeros((), dtype=torch.float32,
+                                   device=leaves[0].device)
+                for m in range(n_micro):
+                    mb = {k: v.reshape(n_micro, v.shape[0] // n_micro,
+                                       *v.shape[1:])[m]
+                          for k, v in b.items()}
+                    lm = T.train_loss(params, mb, cfg)
+                    g = torch.autograd.grad(lm, leaves)
+                    for a, x in zip(grads, g):
+                        a.add_(x.to(self.acc_dtype))
+                    del g
+                    loss = loss + lm.detach()
         for p in leaves:
             p.requires_grad_(False)
-        opt.update(dict(zip(flat, grads)), opt_state, flat)
-        return params, opt_state, loss.detach()
-    return train_step
+        if self.groups is not None and self.groups.data_group is not None:
+            for a in grads:
+                par.all_reduce(a, self.groups.data_group)
+        if n_micro > 1:
+            grads = [a.div_(n_micro) for a in grads]
+            loss = loss / n_micro
+        return loss.detach(), dict(zip(flat, grads))
+
+    def __call__(self, params, opt_state, b):
+        loss, grads = self.value_and_grad(params, b)
+        self.opt.update(grads, opt_state, R.flat_params(params))
+        return params, opt_state, loss
+
+
+def mesh_norm(groups, sharded) -> Callable:
+    """The global gradient norm over a mesh (AdamW's clip): each leaf's
+    sum of squares, those of leaves split over "model" (``sharded``, flat
+    keys) summed over the model ranks, the replicated ones taken once;
+    then summed in sorted-key order, as ``optimizer.global_norm`` sums
+    them (on one rank, the same value to the bit)."""
+    def norm(grads: dict) -> torch.Tensor:
+        keys = sorted(grads)
+        sq = torch.stack([torch.sum(grads[k].to(torch.float32, copy=True)
+                                    .square_()) for k in keys])
+        if groups.model_group is not None:
+            if groups.model_rank != 0:
+                split = torch.tensor([k in sharded for k in keys],
+                                     device=sq.device)
+                sq = torch.where(split, sq, 0)
+            par.all_reduce(sq, groups.model_group)
+        return torch.sqrt(sum(sq.unbind()))
+    return norm
+
+
+def _map_layouts(fn, layouts, tree):
+    """``fn(layout, leaf)`` over a tree of tensors and its tree of
+    layouts (leaves without a layout pass through)."""
+    if isinstance(tree, dict):
+        return {k: _map_layouts(fn, layouts.get(k) if isinstance(
+            layouts, dict) else None, v) for k, v in tree.items()}
+    return tree if layouts is None else fn(layouts, tree)
+
+
+def _own(full: torch.Tensor, block: torch.Tensor) -> torch.Tensor:
+    """A block as a tensor of its own (the tensor itself when whole)."""
+    return full if block.shape == full.shape else block.clone()
+
+
+def _local_rows(x: torch.Tensor, groups, n_micro: int = 1) -> torch.Tensor:
+    """This data rank's rows of a batch leaf: of each of the ``n_micro``
+    microbatches, its equal share, in order (the rows a data shard of
+    the reference's microbatch holds)."""
+    if groups is None or groups.data_group is None or x.dim() == 0:
+        return x
+    b = x.shape[0]
+    mb = b // n_micro
+    if b % n_micro or mb % groups.n_data:
+        raise ValueError(f"a batch of {b} in {n_micro} microbatches does "
+                         f"not split over {groups.n_data} data ranks")
+    per = mb // groups.n_data
+    rows = (torch.arange(n_micro)[:, None] * mb + groups.data_rank * per
+            + torch.arange(per)).reshape(-1)
+    return x.index_select(0, rows.to(x.device))
 
 
 def _lm_cell(spec: ArchSpec, shape: ShapeSpec, smoke: bool, lookup_backend,
-             device, batch: Optional[int] = None,
+             device, mesh=None, args=None, batch: Optional[int] = None,
              n_layers: Optional[int] = None) -> Cell:
     cfg = spec.smoke_config() if smoke else spec.full_config()
     if lookup_backend is not None:
@@ -255,18 +360,40 @@ def _lm_cell(spec: ArchSpec, shape: ShapeSpec, smoke: bool, lookup_backend,
     if n_layers is not None and n_layers != cfg.n_layers:
         reduced.append(f"n_layers {cfg.n_layers} -> {n_layers}")
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    groups = layouts = None
+    notes = ()
+    if mesh is not None:
+        mapping = dims.get("mapping", "tp")
+        if mapping != "tp":
+            raise not_ported(f"{spec.arch_id}:{shape.name} under the "
+                             f"{mapping!r} mapping", SHARDED_ITEM)
+        with par.use_groups(None):
+            groups = par.rank_groups(mesh, b)
+            layouts = {"params": T.param_layouts(cfg, mesh)}
+        notes = (f"mesh={dict(zip(mesh.mesh_dim_names, mesh.shape))}",
+                 f"model={groups.n_model}: heads, d_ff, experts and "
+                 f"vocabulary rows", f"data={groups.n_data}: batch rows",
+                 "params replicated over data (ZeRO-1/FSDP: "
+                 f"{SHARDED_ITEM})")
     gen = torch.Generator(device=device).manual_seed(0)
-    params = T.init_params(gen, cfg)
+    if args is None and layouts is None:
+        params = T.init_params(gen, cfg)
+    elif args is None:
+        params = T.init_params(gen, cfg, layouts=layouts["params"])
+    else:
+        params = _map_layouts(lambda lay, t: _own(t, lay.local_block(t)),
+                              layouts["params"], args[0])
     i32 = torch.int32
     tok = lambda shp: _Spec(shp, i32, cfg.vocab_size)  # noqa: E731
     cell = functools.partial(Cell, spec.arch_id, shape.name, shape.kind,
-                             reduced=tuple(reduced))
+                             reduced=tuple(reduced), mesh=mesh,
+                             layouts=layouts)
+
+    def local_batch(specs, n_micro=1):
+        bt = _draw_batch(specs, smoke, device) if args is None else args[-1]
+        return {k: _local_rows(v, groups, n_micro) for k, v in bt.items()}
 
     if shape.kind == "train":
-        opt_name, opt = _lm_optimizer(cfg)
-        opt_state = opt.init(R.flat_params(params))
-        specs = {"tokens": tok((b, seq)), "targets": tok((b, seq))}
-        bt = _draw_batch(specs, smoke, device)
         # gradient accumulation (the reference's rule), and its f32
         # accumulator, bf16 where the params would be FSDP-sharded (over 8
         # GB of bf16 on one model shard, as every uncut full LM config
@@ -274,24 +401,35 @@ def _lm_cell(spec: ArchSpec, shape: ShapeSpec, smoke: bool, lookup_backend,
         # moves it: gemma2-9b at 8 layers (5.0e9 bytes) accumulates in f32
         n_micro = dims.get("microbatches") or (
             8 if not smoke and shape.name == "train_4k" else 1)
+        opt_name, opt = _lm_optimizer(cfg, groups, layouts)
+        opt_state = opt.init(R.flat_params(params))
+        bt = local_batch({"tokens": tok((b, seq)),
+                          "targets": tok((b, seq))}, n_micro)
         acc = _lm_acc_dtype(cfg)
-        return cell(_lm_train_step(cfg, opt, n_micro, acc),
+        return cell(_LMTrainStep(cfg, opt, n_micro, acc, groups),
                     (params, opt_state, bt), donate=(0, 1),
-                    notes=f"optimizer={opt_name},microbatches={n_micro},"
-                          f"accumulator={str(acc).split('.')[-1]}")
+                    notes=",".join((f"optimizer={opt_name}",
+                                    f"microbatches={n_micro}",
+                                    "accumulator="
+                                    f"{str(acc).split('.')[-1]}") + notes))
 
     if shape.kind == "prefill":
-        bt = _draw_batch({"tokens": tok((b, seq))}, smoke, device)
+        bt = local_batch({"tokens": tok((b, seq))})
 
         @torch.inference_mode()
         def prefill_step(params, b):
-            return T.prefill(params, b, cfg, max_seq=seq)
+            with par.use_groups(groups):
+                return T.prefill(params, b, cfg, max_seq=seq)
 
-        return cell(prefill_step, (params, bt))
+        if layouts is not None:
+            layouts["cache"] = T.cache_layouts(cfg, mesh, b)
+        return cell(prefill_step, (params, bt), notes=",".join(notes))
 
     # decode: KV cache as input, one new token at pos
     batch_specs = {"tokens": tok((b, 1)), "pos": _Spec((), i32)}
-    if smoke:
+    if args is not None:
+        cache, bt = args[1], args[2]
+    elif smoke:
         meta = T.init_cache(cfg, b, seq, device="meta")
         rng = np.random.default_rng(0)
         cache = _materialize({k: _Spec(tuple(v.shape), v.dtype)
@@ -302,13 +440,21 @@ def _lm_cell(spec: ArchSpec, shape: ShapeSpec, smoke: bool, lookup_backend,
         bt = {"tokens": _full_batch({"tokens": batch_specs["tokens"]},
                                     device)["tokens"],
               "pos": torch.tensor(seq - 1, dtype=i32, device=device)}
+    if layouts is not None:
+        layouts["cache"] = T.cache_layouts(cfg, mesh, b)
+        cache = _map_layouts(lambda lay, t: _own(t, lay.local_block(t)),
+                             layouts["cache"], cache)
+        bt = {k: _local_rows(v, groups) for k, v in bt.items()}
+        notes += ("KV cache by batch rows and K/V heads (the reference's "
+                  "is sequence-sharded over model: the same numbers)",)
 
     @torch.inference_mode()
     def decode(params, cache, b):
-        return T.decode_step(params, cache, b, cfg)
+        with par.use_groups(groups):
+            return T.decode_step(params, cache, b, cfg)
 
     return cell(decode, (params, cache, bt), donate=(1,),
-                notes="KV cache updated in place")
+                notes=",".join(("KV cache updated in place",) + notes))
 
 
 # ---------------------------------------------------------------------------
@@ -672,13 +818,16 @@ _FAMILY = {"lm": _lm_cell, "gnn": _gnn_cell, "recsys": _recsys_cell,
            "cf": _cf_cell}
 
 
-def build_cell(arch_id: str, shape_name: str, smoke: bool = False,
+def build_cell(arch_id: str, shape_name: str, mesh=None, smoke: bool = False,
                lookup_backend: Optional[str] = None,
-               device="cuda", **cuts) -> Cell:
+               device="cuda", args=None, **cuts) -> Cell:
     """The (arch, shape) cell on ``device`` (default the CUDA device;
-    raises without one). ``lookup_backend``: explicit EmbeddingEngine
-    backend override ("gather" | "onehot" | "cuda"); None auto-selects
-    by device. ``cuts`` (LM cells: ``batch``, ``n_layers``; GNN cells:
+    raises without one). ``mesh``: an LM cell over the mesh's ranks
+    (module docstring); ``args``, with a mesh: the unsharded cell's args
+    (a fresh optimizer state) to cut into this rank's blocks instead of
+    drawing them. ``lookup_backend``: explicit EmbeddingEngine backend
+    override ("gather" | "onehot" | "cuda"); None auto-selects by
+    device. ``cuts`` (LM cells: ``batch``, ``n_layers``; GNN cells:
     ``n_edges``) cut the cell, each cut listed in ``Cell.reduced``
     (``LM_ONE_CARD`` and ``GNN_ONE_CARD`` hold the cuts that fit one
     H100)."""
@@ -687,5 +836,11 @@ def build_cell(arch_id: str, shape_name: str, smoke: bool = False,
     device = resolve_device(device)
     if spec.family not in ("lm", "gnn") and cuts:
         raise TypeError(f"{arch_id} takes no cuts, got {sorted(cuts)}")
+    if args is not None and mesh is None:
+        raise TypeError("args= cuts the unsharded cell's args for a mesh")
+    if spec.family == "lm":
+        cuts = dict(cuts, mesh=mesh, args=args)
+    elif mesh is not None:
+        raise not_ported(f"{arch_id}:{shape_name} on a mesh", SHARDED_ITEM)
     return _FAMILY[spec.family](spec, shape, smoke, lookup_backend, device,
                                 **cuts)

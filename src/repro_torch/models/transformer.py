@@ -45,10 +45,36 @@ the EmbeddingEngine: on the card the codebook_lookup kernel at H = 1 (its
 
 Training: ``jax.checkpoint`` (a block under ``cfg.remat``, each attention
 chunk, each CE chunk) is ``torch.utils.checkpoint`` whenever autograd
-records. The reference's ``shard(...)`` calls are the identity off a
-mesh and are dropped. Its ``_mlp_moe_local`` (a ``shard_map`` over the
-model axis) returns ``_mlp_moe`` when no mesh is set, so on one card the
-two are one path, :func:`_mlp_moe`.
+records. The reference's ``shard(...)`` calls place nothing in a
+one-process-per-rank design and are dropped.
+
+Over a (data, model) mesh (``distributed.parallel.use_groups``; the
+cells of ``launch.steps.build_cell(mesh=...)`` enter it) each rank runs
+the same functions on its blocks of the params (:func:`param_layouts`)
+and of the batch, Megatron-style:
+  * "model": attention heads and d_ff column-parallel (wq, wk, wv and
+    their biases, w_gate, w_up), wo and w_down row-parallel with one
+    all-reduce each; a rank's query heads are whole (``n_heads`` must
+    divide the model axis, else the cell raises), and where ``n_kv_heads``
+    does not divide it, wk/wv stay replicated and each rank computes the
+    K/V heads its query heads read (:func:`local_heads`);
+  * the token embedding's and the head's vocabulary rows over "model":
+    each rank looks up its own rows (ids outside give zero rows, then one
+    all-reduce: adding zeros is exact, so the embedding is the one-card
+    one bitwise); the logits stay vocabulary-parallel through the
+    cross-entropy (``parallel.vocab_parallel_ce``) and are all-gathered
+    only where a cell returns them;
+  * the MoE FFN is the reference's ``_mlp_moe_local``: expert-parallel
+    over "model", each rank dispatching its local batch's assignments to
+    its E / n_model experts with the per-shard capacity (from the local
+    token count) and a trash row, the token combine on the CSR
+    gather-sum, then one all-reduce. Where the experts do not divide the
+    axis the reference falls back to ``_mlp_moe`` on the global tokens,
+    and so does the port, with the experts replicated;
+  * "batch" over the data axes: the loss is the mean over the data ranks.
+The decode cache is head-sharded with the attention (the reference's
+cache spec shards the sequence over "model", flash-decoding style): the
+numbers are the same.
 """
 from __future__ import annotations
 
@@ -62,14 +88,18 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import parallel as par
+from repro_torch.distributed.sharding import (Layout, fit_spec,
+                                              logical_to_spec, mesh_shape)
 from repro_torch.embedding import embedding_lookup
 from repro_torch.kernels.embedding_bag import csr_gather_sum
 
 __all__ = ["TransformerConfig", "MoEConfig", "init_params", "count_params",
-           "params_from_numpy", "tensor_from_numpy", "rms_norm", "expand_kv",
-           "chunked_attention", "to_kv", "train_loss", "init_cache",
-           "prefill", "decode_step", "MoERoute", "moe_route",
-           "moe_capacity"]
+           "param_logical_axes", "param_layouts", "cache_layouts",
+           "local_heads", "params_from_numpy", "tensor_from_numpy",
+           "rms_norm", "expand_kv", "chunked_attention", "to_kv",
+           "train_loss", "init_cache", "prefill", "decode_step", "MoERoute",
+           "moe_route", "moe_capacity"]
 
 NEG_INF = -1e30          # masked scores, as in the reference
 FP8_NAN_FROM = 464.0     # ml_dtypes' e4m3fn cast gives NaN above this
@@ -146,42 +176,45 @@ class TransformerConfig:
 # params
 # ---------------------------------------------------------------------------
 def _param_defs(cfg: TransformerConfig) -> dict:
-    """path -> (shape, fan_in), nested; blocks get the leading stack dims.
-    QKV projections keep heads merged ([d, H*Dh]), as the reference."""
+    """path -> (shape, logical axes, fan_in), nested; blocks get the
+    leading stack dims. QKV projections keep heads merged ([d, H*Dh]),
+    as the reference."""
     d, f, hq, hk, dh = (cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.n_kv_heads,
                         cfg.hd)
     nb, lpb = cfg.n_blocks, cfg.layers_per_block
-    defs = {"embed": ((cfg.vocab_size, d), d), "final_norm": ((d,), None)}
+    M, N = "model", None
+    defs = {"embed": ((cfg.vocab_size, d), (M, N), d),
+            "final_norm": ((d,), (N,), None)}
     if not cfg.tie_embed:
-        defs["lm_head"] = ((d, cfg.vocab_size), d)
+        defs["lm_head"] = ((d, cfg.vocab_size), (N, M), d)
     blk = {
-        "attn_norm": ((nb, lpb, d), None),
-        "wq": ((nb, lpb, d, hq * dh), d),
-        "wk": ((nb, lpb, d, hk * dh), d),
-        "wv": ((nb, lpb, d, hk * dh), d),
-        "wo": ((nb, lpb, hq * dh, d), hq * dh),
-        "mlp_norm": ((nb, lpb, d), None),
+        "attn_norm": ((nb, lpb, d), (N, N, N), None),
+        "wq": ((nb, lpb, d, hq * dh), (N, N, N, M), d),
+        "wk": ((nb, lpb, d, hk * dh), (N, N, N, M), d),
+        "wv": ((nb, lpb, d, hk * dh), (N, N, N, M), d),
+        "wo": ((nb, lpb, hq * dh, d), (N, N, M, N), hq * dh),
+        "mlp_norm": ((nb, lpb, d), (N, N, N), None),
     }
     if cfg.qkv_bias:
-        blk["bq"] = ((nb, lpb, hq * dh), None)
-        blk["bk"] = ((nb, lpb, hk * dh), None)
-        blk["bv"] = ((nb, lpb, hk * dh), None)
+        blk["bq"] = ((nb, lpb, hq * dh), (N, N, M), None)
+        blk["bk"] = ((nb, lpb, hk * dh), (N, N, M), None)
+        blk["bv"] = ((nb, lpb, hk * dh), (N, N, M), None)
     if cfg.qk_norm:
-        blk["q_norm"] = ((nb, lpb, dh), None)
-        blk["k_norm"] = ((nb, lpb, dh), None)
+        blk["q_norm"] = ((nb, lpb, dh), (N, N, N), None)
+        blk["k_norm"] = ((nb, lpb, dh), (N, N, N), None)
     if cfg.post_norm:
-        blk["attn_post_norm"] = ((nb, lpb, d), None)
-        blk["mlp_post_norm"] = ((nb, lpb, d), None)
+        blk["attn_post_norm"] = ((nb, lpb, d), (N, N, N), None)
+        blk["mlp_post_norm"] = ((nb, lpb, d), (N, N, N), None)
     if cfg.moe is None:
-        blk["w_gate"] = ((nb, lpb, d, f), d)
-        blk["w_up"] = ((nb, lpb, d, f), d)
-        blk["w_down"] = ((nb, lpb, f, d), f)
+        blk["w_gate"] = ((nb, lpb, d, f), (N, N, N, M), d)
+        blk["w_up"] = ((nb, lpb, d, f), (N, N, N, M), d)
+        blk["w_down"] = ((nb, lpb, f, d), (N, N, M, N), f)
     else:
         e = cfg.moe.n_experts
-        blk["router"] = ((nb, lpb, d, e), d)
-        blk["w_gate"] = ((nb, lpb, e, d, f), d)
-        blk["w_up"] = ((nb, lpb, e, d, f), d)
-        blk["w_down"] = ((nb, lpb, e, f, d), f)
+        blk["router"] = ((nb, lpb, d, e), (N, N, N, N), d)
+        blk["w_gate"] = ((nb, lpb, e, d, f), (N, N, M, N, N), d)
+        blk["w_up"] = ((nb, lpb, e, d, f), (N, N, M, N, N), d)
+        blk["w_down"] = ((nb, lpb, e, f, d), (N, N, M, N, N), f)
     defs["blocks"] = blk
     return defs
 
@@ -211,12 +244,15 @@ def _fill_normal(out: torch.Tensor, scale: float, generator,
     return out
 
 
-def init_params(generator, cfg: TransformerConfig, device=None) -> dict:
+def init_params(generator, cfg: TransformerConfig, device=None,
+                layouts=None) -> dict:
     """Nested dict of tensors in the reference's layout: norm scales 1,
     every other leaf N(0, 1) / sqrt(fan_in) drawn in f32 from
     ``generator`` and cast to ``cfg.dtype`` (the reference's rule; its
     jax.random values differ). ``device`` defaults to the generator's;
-    on "meta" nothing is allocated."""
+    on "meta" nothing is allocated. ``layouts`` (:func:`param_layouts`):
+    keep each leaf's block for this rank, drawn from the same stream as
+    the whole leaf (a leaf at a time is drawn whole, then cut)."""
     if device is None:
         if generator is None:
             raise ValueError("give a generator or a device")
@@ -224,7 +260,7 @@ def init_params(generator, cfg: TransformerConfig, device=None) -> dict:
     device = torch.device(device)
     dtype = cfg.torch_dtype
     params: dict = {}
-    for path, (shape, fan) in _walk(_param_defs(cfg)):
+    for path, (shape, _, fan) in _walk(_param_defs(cfg)):
         node = params
         for p in path[:-1]:
             node = node.setdefault(p, {})
@@ -234,13 +270,155 @@ def init_params(generator, cfg: TransformerConfig, device=None) -> dict:
             leaf = torch.empty(shape, dtype=dtype, device=device)
             if device.type != "meta":
                 _fill_normal(leaf, 1.0 / math.sqrt(fan), generator)
+        if layouts is not None:
+            layout = layouts
+            for p in path:
+                layout = layout[p]
+            block = layout.local_block(leaf)
+            leaf = leaf if block.shape == leaf.shape else block.clone()
         node[path[-1]] = leaf
     return params
 
 
 def count_params(cfg: TransformerConfig) -> int:
-    return sum(int(np.prod(shape)) for _, (shape, _) in
+    return sum(int(np.prod(shape)) for _, (shape, _, _) in
                _walk(_param_defs(cfg)))
+
+
+def param_logical_axes(cfg: TransformerConfig) -> dict:
+    """The reference's logical axes of every param, nested as the
+    params."""
+    def walk(node):
+        return {k: walk(v) if isinstance(v, dict) else v[1]
+                for k, v in node.items()}
+    return walk(_param_defs(cfg))
+
+
+@dataclasses.dataclass(frozen=True)
+class LocalHeads:
+    """A rank's attention heads: query heads [q_lo, q_lo + hq) and the K/V
+    heads they read, [kv_lo, kv_lo + kv). ``kv_sharded``: K/V heads divide
+    the model axis, so wk/wv are column blocks; else they are replicated
+    and each rank takes its heads' columns. ``kv_of_q``: the local K/V
+    head of each local query head where that is not a plain grouping of
+    ``hq // kv`` consecutive heads (None where it is)."""
+    hq: int
+    q_lo: int
+    kv: int
+    kv_lo: int
+    kv_sharded: bool
+    kv_of_q: Optional[Tuple[int, ...]]
+
+
+def local_heads(cfg: TransformerConfig, n_model: int = 1,
+                model_rank: int = 0) -> LocalHeads:
+    """This rank's heads at ``n_model`` ranks on the model axis; raises
+    where the query heads do not divide it (a rank's attention needs
+    whole heads)."""
+    hq_all, hkv = cfg.n_heads, cfg.n_kv_heads
+    if hq_all % n_model:
+        raise ValueError(f"{cfg.name}: {hq_all} query heads do not divide "
+                         f"a model axis of {n_model} (a rank's attention "
+                         f"needs whole heads)")
+    hq = hq_all // n_model
+    q_lo = model_rank * hq
+    grp = hq_all // hkv
+    kv_lo = q_lo // grp
+    kv = (q_lo + hq - 1) // grp + 1 - kv_lo
+    of_q = tuple((q_lo + i) // grp - kv_lo for i in range(hq))
+    plain = hq % kv == 0 and of_q == tuple(i // (hq // kv)
+                                           for i in range(hq))
+    return LocalHeads(hq, q_lo, kv, kv_lo, hkv % n_model == 0,
+                      None if plain else of_q)
+
+
+def _model_size(mesh) -> int:
+    """The model axis's size under the current logical mapping (1 where
+    there is none, or under "dp")."""
+    if logical_to_spec(mesh, ("model",)) != ("model",):
+        return 1
+    return mesh_shape(mesh)["model"]
+
+
+def _model_axis(mesh) -> Tuple[int, int]:
+    """(size, this rank's coordinate) of the model axis."""
+    n = _model_size(mesh)
+    return n, (mesh.get_local_rank("model") if n > 1 else 0)
+
+
+def param_layouts(cfg: TransformerConfig, mesh) -> dict:
+    """Each param's ``Layout`` on ``mesh``: the reference's logical axes
+    (:func:`param_logical_axes`) through ``logical_to_spec`` and
+    ``fit_spec``, but wk/wv/bk/bv replicated where the K/V heads do not
+    divide the model axis (:class:`LocalHeads`). Raises, naming the
+    config, where the query heads, a dense d_ff or the vocabulary do not
+    divide the model axis. Every param is replicated over the data axes
+    (the reference's ZeRO-1 and FSDP layouts over "data" are not ported:
+    ROADMAP Queue 1 #7c-ii-c)."""
+    n = _model_size(mesh)
+    local_heads(cfg, n)
+    split = {"the vocabulary": cfg.vocab_size}
+    if cfg.moe is None:
+        split["d_ff"] = cfg.d_ff
+    for what, size in split.items():
+        if size % n:
+            raise ValueError(f"{cfg.name}: {what} ({size}) does not divide "
+                             f"a model axis of {n}")
+
+    def walk(node, name=""):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        shape, axes, _ = node
+        spec = fit_spec(mesh, logical_to_spec(mesh, axes), shape)
+        if name in ("wk", "wv", "bk", "bv") and cfg.n_kv_heads % n:
+            spec = (None,) * len(shape)
+        return Layout(mesh, spec)
+    return walk(_param_defs(cfg))
+
+
+def cache_layouts(cfg: TransformerConfig, mesh, batch: int) -> dict:
+    """The decode cache's layouts: batch over the data axes (replicated
+    where they do not divide it), K/V heads as the attention holds them
+    (:func:`local_heads`; a head several ranks read is on each)."""
+    spec = fit_spec(mesh, logical_to_spec(
+        mesh, (None, None, "batch", None, None, None)),
+        (1, 1, batch, 1, 1, 1))
+    return {f"{kv}_{kind}": _KVLayout(Layout(mesh, spec), cfg)
+            for kind in _cache_kinds(cfg) for kv in "kv"}
+
+
+class _KVLayout:
+    """A cache tensor [nb, per, B, L, Hkv, Dh]: B by the ``batch`` layout,
+    the K/V heads by :func:`local_heads` at this rank's model
+    coordinate."""
+
+    def __init__(self, batch, cfg):
+        self.batch, self.cfg = batch, cfg
+        self.n_model, self.model_rank = _model_axis(batch.mesh)
+
+    def local_block(self, full):
+        h = local_heads(self.cfg, self.n_model, self.model_rank)
+        return self.batch.local_block(full).narrow(4, h.kv_lo, h.kv)
+
+    def gather(self, block):
+        """The whole cache: the batch gathered, then every rank's heads
+        (padded to the widest rank's count for one all-gather)."""
+        out = self.batch.gather(block)
+        n = self.n_model
+        if n == 1:
+            return out
+        heads = [local_heads(self.cfg, n, j) for j in range(n)]
+        shape = list(out.shape)
+        shape[4] = max(h.kv for h in heads)
+        pad = out.new_zeros(shape)
+        pad.narrow(4, 0, out.shape[4]).copy_(out)
+        every = par.all_gather_cat(
+            pad[None], self.batch.mesh.get_group("model"), 0)
+        shape[4] = self.cfg.n_kv_heads
+        full = out.new_empty(shape)
+        for j, h in enumerate(heads):
+            full.narrow(4, h.kv_lo, h.kv).copy_(every[j].narrow(4, 0, h.kv))
+        return full
 
 
 def tensor_from_numpy(a, device="cuda") -> torch.Tensor:
@@ -424,21 +602,49 @@ def chunked_attention(q, k, v, *, window=None, softcap=None, causal=True,
 # ---------------------------------------------------------------------------
 # layer / block bodies
 # ---------------------------------------------------------------------------
-def _proj_qkv(x, lp, li, cfg):
+def _f(x, g):
+    """Megatron's *f* on a mesh (``parallel.copy_to_model``), else ``x``."""
+    return x if g is None else par.copy_to_model(x, g)
+
+
+def _g(x, g):
+    """Megatron's *g* on a mesh (``parallel.reduce_from_model``), else
+    ``x``."""
+    return x if g is None else par.reduce_from_model(x, g)
+
+
+def _heads(cfg, g) -> LocalHeads:
+    return local_heads(cfg) if g is None else \
+        local_heads(cfg, g.n_model, g.model_rank)
+
+
+def _proj_qkv(x, lp, li, cfg, g=None):
+    """q, k, v [B, S, heads, Dh] of this rank's heads (:func:`local_heads`;
+    all of them off a mesh). Replicated K/V weights give the columns of
+    this rank's K/V heads."""
     b, s, _ = x.shape
     dh = cfg.hd
+    hd = _heads(cfg, g)
+    x = _f(x, g)
 
-    def p(name, h):
-        y = _mm(x, lp[f"w{name}"][li])
-        if cfg.qkv_bias:
-            y = y + lp[f"b{name}"][li]
+    def p(name, h, lo=None):
+        w = lp[f"w{name}"][li]
+        bias = lp[f"b{name}"][li] if cfg.qkv_bias else None
+        if lo is not None:
+            cols = slice(lo * dh, (lo + h) * dh)
+            w = _f(w, g)[:, cols]
+            bias = None if bias is None else _f(bias, g)[cols]
+        y = _mm(x, w)
+        if bias is not None:
+            y = y + bias
         return y.reshape(b, s, h, dh)
-    q = p("q", cfg.n_heads)
-    k = p("k", cfg.n_kv_heads)
-    v = p("v", cfg.n_kv_heads)
+    kv_lo = None if hd.kv_sharded else hd.kv_lo
+    q = p("q", hd.hq)
+    k = p("k", hd.kv, kv_lo)
+    v = p("v", hd.kv, kv_lo)
     if cfg.qk_norm:
-        q = rms_norm(q, lp["q_norm"][li])
-        k = rms_norm(k, lp["k_norm"][li])
+        q = rms_norm(q, _f(lp["q_norm"][li], g))
+        k = rms_norm(k, _f(lp["k_norm"][li], g))
     return q, k, v
 
 
@@ -449,10 +655,13 @@ def _silu(x):
     return x * (1 / (1 + torch.exp(-x)))
 
 
-def _mlp_dense(x, lp, li):
+def _mlp_dense(x, lp, li, g=None):
+    """The gated MLP; on a mesh w_gate/w_up are column blocks and w_down
+    a row block, summed over the model axis."""
+    x = _f(x, g)
     h = _silu(_mm(x, lp["w_gate"][li]))
     h = h * _mm(x, lp["w_up"][li])
-    return _mm(h, lp["w_down"][li])
+    return _g(_mm(h, lp["w_down"][li]), g)
 
 
 # ---------------------------------------------------------------------------
@@ -497,12 +706,13 @@ class MoERoute:
 
     ``idx`` / ``gate`` [t, k]: the routed experts in ``lax.top_k``'s order
     and their renormalised gates (x's dtype). The assignments, flattened
-    token-major and stably sorted by expert: ``order`` (flat assignment
-    of each sorted slot), ``se`` its expert, ``tok`` its token, ``pos``
-    its place in the expert's queue, ``keep`` = ``pos < cap``.
-    ``perm`` / ``ptr``: the stable sort of ``tok`` and its pointers over
-    the t tokens (k slots each), the plan of the combine and of the
-    dispatch gather's gradient."""
+    token-major and stably sorted by local expert (an expert outside this
+    rank's range goes to the drop bin, past the last local one): ``order``
+    (flat assignment of each sorted slot), ``se`` its local expert, ``tok``
+    its token, ``pos`` its place in the expert's queue, ``keep`` = a
+    local expert and ``pos < cap``. ``perm`` / ``ptr``: the stable sort of
+    ``tok`` and its pointers over the t tokens (k slots each), the plan
+    of the combine and of the dispatch gather's gradient."""
     idx: torch.Tensor
     gate: torch.Tensor
     cap: int
@@ -517,20 +727,22 @@ class MoERoute:
 
 def moe_capacity(t: int, moe: MoEConfig) -> int:
     """Slots an expert takes a call (the reference's rule, on the host
-    from shapes only)."""
+    from shapes only; on a mesh ``t`` is the rank's own tokens)."""
     cap = math.ceil(t * moe.top_k / moe.n_experts * moe.capacity_factor)
     return max(8, min(cap, t))
 
 
-def moe_route(xt, router, moe: MoEConfig) -> MoERoute:
+def moe_route(xt, router, moe: MoEConfig, lo: int = 0,
+              n_local: Optional[int] = None) -> MoERoute:
     """xt [t, d]: the router's logits in xt's dtype, an f32 softmax as
     ``jax.nn.softmax`` computes it (exp(x - max) over its sum), the top k
     of each row by a stable descending sort (``torch.topk`` promises no
     tie order: highest first, lowest expert id among equals), the gate
-    renormalised and cast to xt's dtype; then the sort-based plan. No
-    host sync."""
+    renormalised and cast to xt's dtype; then the sort-based plan over
+    the local experts [lo, lo + n_local) (default: all). No host sync."""
     t = xt.shape[0]
     e, k = moe.n_experts, moe.top_k
+    n_loc = e if n_local is None else n_local
     dev = xt.device
     z = torch.matmul(xt, router.to(xt.dtype)).float()
     ex = torch.exp(z - z.amax(-1, keepdim=True).detach())
@@ -540,54 +752,74 @@ def moe_route(xt, router, moe: MoEConfig) -> MoERoute:
     gate = (gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
             ).to(xt.dtype)
     cap = moe_capacity(t, moe)
-    se, order = torch.sort(idx.reshape(-1), stable=True)
+    flat = idx.reshape(-1)
+    if n_loc != e:
+        flat = torch.where((flat >= lo) & (flat < lo + n_loc), flat - lo,
+                           n_loc)
+    se, order = torch.sort(flat, stable=True)
     tok = order // k
-    starts = torch.searchsorted(se, torch.arange(e, device=dev))
+    starts = torch.searchsorted(se, torch.arange(n_loc + 1, device=dev))
     pos = torch.arange(t * k, device=dev) - starts[se]
     perm = torch.sort(tok, stable=True).indices.int()
     ptr = torch.arange(0, t * k + 1, k, device=dev)
-    return MoERoute(idx, gate, cap, order, se, tok, pos, pos < cap, perm,
-                    ptr)
+    return MoERoute(idx, gate, cap, order, se, tok, pos,
+                    (se < n_loc) & (pos < cap), perm, ptr)
 
 
-def _mlp_moe(x, lp, li, cfg):
-    """The reference's ``_mlp_moe``: each token's k assignments go to
-    their experts' capacity buffers [e, cap, d] (an assignment past
-    ``cap`` is dropped: written to a trash row that is sliced off), the
-    three expert GEMMs run batched over the experts, and each kept
-    assignment's output, times its gate, is summed back into its token
-    (:class:`_Combine`)."""
+def _mlp_moe(x, lp, li, cfg, g=None):
+    """The reference's ``_mlp_moe`` (off a mesh) and ``_mlp_moe_local`` (on
+    one): each token's k assignments to this rank's experts go to their
+    capacity buffers [e_loc, cap, d] (an assignment past ``cap``, or to
+    another rank's expert, is dropped: written to a trash row that is
+    sliced off), the three expert GEMMs run batched over the experts,
+    and each kept assignment's output, times its gate, is summed back
+    into its token (:class:`_Combine`), then over the model axis. Where
+    the experts do not divide the model axis, the reference's fallback:
+    ``_mlp_moe`` on every data rank's tokens, with the experts
+    replicated."""
     b, s, d = x.shape
     e = cfg.moe.n_experts
+    n = 1 if g is None else g.n_model
+    if e % n:
+        y = _mlp_moe(par.gather_over_data(x, g), lp, li, cfg)
+        return y.narrow(0, g.data_rank * b if g.data_group else 0, b)
+    e_loc = e // n
+    lo = 0 if g is None else g.model_rank * e_loc
+    x = _f(x, g)
     xt = x.reshape(b * s, d)
-    r = moe_route(xt, lp["router"][li], cfg.moe)
+    r = moe_route(xt, _f(lp["router"][li], g), cfg.moe, lo, e_loc)
     cap = r.cap
-    dest = torch.where(r.keep, r.se * cap + r.pos, e * cap)
-    buf = torch.zeros(e * cap + 1, d, dtype=x.dtype, device=x.device)
+    dest = torch.where(r.keep, r.se * cap + r.pos, e_loc * cap)
+    buf = torch.zeros(e_loc * cap + 1, d, dtype=x.dtype, device=x.device)
     buf.index_copy_(0, dest, _Gather.apply(xt, r.tok, r.perm, r.ptr))
-    buf = buf[:e * cap].view(e, cap, d)
+    buf = buf[:e_loc * cap].view(e_loc, cap, d)
     h = _silu(_mm(buf, lp["w_gate"][li]))
     h = h * _mm(buf, lp["w_up"][li])
     del buf                           # free each transient once read
-    out = _mm(h, lp["w_down"][li])    # [e, cap, d]
+    out = _mm(h, lp["w_down"][li])    # [e_loc, cap, d]
     del h
-    rows = out.reshape(e * cap, d).index_select(
-        0, r.se * cap + torch.clamp(r.pos, max=cap - 1))
+    rows = out.reshape(e_loc * cap, d).index_select(
+        0, torch.clamp(r.se, max=e_loc - 1) * cap
+        + torch.clamp(r.pos, max=cap - 1))
     del out
     rows = torch.where(r.keep[:, None], rows, 0)
     rows = rows * r.gate.reshape(-1).index_select(0, r.order)[:, None]
-    return _Combine.apply(rows, r.tok, r.perm, r.ptr).reshape(b, s, d)
+    y = _Combine.apply(rows, r.tok, r.perm, r.ptr)
+    return _g(y, g).reshape(b, s, d)
 
 
-def _mlp(cfg):
+def _mlp(cfg, g=None):
     """The layer's FFN, ``fn(h, lp, li)``: the MoE's or the dense one."""
-    return functools.partial(_mlp_moe, cfg=cfg) if cfg.moe else _mlp_dense
+    if cfg.moe:
+        return functools.partial(_mlp_moe, cfg=cfg, g=g)
+    return functools.partial(_mlp_dense, g=g)
 
 
-def _residual_out(x, o, m_fn, lp, li, cfg):
+def _residual_out(x, o, m_fn, lp, li, cfg, g=None):
     """The layer's tail shared by every path: attention output ``o`` [B,S,
-    H*Dh] through wo (and the post norm), the residual, the MLP."""
-    o = _mm(o, lp["wo"][li])
+    H*Dh] through wo (row-parallel on a mesh) and the post norm, the
+    residual, the MLP."""
+    o = _g(_mm(o, lp["wo"][li]), g)
     if cfg.post_norm:
         o = rms_norm(o, lp["attn_post_norm"][li])
     x = x + o
@@ -598,27 +830,35 @@ def _residual_out(x, o, m_fn, lp, li, cfg):
     return x + m
 
 
-def _layer_qkv(x, lp, li, cfg, positions):
+def _layer_qkv(x, lp, li, cfg, positions, g=None):
     h = rms_norm(x, lp["attn_norm"][li])
-    q, k, v = _proj_qkv(h, lp, li, cfg)
+    q, k, v = _proj_qkv(h, lp, li, cfg, g)
     return (_rope(q, positions, cfg.rope_theta),
             _rope(k, positions, cfg.rope_theta), v)
 
 
-def _layer_attention(q, k, v, kind, cfg):
-    """Training/prefill attention of one layer -> [B, S, H*Dh]."""
+def _expand_local(k, hd: LocalHeads):
+    """[B, S, kv, Dh] -> [B, S, hq, Dh]: each local query head's K/V."""
+    if hd.kv_of_q is None:
+        return expand_kv(k, hd.hq)
+    return k.index_select(2, torch.tensor(hd.kv_of_q, device=k.device))
+
+
+def _layer_attention(q, k, v, kind, cfg, hd: LocalHeads):
+    """Training/prefill attention of one layer -> [B, S, hq*Dh]."""
     win = cfg.window if kind == "local" else None
-    o = chunked_attention(q, expand_kv(k, cfg.n_heads),
-                          expand_kv(v, cfg.n_heads), window=win,
-                          softcap=cfg.attn_softcap, q_chunk=cfg.q_chunk)
+    o = chunked_attention(q, _expand_local(k, hd), _expand_local(v, hd),
+                          window=win, softcap=cfg.attn_softcap,
+                          q_chunk=cfg.q_chunk)
     return o.reshape(*o.shape[:2], -1)
 
 
-def _block(x, blk, cfg, positions):
+def _block(x, blk, cfg, positions, g=None):
+    hd = _heads(cfg, g)
     for li, kind in enumerate(cfg.block_pattern):
-        q, k, v = _layer_qkv(x, blk, li, cfg, positions)
-        x = _residual_out(x, _layer_attention(q, k, v, kind, cfg),
-                          _mlp(cfg), blk, li, cfg)
+        q, k, v = _layer_qkv(x, blk, li, cfg, positions, g)
+        x = _residual_out(x, _layer_attention(q, k, v, kind, cfg, hd),
+                          _mlp(cfg, g), blk, li, cfg, g)
     return x
 
 
@@ -629,11 +869,25 @@ def _block_params(params, bi: int) -> dict:
 # ---------------------------------------------------------------------------
 # forward passes
 # ---------------------------------------------------------------------------
-def _embed(params, tokens, cfg):
+def _vocab_split(g) -> bool:
+    return g is not None and g.model_group is not None
+
+
+def _embed(params, tokens, cfg, g=None):
     """The token embedding, in the residual stream's dtype: gemma's
-    ``* np.sqrt(d)`` promotes to f32 (a non-weak float64 scalar)."""
-    x = embedding_lookup(params["embed"], tokens,
-                         backend=cfg.lookup_backend).to(cfg.torch_dtype)
+    ``* np.sqrt(d)`` promotes to f32 (a non-weak float64 scalar). On a
+    mesh each rank looks up its own vocabulary rows (other ids give
+    zero rows) and the ranks' rows are summed."""
+    table = params["embed"]
+    if not _vocab_split(g):
+        x = embedding_lookup(table, tokens, backend=cfg.lookup_backend)
+    else:
+        local = tokens - g.model_rank * table.shape[0]
+        inr = (local >= 0) & (local < table.shape[0])
+        x = embedding_lookup(table, torch.where(inr, local, 0),
+                             backend=cfg.lookup_backend)
+        x = par.reduce_from_model(torch.where(inr[..., None], x, 0), g)
+    x = x.to(cfg.torch_dtype)
     if cfg.embed_scale:
         x = x.float() * math.sqrt(cfg.d_model)
     return x
@@ -643,20 +897,23 @@ def _positions(b: int, s: int, device):
     return torch.arange(s, device=device).expand(b, s)
 
 
-def _backbone(params, tokens, cfg, positions):
-    x = _embed(params, tokens, cfg)
+def _backbone(params, tokens, cfg, positions, g=None):
+    x = _embed(params, tokens, cfg, g)
     for bi in range(cfg.n_blocks):
         blk = _block_params(params, bi)
         if cfg.remat:
-            x = _maybe_checkpoint(_block, x, blk, cfg, positions)
+            x = _maybe_checkpoint(_block, x, blk, cfg, positions, g)
         else:
-            x = _block(x, blk, cfg, positions)
+            x = _block(x, blk, cfg, positions, g)
     return rms_norm(x, params["final_norm"])
 
 
-def _logits(params, h, cfg):
-    """[..., d] -> f32 [..., vocab]: the tied table (cast per call to h's
-    promoted dtype) or the untied head, then the final softcap."""
+def _logits(params, h, cfg, g=None):
+    """[..., d] -> f32 [..., vocab] (on a mesh, this rank's vocabulary
+    slice): the tied table (cast per call to h's promoted dtype) or the
+    untied head, then the final softcap."""
+    if _vocab_split(g):
+        h = par.copy_to_model(h, g)
     if cfg.tie_embed:
         out = _mm(h, params["embed"].T)
     else:
@@ -664,8 +921,20 @@ def _logits(params, h, cfg):
     return _softcap(out.float(), cfg.final_softcap)
 
 
-def _ce_sum(params, hs, ts, cfg):
-    lg = _logits(params, hs, cfg)                          # [B, lc, V] f32
+def _whole_logits(lg, g):
+    """A cell's logits [B, V] from every rank's [B_loc, V_loc]."""
+    if _vocab_split(g):
+        lg = par.all_gather_cat(lg, g.model_group, -1)
+    if g is not None and g.data_group is not None:
+        lg = par.all_gather_cat(lg, g.data_group, 0)
+    return lg
+
+
+def _ce_sum(params, hs, ts, cfg, g=None):
+    lg = _logits(params, hs, cfg, g)                 # [B, lc, V(_loc)] f32
+    if _vocab_split(g):
+        return torch.sum(par.vocab_parallel_ce(
+            lg, ts, g.model_rank * lg.shape[-1], g))
     lse = torch.logsumexp(lg, dim=-1)
     gold = torch.gather(lg, -1, ts[..., None].long())[..., 0]
     return torch.sum(lse - gold)
@@ -675,17 +944,21 @@ def _ce_sum(params, hs, ts, cfg):
 def train_loss(params, batch, cfg: TransformerConfig):
     """Causal LM loss; CE per sequence chunk. ``n_chunks = max(1, s //
     lc)``: tokens past ``n_chunks * lc`` are not summed, and the divisor
-    is still ``b * s`` (the reference's, kept)."""
+    is still ``b * s`` (the reference's, kept). On a mesh
+    (``parallel.use_groups``): this rank's batch, then the mean over the
+    data ranks."""
+    g = par.current_groups()
     tokens, targets = batch["tokens"], batch["targets"]
     b, s = tokens.shape
-    h = _backbone(params, tokens, cfg, _positions(b, s, tokens.device))
+    h = _backbone(params, tokens, cfg, _positions(b, s, tokens.device), g)
     lc = min(cfg.loss_chunk, s)
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(max(1, s // lc)):
         sl = slice(i * lc, (i + 1) * lc)
         total = total + _maybe_checkpoint(_ce_sum, params, h[:, sl],
-                                          targets[:, sl], cfg)
-    return total / (b * s)
+                                          targets[:, sl], cfg, g)
+    loss = total / (b * s)
+    return loss if g is None else par.mean_over_data(loss, g)
 
 
 # ---------------------------------------------------------------------------
@@ -703,16 +976,19 @@ def _cache_length(cfg, kind: str, max_seq: int) -> int:
 
 
 def init_cache(cfg: TransformerConfig, batch: int, max_seq: int,
-               device="cuda", generator=None) -> dict:
+               device="cuda", generator=None,
+               kv_heads: Optional[int] = None) -> dict:
     """Layer-stacked KV caches ``{"k_global", "v_global", "k_local",
     ...}``, each [n_blocks, per_block, B, length, Hkv, Dh] in the cache
-    dtype; local layers get ring buffers of ``window`` slots. Zeros, or
-    standard normal drawn from ``generator`` (through :func:`to_kv`)."""
+    dtype (``kv_heads`` K/V heads, default all); local layers get ring
+    buffers of ``window`` slots. Zeros, or standard normal drawn from
+    ``generator`` (through :func:`to_kv`)."""
     cache = {}
     dt = cfg.kv_torch_dtype
+    hkv = cfg.n_kv_heads if kv_heads is None else kv_heads
     for kind, n_per_block in _cache_kinds(cfg).items():
         shp = (cfg.n_blocks, n_per_block, batch,
-               _cache_length(cfg, kind, max_seq), cfg.n_kv_heads, cfg.hd)
+               _cache_length(cfg, kind, max_seq), hkv, cfg.hd)
         for kv in "kv":
             if generator is None:           # +0.0 is all-zero bytes
                 t = torch.zeros(shp, dtype=torch.uint8 if dt.itemsize == 1
@@ -728,22 +1004,25 @@ def init_cache(cfg: TransformerConfig, batch: int, max_seq: int,
 def prefill(params, batch, cfg: TransformerConfig, max_seq: int):
     """Process a full prompt; returns (last-position logits f32 [B, V],
     the filled cache). The cache holds K/V cast to its dtype; attention
-    reads the unrounded K/V."""
+    reads the unrounded K/V. On a mesh: this rank's batch rows and K/V
+    heads of the cache, the logits of the whole batch."""
+    g = par.current_groups()
     tokens = batch["tokens"]
     b, s = tokens.shape
     dev = tokens.device
     positions = _positions(b, s, dev)
-    x = _embed(params, tokens, cfg)
-    cache = init_cache(cfg, b, max_seq, device=dev)
+    x = _embed(params, tokens, cfg, g)
+    hd = _heads(cfg, g)
+    cache = init_cache(cfg, b, max_seq, device=dev, kv_heads=hd.kv)
     for bi in range(cfg.n_blocks):
         blk = _block_params(params, bi)
         counters = {k: 0 for k in _cache_kinds(cfg)}
         for li, kind in enumerate(cfg.block_pattern):
             ci = counters[kind]
             counters[kind] += 1
-            q, k, v = _layer_qkv(x, blk, li, cfg, positions)
-            x = _residual_out(x, _layer_attention(q, k, v, kind, cfg),
-                              _mlp(cfg), blk, li, cfg)
+            q, k, v = _layer_qkv(x, blk, li, cfg, positions, g)
+            x = _residual_out(x, _layer_attention(q, k, v, kind, cfg, hd),
+                              _mlp(cfg, g), blk, li, cfg, g)
             # ring layout: position p lives at slot p % length, so the
             # decode step's `pos % length` writes continue seamlessly
             length = _cache_length(cfg, kind, max_seq)
@@ -755,7 +1034,7 @@ def prefill(params, batch, cfg: TransformerConfig, max_seq: int):
                     1, slots, _bits(to_kv(val[:, s - take:],
                                           cfg.kv_torch_dtype)))
     h = rms_norm(x[:, -1:], params["final_norm"])
-    return _logits(params, h, cfg)[:, 0], cache
+    return _whole_logits(_logits(params, h, cfg, g)[:, 0], g), cache
 
 
 @_f32_sums
@@ -767,23 +1046,30 @@ def decode_step(params, cache, batch, cfg: TransformerConfig):
     Local layers write slot ``pos % length``, global ones ``pos``
     (clamped into the buffer, as ``dynamic_update_slice`` clamps); every
     slot below ``min(pos + 1, length)`` is attended, with no causal or
-    window mask. GQA stays grouped ([Hkv, grp]; q head h*grp + g)."""
+    window mask. GQA stays grouped ([Hkv, grp]; q head h*grp + g). On a
+    mesh: this rank's batch rows and heads (a rank whose query heads are
+    no plain grouping of its K/V heads reads each head's K/V), the
+    logits of the whole batch."""
+    g = par.current_groups()
     tokens, pos = batch["tokens"], batch["pos"]
     b = tokens.shape[0]
     dev = tokens.device
     pos = torch.as_tensor(pos, device=dev)
     positions = pos.reshape(1, 1).expand(b, 1)
-    x = _embed(params, tokens, cfg)
+    x = _embed(params, tokens, cfg, g)
     dt, dh = cfg.torch_dtype, cfg.hd
-    hkv = cfg.n_kv_heads
-    grp = cfg.n_heads // hkv
+    hd = _heads(cfg, g)
+    kv_of_q = (None if hd.kv_of_q is None else
+               torch.tensor(hd.kv_of_q, device=dev))
+    hkv = hd.kv if kv_of_q is None else hd.hq
+    grp = hd.hq // hkv
     for bi in range(cfg.n_blocks):
         blk = _block_params(params, bi)
         counters = {k: 0 for k in _cache_kinds(cfg)}
         for li, kind in enumerate(cfg.block_pattern):
             ci = counters[kind]
             counters[kind] += 1
-            q, k, v = _layer_qkv(x, blk, li, cfg, positions)
+            q, k, v = _layer_qkv(x, blk, li, cfg, positions, g)
             kc = cache[f"k_{kind}"][bi, ci]           # [B, L, Hkv, Dh] view
             vc = cache[f"v_{kind}"][bi, ci]
             length = kc.shape[1]
@@ -791,6 +1077,9 @@ def decode_step(params, cache, batch, cfg: TransformerConfig):
                     else torch.clamp(pos, 0, length - 1)).reshape(1).long()
             _bits(kc).index_copy_(1, slot, _bits(to_kv(k, kc.dtype)))
             _bits(vc).index_copy_(1, slot, _bits(to_kv(v, vc.dtype)))
+            if kv_of_q is not None:
+                kc, vc = kc.index_select(2, kv_of_q), vc.index_select(2,
+                                                                      kv_of_q)
             mask = (torch.arange(length, device=dev)
                     < torch.clamp(pos + 1, max=length))
             qh = q.reshape(b, hkv, grp, dh)
@@ -802,7 +1091,7 @@ def decode_step(params, cache, batch, cfg: TransformerConfig):
             scores = torch.where(mask, scores, NEG_INF)
             p = torch.softmax(scores, dim=-1).to(dt)   # [B, Hkv, grp, L]
             ve = vc.permute(0, 2, 1, 3).to(dt, memory_format=dense)
-            o = torch.matmul(p, ve).reshape(b, 1, cfg.n_heads * dh)
-            x = _residual_out(x, o, _mlp(cfg), blk, li, cfg)
+            o = torch.matmul(p, ve).reshape(b, 1, hd.hq * dh)
+            x = _residual_out(x, o, _mlp(cfg, g), blk, li, cfg, g)
     h = rms_norm(x, params["final_norm"])
-    return _logits(params, h, cfg)[:, 0], cache
+    return _whole_logits(_logits(params, h, cfg, g)[:, 0], g), cache

@@ -21,10 +21,13 @@ from __future__ import annotations
 
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.distributed.sharding import batch_axes, current_mesh
+from repro_torch.distributed.parallel import axes_group
+from repro_torch.distributed.sharding import (batch_axes, current_mesh,
+                                              mesh_shape)
 
 __all__ = ["compress_decompress", "mean_grads_compressed"]
 
@@ -85,10 +88,11 @@ def mean_grads_compressed(grads: Dict[str, torch.Tensor], method: str = "bf16",
                           up: Optional[Dict[str, torch.Tensor]] = None):
     """The data-parallel gradient mean with a compressed payload.
 
-    Under a mesh with batch axes: bf16, a mean in bfloat16 (all-reduce
-    SUM of the bf16 tensors, divided by the rank count in bf16); int8,
-    round-to-nearest codes at this rank's scale, an int32 all-reduce SUM,
-    then ``* scale / n``. Without one: :func:`compress_decompress`.
+    Under a mesh with batch axes (("pod",) "data": n ranks): bf16, a mean
+    in bfloat16 (all-reduce SUM of the bf16 tensors over those axes,
+    divided by n in bf16); int8, round-to-nearest codes at this rank's
+    scale, an int32 all-reduce SUM, then ``* scale / n``. Without one:
+    :func:`compress_decompress`.
     """
     _check(method)
     mesh = current_mesh()
@@ -97,11 +101,8 @@ def mean_grads_compressed(grads: Dict[str, torch.Tensor], method: str = "bf16",
     if method == "none":
         return grads
     axes = batch_axes(mesh)
-    if len(axes) != 1:
-        raise ValueError(f"a mean over several batch axes {axes} needs the "
-                         f"LM side's meshes, not ported yet")
-    group = mesh.get_group(axes[0])
-    n = mesh.size()
+    group = axes_group(mesh, axes)
+    n = int(np.prod([mesh_shape(mesh)[a] for a in axes]))
     out = {}
     for k in sorted(grads):
         g = grads[k]

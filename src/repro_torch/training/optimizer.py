@@ -51,12 +51,13 @@ def global_norm(grads: dict) -> torch.Tensor:
         for _, g in _leaves(grads)))
 
 
-def _clip_scale(grads: dict, grad_clip: Optional[float]):
+def _clip_scale(grads: dict, grad_clip: Optional[float], norm=None):
     """The global-norm clip's scale (an f32 scalar tensor), or None: the
-    caller multiplies each gradient by it as it reads the gradient."""
+    caller multiplies each gradient by it as it reads the gradient.
+    ``norm``: the norm function (default :func:`global_norm`)."""
     if grad_clip is None:
         return None
-    gn = global_norm(grads)
+    gn = (norm or global_norm)(grads)
     return torch.clamp(grad_clip / torch.clamp(gn, min=1e-9), max=1.0)
 
 
@@ -101,7 +102,10 @@ def sgd(lr: float = 1e-2) -> Optimizer:
 
 def adamw(lr: float = 1e-3, b1: float = 0.9, b2: float = 0.999,
           eps: float = 1e-8, weight_decay: float = 0.0,
-          grad_clip: Optional[float] = None) -> Optimizer:
+          grad_clip: Optional[float] = None,
+          norm: Optional[Callable] = None) -> Optimizer:
+    """AdamW; ``grad_clip`` clips by the global norm, ``norm(grads)`` where
+    the gradients are blocks of a sharded model (the mesh's norm)."""
     def init(params):
         z = lambda p: torch.zeros(p.shape, dtype=torch.float32,  # noqa: E731
                                   device=p.device)
@@ -112,7 +116,7 @@ def adamw(lr: float = 1e-3, b1: float = 0.9, b2: float = 0.999,
     @torch.no_grad()
     def update(grads, state, params):
         state["step"].add_(1)
-        scale = _clip_scale(grads, grad_clip)
+        scale = _clip_scale(grads, grad_clip, norm)
         t = state["step"].float()
         bc1 = 1 - torch.pow(b1, t)
         bc2 = 1 - torch.pow(b2, t)

@@ -326,7 +326,7 @@ def test_train_microbatches_average_the_full_batch():
                  if isinstance(v, dict) else v.clone())
              for k, v in p0.items()}
         state = opt.init(rs.flat_params(p))
-        step = steps._lm_train_step(cfg, opt, n, torch.float32)
+        step = steps._LMTrainStep(cfg, opt, n, torch.float32)
         outs.append(step(p, state, b))
     torch.testing.assert_close(outs[1][2], outs[0][2], rtol=1e-5, atol=0)
     for k, v in rs.flat_params(outs[0][0]).items():

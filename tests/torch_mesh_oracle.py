@@ -1,0 +1,174 @@
+"""The JAX package's LM cells on 4 host devices: the oracle of
+``tests/test_torch_mesh.py``.
+
+    python tests/torch_mesh_oracle.py OUT.npz [DxM]
+
+Run as a script, it sets ``XLA_FLAGS=--xla_force_host_platform_device_count=4``
+and ``JAX_PLATFORMS=cpu`` before importing jax, then runs, on each of the
+(2, 2) and (1, 4) ``("data", "model")`` meshes built as
+``jax.sharding.Mesh`` (Auto axes: under ``jax.make_mesh``'s Explicit
+axes the reference's ``shard()`` raises), the smoke cells of
+``MESH_ARCHS`` in f32: the prefill's logits and cache, one decode step's
+logits and cache, and ``train_loss`` with its gradients; the qwen1.5-32b
+prefill in bf16 on (2, 2); and ``build_pp_train_cell``'s step (loss and
+updated params) for qwen1.5-32b at ``PP_LAYERS`` layers on both meshes.
+Every array is written as float32 under ``"<mesh>/<arch>/<what>"``;
+``DxM`` (``2x2`` or ``1x4``) runs one mesh only.
+"""
+import dataclasses
+import functools
+import importlib
+import os
+import sys
+
+import numpy as np
+
+MESHES = ((2, 2), (1, 4))
+MESH_ARCHS = ("gemma2-9b", "qwen1.5-32b", "dbrx-132b")
+# GPipe: qwen1.5-32b's smoke config at this depth, global batch, seq and
+# microbatches
+PP_LAYERS, PP_BATCH, PP_SEQ, PP_MICRO = 4, 8, 16, 4
+
+
+def _path(keys) -> str:
+    return "/".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                    for k in keys)
+
+
+def _flat(tree, prefix: str, out: dict) -> None:
+    import jax
+    flat, _ = jax.tree_util.tree_flatten_with_path(tree)
+    for p, x in flat:
+        out[f"{prefix}/{_path(p)}"] = np.asarray(x, np.float32)
+
+
+def mesh_of(shape):
+    import jax
+    devs = np.array(jax.devices()[:int(np.prod(shape))]).reshape(shape)
+    return jax.sharding.Mesh(devs, ("data", "model"))
+
+
+def lm_cells(mesh, tag: str, out: dict, archs=MESH_ARCHS) -> None:
+    import jax
+
+    from repro.configs import registry
+    from repro.launch import steps
+    from repro.models import transformer as T
+
+    for arch in archs:
+        cfg = dataclasses.replace(registry.get_arch(arch).smoke_config(),
+                                  lookup_backend="gather")
+        pre = steps.build_cell(arch, "prefill_32k", smoke=True,
+                               lookup_backend="gather")
+        dec = steps.build_cell(arch, "decode_32k", smoke=True,
+                               lookup_backend="gather")
+        tr = steps.build_cell(arch, "train_4k", smoke=True,
+                              lookup_backend="gather")
+        with mesh:
+            logits, cache = jax.jit(pre.fn)(*pre.args)
+            _flat({"logits": logits, "cache": cache},
+                  f"{tag}/{arch}/prefill", out)
+            logits, cache = jax.jit(dec.fn)(*dec.args)
+            _flat({"logits": logits, "cache": cache},
+                  f"{tag}/{arch}/decode", out)
+            params, _, batch = tr.args
+            loss, grads = jax.jit(jax.value_and_grad(
+                lambda p, b: T.train_loss(p, b, cfg)))(params, batch)
+            _flat({"loss": loss, "grads": grads}, f"{tag}/{arch}/train", out)
+
+
+def bf16_prefill(mesh, tag: str, out: dict) -> None:
+    """qwen1.5-32b's smoke prefill in bf16 (params ``init_params`` key 0
+    cast by the config; tokens ``bf16_tokens``)."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import registry
+    from repro.models import transformer as T
+
+    cfg = dataclasses.replace(registry.get_arch("qwen1.5-32b").smoke_config(),
+                              dtype="bfloat16", lookup_backend="gather")
+    params = T.init_params(jax.random.PRNGKey(0), cfg)
+    with mesh:
+        logits, cache = jax.jit(functools.partial(T.prefill, cfg=cfg,
+                                                  max_seq=16))(
+            params, {"tokens": jnp.asarray(bf16_tokens())})
+    _flat({"logits": logits, "cache": cache}, f"{tag}/bf16/prefill", out)
+
+
+def bf16_tokens() -> np.ndarray:
+    return np.random.default_rng(3).integers(0, 512, (4, 16)).astype(
+        np.int32)
+
+
+def pp_config():
+    from repro.configs import registry
+    return dataclasses.replace(registry.get_arch("qwen1.5-32b").smoke_config(),
+                               n_layers=PP_LAYERS, lookup_backend="gather")
+
+
+def pp_inputs(cfg):
+    """GPipe's inputs: ``init_params`` key 0 and tokens, targets uniform
+    over the vocabulary from ``default_rng(5)``."""
+    import jax
+
+    from repro.models import transformer as T
+    params = T.init_params(jax.random.PRNGKey(0), cfg)
+    rng = np.random.default_rng(5)
+    batch = {k: rng.integers(0, cfg.vocab_size, (PP_BATCH, PP_SEQ)).astype(
+        np.int32) for k in ("tokens", "targets")}
+    return params, batch
+
+
+def pp_step(mesh, tag: str, out: dict) -> None:
+    import jax
+
+    from repro.launch.pipeline import build_pp_train_cell
+    from repro.training import optimizer as opt_lib
+
+    cfg = pp_config()
+    n_stages = mesh.shape["model"]
+    step, (p_specs, _, _) = build_pp_train_cell(
+        cfg, global_batch=PP_BATCH, seq=PP_SEQ, mesh=mesh, n_micro=PP_MICRO)
+    params, batch = pp_inputs(cfg)
+    params = {**params, "blocks": jax.tree.map(
+        lambda a: a.reshape((n_stages, a.shape[0] // n_stages)
+                            + a.shape[1:]), params["blocks"])}
+    params = jax.tree.map(lambda a, s: jax.device_put(a, s.sharding),
+                          params, p_specs)
+    opt_state = opt_lib.adamw(lr=3e-4, grad_clip=1.0).init(params)
+    with mesh:
+        new_params, _, loss = jax.jit(step)(params, opt_state, batch)
+    new_params = {**new_params, "blocks": jax.tree.map(
+        lambda a: a.reshape((-1,) + a.shape[2:]), new_params["blocks"])}
+    _flat({"loss": loss, "params": new_params}, f"{tag}/pp", out)
+
+
+def main(argv) -> int:
+    import jax
+
+    from repro.configs import registry
+    for m in registry._MODULES:
+        importlib.import_module(f"repro.configs.{m}")
+    assert len(jax.devices()) == 4, jax.devices()
+    out = {}
+    for shape in MESHES:
+        tag = f"{shape[0]}x{shape[1]}"
+        if len(argv) > 2 and argv[2] != tag:
+            continue
+        mesh = mesh_of(shape)
+        lm_cells(mesh, tag, out)
+        pp_step(mesh, tag, out)
+        if shape == (2, 2):
+            bf16_prefill(mesh, tag, out)
+    np.savez(argv[1], **out)
+    return 0
+
+
+if __name__ == "__main__":
+    # before jax is first imported: 4 host devices, the CPU only (never
+    # at import, which would give the importing process 4 devices too)
+    os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") +
+                               " --xla_force_host_platform_device_count=4")
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    sys.exit(main(sys.argv))
