@@ -180,6 +180,34 @@
    bf16 CSR gather-sum as the one-card cells run it; the collectives
    and the bytes they all-reduce a call or step are printed. It prints
    an ``lm_mesh`` JSON line; its launches count into the kernels line.
+   Then the recsys, cf and GNN cells over a mesh (``arch_mesh``): an NCCL
+   world of 1 under ``make_host_mesh()``, each cell of
+   ``ARCH_MESH_CELLS`` through ``build_cell(..., mesh=...)`` at full
+   published width, built from its one-card twin's args (the tables,
+   sketches and batch the same tensors; a train cell's params cloned,
+   so each steps its own copy): dlrm-mlperf-baco serve_p99 (47,036,416
+   rows a field's table and sketch by "vocab" rows: the two-level
+   row-sharded lookup, codebook_lookup and dot_interaction),
+   wide-deep-baco train_batch (B 65,536: the lookups' backward into
+   row blocks, the CSR gather-sum), sasrec-baco train_batch
+   (flash_attention on the rank's rows), lightgcn-baco bpr_train
+   (amazonbook width: the propagation's weighted CSR gather-sum over
+   the rank's edge block) and schnet minibatch_lg. Gates: the first
+   call's output (a train step's loss and every updated param) bitwise
+   the twin's, its launches (by kernel, route and form) equal the
+   twin's, peak memory under 85% of the card, and the four kernels run.
+   A world of 1 holds every row in the one block, so the block lookup's
+   masking is held apart (``ARCH_BLOCK_CHECKS``): at the DLRM serve_p99
+   and W&D train_batch shapes, the middle half of a field's table as a
+   block at lo > 0, ids over the whole table (inside and outside it),
+   the rows and the block's gradient bitwise the "gather" backend's.
+   It prints each cell's collectives and bytes a call, the median ms
+   beside the twin's and the phase's seconds, then the reckoning of the
+   cells no single card holds (``ARCH_NOT_RUN``: dlrm-mlperf serve and
+   train, dlrm-mlperf-baco and bert4rec-baco train) by
+   ``launch.steps.rank_bytes`` on one card and on 4 and 8 ranks. It
+   prints an ``arch_mesh`` JSON line; its launches count into the
+   kernels line.
    Then SchNet (``gnn``) at its published widths (d_hidden 64, 300 RBF,
    3 blocks, cutoff 10) through ``build_cell`` (``GNN_CELLS``):
    ``full_graph_sm`` (2,708 nodes, d_feat 1,433), ``minibatch_lg`` (a
@@ -282,8 +310,8 @@
    ``benches`` JSON line.
 
 Prints a ``stream`` JSON line, a ``frontdoor`` JSON line, a ``scale``,
-a ``baselines``, an ``arch``, an ``lm``, an ``lm_mesh`` and a ``gnn`` JSON
-line, a
+a ``baselines``, an ``arch``, an ``lm``, an ``lm_mesh``, an ``arch_mesh``
+and a ``gnn`` JSON line, a
 ``kernels`` JSON line (the CSR gather-sum's bf16 instantiation has an
 entry of its own), a ``timer`` line
 (the timer's floor), a ``benches`` JSON line, the ``nvidia-smi``
@@ -2510,8 +2538,9 @@ def arch_entry(run: dict, name: str, bench_launches: int) -> dict:
     rows = arch_rows(run, name)
     main = rows[ARCH_MAIN[name]]
     arch_n = run["arch"]["launches"].get(name, 0)
-    return {"launches": arch_n + bench_launches,
-            "launches_by_path": {"arch": arch_n,
+    mesh_n = run["arch_mesh"]["launches"].get(name, 0)
+    return {"launches": arch_n + mesh_n + bench_launches,
+            "launches_by_path": {"arch": arch_n, "arch_mesh": mesh_n,
                                  "kernel_bench": bench_launches},
             **{k: main[k] for k in ("ms", "plain_ms", "bound_ms",
                                     "bound_by", "library_ms", "shape")},
@@ -3499,6 +3528,254 @@ def lm_mesh_path() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the recsys, cf and GNN cells over a mesh (an NCCL world of 1)
+# ---------------------------------------------------------------------------
+# (arch, shape, timed calls or steps after the first): each at full
+# published width (SchNet's at its GNN_ONE_CARD cut) beside its twin
+ARCH_MESH_CELLS = (("dlrm-mlperf-baco", "serve_p99", 10),
+                   ("wide-deep-baco", "train_batch", 3),
+                   ("sasrec-baco", "train_batch", 3),
+                   ("lightgcn-baco", "bpr_train", 5),
+                   ("schnet", "minibatch_lg", 3))
+# the cells no single H100 holds, reckoned by launch.steps.rank_bytes on
+# one card and on these (data, model) meshes
+ARCH_NOT_RUN = (("dlrm-mlperf", "serve_p99"), ("dlrm-mlperf", "train_batch"),
+                ("dlrm-mlperf-baco", "train_batch"),
+                ("bert4rec-baco", "train_batch"))
+ARCH_RECKON_MESHES = ((4, 1), (8, 1))
+# (arch, shape): the tables whose block lookup is held apart, each the
+# largest of its kind in the cell's full config
+ARCH_BLOCK_CHECKS = {("dlrm-mlperf-baco", "serve_p99"): ("emb_0",),
+                     ("wide-deep-baco", "train_batch"): ("emb_39",
+                                                         "wide_39")}
+
+
+def all_launches() -> dict:
+    """Every launch counter by name: each kernel's, and flash_attention's
+    by route and the CSR gather-sum's weighted and 16-bit launches."""
+    fns = counted_kernels()
+    fa, eb = fns["flash_attention"], fns["embedding_bag"]
+    return {**launch_counts(), "flash_attention_tc": fa.launches_tc,
+            "flash_attention_cc": fa.launches_cc,
+            "embedding_bag_weighted": eb.launches_weighted,
+            "embedding_bag_16": eb.launches_16}
+
+
+def arch_block_lookup(table, b: int, label: str, seed: int = 0) -> dict:
+    """A row block's lookup (``EmbeddingEngine.block_lookup``: the
+    codebook_lookup kernel, backward the CSR gather-sum) on a block that
+    starts past row 0: the middle half of ``table`` [n, d], rows
+    [n/4, n/4 + n/2), for ``b`` seeded ids over all n rows, so about half
+    fall outside the block. The rows and the block's gradient of a
+    seeded cotangent must equal the plain version's (the "gather"
+    backend's ``block`` on the same inputs) bitwise: the cotangent holds
+    small integers, which sum exactly in any order, so the plain
+    version's atomic adds give the same floats. Each kernel must launch
+    once (these launches are a check's and count into no path)."""
+    import torch
+
+    from repro_torch.embedding import EmbeddingEngine, EmbeddingSpec
+    from repro_torch.embedding import get_backend
+
+    n, d = table.shape
+    lo, m = n // 4, n // 2
+    gen = torch.Generator(device=table.device).manual_seed(seed)
+    ids = torch.randint(0, n, (b,), device=table.device, generator=gen)
+    cot = torch.randint(-8, 9, (b, d), device=table.device,
+                        generator=gen).to(table.dtype)
+    inside = int(((ids >= lo) & (ids < lo + m)).sum())
+    require(0 < inside < b, f"{label}: the ids do not straddle the block")
+    spec = EmbeddingSpec(n_rows=m, dim=d)
+
+    def run(lookup):
+        blk = table[lo:lo + m].detach().requires_grad_(True)
+        rows = lookup(blk)
+        (grad,) = torch.autograd.grad(rows, blk, cot)
+        return rows.detach(), grad
+
+    zero_counts()
+    got, got_g = run(lambda t: EmbeddingEngine(spec).block_lookup(t, ids, lo))
+    sync("cuda")
+    launches = {k: v for k, v in launch_counts().items() if v}
+    want, want_g = run(lambda t: get_backend("gather").block(t, ids, lo))
+    res = {"table": label, "rows": m, "lo": lo, "d": d, "ids": b,
+           "ids_inside": inside, "launches": launches,
+           "rows_bitwise": bool(torch.equal(got, want)),
+           "grad_bitwise": bool(torch.equal(got_g, want_g)),
+           "foreign_rows_zero": bool(torch.equal(
+               got[(ids < lo) | (ids >= lo + m)],
+               torch.zeros((b - inside, d), dtype=got.dtype,
+                           device=got.device)))}
+    require(res["rows_bitwise"] and res["grad_bitwise"]
+            and res["foreign_rows_zero"],
+            f"{label}: the block lookup disagrees with its plain version: "
+            f"{res}")
+    require(launches == {"codebook_lookup": 1, "embedding_bag": 1},
+            f"{label}: the block lookup launched {launches}")
+    del got, got_g, want, want_g
+    return res
+
+
+def arch_mesh_cell(mesh, arch: str, shape: str, n: int,
+                   device: str = "cuda", smoke: bool = False) -> dict:
+    """One cell through ``build_cell(mesh=...)`` beside its one-card twin,
+    built from the twin's args (a train cell's params cloned, so each
+    steps its own copy from the same values, with a fresh optimizer
+    state each): the first call's outputs (a train step's loss and every
+    updated param) bitwise the twin's, and its launches equal; then
+    ``n`` timed calls of each. Peak memory from a reset at the cell's
+    start must stay under ``PEAK_SHARE`` of the card."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.steps import GNN_ONE_CARD, build_cell
+    from repro_torch.models.recsys import flat_params
+
+    label = f"{arch}:{shape}"
+    cut = {} if smoke else GNN_ONE_CARD.get((arch, shape), {})
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    one = build_cell(arch, shape, smoke=smoke, device=device, **cut)
+    train = one.kind == "train"
+    args = one.args
+    if train:
+        args = (_to(one.args[0], device), None) + tuple(one.args[2:])
+    cell = build_cell(arch, shape, mesh=mesh, smoke=smoke, device=device,
+                      args=args, **cut)
+    sync(device)
+    build_s = time.perf_counter() - t0
+    mine = flat_params(args[0])
+    require(all(v is mine[k] for k, v in flat_params(cell.args[0]).items()),
+            f"{label}: the mesh cell does not hold its args' tensors")
+    zero_counts()
+    want = one.fn(*one.args)
+    sync(device)
+    one_launches = all_launches()
+    zero_mesh_counts()
+    got = cell.fn(*cell.args)
+    sync(device)
+    launches = all_launches()
+    coll = mesh_counts()
+    if train:
+        want_p = flat_params(want[0])
+        same = (torch.equal(got[2], want[2])
+                and all(torch.equal(v, want_p[k])
+                        for k, v in flat_params(got[0]).items()))
+        out = {"loss": float(got[2])}
+    else:
+        same = torch.equal(got, want)
+        out = {"out_shape": list(got.shape),
+               "out_digest": tensors_digest([got])}
+    require(same, f"{label}: the mesh cell's first "
+            f"{'step' if train else 'call'} is not bitwise its twin's")
+    require(launches == one_launches, f"{label}: launches differ: twin "
+            f"{one_launches}, mesh {launches}")
+    del want, got
+    _, one_ms = timed_calls(one.fn, one.args, n)
+    zero_counts()
+    _, ms = timed_calls(cell.fn, cell.args, n)
+    sync(device)
+    timed = all_launches()
+    res = {"cell": label, "kind": cell.kind, "notes": cell.notes,
+           "reduced": list(cell.reduced), "build_s": build_s, **out,
+           "calls": n + 2, "bitwise": True,
+           "launches_per_call": {k: v for k, v in launches.items() if v},
+           "launches": {k: launches[k] + timed[k] for k in launches
+                        if launches[k] + timed[k]},
+           "collectives_per_call": coll["collectives"],
+           "all_reduce_bytes_per_call": coll["all_reduce_bytes"],
+           "all_gather_bytes_per_call": coll["all_gather_bytes"],
+           "ms": ms, "ms_median": statistics.median(ms),
+           "one_card_ms": one_ms,
+           "one_card_ms_median": statistics.median(one_ms)}
+    checks = ARCH_BLOCK_CHECKS.get((arch, shape), ())
+    if device == "cuda" and checks:
+        b = get_arch(arch).shape(shape).dims["batch"]
+        mine = flat_params(args[0])
+        res["block_checks"] = [
+            arch_block_lookup(mine[k], b, f"{label} {k}", seed=i)
+            for i, k in enumerate(checks)]
+    if device == "cuda":
+        res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        require_peak(label, res["peak_gb"] * 1e9)
+    del one, cell, args, mine
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    log(f"arch_mesh {label}: {res}")
+    return res
+
+
+def arch_not_run() -> list:
+    """The recsys cells no single card holds, reckoned by
+    ``launch.steps.rank_bytes`` (params, gradients and AdamW moments a
+    rank) on one card and on ``ARCH_RECKON_MESHES``; bert4rec-baco's
+    train cell by its logits: three [B, n_mask, n_neg + 1] f32 tensors
+    live at once (the negatives' einsum, the concatenation,
+    logsumexp's exp), a data rank holding its batch rows. On one card
+    each must pass ``PEAK_SHARE`` of it."""
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.launch.steps import rank_bytes
+
+    room = PEAK_SHARE * torch.cuda.get_device_properties(0).total_memory
+    out = []
+    for arch, shape in ARCH_NOT_RUN:
+        cfg = get_arch(arch).full_config()
+        b = get_arch(arch).shape(shape).dims["batch"]
+        res = {"cell": f"{arch}:{shape}", "run": False,
+               "room_gb": room / 1e9}
+        for m in ((1, 1),) + ARCH_RECKON_MESHES:
+            tag = "one_card" if m == (1, 1) else f"{m[0]}x{m[1]}"
+            rb = rank_bytes(arch, shape, AbstractMesh(m, ("data", "model")))
+            res[tag] = {k: v / 1e9 for k, v in rb.items()}
+            if arch.startswith("bert4rec"):
+                logits = 3 * (b // m[0]) * cfg.n_mask * (cfg.n_neg + 1) * 4
+                res[tag]["logits_gb"] = logits / 1e9
+        need = res["one_card"]["total"] + res["one_card"].get("logits_gb", 0)
+        require(need * 1e9 > room, f"{arch}:{shape} would fit one card: "
+                f"{res}")
+        log(f"arch {arch}:{shape}: not run: {res}")
+        out.append(res)
+    return out
+
+
+def arch_mesh_path() -> dict:
+    """The recsys, cf and GNN cells over an NCCL world of 1 (module
+    docstring), and the reckoning of the cells no single card holds."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import world
+    from repro_torch.launch.mesh import make_host_mesh
+
+    require(not dist.is_initialized(),
+            "a process group is alive before the arch_mesh phase")
+    t0 = time.perf_counter()
+    with world("cuda"):
+        mesh = make_host_mesh("cuda")
+        res = {"cells": [arch_mesh_cell(mesh, *c) for c in ARCH_MESH_CELLS]}
+    require(not dist.is_initialized(), "the NCCL world outlived its phase")
+    total = {}
+    for c in res["cells"]:
+        for k, v in c["launches"].items():
+            total[k] = total.get(k, 0) + v
+    for k in ("codebook_lookup", "embedding_bag", "dot_interaction",
+              "flash_attention"):
+        require(total.get(k, 0) > 0, f"arch_mesh: {k} never ran")
+    res["launches"] = total
+    res["not_run"] = arch_not_run()
+    res["seconds"] = time.perf_counter() - t0
+    log(f"arch_mesh phase: {res['seconds']:.1f} s, launches {total}")
+    return res
+
+
+# ---------------------------------------------------------------------------
 # the GNN family (SchNet) at full published width
 # ---------------------------------------------------------------------------
 # SchNet's four train cells, each at its one-card cut
@@ -4008,6 +4285,7 @@ def check_codebook_lookup(run: dict) -> dict:
                          + run["arch"]["launches"]["codebook_lookup"]
                          + run["lm"]["launches"]["codebook_lookup"]
                          + run["lm_mesh"]["launches"]["codebook_lookup"]
+                         + run["arch_mesh"]["launches"]["codebook_lookup"]
                          + run["gnn"]["launches"].get("codebook_lookup", 0)
                          + run["baselines"]["cce"]["launches"][
                              "codebook_lookup"]),
@@ -4023,6 +4301,8 @@ def check_codebook_lookup(run: dict) -> dict:
                 "arch": run["arch"]["launches"]["codebook_lookup"],
                 "lm": run["lm"]["launches"]["codebook_lookup"],
                 "lm_mesh": run["lm_mesh"]["launches"]["codebook_lookup"],
+                "arch_mesh":
+                    run["arch_mesh"]["launches"]["codebook_lookup"],
                 "gnn": run["gnn"]["launches"].get("codebook_lookup", 0),
                 "cce": run["baselines"]["cce"]["launches"][
                     "codebook_lookup"]},
@@ -4429,6 +4709,7 @@ def check_embedding_bag(run: dict, emb_run: dict) -> dict:
         "arch": run["arch"]["launches"].get("embedding_bag", 0),
         "lm (bf16)": run["lm"]["launches"].get("embedding_bag", 0),
         "lm_mesh (bf16)": run["lm_mesh"]["launches"].get("embedding_bag", 0),
+        "arch_mesh": run["arch_mesh"]["launches"].get("embedding_bag", 0),
         "gnn": run["gnn"]["launches"].get("embedding_bag", 0),
         "cce": run["baselines"]["cce"]["launches"].get("embedding_bag", 0)}
     return {"name": "embedding_bag", "route": "cuda",
@@ -5183,6 +5464,7 @@ def main() -> int:
             run["arch"] = arch_path()
             run["lm"] = lm_path()
             run["lm_mesh"] = lm_mesh_path()
+            run["arch_mesh"] = arch_mesh_path()
             run["gnn"] = gnn_path()
             emb_run = embedding_path(run)
             bench_run = bench_path()
@@ -5211,6 +5493,7 @@ def main() -> int:
     print(json.dumps({"arch": run["arch"]}))
     print(json.dumps({"lm": run["lm"]}))
     print(json.dumps({"lm_mesh": run["lm_mesh"]}))
+    print(json.dumps({"arch_mesh": run["arch_mesh"]}))
     print(json.dumps({"gnn": run["gnn"]}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"timer": {"floor_ms": floor,

@@ -30,8 +30,9 @@ register(ArchSpec(
     full_config=full_config, smoke_config=smoke_config,
     shapes=recsys_shapes(),
     notes="96.1 GB of f32 tables: more than one 80 GB card holds (it "
-          "waits for the sharded path); the dot interaction runs the "
-          "CUDA kernel (kernels/dot_interaction)"))
+          "runs on a mesh: 'vocab' rows over data x model, "
+          "launch.steps.rank_bytes); the dot interaction runs the CUDA "
+          "kernel (kernels/dot_interaction)"))
 
 register(ArchSpec(
     arch_id="dlrm-mlperf-baco", family="recsys",

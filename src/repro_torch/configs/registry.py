@@ -64,7 +64,8 @@ _MODULES = ["gemma3_12b", "gemma2_9b", "qwen15_32b", "kimi_k2", "dbrx",
 UNPORTED_ARCHS: Dict[str, str] = {}
 WAITS_FOR: Dict[str, str] = {}
 # what the sharded path still lacks: the data-axis layouts (ZeRO-1,
-# FSDP), the dry run, the recsys, GNN and cf cells on a mesh
+# FSDP), Adafactor over a model axis (kimi-k2's train_4k), the "dp"
+# mapping, the dry run
 SHARDED_ITEM = "ROADMAP Queue 1 #7c-ii-c"
 
 

@@ -29,6 +29,18 @@ cross-entropy):
     the summed cotangent backward (the MoE whose experts do not divide
     the model axis runs on the global tokens, as the reference's GSPMD
     ``_mlp_moe`` does).
+  * :func:`copy_to` / :func:`reduce_from`: *f* and *g* over any group
+    (the data axes of LightGCN's edge blocks); :func:`sum_over_data`:
+    *g* over the data ranks (a sum of each rank's share of a global
+    ratio, such as SASRec's masked mean);
+  * :func:`sum_keep_rows`: the sum over a group of every rank's partial
+    rows, of which each rank keeps its batch rows (a reduce-scatter, by
+    an all-reduce and a slice); backward, the cotangents of every rank's
+    rows, all-gathered;
+  * :func:`gather_rows`: a row-sharded table whole on every rank, its
+    backward the rank's block of the (replicated) cotangent.
+The row-sharded lookup of the recsys cells built on these is
+``models.recsys.row_lookup``.
 ``torch.distributed.nn.functional.all_reduce`` is not used: its backward
 all-reduces again, which over-counts a replicated gradient n times.
 
@@ -41,19 +53,21 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import dataclasses
-from typing import Optional
+from typing import Mapping, Optional
 
 import torch
 import torch.distributed as dist
 
-from repro_torch.distributed.sharding import (batch_axes, current_mapping,
-                                              mesh_shape)
+from repro_torch.distributed.sharding import (_entry_axes, batch_axes,
+                                              current_mapping, mesh_shape)
 
 __all__ = ["RankGroups", "rank_groups", "axes_group", "use_groups",
-           "current_groups",
+           "current_groups", "RowBlock", "row_block",
            "COUNTS", "zero_counts", "all_reduce", "all_gather_cat",
-           "ring_exchange", "copy_to_model", "reduce_from_model",
-           "mean_over_data", "vocab_parallel_ce", "gather_over_data"]
+           "ring_exchange", "copy_to", "reduce_from", "copy_to_model",
+           "reduce_from_model", "mean_over_data", "sum_over_data",
+           "vocab_parallel_ce", "gather_over_data", "sum_keep_rows",
+           "gather_rows"]
 
 # collectives issued, and the bytes each kind moved in (all-reduce,
 # all-gather) or sent (ring)
@@ -117,13 +131,16 @@ class RankGroups:
     ``model_group`` / ``data_group`` are None where the mapping gives no
     such axis (and then ``n_*`` is 1); ``n_data`` counts the shards of
     the batch, 1 when the cell's batch is replicated over the data axes
-    (it does not divide them)."""
+    (it does not divide them). ``rows``: the :class:`RowBlock` of each
+    row-sharded leaf of a cell, by its name (a recsys table or sketch,
+    LightGCN's edges)."""
     n_model: int
     model_rank: int
     model_group: Optional[object]
     n_data: int
     data_rank: int
     data_group: Optional[object]
+    rows: Mapping[str, "RowBlock"] = dataclasses.field(default_factory=dict)
 
     def model_peer(self, model_rank: int) -> int:
         """The global rank at ``model_rank`` on this rank's model axis."""
@@ -165,6 +182,27 @@ def rank_groups(mesh, batch: Optional[int] = None) -> RankGroups:
         axes_group(mesh, daxes))
 
 
+@dataclasses.dataclass(frozen=True)
+class RowBlock:
+    """This rank's block of a leaf's rows: rows [lo, lo + len) of its
+    ``n_rows``, the rows split among the ranks of ``group`` (None: this
+    rank holds every row). Ranks outside the group along other mesh axes
+    hold the same block."""
+    lo: int
+    n_rows: int
+    group: Optional[object] = None
+
+
+def row_block(layout, n_rows: int) -> RowBlock:
+    """The :class:`RowBlock` of a leaf of ``n_rows`` rows whose dim 0 is
+    split as ``layout`` (a ``sharding.Layout`` on a ``DeviceMesh``) says."""
+    axes = _entry_axes(layout.spec[0]) if layout.spec else ()
+    if not axes:
+        return RowBlock(0, n_rows)
+    return RowBlock(layout._block(0, n_rows)[0], n_rows,
+                    axes_group(layout.mesh, axes))
+
+
 _GROUPS = contextvars.ContextVar("repro_torch_rank_groups", default=None)
 
 
@@ -185,7 +223,7 @@ def current_groups() -> Optional[RankGroups]:
 # ---------------------------------------------------------------------------
 # autograd Functions across the collectives
 # ---------------------------------------------------------------------------
-class _CopyToModel(torch.autograd.Function):
+class _CopyTo(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         ctx.group = group
@@ -196,7 +234,7 @@ class _CopyToModel(torch.autograd.Function):
         return all_reduce(g.clone(), ctx.group), None
 
 
-class _ReduceFromModel(torch.autograd.Function):
+class _ReduceFrom(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         return all_reduce(x.clone(), group)
@@ -217,20 +255,32 @@ class _MeanOverData(torch.autograd.Function):
         return g / ctx.n, None, None
 
 
+def copy_to(x: torch.Tensor, group) -> torch.Tensor:
+    """Megatron's *f* over ``group``: ``x`` as it is; its cotangent
+    all-reduced over the group (None: ``x`` itself)."""
+    return x if group is None else _CopyTo.apply(x, group)
+
+
+def reduce_from(x: torch.Tensor, group) -> torch.Tensor:
+    """Megatron's *g* over ``group``: the sum of every rank's ``x``; the
+    cotangent passes through (None: ``x`` itself)."""
+    return x if group is None else _ReduceFrom.apply(x, group)
+
+
 def copy_to_model(x: torch.Tensor, groups: RankGroups) -> torch.Tensor:
-    """Megatron's *f*: ``x`` as it is; its cotangent all-reduced over the
-    model axis."""
-    if groups.model_group is None:
-        return x
-    return _CopyToModel.apply(x, groups.model_group)
+    """*f* over the model axis."""
+    return copy_to(x, groups.model_group)
 
 
 def reduce_from_model(x: torch.Tensor, groups: RankGroups) -> torch.Tensor:
-    """Megatron's *g*: the sum of every model rank's ``x``; the cotangent
-    passes through."""
-    if groups.model_group is None:
-        return x
-    return _ReduceFromModel.apply(x, groups.model_group)
+    """*g* over the model axis."""
+    return reduce_from(x, groups.model_group)
+
+
+def sum_over_data(x: torch.Tensor, groups: RankGroups) -> torch.Tensor:
+    """*g* over the data ranks: the sum of every data rank's share (of a
+    global sum or ratio), the cotangent passing through."""
+    return reduce_from(x, groups.data_group)
 
 
 def mean_over_data(x: torch.Tensor, groups: RankGroups) -> torch.Tensor:
@@ -299,3 +349,60 @@ def gather_over_data(x: torch.Tensor, groups: RankGroups) -> torch.Tensor:
     if groups.data_group is None:
         return x
     return _GatherOverData.apply(x, groups.data_group, groups.data_rank)
+
+
+# ---------------------------------------------------------------------------
+# row-sharded tables
+# ---------------------------------------------------------------------------
+class _SumKeepRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, rows_group, rank, split):
+        ctx.rows_group, ctx.split = rows_group, split
+        out = x.view_as(x) if group is None else all_reduce(x.clone(), group)
+        if split:
+            b = x.shape[0] // dist.get_world_size(rows_group)
+            out = out.narrow(0, rank * b, b)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.split:
+            g = all_gather_cat(g, ctx.rows_group, 0)
+        elif ctx.rows_group is not None:
+            g = all_reduce(g.contiguous().clone(), ctx.rows_group)
+        return g, None, None, None, None
+
+
+def sum_keep_rows(x: torch.Tensor, group, groups: RankGroups,
+                  split: bool = True) -> torch.Tensor:
+    """``x`` [N, ...] (every rank's partial rows of the data ranks' N
+    batch rows, all of them) summed over ``group``; of the sum this rank
+    keeps its batch rows, when ``split`` (else all N, the same on every
+    data rank). Backward: the cotangents of every data rank's rows
+    all-gathered (when ``split``) or summed (else) over the data ranks:
+    the cotangent of the whole of ``x``."""
+    split = split and groups.data_group is not None
+    return _SumKeepRows.apply(x, group, groups.data_group, groups.data_rank,
+                              split)
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group, ctx.n = group, x.shape[0]
+        return all_gather_cat(x, group, 0)
+
+    @staticmethod
+    def backward(ctx, g):
+        me = dist.get_rank(ctx.group)
+        return g.narrow(0, me * ctx.n, ctx.n).contiguous(), None
+
+
+def gather_rows(block: torch.Tensor, rows: RowBlock) -> torch.Tensor:
+    """The whole of a row-sharded leaf on every rank (its blocks
+    all-gathered over their group, in block order). Backward: this
+    rank's block of the cotangent, which must be the same on every rank
+    of the group (the whole leaf's gradient)."""
+    if rows.group is None:
+        return block
+    return _GatherRows.apply(block, rows.group)

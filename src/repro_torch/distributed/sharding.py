@@ -13,7 +13,7 @@ the other.
     :func:`cluster_mesh` / :func:`data_mesh` are 1-D
     ``torch.distributed.device_mesh.DeviceMesh`` objects over it, and
     raise outside one (no call here leaves a process group behind);
-    ``launch.mesh`` makes the LM cells' 2-D and 3-D meshes;
+    ``launch.mesh`` makes the model cells' 2-D and 3-D meshes;
   * :func:`use_mesh` is the reference's ``with mesh:``; the code under
     it reads the mesh with :func:`current_mesh` and its data-parallel
     axes with :func:`batch_axes` (``training.compress``);
@@ -32,7 +32,11 @@ mesh and its spec, with :meth:`Layout.local_block` (this rank's block
 of a full tensor) and :meth:`Layout.gather` (the full tensor, by
 all-gathers). A spec is a tuple with one entry a dim: a mesh axis name,
 a tuple of names (major first), or None; it stands for the reference's
-``PartitionSpec``, whose entries it holds.
+``PartitionSpec``, whose entries it holds. :func:`tree_layouts` gives a
+params tree's layouts from a rule a leaf: :func:`recsys_axes` (the
+reference's ``_recsys_param_axes``), :func:`vocab_axes` (the cf tables,
+every sketch), :func:`replicated_axes` (``_gnn_param_axes``); it and
+:meth:`Layout.local_shape` work on an ``AbstractMesh``, with no world.
 
 GSPMD has no counterpart here, so nothing takes a sharding constraint:
 :func:`shard` is the identity on a rank's local tensor (the model code
@@ -59,7 +63,9 @@ from repro_torch.device import resolve_device
 __all__ = ["world", "entry_world", "cluster_mesh", "data_mesh", "use_mesh",
            "current_mesh", "batch_axes", "edge_partition", "pad_to_shards",
            "logical_mapping", "current_mapping", "logical_to_spec",
-           "fit_spec", "named_sharding", "shard", "mesh_shape", "Layout"]
+           "fit_spec", "named_sharding", "shard", "mesh_shape", "Layout",
+           "is_table", "recsys_axes", "vocab_axes", "replicated_axes", "tree_layouts",
+           "batch_layout"]
 
 # what torchrun's env:// rendezvous sets for every rank
 _RENDEZVOUS_ENV = ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE")
@@ -311,6 +317,14 @@ class Layout:
                              f"(spec {self.spec}: fit it first)")
         return idx * (size // n), size // n
 
+    def local_shape(self, shape) -> tuple:
+        """The shape of every rank's block of a tensor of ``shape`` (no
+        rank needed: works on an ``AbstractMesh``)."""
+        sizes = mesh_shape(self.mesh)
+        return tuple(n // int(np.prod([sizes[a] for a in _entry_axes(part)]))
+                     for n, part in zip(shape, self.spec + (None,) * (
+                         len(shape) - len(self.spec))))
+
     def local_block(self, full: torch.Tensor) -> torch.Tensor:
         """This rank's block of ``full``: a view (the tensor itself when
         no dim is split)."""
@@ -340,6 +354,56 @@ def named_sharding(mesh, *axes: Optional[str], shape=None) -> Layout:
     spec = logical_to_spec(mesh, axes)
     return Layout(mesh, spec if shape is None else
                   fit_spec(mesh, spec, shape))
+
+
+def is_table(path: str) -> bool:
+    """Whether a recsys param (by its flat path) is an embedding table:
+    ``emb_*``, ``wide_*`` or ``item_emb``."""
+    name = path.split("/")[-1]
+    return name.startswith(("emb_", "wide_")) or name == "item_emb"
+
+
+def recsys_axes(path: str, shape) -> tuple:
+    """A recsys param's logical axes (the reference's
+    ``_recsys_param_axes``): an embedding table (:func:`is_table`) splits
+    its rows over "vocab"; the rest is replicated."""
+    if is_table(path):
+        return vocab_axes(path, shape)
+    return replicated_axes(path, shape)
+
+
+def vocab_axes(path: str, shape) -> tuple:
+    """Rows over "vocab" (the cf tables and codebooks, every sketch)."""
+    return ("vocab",) + (None,) * (len(shape) - 1)
+
+
+def replicated_axes(path: str, shape) -> tuple:
+    """Replicated (the reference's ``_gnn_param_axes``: SchNet's params)."""
+    return (None,) * len(shape)
+
+
+def tree_layouts(mesh, tree, axes):
+    """The :class:`Layout` of every leaf of ``tree`` (dicts and lists of
+    tensors, meta tensors too), mirroring it: ``axes(path, shape)`` gives
+    a leaf's logical axes (:func:`recsys_axes`, :func:`vocab_axes`,
+    :func:`replicated_axes`), fitted to its shape. Works on an
+    ``AbstractMesh``."""
+    def walk(node, prefix):
+        if isinstance(node, dict):
+            return {k: walk(v, f"{prefix}{k}/") for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(v, f"{prefix}{i}/") for i, v in enumerate(node)]
+        shape = tuple(node.shape)
+        return named_sharding(mesh, *axes(prefix[:-1], shape), shape=shape)
+    return walk(tree, "")
+
+
+def batch_layout(mesh, ndim: int, split: bool) -> Layout:
+    """A batch leaf's layout: dim 0 over the batch axes when ``split``,
+    else replicated (the port splits a cell's batch over all its data
+    axes or none: ``parallel.rank_groups``)."""
+    ba = _one_or_tuple(batch_axes(mesh)) if split else None
+    return Layout(mesh, (ba,) + (None,) * (ndim - 1))
 
 
 def shard(x, *axes: Optional[str]):

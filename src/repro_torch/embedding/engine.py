@@ -43,7 +43,7 @@ from repro_torch.kernels.ref import topk_total_order as topk
 __all__ = ["EmbeddingSpec", "EmbeddingEngine", "LookupBackend",
            "register_backend", "get_backend", "available_backends",
            "normalize_backend", "dedup_keep_mask", "embedding_lookup",
-           "bag_combine", "register_scorer", "get_scorer",
+           "embedding_block_lookup", "bag_combine", "register_scorer", "get_scorer",
            "available_scorers", "fused_topk", "topk"]
 
 
@@ -105,6 +105,16 @@ class LookupBackend:
     def bag(self, table, values, segment_ids, num_segments, mode="sum",
             weights=None):
         raise NotImplementedError
+
+    def block(self, table, ids, lo: int):
+        """Rows of a row block ``table`` [N, d] (rows [lo, lo + N) of a
+        larger table) for global ids [...]: the block's rows, exact zeros
+        for ids outside it, in the block's dtype (an int block too);
+        differentiable in the block."""
+        local = ids.long() - lo
+        inr = (local >= 0) & (local < table.shape[0])
+        rows = self.full(table, torch.where(inr, local, 0))
+        return torch.where(inr[..., None], rows, 0)
 
 
 _REGISTRY: Dict[str, LookupBackend] = {}
@@ -265,6 +275,14 @@ class EmbeddingEngine:
         """table [N, d], ids int [...] -> [..., d]."""
         return self.resolve("full", table.device).full(table, ids)
 
+    def block_lookup(self, table, ids, lo: int):
+        """A row block's lookup: ``table`` [N, d] holds rows [lo, lo + N)
+        of a larger table, ids int [...] are global -> [..., d], exact
+        zeros where an id lies outside the block (each rank's part of a
+        row-sharded lookup: ``models.recsys.row_lookup``, the LMs' token
+        embedding over the model axis)."""
+        return self.resolve("full", table.device).block(table, ids, lo)
+
     def codebook_lookup(self, codebook, sketch_idx, ids=None, combine=None):
         """Compressed lookup e = Σ_h Z[sketch[i, h]] (paper §3.2/§4.5).
 
@@ -314,3 +332,11 @@ def embedding_lookup(table, ids, *, backend: Optional[str] = None):
     """Full-table lookup for call sites without a persistent spec."""
     spec = EmbeddingSpec(n_rows=int(table.shape[0]), dim=int(table.shape[-1]))
     return EmbeddingEngine(spec, backend=backend).full_lookup(table, ids)
+
+
+def embedding_block_lookup(table, ids, lo: int, *,
+                           backend: Optional[str] = None):
+    """A row block's lookup (:meth:`EmbeddingEngine.block_lookup`) for
+    call sites without a persistent spec."""
+    spec = EmbeddingSpec(n_rows=int(table.shape[0]), dim=int(table.shape[-1]))
+    return EmbeddingEngine(spec, backend=backend).block_lookup(table, ids, lo)

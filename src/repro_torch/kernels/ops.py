@@ -96,6 +96,32 @@ class _CodebookSum(torch.autograd.Function):
         return scatter_rows(g, dest, src, ctx.k_rows), None, None
 
 
+class _BlockRows(torch.autograd.Function):
+    """A row block's rows of global ids (exact zeros outside the block) by
+    the codebook_lookup kernel (H = 1); dT[r] = Σ over the ids j equal to
+    lo + r of g[j], by the CSR gather-sum, ids outside the block dropped
+    past the last row (no long run of them into one row)."""
+
+    @staticmethod
+    def forward(ctx, table, ids, lo):
+        local = ids.reshape(-1).long() - lo
+        n = table.shape[0]
+        inr = (local >= 0) & (local < n)
+        out = codebook_lookup(table, torch.where(inr, local, 0)[:, None].int(),
+                              binary=False)
+        ctx.save_for_backward(torch.where(inr, local, n))
+        ctx.n_rows = n
+        out = torch.where(inr[:, None], out, 0.0)
+        return out.reshape(*ids.shape, table.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        (dest,) = ctx.saved_tensors
+        src = torch.arange(dest.shape[0], device=dest.device)
+        g = g.reshape(-1, g.shape[-1]).contiguous()
+        return scatter_rows(g, dest, src, ctx.n_rows), None, None
+
+
 class _Bag(torch.autograd.Function):
     """Bag sums (segments in any order); dT[n] = Σ_{j: values[j] == n}
     g[segment_ids[j]]."""
@@ -131,6 +157,9 @@ class CudaBackend(LookupBackend):
         flat = ids.reshape(-1, 1).int()
         out = _CodebookSum.apply(table, flat, False)
         return out.reshape(*ids.shape, table.shape[-1])
+
+    def block(self, table, ids, lo):
+        return _BlockRows.apply(table, ids, int(lo))
 
     def codebook_sum(self, codebook, rows_idx):
         h = rows_idx.shape[-1]

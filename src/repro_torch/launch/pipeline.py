@@ -41,8 +41,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.distributed import parallel as par
 from repro_torch.distributed.sharding import Layout
-from repro_torch.launch.steps import (Cell, _full_batch, _map_layouts, _own,
-                                      _Spec, mesh_norm)
+from repro_torch.launch.steps import Cell, _cut, _full_batch, _Spec, mesh_norm
 from repro_torch.models import recsys as R
 from repro_torch.models import transformer as T
 from repro_torch.training import optimizer as opt_lib
@@ -113,8 +112,7 @@ def build_pp_train_cell(cfg: T.TransformerConfig, *, global_batch: int,
                                       cfg.vocab_size)
                              for k in ("tokens", "targets")}, device)
     else:
-        params = _map_layouts(lambda lay, t: _own(t, lay.local_block(t)),
-                              layouts["params"], args[0])
+        params = _cut(layouts["params"], args[0])
         batch = args[1]
     rows = global_batch // n_data
     batch = {k: v.narrow(0, groups.data_rank * rows, rows)

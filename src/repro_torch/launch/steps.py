@@ -43,24 +43,39 @@ node and edge counts padded to the pod width as in the reference
 cuts a cell's edges (``GNN_ONE_CARD``: ``ogb_products`` keeps 1/8 of
 them on one card).
 
-``mesh=`` (a ``DeviceMesh`` over the world: ``launch.mesh``) runs an LM
-cell over (data, model) ranks, one process a rank: ``Cell.fn`` runs on
-this rank's blocks of the args (``models.transformer.param_layouts``:
-the reference's ``param_logical_axes`` -> ``logical_to_spec`` ->
-``fit_spec``; the batch over the data axes; the decode cache by batch
-and K/V heads) and returns what the unsharded cell returns (the logits
-of the whole batch, the loss over it; the cache and the params stay
-this rank's blocks, ``Cell.gather`` assembles them). Each rank draws
-the unsharded cell's values and keeps its blocks, or takes ``args=``,
-the unsharded cell's args, and cuts them. The params are sharded over
-"model" and replicated over the data axes: the reference's ZeRO-1 and
-FSDP layouts over "data" wait for ROADMAP Queue 1 #7c-ii-c (the numbers
-are the same), as do the GNN, recsys and cf cells on a mesh.
+``mesh=`` (a ``DeviceMesh`` over the world: ``launch.mesh``) runs a cell
+over (data, model) ranks, one process a rank: ``Cell.fn`` runs on this
+rank's blocks of the args and returns what the unsharded cell returns
+(the outputs of the whole batch, the loss over it; the params, statics
+and caches stay this rank's blocks, ``Cell.gather`` assembles them from
+``Cell.layouts``). Each rank draws the unsharded cell's values and keeps
+its blocks, or takes ``args=``, the unsharded cell's args (a fresh
+optimizer state), and cuts them (on a world of 1 the blocks are those
+tensors). The layouts are the reference's logical axes ->
+``logical_to_spec`` -> ``fit_spec``:
+  * LM cells: ``models.transformer.param_layouts`` (over "model"), the
+    batch over the data axes, the decode cache by batch and K/V heads;
+  * recsys cells: every table and sketch by "vocab" rows
+    (``sharding.recsys_axes``), the rest replicated; the batch over the
+    data axes; every lookup row-sharded (``models.recsys.row_lookup``);
+  * the cf cell: tables and sketches by "vocab" rows, the edges over the
+    batch axes (their block of the user-sorted edges), the BPR batch
+    over the data axes (``models.lightgcn``);
+  * GNN cells: params replicated, nodes and edges over the data axes
+    (``models.schnet``).
+A batch splits over all the data axes or none (the reference's
+``fit_spec`` may split it over "pod" alone on the 3-D mesh). The params
+are replicated over the data axes but for the "vocab" rows: the
+reference's ZeRO-1 and FSDP layouts over "data" wait for ROADMAP Queue 1
+#7c-ii-c (the numbers are the same). :func:`rank_bytes` reckons a
+recsys, GNN or cf cell's params, gradients and AdamW moments a rank on
+any mesh, an ``AbstractMesh`` too.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
@@ -72,14 +87,15 @@ from repro_torch.data.neighbor_sampler import (random_regular_csr,
                                                sample_subgraph)
 from repro_torch.device import resolve_device
 from repro_torch.distributed import parallel as par
+from repro_torch.distributed import sharding as sh
 from repro_torch.models import lightgcn as LG
 from repro_torch.models import recsys as R
 from repro_torch.models import schnet as S
 from repro_torch.models import transformer as T
 from repro_torch.training import optimizer as opt_lib
 
-__all__ = ["Cell", "build_cell", "param_shapes", "LM_ONE_CARD",
-           "GNN_ONE_CARD"]
+__all__ = ["Cell", "build_cell", "param_shapes", "cell_layouts", "rank_bytes",
+           "LM_ONE_CARD", "GNN_ONE_CARD"]
 
 
 @dataclasses.dataclass
@@ -93,12 +109,13 @@ class Cell:
     notes: str = ""
     reduced: Tuple[str, ...] = ()    # cuts of a full-width cell
     mesh: Any = None                 # the cell's mesh (None: one device)
-    layouts: Optional[dict] = None   # {"params": ..., "cache": ...} trees
+    layouts: Optional[dict] = None   # {"params": ..., "statics": ...} trees
 
     def gather(self, name: str, tree):
-        """The whole of a tree this rank holds blocks of (``name``:
-        "params" or "cache"), by all-gathers: every rank of the mesh
-        calls it. Off a mesh, the tree itself."""
+        """The whole of a tree this rank holds blocks of (``name``: a key
+        of ``layouts``: "params", "cache", "statics" or "batch"), by
+        all-gathers: every rank of the mesh calls it. Off a mesh, the
+        tree itself."""
         if self.mesh is None:
             return tree
         return _map_layouts(lambda lay, t: lay.gather(t),
@@ -311,12 +328,39 @@ def mesh_norm(groups, sharded) -> Callable:
 
 
 def _map_layouts(fn, layouts, tree):
-    """``fn(layout, leaf)`` over a tree of tensors and its tree of
-    layouts (leaves without a layout pass through)."""
+    """``fn(layout, leaf)`` over a tree of tensors (dicts and lists) and
+    its tree of layouts (leaves without a layout pass through)."""
     if isinstance(tree, dict):
         return {k: _map_layouts(fn, layouts.get(k) if isinstance(
             layouts, dict) else None, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_layouts(fn, layouts[i] if isinstance(layouts, list)
+                             else None, v) for i, v in enumerate(tree)]
     return tree if layouts is None else fn(layouts, tree)
+
+
+def _cut(layouts, tree):
+    """This rank's blocks of a tree of whole tensors (the tensors
+    themselves where a leaf is whole)."""
+    return _map_layouts(lambda lay, t: _own(t, lay.local_block(t)), layouts,
+                        tree)
+
+
+def _batch_layouts(mesh, batch: dict, groups, rows: int,
+                   replicated=()) -> dict:
+    """Each batch leaf's layout: split over the data axes when the cell's
+    batch is (``groups``) and the leaf has the ``rows`` rows of that batch
+    (not one of ``replicated``), else whole."""
+    split = groups.data_group is not None
+    return {k: sh.batch_layout(mesh, v.dim(), split and k not in replicated
+                               and v.dim() > 0 and v.shape[0] == rows)
+            for k, v in batch.items()}
+
+
+def _mesh_notes(mesh, groups, what: str) -> tuple:
+    return (f"mesh={dict(zip(mesh.mesh_dim_names, mesh.shape))}",
+            f"data={groups.n_data}: batch rows", what,
+            f"ZeRO-1/FSDP: {SHARDED_ITEM}")
 
 
 def _own(full: torch.Tensor, block: torch.Tensor) -> torch.Tensor:
@@ -381,8 +425,7 @@ def _lm_cell(spec: ArchSpec, shape: ShapeSpec, smoke: bool, lookup_backend,
     elif args is None:
         params = T.init_params(gen, cfg, layouts=layouts["params"])
     else:
-        params = _map_layouts(lambda lay, t: _own(t, lay.local_block(t)),
-                              layouts["params"], args[0])
+        params = _cut(layouts["params"], args[0])
     i32 = torch.int32
     tok = lambda shp: _Spec(shp, i32, cfg.vocab_size)  # noqa: E731
     cell = functools.partial(Cell, spec.arch_id, shape.name, shape.kind,
@@ -442,8 +485,7 @@ def _lm_cell(spec: ArchSpec, shape: ShapeSpec, smoke: bool, lookup_backend,
               "pos": torch.tensor(seq - 1, dtype=i32, device=device)}
     if layouts is not None:
         layouts["cache"] = T.cache_layouts(cfg, mesh, b)
-        cache = _map_layouts(lambda lay, t: _own(t, lay.local_block(t)),
-                             layouts["cache"], cache)
+        cache = _cut(layouts["cache"], cache)
         bt = {k: _local_rows(v, groups) for k, v in bt.items()}
         notes += ("KV cache by batch rows and K/V heads (the reference's "
                   "is sequence-sharded over model: the same numbers)",)
@@ -530,8 +572,12 @@ def _gnn_batch(shape_name: str, dims: dict, n: int, e: int, d_feat: int,
     return {k: torch.as_tensor(v, device=device) for k, v in b.items()}, notes
 
 
-def _gnn_cell(spec: ArchSpec, shape: ShapeSpec, smoke: bool, lookup_backend,
-              device, n_edges: Optional[int] = None) -> Cell:
+def _gnn_cfg_dims(spec: ArchSpec, shape: ShapeSpec, smoke: bool,
+                  lookup_backend, n_edges: Optional[int] = None):
+    """(cfg, dims, n, e, reduced) of a GNN cell: the config with the
+    shape's d_feat, the shape's dims (smoke: the reference's smoke scale),
+    the node and edge counts (full width: padded to the pod width) and
+    the cuts."""
     base = spec.smoke_config() if smoke else spec.full_config()
     if lookup_backend is not None:
         base = dataclasses.replace(base, lookup_backend=lookup_backend)
@@ -563,18 +609,24 @@ def _gnn_cell(spec: ArchSpec, shape: ShapeSpec, smoke: bool, lookup_backend,
         # nodes masked out, pad edges past the cutoff: zero contribution)
         n = R.pad_rows(n)
         e = R.pad_rows(e)
+    return cfg, dims, n, e, tuple(reduced)
 
-    params = S.init_params(torch.Generator(device=device).manual_seed(0),
-                           cfg)
+
+def _gnn_cell(spec: ArchSpec, shape: ShapeSpec, smoke: bool, lookup_backend,
+              device, n_edges: Optional[int] = None, mesh=None,
+              args=None) -> Cell:
+    cfg, dims, n, e, reduced = _gnn_cfg_dims(spec, shape, smoke,
+                                             lookup_backend, n_edges)
+    molecule = shape.name == "molecule"
+    d_feat = cfg.d_feat
     opt = opt_lib.adamw(lr=1e-3)
-    opt_state = opt.init(R.flat_params(params))
     i32, f32 = torch.int32, torch.float32
     specs = {"edge_src": _Spec((e,), i32), "edge_dst": _Spec((e,), i32),
              "edge_dist": _Spec((e,), f32)}
     if molecule:
         specs["z"] = _Spec((n,), i32)
         specs["graph_id"] = _Spec((n,), i32)
-        specs["targets"] = _Spec((n_graphs,), f32)
+        specs["targets"] = _Spec((dims["batch"],), f32)
         loss = S.train_loss
     else:
         specs["feat"] = _Spec((n, d_feat), f32)
@@ -582,20 +634,43 @@ def _gnn_cell(spec: ArchSpec, shape: ShapeSpec, smoke: bool, lookup_backend,
         specs["node_mask"] = _Spec((n,), f32)
         loss = S.node_train_loss
     notes = ()
-    if smoke:
-        b = _materialize(specs, device)
+    if args is not None:
+        params, b = args[0], args[-1]
     else:
-        b, notes = _gnn_batch(shape.name, dims, n, e, d_feat, cfg, device)
-        b = {k: b[k] for k in specs}
+        params = S.init_params(
+            torch.Generator(device=device).manual_seed(0), cfg)
+        if smoke:
+            b = _materialize(specs, device)
+        else:
+            b, notes = _gnn_batch(shape.name, dims, n, e, d_feat, cfg,
+                                  device)
+            b = {k: b[k] for k in specs}
+    groups = layouts = None
+    if mesh is not None:
+        # nodes, edges and graphs split over the data axes when every
+        # count divides them, else every rank holds the whole batch
+        groups = par.rank_groups(mesh, math.gcd(*(v.shape[0]
+                                                  for v in b.values())))
+        split = groups.data_group is not None
+        layouts = dict(_family_layouts("gnn", mesh, params),
+                       batch={k: sh.batch_layout(mesh, v.dim(), split)
+                              for k, v in b.items()})
+        params, b = _cut(layouts["params"], params), _cut(layouts["batch"], b)
+        notes += _mesh_notes(mesh, groups, "params replicated; nodes and "
+                             "edges by data rank")
+    opt_state = opt.init(R.flat_params(params))
     step = _adamw_step(lambda p, s, bb: loss(p, bb, cfg), opt,
-                       unread=("embed",) if d_feat else ())
+                       unread=("embed",) if d_feat else (), groups=groups,
+                       reduce=tuple(R.flat_params(params)))
 
     def train_step(params, opt_state, batch):
         return step(params, opt_state, None, batch)
 
+    train_step.value_and_grad = lambda p, bb: step.value_and_grad(p, None, bb)
     return Cell(spec.arch_id, shape.name, "train", train_step,
                 (params, opt_state, b), donate=(0, 1),
-                notes=",".join(notes), reduced=tuple(reduced))
+                notes=",".join(notes), reduced=reduced, mesh=mesh,
+                layouts=layouts)
 
 
 # ---------------------------------------------------------------------------
@@ -622,6 +697,14 @@ def _recsys_statics(cfg, device):
     (``repro/launch/steps.py:441-452``): one ``np.random.default_rng(0)``
     over the statics in insertion order, each entry uniform over its
     codebook's rows. The port draws them so at full width too."""
+    rng = np.random.default_rng(0)
+    return {k: torch.as_tensor(rng.integers(0, hi, shape).astype(np.int32),
+                               device=device)
+            for k, (shape, hi) in _recsys_statics_shapes(cfg).items()}
+
+
+def _recsys_statics_shapes(cfg) -> dict:
+    """{key: (shape, codebook rows)} of a recsys config's sketches."""
     shapes = {}
     if isinstance(cfg, (R.DLRMConfig, R.WideDeepConfig)):
         for f in cfg.compressed_fields():
@@ -630,10 +713,7 @@ def _recsys_statics(cfg, device):
     elif getattr(cfg, "etc_ratio", None) is not None:
         shapes["sketch_items"] = ((R.pad_rows(cfg.n_items), 1),
                                   cfg.table_rows)
-    rng = np.random.default_rng(0)
-    return {k: torch.as_tensor(rng.integers(0, hi, shape).astype(np.int32),
-                               device=device)
-            for k, (shape, hi) in shapes.items()}
+    return shapes
 
 
 def _recsys_batch(cfg, shape: ShapeSpec, dims: dict) -> dict:
@@ -681,31 +761,49 @@ def _draw_batch(specs: dict, smoke: bool, device) -> dict:
     return batch
 
 
-def _adamw_step(loss_fn, opt, unread: Tuple[str, ...] = ()):
+def _adamw_step(loss_fn, opt, unread: Tuple[str, ...] = (), groups=None,
+                reduce: Tuple[str, ...] = ()):
     """The reference's train step: loss and grads of every param, one
     AdamW update (in place on the params and the optimizer state). The
     params named in ``unread`` are ones the loss does not read (SchNet's
     atom embedding under dense features): their gradient is zero, as
-    under jax.grad. Any other param the loss does not read raises."""
-    def train_step(params, opt_state, statics, b):
+    under jax.grad. Any other param the loss does not read raises.
+
+    On a mesh (``groups``) the loss runs under ``par.use_groups``, and
+    the gradients of the params named in ``reduce`` (each data rank's
+    share of the batch's: the replicated params) are summed over the
+    data ranks; the others' (a row-sharded table's) are whole already.
+    The step's ``value_and_grad(params, statics, b)`` gives (loss,
+    {flat key: gradient}) before the update."""
+    def value_and_grad(params, statics, b):
         flat = R.flat_params(params)
         read = [k for k in flat if k not in unread]
         for k in read:
             flat[k].requires_grad_(True)
-        loss = loss_fn(params, statics, b)
+        with par.use_groups(groups):
+            loss = loss_fn(params, statics, b)
         grads = dict(zip(read, torch.autograd.grad(
             loss, [flat[k] for k in read])))
         for k in read:
             flat[k].requires_grad_(False)
         grads = {k: grads[k] if k in grads else torch.zeros_like(p)
                  for k, p in flat.items()}
-        opt.update(grads, opt_state, flat)
-        return params, opt_state, loss.detach()
+        if groups is not None and groups.data_group is not None:
+            for k in reduce:
+                par.all_reduce(grads[k], groups.data_group)
+        return loss.detach(), grads
+
+    def train_step(params, opt_state, statics, b):
+        loss, grads = value_and_grad(params, statics, b)
+        opt.update(grads, opt_state, R.flat_params(params))
+        return params, opt_state, loss
+
+    train_step.value_and_grad = value_and_grad
     return train_step
 
 
 def _recsys_cell(spec: ArchSpec, shape: ShapeSpec, smoke: bool,
-                 lookup_backend, device) -> Cell:
+                 lookup_backend, device, mesh=None, args=None) -> Cell:
     cfg = spec.smoke_config() if smoke else spec.full_config()
     if lookup_backend is not None:
         cfg = dataclasses.replace(cfg, lookup_backend=lookup_backend)
@@ -715,10 +813,36 @@ def _recsys_cell(spec: ArchSpec, shape: ShapeSpec, smoke: bool,
         dims["n_candidates"] = 64
     is_seq = isinstance(cfg, R.SASRecConfig)
     is_bert = isinstance(cfg, R.BERT4RecConfig)
-    statics = _recsys_statics(cfg, device)
-    gen = torch.Generator(device=device).manual_seed(0)
-    params = _recsys_init(cfg)(gen, cfg)
-    batch = _draw_batch(_recsys_batch(cfg, shape, dims), smoke, device)
+    if args is not None:
+        params, statics, batch = args[0], args[-2], args[-1]
+    else:
+        statics = _recsys_statics(cfg, device)
+        gen = torch.Generator(device=device).manual_seed(0)
+        params = _recsys_init(cfg)(gen, cfg)
+        batch = _draw_batch(_recsys_batch(cfg, shape, dims), smoke, device)
+    groups = layouts = None
+    notes = ()
+    if mesh is not None:
+        # the rows the batch splits into: DLRM's and Wide&Deep's retrieval
+        # scores candidates of one context, the rest batches of contexts
+        rows = (dims["n_candidates"] if shape.kind == "retrieval"
+                and not is_seq else dims["batch"])
+        groups = par.rank_groups(mesh, rows)
+        layouts = dict(_family_layouts("recsys", mesh, params, statics),
+                       batch=_batch_layouts(mesh, batch, groups, rows,
+                                            replicated=("neg_ids",)))
+        blocks = {k: par.row_block(lay, params[k].shape[0])
+                  for k, lay in layouts["params"].items() if sh.is_table(k)}
+        blocks.update({k: par.row_block(lay, statics[k].shape[0])
+                       for k, lay in layouts["statics"].items()})
+        groups = dataclasses.replace(groups, rows=blocks)
+        params, statics, batch = (_cut(layouts[k], t) for k, t in (
+            ("params", params), ("statics", statics), ("batch", batch)))
+        notes = _mesh_notes(mesh, groups, "vocab rows: every table and "
+                            "sketch; the MLPs and attention replicated")
+    notes = ",".join(notes)
+    cell = functools.partial(Cell, spec.arch_id, shape.name, shape.kind,
+                             mesh=mesh, layouts=layouts, notes=notes)
 
     if shape.kind == "train":
         opt = opt_lib.adamw(lr=1e-3)
@@ -731,9 +855,11 @@ def _recsys_cell(spec: ArchSpec, shape: ShapeSpec, smoke: bool,
             loss = R.dlrm_train_loss
         else:
             loss = R.widedeep_train_loss
-        step = _adamw_step(lambda p, s, b: loss(p, s, b, cfg), opt)
-        return Cell(spec.arch_id, shape.name, "train", step,
-                    (params, opt_state, statics, batch), donate=(0, 1))
+        dense = tuple(k for k in R.flat_params(params)
+                      if not sh.is_table(k))
+        step = _adamw_step(lambda p, s, b: loss(p, s, b, cfg), opt,
+                           groups=groups, reduce=dense)
+        return cell(step, (params, opt_state, statics, batch), donate=(0, 1))
 
     # serve / retrieval
     if is_bert:
@@ -749,10 +875,12 @@ def _recsys_cell(spec: ArchSpec, shape: ShapeSpec, smoke: bool,
 
     @torch.no_grad()
     def serve_step(params, statics, b):
-        return fwd(params, statics, b, cfg)
+        if groups is None:
+            return fwd(params, statics, b, cfg)
+        with par.use_groups(groups):    # the scores of the whole batch
+            return par.gather_over_data(fwd(params, statics, b, cfg), groups)
 
-    return Cell(spec.arch_id, shape.name, shape.kind, serve_step,
-                (params, statics, batch))
+    return cell(serve_step, (params, statics, batch))
 
 
 # ---------------------------------------------------------------------------
@@ -791,24 +919,141 @@ def _cf_statics(cfg, device) -> dict:
     return statics
 
 
+_CF_EDGES = ("edge_u", "edge_v", "edge_norm")
+
+
+def _cf_cut(statics: dict, layouts: dict, cfg) -> dict:
+    """This rank's cf statics: its blocks of the sketches, and the
+    sorted-edge statics of its block of the (user-sorted) edges, rebuilt
+    on the host (the unsharded statics themselves when the block is all
+    of them)."""
+    cut = _cut(layouts, {k: statics[k] for k in layouts})
+    out = dict(statics)
+    out.update({k: cut[k] for k in layouts if k not in _CF_EDGES})
+    if cut["edge_u"].shape != statics["edge_u"].shape:
+        edges = [cut[k].cpu().numpy() for k in _CF_EDGES]
+        out.update(LG.sorted_edge_statics(*edges, cfg.n_users, cfg.n_items,
+                                          device=statics["edge_u"].device))
+    return out
+
+
 def _cf_cell(spec: ArchSpec, shape: ShapeSpec, smoke: bool, lookup_backend,
-             device) -> Cell:
+             device, mesh=None, args=None) -> Cell:
     cfg = spec.smoke_config() if smoke else spec.full_config()
     if lookup_backend is not None:
         cfg = dataclasses.replace(cfg, lookup_backend=lookup_backend)
     batch = 8 if smoke else shape.dims["batch"]
-    params = {k: torch.as_tensor(v, device=device)
-              for k, v in LG.init_params(0, cfg).items()}
-    statics = _cf_statics(cfg, device)
-    specs = {"user": _Spec((batch,), torch.int32, cfg.n_users),
-             "pos": _Spec((batch,), torch.int32, cfg.n_items),
-             "neg": _Spec((batch,), torch.int32, cfg.n_items)}
-    b = _draw_batch(specs, smoke, device)
+    if args is not None:
+        params, statics, b = args[0], args[-2], args[-1]
+    else:
+        params = {k: torch.as_tensor(v, device=device)
+                  for k, v in LG.init_params(0, cfg).items()}
+        statics = _cf_statics(cfg, device)
+        specs = {"user": _Spec((batch,), torch.int32, cfg.n_users),
+                 "pos": _Spec((batch,), torch.int32, cfg.n_items),
+                 "neg": _Spec((batch,), torch.int32, cfg.n_items)}
+        b = _draw_batch(specs, smoke, device)
+    groups = layouts = None
+    notes = ()
+    if mesh is not None:
+        groups = par.rank_groups(mesh, batch)
+        layouts = dict(_family_layouts("cf", mesh, params, statics),
+                       batch=_batch_layouts(mesh, b, groups, batch))
+        blocks = {k: par.row_block(lay, t.shape[0]) for k, lay, t in (
+            [(k, layouts["params"][k], params[k]) for k in params]
+            + [(k, lay, statics[k]) for k, lay in layouts["statics"].items()
+               if k not in _CF_EDGES[1:]])}
+        groups = dataclasses.replace(groups, rows=blocks)
+        params = _cut(layouts["params"], params)
+        statics = _cf_cut(statics, layouts["statics"], cfg)
+        b = _cut(layouts["batch"], b)
+        notes = _mesh_notes(mesh, groups, "vocab rows: tables and sketches; "
+                            "edges by their layout")
     opt = opt_lib.adamw(lr=1e-3)
     opt_state = opt.init(params)
-    step = _adamw_step(lambda p, s, bb: LG.bpr_loss_fn(p, s, bb, cfg), opt)
+    step = _adamw_step(lambda p, s, bb: LG.bpr_loss_fn(p, s, bb, cfg), opt,
+                       groups=groups)
     return Cell(spec.arch_id, shape.name, "train", step,
-                (params, opt_state, statics, b), donate=(0, 1))
+                (params, opt_state, statics, b), donate=(0, 1),
+                notes=",".join(notes), mesh=mesh, layouts=layouts)
+
+
+# ---------------------------------------------------------------------------
+# per-rank bytes
+# ---------------------------------------------------------------------------
+def _family_layouts(family: str, mesh, params, statics=None) -> dict:
+    """{"params": ..., "statics": ...}: the layouts of a recsys, GNN or cf
+    cell's params and statics (real or meta tensors) on ``mesh``, the
+    reference's logical axes fitted to each leaf (``_recsys_param_axes``,
+    ``_gnn_param_axes``, the cf cell's "vocab" tables and its edges over
+    "batch"; every sketch by "vocab" rows)."""
+    axes = {"recsys": sh.recsys_axes, "gnn": sh.replicated_axes,
+            "cf": sh.vocab_axes}[family]
+    out = {"params": sh.tree_layouts(mesh, params, axes)}
+    if statics is not None:
+        out["statics"] = {
+            k: (sh.named_sharding(mesh, "batch", shape=tuple(t.shape))
+                if k in _CF_EDGES else
+                sh.named_sharding(mesh, *sh.vocab_axes(k, t.shape),
+                                  shape=tuple(t.shape)))
+            for k, t in statics.items()
+            if family == "recsys" or k in _CF_EDGES
+            or k.startswith("sketch_")}
+    return out
+
+
+def cell_layouts(arch_id: str, shape_name: str, mesh) -> dict:
+    """The layouts of a recsys, GNN or cf cell's params and statics on
+    ``mesh`` (an ``AbstractMesh`` works), reckoned on the meta device at
+    the full published config, and its meta params under "meta_params"."""
+    spec = get_arch(arch_id)
+    shape = spec.shape(shape_name)
+    cfg = spec.full_config()
+    meta = functools.partial(torch.empty, device="meta")
+    statics = None
+    if spec.family == "recsys":
+        params = _recsys_init(cfg)(None, cfg, device="meta")
+        statics = {k: meta(shp, dtype=torch.int32) for k, (shp, _) in
+                   _recsys_statics_shapes(cfg).items()}
+    elif spec.family == "gnn":
+        cfg = _gnn_cfg_dims(spec, shape, False, None)[0]
+        params = S.init_params(None, cfg, device="meta")
+    elif spec.family == "cf":
+        params = {"user_table": meta((cfg.k_users or cfg.n_users, cfg.dim)),
+                  "item_table": meta((cfg.k_items or cfg.n_items, cfg.dim))}
+        e = max(4 * (cfg.n_users + cfg.n_items), 1024)
+        statics = {k: meta((e,)) for k in _CF_EDGES}
+        if cfg.k_users is not None:
+            statics["sketch_u"] = meta((cfg.n_users, cfg.n_hot_users))
+            statics["sketch_v"] = meta((cfg.n_items, 1))
+    else:
+        raise ValueError(f"{arch_id}: cell_layouts covers the recsys, GNN "
+                         f"and cf cells (an LM's: "
+                         f"models.transformer.param_layouts)")
+    return dict(_family_layouts(spec.family, mesh, params, statics),
+                meta_params=params)
+
+
+def rank_bytes(arch_id: str, shape_name: str, mesh) -> dict:
+    """A recsys, GNN or cf cell's bytes a rank on ``mesh`` (a
+    ``DeviceMesh`` or an ``AbstractMesh``) at the full published width:
+    its params' blocks by :func:`cell_layouts`, and for a train cell as
+    many bytes of gradients and the f32 AdamW moments (m and v). Every
+    rank holds blocks of one size; statics, batches and activations are
+    not counted."""
+    lay = cell_layouts(arch_id, shape_name, mesh)
+    layouts = R.flat_params(lay["params"])
+    params = R.flat_params(lay["meta_params"])
+    numel = {k: math.prod(layouts[k].local_shape(tuple(t.shape)))
+             for k, t in params.items()}
+    out = {"params": sum(n * params[k].element_size()
+                         for k, n in numel.items()),
+           "grads": 0, "moments": 0}
+    if get_arch(arch_id).shape(shape_name).kind == "train":
+        out["grads"] = out["params"]
+        out["moments"] = 2 * 4 * sum(numel.values())
+    out["total"] = out["params"] + out["grads"] + out["moments"]
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -822,7 +1067,7 @@ def build_cell(arch_id: str, shape_name: str, mesh=None, smoke: bool = False,
                lookup_backend: Optional[str] = None,
                device="cuda", args=None, **cuts) -> Cell:
     """The (arch, shape) cell on ``device`` (default the CUDA device;
-    raises without one). ``mesh``: an LM cell over the mesh's ranks
+    raises without one). ``mesh``: the cell over the mesh's ranks
     (module docstring); ``args``, with a mesh: the unsharded cell's args
     (a fresh optimizer state) to cut into this rank's blocks instead of
     drawing them. ``lookup_backend``: explicit EmbeddingEngine backend
@@ -838,9 +1083,5 @@ def build_cell(arch_id: str, shape_name: str, mesh=None, smoke: bool = False,
         raise TypeError(f"{arch_id} takes no cuts, got {sorted(cuts)}")
     if args is not None and mesh is None:
         raise TypeError("args= cuts the unsharded cell's args for a mesh")
-    if spec.family == "lm":
-        cuts = dict(cuts, mesh=mesh, args=args)
-    elif mesh is not None:
-        raise not_ported(f"{arch_id}:{shape_name} on a mesh", SHARDED_ITEM)
     return _FAMILY[spec.family](spec, shape, smoke, lookup_backend, device,
-                                **cuts)
+                                mesh=mesh, args=args, **cuts)

@@ -14,6 +14,17 @@ Its backward (``_Propagate``, the reference's custom VJP) is the same
 sum under the opposite orientation. No float atomics: two runs are
 bitwise equal. The reference reduces each run with a tree prefix scan
 and a boundary difference, so the two agree to a tolerance, not bitwise.
+
+On a mesh (``distributed.parallel.use_groups``, the cf cell of
+``launch.steps.build_cell(mesh=...)``) the tables (or codebooks) and
+sketches are this rank's blocks of "vocab" rows, the statics' edges the
+rank's block of the user-sorted edges (``rows["edge_u"]``) and the BPR
+batch its batch rows. :func:`bpr_loss_fn` all-gathers the tables and
+sketches (``parallel.gather_rows``: E0 whole on every rank), propagates
+its edge block and sums the partial layers over the edges' group
+(Megatron's *f* and *g*), and reads its batch rows of the whole
+(replicated) propagated tables, whose cotangent *f* sums over the data
+ranks; each rank's table gradient is its block of the whole one.
 """
 from __future__ import annotations
 
@@ -27,6 +38,7 @@ from torch.autograd.function import once_differentiable
 from repro_torch.core.graph import BipartiteGraph
 from repro_torch.core.sketch import Sketch
 from repro_torch.device import resolve_device
+from repro_torch.distributed import parallel as par
 from repro_torch.embedding import EmbeddingEngine, EmbeddingSpec, init_codebook
 from repro_torch.kernels.embedding_bag import csr_gather_sum
 from repro_torch.kernels.ops import _CodebookSum
@@ -215,12 +227,17 @@ class _Propagate(torch.autograd.Function):
         return d_cu, d_cv, None
 
 
-def _layers(u, v, statics, cfg: LightGCNConfig):
-    """The mean of the K+1 layer outputs from base embeddings (u, v)."""
+def _layers(u, v, statics, cfg: LightGCNConfig, edge_group=None):
+    """The mean of the K+1 layer outputs from base embeddings (u, v).
+    ``edge_group``: the ranks the statics' edges are split over (each
+    layer's partial sums are summed over them)."""
     acc_u, acc_v = u, v
     cu, cv = u, v
     for _ in range(cfg.n_layers):
-        cu, cv = _Propagate.apply(cu, cv, statics)
+        cu, cv = _Propagate.apply(par.copy_to(cu, edge_group),
+                                  par.copy_to(cv, edge_group), statics)
+        cu = par.reduce_from(cu, edge_group)
+        cv = par.reduce_from(cv, edge_group)
         acc_u = acc_u + cu
         acc_v = acc_v + cv
     k = cfg.n_layers + 1
@@ -251,12 +268,23 @@ def bpr_loss_fn(params, statics, batch, cfg: LightGCNConfig):
     index is gathered once (3 gathers: [U_all | U0] and [V_all | V0]); the
     ego half carries the regulariser. The base embeddings are computed
     once and feed both halves (the reference looks them up twice; the
-    values are the same)."""
+    values are the same). On a mesh: the module docstring."""
+    g = par.current_groups()
+    edge_group = None
+    if g is not None:
+        params = {k: par.gather_rows(t, g.rows[k]) for k, t in params.items()}
+        statics = dict(statics, **{k: par.gather_rows(statics[k], g.rows[k])
+                                   for k in ("sketch_u", "sketch_v")
+                                   if k in statics})
+        edge_group = g.rows["edge_u"].group
     u0, v0 = _base_embeddings(params, statics, cfg)
-    u_all, v_all = _layers(u0, v0, statics, cfg)
+    u_all, v_all = _layers(u0, v0, statics, cfg, edge_group)
     d = cfg.dim
     ucat = torch.cat([u_all, u0], dim=1)
     vcat = torch.cat([v_all, v0], dim=1)
+    if g is not None:
+        ucat = par.copy_to(ucat, g.data_group)
+        vcat = par.copy_to(vcat, g.data_group)
     uu = _rows(ucat, batch["user"])
     pi = _rows(vcat, batch["pos"])
     ni = _rows(vcat, batch["neg"])
@@ -265,7 +293,8 @@ def bpr_loss_fn(params, statics, batch, cfg: LightGCNConfig):
     loss = -torch.mean(torch.nn.functional.logsigmoid(pos - neg))
     reg = (torch.sum(uu[:, d:] ** 2) + torch.sum(pi[:, d:] ** 2)
            + torch.sum(ni[:, d:] ** 2)) / batch["user"].shape[0]
-    return loss + cfg.l2 * reg
+    loss = loss + cfg.l2 * reg
+    return loss if g is None else par.mean_over_data(loss, g)
 
 
 # ---------------------------------------------------------------------------

@@ -22,9 +22,18 @@ has no backward for either kernel):
     with the same -1e30. Its backward recomputes the softmax.
 
 On CPU tensors both wrappers run their plain versions (``kernels.ref``).
-The reference's ``shard(...)`` annotations are the identity off a mesh
-and are dropped. Shapes (assigned): train_batch B=65536 | serve_p99
-B=512 | serve_bulk B=262144 | retrieval_cand B=1, C=1e6.
+
+On a mesh (``distributed.parallel.use_groups``, entered by
+``launch.steps.build_cell(mesh=...)``) every table (``emb_*``,
+``wide_*``, ``item_emb``) and sketch is this rank's block of "vocab"
+rows, the batch leaves are this rank's batch rows, and every lookup is
+the row-sharded one (:func:`row_lookup`, bitwise the one-card
+lookup); the MLPs, ``pos_emb`` and the attention blocks are replicated
+and run on the rank's rows, the kernels unchanged. A loss is the mean
+(SASRec: the masked ratio) over the whole batch. The reference's
+``shard(...)`` annotations are dropped: the layouts and the collectives
+of the lookups place the data. Shapes (assigned): train_batch B=65536 |
+serve_p99 B=512 | serve_bulk B=262144 | retrieval_cand B=1, C=1e6.
 """
 from __future__ import annotations
 
@@ -35,7 +44,9 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.embedding import EmbeddingEngine, EmbeddingSpec
+from repro_torch.distributed import parallel as par
+from repro_torch.embedding import (EmbeddingEngine, EmbeddingSpec,
+                                   embedding_block_lookup, get_backend)
 from repro_torch.kernels import ref
 from repro_torch.kernels.dot_interaction import dot_interaction as _dot_kernel
 from repro_torch.kernels.flash_attention import (flash_attention as
@@ -48,7 +59,7 @@ __all__ = ["DLRMConfig", "WideDeepConfig", "SASRecConfig", "BERT4RecConfig",
            "seqrec_init", "seqrec_encode", "sasrec_train_loss",
            "sasrec_score_candidates", "bert4rec_train_loss",
            "bert4rec_score_candidates", "interaction", "attention",
-           "params_from_numpy", "flat_params"]
+           "params_from_numpy", "flat_params", "row_lookup"]
 
 # Criteo Terabyte cardinalities (MLPerf DLRM benchmark, day-based split).
 MLPERF_CRITEO_VOCABS = (
@@ -159,10 +170,93 @@ def _field_lookup(table, ids, sketch=None, backend=None):
                                                          sketch=sketch)
 
 
+def _check_ids(ids: torch.Tensor, n_rows: int) -> None:
+    """Ids come from the caller, and a row-sharded lookup would give an
+    id outside every block a zero row: raise instead (one host read)."""
+    if ids.numel():
+        lo, hi = torch.aminmax(ids.reshape(-1))
+        if bool((lo < 0) | (hi >= n_rows)):
+            raise ValueError(f"ids must lie in [0, {n_rows})")
+
+
+def row_lookup(table: torch.Tensor, ids: torch.Tensor, rows: par.RowBlock,
+               groups: par.RankGroups, sketch: Optional[torch.Tensor] = None,
+               sketch_rows: Optional[par.RowBlock] = None,
+               split: bool = True,
+               backend: Optional[str] = None) -> torch.Tensor:
+    """The row-sharded lookup: ``table`` and ``sketch`` are this rank's
+    row blocks (``rows``, ``sketch_rows``) of a table and of its frozen
+    sketch int32 [vocab, 1] (a compressed field), ``ids`` int [b, ...]
+    this rank's batch rows (``split``) or ids the same on every data rank.
+    Returns the ids' rows [b, ..., d] as the one-card lookup gives them.
+
+      1. the ids of every data rank are all-gathered (when ``split``);
+      2. a compressed field's codebook rows ``sketch[ids]``: each rank
+         reads the ids of its sketch rows (a block lookup of the "gather"
+         backend, other ids giving 0), and the ints are summed over the
+         sketch's group;
+      3. each rank looks up the rows of its block through the
+         EmbeddingEngine (``block_lookup``: the codebook_lookup kernel on
+         the card); ids outside the block give exact zeros;
+      4. the ranks' rows are summed over the table's group and each rank
+         keeps its batch rows (``parallel.sum_keep_rows``).
+    Backward, the reverse: the cotangent of every data rank's rows is
+    all-gathered (or, unsplit, summed) over the data ranks, and the
+    block's own backward (the CSR gather-sum on the card, ids outside the
+    block dropped) sums it into the rank's rows: the table's gradient is
+    whole on every rank, with no all-reduce of its own.
+
+    One rank owns each row, and every other rank adds an exact zero to
+    it, so the rows looked up are bitwise the one-card lookup's on any
+    mesh, and so is each row's gradient where the ids are split (the
+    same global cotangents, summed in the same order). The sketch takes
+    one codebook row an id (every recsys sketch does)."""
+    split = split and groups.data_group is not None
+    if split:
+        ids = par.all_gather_cat(ids, groups.data_group, 0)
+    if sketch is None:
+        _check_ids(ids, rows.n_rows)
+    else:
+        if sketch.shape[-1] != 1:
+            raise ValueError(f"the row-sharded lookup takes one codebook "
+                             f"row an id, this sketch has {sketch.shape[-1]}")
+        _check_ids(ids, sketch_rows.n_rows)
+        ids = get_backend("gather").block(sketch, ids, sketch_rows.lo)
+        if sketch_rows.group is not None:
+            ids = par.all_reduce(ids, sketch_rows.group)
+        ids = ids[..., 0]
+    x = embedding_block_lookup(table, ids, rows.lo, backend=backend)
+    return par.sum_keep_rows(x, rows.group, groups, split)
+
+
+def _lookup(params, statics, key: str, ids, cfg, sketch_key=None,
+            split: bool = True):
+    """``params[key]``'s rows of ``ids``, through ``statics[sketch_key]``
+    when the field is compressed. On a mesh, the row-sharded lookup
+    (``split``: the ids are this rank's batch rows; else every data rank
+    holds the same ids)."""
+    table = params[key]
+    sk = statics.get(sketch_key) if statics and sketch_key else None
+    g = par.current_groups()
+    if g is None:
+        return _field_lookup(table, ids, sk, cfg.lookup_backend)
+    return row_lookup(table, ids, g.rows[key], g, sketch=sk,
+                      sketch_rows=g.rows.get(sketch_key), split=split,
+                      backend=cfg.lookup_backend)
+
+
+def _batch_mean(loss):
+    """A mean over this rank's batch rows as the mean over the whole
+    batch (on a mesh, over the data ranks' equal shares)."""
+    g = par.current_groups()
+    return loss if g is None else par.mean_over_data(loss, g)
+
+
 def _bce(logits, labels):
     logits = logits.float()
-    return torch.mean(torch.clamp(logits, min=0) - logits * labels
-                      + torch.log1p(torch.exp(-torch.abs(logits))))
+    return _batch_mean(torch.mean(
+        torch.clamp(logits, min=0) - logits * labels
+        + torch.log1p(torch.exp(-torch.abs(logits)))))
 
 
 # ---------------------------------------------------------------------------
@@ -285,11 +379,8 @@ def _dlrm_interact(x, embs):
 
 def _dlrm_features(params, statics, dense, sparse, cfg: DLRMConfig):
     x = _mlp(params["bot"], dense, last_act=True)            # [B, d]
-    embs = []
-    for f in range(cfg.n_sparse):
-        sk = statics.get(f"sketch_{f}") if statics else None
-        embs.append(_field_lookup(params[f"emb_{f}"], sparse[:, f], sk,
-                                  cfg.lookup_backend))
+    embs = [_lookup(params, statics, f"emb_{f}", sparse[:, f], cfg,
+                    f"sketch_{f}") for f in range(cfg.n_sparse)]
     return _dlrm_interact(x, embs)
 
 
@@ -315,9 +406,9 @@ def dlrm_retrieval(params, statics, batch, cfg: DLRMConfig):
     x = _mlp(params["bot"], batch["dense"], last_act=True).expand(c, -1)
     embs = []
     for f in range(cfg.n_sparse):
-        sk = statics.get(f"sketch_{f}") if statics else None
         ids = cands if f == 0 else batch["sparse"][:, f]
-        e = _field_lookup(params[f"emb_{f}"], ids, sk, cfg.lookup_backend)
+        e = _lookup(params, statics, f"emb_{f}", ids, cfg, f"sketch_{f}",
+                    split=f == 0)
         embs.append(e if f == 0 else e.expand(c, -1))
     return _mlp(params["top"], _dlrm_interact(x, embs))[:, 0]
 
@@ -376,11 +467,10 @@ def widedeep_forward(params, statics, batch, cfg: WideDeepConfig):
     sparse = batch["sparse"]
     embs, wide = [], params["bias"]
     for f in range(cfg.n_sparse):
-        sk = statics.get(f"sketch_{f}") if statics else None
-        embs.append(_field_lookup(params[f"emb_{f}"], sparse[:, f], sk,
-                                  cfg.lookup_backend))
-        wide = wide + _field_lookup(params[f"wide_{f}"], sparse[:, f], sk,
-                                    cfg.lookup_backend)[:, 0]
+        embs.append(_lookup(params, statics, f"emb_{f}", sparse[:, f], cfg,
+                            f"sketch_{f}"))
+        wide = wide + _lookup(params, statics, f"wide_{f}", sparse[:, f],
+                              cfg, f"sketch_{f}")[:, 0]
     deep = _mlp(params["deep"], torch.cat(embs, dim=-1))[:, 0]
     return wide + deep
 
@@ -462,9 +552,9 @@ def _ln(x, scale, eps=1e-6):
     return (x - m) * torch.rsqrt(v + eps) * scale
 
 
-def _item_lookup(params, statics, ids, cfg):
-    sk = statics.get("sketch_items") if statics else None
-    return _field_lookup(params["item_emb"], ids, sk, cfg.lookup_backend)
+def _item_lookup(params, statics, ids, cfg, split: bool = True):
+    return _lookup(params, statics, "item_emb", ids, cfg, "sketch_items",
+                   split)
 
 
 def seqrec_encode(params, statics, seq_ids, cfg: SASRecConfig):
@@ -494,8 +584,12 @@ def sasrec_train_loss(params, statics, batch, cfg: SASRecConfig):
     ps = torch.sum(hs * pos_e, -1)
     ns = torch.sum(hs * neg_e, -1)
     valid = (seq[:, 1:] > 0).float()
-    loss = -torch.nn.functional.logsigmoid(ps - ns) * valid
-    return loss.sum() / torch.clamp(valid.sum(), min=1.0)
+    loss = (-torch.nn.functional.logsigmoid(ps - ns) * valid).sum()
+    valid = valid.sum()
+    g = par.current_groups()
+    if g is not None:                 # the ratio of the whole batch's sums
+        loss, valid = par.sum_over_data(loss, g), par.sum_over_data(valid, g)
+    return loss / torch.clamp(valid, min=1.0)
 
 
 def sasrec_score_candidates(params, statics, batch, cfg: SASRecConfig):
@@ -511,12 +605,13 @@ def bert4rec_train_loss(params, statics, batch, cfg: BERT4RecConfig):
     tgt_pos = batch["target_pos"].long()     # [B, M]
     hm = torch.gather(hs, 1, tgt_pos[..., None].expand(-1, -1, hs.shape[-1]))
     pos_e = _item_lookup(params, statics, batch["target_ids"], cfg)
-    neg_e = _item_lookup(params, statics, batch["neg_ids"], cfg)  # [N, d]
+    neg_e = _item_lookup(params, statics, batch["neg_ids"], cfg,
+                         split=False)                           # [N, d]
     pos_logit = torch.sum(hm * pos_e, -1, keepdim=True)       # [B, M, 1]
     neg_logit = torch.einsum("bmd,nd->bmn", hm, neg_e)        # [B, M, N]
     logits = torch.cat([pos_logit, neg_logit], dim=-1)
     lse = torch.logsumexp(logits.float(), dim=-1)
-    return torch.mean(lse - pos_logit[..., 0])
+    return _batch_mean(torch.mean(lse - pos_logit[..., 0]))
 
 
 def bert4rec_score_candidates(params, statics, batch, cfg: BERT4RecConfig):

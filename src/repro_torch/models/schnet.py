@@ -15,8 +15,17 @@ edge order from +0.0, the order of XLA's serial scatter-add on the CPU,
 with no float atomics. The sorts and CSR pointers (an :class:`EdgePlan`)
 are built once per batch and serve every block, forward and backward.
 The atom embedding is ``embedding_lookup`` on the port's engine
-(codebook_lookup on the card, its backward the CSR gather-sum). The
-reference's ``shard(...)`` annotations have no counterpart here.
+(codebook_lookup on the card, its backward the CSR gather-sum).
+
+On a mesh (``distributed.parallel.use_groups``, entered by
+``launch.steps.build_cell(mesh=...)``) whose data ranks split the batch,
+each rank holds a block of the nodes and one of the edges (global node
+ids), and the params whole. Each interaction all-gathers the node
+features over the data ranks, gathers and segment-sums its edges into
+the whole node range, and keeps its node block of the ranks' sum
+(``parallel.sum_keep_rows``, a reduce-scatter); the losses are the
+whole batch's (partial sums summed over the data ranks). This stands
+for the reference's ``shard(x, "batch", None)`` annotations.
 
 BACO does not apply: the only table is the ~100-row atomic-number
 embedding.
@@ -30,6 +39,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.distributed import parallel as par
 from repro_torch.embedding import embedding_lookup
 from repro_torch.kernels.embedding_bag import _ptr, csr_gather_sum
 from repro_torch.models.recsys import flat_params, params_from_numpy
@@ -222,21 +232,35 @@ def _atoms(params, batch, cfg: SchNetConfig):
     return x.to(cfg.torch_dtype), z.shape[0]
 
 
+def _split_groups():
+    """The rank's groups when the batch is split over data ranks, else
+    None (one card, or a batch every rank holds whole)."""
+    g = par.current_groups()
+    return g if g is not None and g.data_group is not None else None
+
+
 def _node_outputs(params, batch, cfg: SchNetConfig,
                   plan: Optional[EdgePlan]):
-    """Every block, then the atomwise readout: [N] per-node outputs."""
+    """Every block, then the atomwise readout: [N] per-node outputs (on a
+    mesh, of this rank's nodes)."""
+    g = _split_groups()
     dist = batch["edge_dist"]
     x, n = _atoms(params, batch, cfg)
     if plan is None:
-        plan = edge_plan(batch["edge_src"], batch["edge_dst"], n)
+        n_all = n if g is None else n * g.n_data
+        plan = edge_plan(batch["edge_src"], batch["edge_dst"], n_all)
     rbf = _rbf_expand(dist, cfg).to(cfg.torch_dtype)
     fcut = _cosine_cutoff(dist, cfg.cutoff).to(cfg.torch_dtype)
     for blk in params["blocks"]:
         w = _ssp(_apply_lin(blk["filt1"], rbf))
         w = _apply_lin(blk["filt2"], w) * fcut[:, None]     # [E, d]
         h = _apply_lin(blk["in_lin"], x)
+        if g is not None:
+            h = par.gather_over_data(h, g)
         msg = gather(h, plan) * w                           # gather + gate
         agg = segment_sum(msg, plan.dst, plan.dst_perm, plan.dst_ptr)
+        if g is not None:
+            agg = par.sum_keep_rows(agg, g.data_group, g)
         v = _ssp(_apply_lin(blk["mid"], agg))
         x = x + _apply_lin(blk["out"], v)
     h = _ssp(_apply_lin(params["out1"], x))
@@ -250,14 +274,19 @@ def energy(params, batch, cfg: SchNetConfig, n_graphs: int = 1,
     ``plan``: the batch's :func:`edge_plan` (built here when None)."""
     atom_e = _node_outputs(params, batch, cfg, plan)
     perm, ptr = _sorted(batch["graph_id"], n_graphs)
-    return segment_sum(atom_e, batch["graph_id"].long(), perm, ptr)
+    out = segment_sum(atom_e, batch["graph_id"].long(), perm, ptr)
+    g = _split_groups()
+    return out if g is None else par.sum_over_data(out, g)
 
 
 def train_loss(params, batch, cfg: SchNetConfig,
                plan: Optional[EdgePlan] = None) -> torch.Tensor:
-    pred = energy(params, batch, cfg, n_graphs=batch["targets"].shape[0],
-                  plan=plan)
-    return torch.mean((pred - batch["targets"]) ** 2)
+    targets = batch["targets"]
+    g = _split_groups()
+    if g is not None:
+        targets = par.all_gather_cat(targets, g.data_group, 0)
+    pred = energy(params, batch, cfg, n_graphs=targets.shape[0], plan=plan)
+    return torch.mean((pred - targets) ** 2)
 
 
 def node_train_loss(params, batch, cfg: SchNetConfig,
@@ -267,6 +296,11 @@ def node_train_loss(params, batch, cfg: SchNetConfig,
     pred = _node_outputs(params, batch, cfg, plan)
     mask = batch.get("node_mask")
     err = (pred - batch["node_targets"]) ** 2
-    if mask is not None:
-        return torch.sum(err * mask) / torch.clamp_min(torch.sum(mask), 1.0)
-    return torch.mean(err)
+    g = _split_groups()
+    if mask is None:
+        err = torch.mean(err)
+        return err if g is None else par.mean_over_data(err, g)
+    num, den = torch.sum(err * mask), torch.sum(mask)
+    if g is not None:
+        num, den = par.sum_over_data(num, g), par.sum_over_data(den, g)
+    return num / torch.clamp_min(den, 1.0)

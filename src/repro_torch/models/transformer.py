@@ -91,7 +91,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.distributed import parallel as par
 from repro_torch.distributed.sharding import (Layout, fit_spec,
                                               logical_to_spec, mesh_shape)
-from repro_torch.embedding import embedding_lookup
+from repro_torch.embedding import embedding_block_lookup, embedding_lookup
 from repro_torch.kernels.embedding_bag import csr_gather_sum
 
 __all__ = ["TransformerConfig", "MoEConfig", "init_params", "count_params",
@@ -882,11 +882,10 @@ def _embed(params, tokens, cfg, g=None):
     if not _vocab_split(g):
         x = embedding_lookup(table, tokens, backend=cfg.lookup_backend)
     else:
-        local = tokens - g.model_rank * table.shape[0]
-        inr = (local >= 0) & (local < table.shape[0])
-        x = embedding_lookup(table, torch.where(inr, local, 0),
-                             backend=cfg.lookup_backend)
-        x = par.reduce_from_model(torch.where(inr[..., None], x, 0), g)
+        x = embedding_block_lookup(table, tokens,
+                                   g.model_rank * table.shape[0],
+                                   backend=cfg.lookup_backend)
+        x = par.reduce_from_model(x, g)
     x = x.to(cfg.torch_dtype)
     if cfg.embed_scale:
         x = x.float() * math.sqrt(cfg.d_model)

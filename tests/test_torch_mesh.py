@@ -8,8 +8,9 @@ the JAX package, on the CPU.
   (1, 4), for every logical axis under "tp" and "dp" and every leaf of
   the five LM full configs; the production mesh on a world of 1 raises
   naming the 256 (512) ranks it needs; the production cells' routes
-  (whole query heads, replicated K/V where they do not divide 16); the
-  other families on a mesh raise naming ROADMAP Queue 1 #7c-ii-c; on a
+  (whole query heads, replicated K/V where they do not divide 16); what
+  still raises on a mesh (kimi-k2's Adafactor over a model axis, the
+  "dp" mapping) names ROADMAP Queue 1 #7c-ii-c; on a
   world of 1, every smoke cell under ``make_host_mesh`` is bitwise its
   one-card twin, and the GPipe step with one stage equals the
   microbatched one-card step (f32: loss rtol 1e-6, params within 2e-7 but
@@ -211,14 +212,27 @@ def test_production_routes(arch):
 
 
 def test_other_families_on_a_mesh_raise_naming_the_roadmap():
+    """The recsys, GNN and cf cells build on a mesh
+    (``tests/test_torch_mesh_cells.py``); what still raises names the
+    ROADMAP: Adafactor over a model axis (kimi-k2's train_4k) and an LM
+    shape under the "dp" mapping."""
+    kimi = registry.get_arch("kimi-k2-1t-a32b").full_config()
+    two_model_ranks = steps.par.RankGroups(2, 0, None, 1, 0, None)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #7c-ii-c"):
+        steps._lm_optimizer(kimi, two_model_ranks)
+    dp = registry.ShapeSpec("train_dp", "train", dict(
+        seq_len=16, global_batch=4, mapping="dp"))
     with world("cpu"):
         mesh = make_host_mesh(device="cpu")
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP Queue 1 #7c-ii-c"):
+            steps._lm_cell(registry.get_arch("gemma2-9b"), dp, True, None,
+                           torch.device("cpu"), mesh=mesh)
         for arch, shape in (("sasrec", "serve_p99"), ("schnet", "molecule"),
                             ("lightgcn-baco", "bpr_train")):
-            with pytest.raises(NotImplementedError,
-                               match="ROADMAP Queue 1 #7c-ii-c"):
-                steps.build_cell(arch, shape, mesh=mesh, smoke=True,
-                                 device="cpu")
+            cell = steps.build_cell(arch, shape, mesh=mesh, smoke=True,
+                                    device="cpu")
+            assert cell.mesh is mesh and "ZeRO-1/FSDP: ROADMAP" in cell.notes
     assert registry.SHARDED_ITEM == "ROADMAP Queue 1 #7c-ii-c"
 
 

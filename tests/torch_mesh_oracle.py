@@ -1,7 +1,8 @@
-"""The JAX package's LM cells on 4 host devices: the oracle of
-``tests/test_torch_mesh.py``.
+"""The JAX package's cells on 4 host devices: the oracle of
+``tests/test_torch_mesh.py`` (the LM cells) and of
+``tests/test_torch_mesh_cells.py`` (the recsys, cf and GNN cells).
 
-    python tests/torch_mesh_oracle.py OUT.npz [DxM]
+    python tests/torch_mesh_oracle.py OUT.npz [DxM] [cells]
 
 Run as a script, it sets ``XLA_FLAGS=--xla_force_host_platform_device_count=4``
 and ``JAX_PLATFORMS=cpu`` before importing jax, then runs, on each of the
@@ -13,7 +14,11 @@ logits and cache, and ``train_loss`` with its gradients; the qwen1.5-32b
 prefill in bf16 on (2, 2); and ``build_pp_train_cell``'s step (loss and
 updated params) for qwen1.5-32b at ``PP_LAYERS`` layers on both meshes.
 Every array is written as float32 under ``"<mesh>/<arch>/<what>"``;
-``DxM`` (``2x2`` or ``1x4``) runs one mesh only.
+``DxM`` (``2x2`` or ``1x4``) runs one mesh only. ``cells`` runs, in place
+of those, the smoke cells of ``CELLS`` on :func:`cell_inputs` (the
+reference's smoke args, the batch's ids redrawn over their whole range):
+a serve cell's output, a train cell's loss and gradients of its loss, by
+``jax.jit`` under the mesh, under ``"<mesh>/<arch>:<shape>/<what>"``.
 """
 import dataclasses
 import functools
@@ -144,6 +149,120 @@ def pp_step(mesh, tag: str, out: dict) -> None:
     _flat({"loss": loss, "params": new_params}, f"{tag}/pp", out)
 
 
+# the recsys, cf and GNN smoke cells held on 4 ranks
+CELLS = (("dlrm-mlperf", "serve_p99"), ("dlrm-mlperf", "train_batch"),
+         ("dlrm-mlperf-baco", "train_batch"),
+         ("wide-deep-baco", "train_batch"), ("sasrec-baco", "train_batch"),
+         ("bert4rec-baco", "train_batch"), ("lightgcn-baco", "bpr_train"),
+         ("schnet", "full_graph_sm"), ("schnet", "molecule"))
+
+
+def _spread_batch(cfg, batch: dict, rng) -> dict:
+    """The smoke batch with its ids uniform over their ranges (the smoke
+    draws give every id 0 or 1, which one row block holds)."""
+    b = dict(batch)
+
+    def ids(hi, shape):
+        return rng.integers(0, hi, shape).astype(np.int32)
+
+    name = type(cfg).__name__
+    if name in ("DLRMConfig", "WideDeepConfig"):
+        b["sparse"] = np.stack([ids(v, b["sparse"].shape[0])
+                                for v in cfg.vocabs], axis=1)
+        if "label" in b:
+            b["label"] = (rng.random(b["label"].shape) < 0.5).astype(
+                np.float32)
+    elif name in ("SASRecConfig", "BERT4RecConfig"):
+        for k in ("seq", "neg", "target_ids", "neg_ids"):
+            if k in b:
+                b[k] = ids(cfg.n_items, b[k].shape)
+        if "target_pos" in b:
+            b["target_pos"] = ids(cfg.seq_len, b["target_pos"].shape)
+    elif name == "LightGCNConfig":
+        b["user"] = ids(cfg.n_users, b["user"].shape)
+        b["pos"], b["neg"] = (ids(cfg.n_items, b[k].shape)
+                              for k in ("pos", "neg"))
+    else:                                           # SchNet
+        n = (b["z"] if "z" in b else b["node_targets"]).shape[0]
+        b["edge_src"], b["edge_dst"] = (ids(n, b[k].shape)
+                                        for k in ("edge_src", "edge_dst"))
+        b["edge_dist"] = rng.uniform(0.0, 1.2 * cfg.cutoff,
+                                     b["edge_dist"].shape).astype(np.float32)
+        if "z" in b:
+            g = b["targets"].shape[0]
+            b["z"] = ids(cfg.max_z, n)
+            b["graph_id"] = (np.arange(n) // (n // g)).astype(np.int32)
+        else:
+            b["node_mask"] = (rng.random(n) < 0.5).astype(np.float32)
+    return b
+
+
+def cell_config(arch: str, shape: str):
+    """The reference cell's config (SchNet's with its shape's d_feat)."""
+    from repro.configs import registry
+    spec = registry.get_arch(arch)
+    cfg = dataclasses.replace(spec.smoke_config(), lookup_backend="gather")
+    if spec.family == "gnn":
+        cfg = dataclasses.replace(cfg, d_feat=0 if shape == "molecule"
+                                  else 16)
+    return cfg
+
+
+def cell_inputs(arch: str, shape: str):
+    """(the reference's smoke cell, its args as numpy with the batch
+    spread by ``default_rng(7)``)."""
+    import jax
+
+    from repro.launch import steps
+    ref = steps.build_cell(arch, shape, smoke=True, lookup_backend="gather")
+    args = jax.tree.map(np.asarray, ref.args)
+    rng = np.random.default_rng(7)
+    return ref, tuple(args[:-1]) + (
+        _spread_batch(cell_config(arch, shape), args[-1], rng),)
+
+
+def cell_loss(arch: str, shape: str):
+    """The reference train cell's loss, (params, statics, batch) ->
+    scalar (SchNet's ignores the statics)."""
+    from repro.configs import registry
+    from repro.models import lightgcn as LG
+    from repro.models import recsys as R
+    from repro.models import schnet as S
+
+    cfg = cell_config(arch, shape)
+    family = registry.get_arch(arch).family
+    if family == "gnn":
+        fn = S.train_loss if shape == "molecule" else S.node_train_loss
+        return lambda p, s, b: fn(p, b, cfg)
+    if family == "cf":
+        return lambda p, s, b: LG.bpr_loss_fn(p, s, b, cfg)
+    name = {"DLRMConfig": "dlrm", "WideDeepConfig": "widedeep",
+            "SASRecConfig": "sasrec",
+            "BERT4RecConfig": "bert4rec"}[type(cfg).__name__]
+    fn = getattr(R, f"{name}_train_loss")
+    return lambda p, s, b: fn(p, s, b, cfg)
+
+
+def mesh_cells(mesh, tag: str, out: dict) -> None:
+    import jax
+
+    jitted = {}          # cells of one smoke config share a compilation
+    for arch, shape in CELLS:
+        ref, args = cell_inputs(arch, shape)
+        pre = f"{tag}/{arch}:{shape}"
+        key = (repr(cell_config(arch, shape)), shape)
+        with mesh:
+            if ref.kind != "train":
+                _flat({"out": jax.jit(ref.fn)(*args)}, pre, out)
+                continue
+            if key not in jitted:
+                jitted[key] = jax.jit(jax.value_and_grad(
+                    cell_loss(arch, shape)))
+            statics = args[2] if len(args) == 4 else None
+            loss, grads = jitted[key](args[0], statics, args[-1])
+        _flat({"loss": loss, "grads": grads}, pre, out)
+
+
 def main(argv) -> int:
     import jax
 
@@ -157,6 +276,9 @@ def main(argv) -> int:
         if len(argv) > 2 and argv[2] != tag:
             continue
         mesh = mesh_of(shape)
+        if len(argv) > 3 and argv[3] == "cells":
+            mesh_cells(mesh, tag, out)
+            continue
         lm_cells(mesh, tag, out)
         pp_step(mesh, tag, out)
         if shape == (2, 2):
