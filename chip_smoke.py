@@ -161,14 +161,22 @@
    Then the LM cells over a mesh (``lm_mesh``): an NCCL world of 1 under
    ``launch.mesh.make_host_mesh()``, each cell through ``build_cell(...,
    mesh=...)`` at the lm phase's one-card cut beside its unsharded twin
-   on the same params and inputs: gemma2-9b decode_32k (B 4; the tensor-
-   parallel path) and dbrx-132b decode_32k (8 layers, B 8; the expert-
-   parallel path), one warm-up and ``n`` timed calls each, logits and the
+   on the same params and inputs, on the reference's data-axis layouts
+   (the data axis has one rank, so every block is whole and no
+   collective is issued): gemma2-9b decode_32k (B 4; the tensor-
+   parallel path, params ZeRO'd over "data") and dbrx-132b decode_32k
+   (8 layers, B 8; the expert-parallel path, ZeRO'd), one warm-up and
+   ``n`` timed calls each, logits and the
    cache slots the step writes bitwise the twin's; one dbrx-132b
    train_4k step (1 layer, 8 x 4,096; the backward through the tensor-
-   and expert-parallel Functions), its loss and a digest of every
-   updated param bitwise the twin's (each cell drawn afresh from seed
-   0); one ``build_pp_train_cell`` step of qwen1.5-32b at train_4k's
+   and expert-parallel Functions; FSDP by the rule at 1 layer, so its
+   params split over "data" and its accumulator bf16), its loss and a
+   digest of every updated param bitwise the twin's (each cell drawn
+   afresh from seed 0); one train step of kimi-k2's smoke config at
+   128 experts (``LM_MESH_ADAFACTOR_EXPERTS``: the reference's
+   Adafactor route, over the experts' model axis) beside its twin, loss
+   and params bitwise, codebook_lookup and the CSR gather-sum launched;
+   one ``build_pp_train_cell`` step of qwen1.5-32b at train_4k's
    sequence (1 stage, 8 microbatches of one sequence; its depth
    reckoned against 85% of the card, ``lm_pp_layers``) against the
    microbatched one-card step at the same cut: loss within rtol 1e-5,
@@ -178,8 +186,11 @@
    same bound on the CPU). Counts are zeroed just before each mesh run
    and read just after: the token lookup once a call or microbatch, the
    bf16 CSR gather-sum as the one-card cells run it; the collectives
-   and the bytes they all-reduce a call or step are printed. It prints
-   an ``lm_mesh`` JSON line; its launches count into the kernels line.
+   and the bytes they move a call or step are printed, and no cell may
+   issue more than the run before did (``LM_MESH_COLLECTIVES_CAP``). Each
+   cell's FSDP decision, accumulator dtype and count of params stored
+   split over data are printed. It prints an ``lm_mesh`` JSON line; its
+   launches count into the kernels line.
    Then the recsys, cf and GNN cells over a mesh (``arch_mesh``): an NCCL
    world of 1 under ``make_host_mesh()``, each cell of
    ``ARCH_MESH_CELLS`` through ``build_cell(..., mesh=...)`` at full
@@ -208,6 +219,13 @@
    ``launch.steps.rank_bytes`` on one card and on 4 and 8 ranks. It
    prints an ``arch_mesh`` JSON line; its launches count into the
    kernels line.
+   Then the dry run (``dryrun``): ``launch.dryrun`` over every cell on
+   the (16, 16) and (2, 16, 16) meshes (``--all --both-meshes
+   --include-variants``), in this process on meta tensors; it must
+   record no failure and allocate nothing on the card. It prints a
+   ``dryrun`` JSON line: the counts and the GB a rank of every LM cell
+   (the port's layouts beside the reference's); the lm phase's
+   ``lm_not_run`` prints kimi-k2 train_4k's from it.
    Then SchNet (``gnn``) at its published widths (d_hidden 64, 300 RBF,
    3 blocks, cutoff 10) through ``build_cell`` (``GNN_CELLS``):
    ``full_graph_sm`` (2,708 nodes, d_feat 1,433), ``minibatch_lg`` (a
@@ -310,8 +328,8 @@
    ``benches`` JSON line.
 
 Prints a ``stream`` JSON line, a ``frontdoor`` JSON line, a ``scale``,
-a ``baselines``, an ``arch``, an ``lm``, an ``lm_mesh``, an ``arch_mesh``
-and a ``gnn`` JSON line, a
+a ``baselines``, an ``arch``, an ``lm``, an ``lm_mesh``, an ``arch_mesh``,
+a ``dryrun`` and a ``gnn`` JSON line, a
 ``kernels`` JSON line (the CSR gather-sum's bf16 instantiation has an
 entry of its own), a ``timer`` line
 (the timer's floor), a ``benches`` JSON line, the ``nvidia-smi``
@@ -3139,21 +3157,32 @@ def lm_not_run(arch: str, shape: str) -> dict:
     """The reckoning that keeps a train cell off one card: one layer's
     bf16 params and gradients (with the embedding and the head), before
     any optimizer state or activation, against ``PEAK_SHARE`` of the
-    card; it must pass it."""
+    card; it must pass it. Beside it, the cell's argument bytes a rank
+    on the (16, 16) mesh from the dry run (``launch.dryrun``: the port's
+    own layouts, and the reference's)."""
     import torch
 
     from repro_torch.configs.registry import get_arch
     from repro_torch.models import transformer as T
 
+    from repro_torch.launch import dryrun
+
     cfg = get_arch(arch).full_config()
     one = dataclasses.replace(cfg, n_layers=cfg.layers_per_block)
     need = T.count_params(one) * 2 * 2
     room = PEAK_SHARE * torch.cuda.get_device_properties(0).total_memory
+    rank = dryrun.run_cell(arch, shape, verbose=False)
+    require(rank["ok"] is True, f"{arch}:{shape}: the dry run failed: "
+            f"{rank.get('error')}")
     res = {"cell": f"{arch}:{shape}", "run": False,
            "n_layers": one.n_layers, "params": T.count_params(one),
            "params_and_grads_gb": need / 1e9, "room_gb": room / 1e9,
            "why": "one layer's bf16 params and gradients alone pass "
-                  f"{PEAK_SHARE:.0%} of the card"}
+                  f"{PEAK_SHARE:.0%} of the card",
+           "rank_gb_16x16": rank["arg_bytes_per_device"] / 1e9,
+           "reference_layout_gb_16x16":
+               rank["reference_layout_bytes"] / 1e9,
+           "fsdp_16x16": rank["fsdp"], "optimizer": rank["optimizer"]}
     require(need > room, f"{arch}:{shape} would fit one card: {res}")
     log(f"lm {arch}:{shape}: not run: {res}")
     return res
@@ -3205,6 +3234,16 @@ LM_PP = ("qwen1.5-32b", "train_4k", 8, 8)
 LM_PP_BYTES_PER_PARAM = 16
 LM_PP_HEADROOM = 8e9
 LM_PP_LR = 3e-4
+# the collectives a call or step this phase printed on the NCCL world of
+# 1 before a group of one rank stopped issuing any (the smoke of
+# 5a52d90): no cell may issue more
+LM_MESH_COLLECTIVES_CAP = {"gemma2-9b:decode_32k": 87,
+                            "dbrx-132b:decode_32k": 19,
+                            "dbrx-132b:train_4k": 526,
+                            "qwen1.5-32b:train_4k gpipe": 37}
+# kimi-k2's smoke config at this many experts: the reference's Adafactor
+# route (128 or more), its experts over the model axis
+LM_MESH_ADAFACTOR_EXPERTS = 128
 
 
 def tensors_digest(tensors) -> str:
@@ -3266,6 +3305,29 @@ def zero_mesh_counts() -> None:
     par.zero_counts()
 
 
+def note(notes: str, key: str):
+    """The value of ``key=...`` in a cell's comma-joined notes (None
+    where it has none)."""
+    for part in notes.split(","):
+        if part.startswith(f"{key}="):
+            return part[len(key) + 1:]
+    return None
+
+
+def data_axis_info(cell) -> dict:
+    """A mesh cell's FSDP decision, accumulator dtype and count of params
+    stored split over data axes, from its notes."""
+    return {"fsdp": note(cell.notes, "fsdp") == "True",
+            "accumulator": note(cell.notes, "accumulator"),
+            "data_split_leaves": int(note(cell.notes, "data_split"))}
+
+
+def require_collectives(label: str, n: float) -> None:
+    want = LM_MESH_COLLECTIVES_CAP[label]
+    require(n <= want, f"{label}: {n} collectives a call or step, more "
+            f"than the {want} of the run before")
+
+
 def lm_mesh_decode(mesh, arch: str, shape: str, n: int) -> dict:
     """A decode cell on the mesh beside its one-card twin, on the twin's
     params, cache and batch (on a world of 1 the mesh cell's blocks are
@@ -3312,8 +3374,9 @@ def lm_mesh_decode(mesh, arch: str, shape: str, n: int) -> dict:
             and launches.get("embedding_bag", 0) == want_16,
             f"{label}: the bf16 CSR gather-sum launched {launches_16} "
             f"({launches}), want {want_16}")
+    require_collectives(label, coll["collectives"] / calls)
     res = {"cell": label, "reduced": list(cell.reduced), "notes": cell.notes,
-           "calls": calls, "build_s": build_s,
+           **data_axis_info(cell), "calls": calls, "build_s": build_s,
            "ms": mesh_ms, "ms_median": statistics.median(mesh_ms),
            "one_card_ms": one_ms,
            "one_card_ms_median": statistics.median(one_ms),
@@ -3368,6 +3431,7 @@ def lm_mesh_train(mesh, arch: str, shape: str) -> dict:
         if name == "mesh":
             res["notes"] = cell.notes
             res["reduced"] = list(cell.reduced)
+            res.update(data_axis_info(cell))
         del cell, loss
         gc.collect()
     one, m = res["one_card"], res["mesh"]
@@ -3382,6 +3446,10 @@ def lm_mesh_train(mesh, arch: str, shape: str) -> dict:
     require(m["launches"].get("codebook_lookup", 0) > 0
             and m["launches_bf16_gather_sum"] > 0,
             f"{label}: a kernel of the path did not run: {m['launches']}")
+    require(res["fsdp"] and res["accumulator"] == "bfloat16"
+            and res["data_split_leaves"] > 0,
+            f"{label}: FSDP by the rule and a bf16 accumulator: {res}")
+    require_collectives(label, m["collectives_per_step"])
     res["launches"] = m["launches"]
     res["launches_bf16_gather_sum"] = m["launches_bf16_gather_sum"]
     res["bitwise"] = True
@@ -3469,6 +3537,9 @@ def lm_mesh_pp(mesh) -> dict:
     res.update({f"{k}_per_step": v for k, v in mesh_counts().items()})
     res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     res["loss"], res["one_card_loss"] = loss, want_loss
+    res["notes"] = cell.notes
+    res["data_split_leaves"] = int(note(cell.notes, "data_split"))
+    require_collectives(label, res["collectives_per_step"])
     n_diff = n_all = 0
     worst = 0.0
     for k, v in flat_params(cell.args[0]).items():
@@ -3498,6 +3569,61 @@ def lm_mesh_pp(mesh) -> dict:
     return res
 
 
+def lm_mesh_adafactor(mesh, device: str = "cuda") -> dict:
+    """One train step of kimi-k2's smoke config at
+    ``LM_MESH_ADAFACTOR_EXPERTS`` experts (the reference's Adafactor
+    route) on the mesh and as its one-card twin, each drawn from seed 0
+    on the card with the CUDA lookup: loss and every updated param
+    bitwise, equal launches, codebook_lookup and the CSR gather-sum
+    run."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.steps import _lm_cell
+    from repro_torch.models.recsys import flat_params
+    from repro_torch.models.transformer import MoEConfig
+
+    spec = get_arch("kimi-k2-1t-a32b")
+    cfg = dataclasses.replace(spec.smoke_config(), moe=MoEConfig(
+        LM_MESH_ADAFACTOR_EXPERTS, 2, 1.5))
+    spec = dataclasses.replace(spec, smoke_config=lambda: cfg)
+    label = f"kimi-k2 smoke {LM_MESH_ADAFACTOR_EXPERTS} experts:train_4k"
+    res = {"cell": label}
+    for name, kw in (("one_card", {}), ("mesh", {"mesh": mesh})):
+        cell = _lm_cell(spec, spec.shape("train_4k"), True, "cuda",
+                        torch.device(device), **kw)
+        sync(device)
+        zero_mesh_counts()
+        loss = cell.fn(*cell.args)[2]
+        sync(device)
+        res[name] = {"loss": float(loss), "notes": cell.notes,
+                     "params_digest": tensors_digest(
+                         flat_params(cell.args[0]).values()),
+                     "launches": {k: v for k, v in launch_counts().items()
+                                  if v},
+                     **{f"{k}_per_step": v for k, v in
+                        mesh_counts().items()}}
+        del cell, loss
+        gc.collect()
+    one, m = res["one_card"], res["mesh"]
+    require(m["notes"].startswith("optimizer=adafactor,"),
+            f"{label}: not the Adafactor route: {m['notes']}")
+    require(m["loss"] == one["loss"]
+            and m["params_digest"] == one["params_digest"],
+            f"{label}: the mesh step differs from its twin: {res}")
+    require(m["launches"] == one["launches"]
+            and m["launches"].get("codebook_lookup", 0) > 0
+            and m["launches"].get("embedding_bag", 0) > 0,
+            f"{label}: launches {one['launches']} / {m['launches']}")
+    res["launches"] = m["launches"]
+    res["launches_bf16_gather_sum"] = 0
+    res["bitwise"] = True
+    log(f"lm_mesh {label}: {res}")
+    return res
+
+
 def lm_mesh_path() -> dict:
     """The LM cells over an NCCL world of 1 (module docstring)."""
     import torch.distributed as dist
@@ -3512,18 +3638,60 @@ def lm_mesh_path() -> dict:
         mesh = make_host_mesh("cuda")
         res = {"decode": [lm_mesh_decode(mesh, *c) for c in LM_MESH_DECODE],
                "train": lm_mesh_train(mesh, *LM_MESH_TRAIN),
-               "gpipe": lm_mesh_pp(mesh)}
+               "gpipe": lm_mesh_pp(mesh),
+               "adafactor": lm_mesh_adafactor(mesh)}
     require(not dist.is_initialized(), "the NCCL world outlived its phase")
     total = {}
-    for c in res["decode"] + [res["train"], res["gpipe"]]:
+    cells = res["decode"] + [res["train"], res["gpipe"], res["adafactor"]]
+    for c in cells:
         for k, v in c["launches"].items():
             total[k] = total.get(k, 0) + v
     res["launches"] = total
-    res["launches_bf16_gather_sum"] = sum(
-        c["launches_bf16_gather_sum"]
-        for c in res["decode"] + [res["train"], res["gpipe"]])
+    res["launches_bf16_gather_sum"] = sum(c["launches_bf16_gather_sum"]
+                                          for c in cells)
     res["seconds"] = time.perf_counter() - t0
     log(f"lm_mesh phase: {res['seconds']:.1f} s, launches {total}")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# the dry run: every cell's per-rank account on the production meshes
+# ---------------------------------------------------------------------------
+def dryrun_path() -> dict:
+    """``launch.dryrun`` over every cell (``--all --both-meshes
+    --include-variants``), in this process on meta tensors: it must
+    record no failure and touch no device. Returns the counts and the
+    GB a rank of every LM cell (the port's layouts and the
+    reference's)."""
+    import torch
+
+    from repro_torch.configs import all_cells
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    before = torch.cuda.memory_allocated()
+    results = dryrun.run(all_cells(include_skipped=True,
+                                   include_variants=True), [False, True],
+                         verbose=False)
+    n_ok, n_skip, n_fail = dryrun.summary(results)
+    require(n_fail == 0, "the dry run failed: " + "; ".join(
+        f"{r['arch']}:{r['shape']} {r['mesh']}: {r.get('error')}"
+        for r in results if r["ok"] is False))
+    require(torch.cuda.memory_allocated() == before,
+            "the dry run allocated on the card")
+    lm = {f"{r['mesh']} {r['arch']}:{r['shape']}": {
+        "gb": r["arg_bytes_per_device"] / 1e9,
+        "reference_layout_gb": r["reference_layout_bytes"] / 1e9,
+        "builds": r["builds"], "fits": r["fits"]}
+        for r in results if r["ok"] is True
+        and r["arch"] in LM_ARCHS}
+    res = {"ok": n_ok, "skipped": n_skip, "failed": n_fail,
+           "lm_gb_per_rank": lm,
+           "not_fitting": [f"{r['mesh']} {r['arch']}:{r['shape']}"
+                           for r in results if r.get("fits") is False],
+           "seconds": time.perf_counter() - t0}
+    log(f"dryrun: {n_ok} ok / {n_skip} skipped / {n_fail} failed in "
+        f"{res['seconds']:.1f} s")
     return res
 
 
@@ -4708,7 +4876,7 @@ def check_embedding_bag(run: dict, emb_run: dict) -> dict:
         "baselines": run["baselines"]["launches"]["embedding_bag"],
         "arch": run["arch"]["launches"].get("embedding_bag", 0),
         "lm (bf16)": run["lm"]["launches"].get("embedding_bag", 0),
-        "lm_mesh (bf16)": run["lm_mesh"]["launches"].get("embedding_bag", 0),
+        "lm_mesh": run["lm_mesh"]["launches"].get("embedding_bag", 0),
         "arch_mesh": run["arch_mesh"]["launches"].get("embedding_bag", 0),
         "gnn": run["gnn"]["launches"].get("embedding_bag", 0),
         "cce": run["baselines"]["cce"]["launches"].get("embedding_bag", 0)}
@@ -5465,6 +5633,7 @@ def main() -> int:
             run["lm"] = lm_path()
             run["lm_mesh"] = lm_mesh_path()
             run["arch_mesh"] = arch_mesh_path()
+            run["dryrun"] = dryrun_path()
             run["gnn"] = gnn_path()
             emb_run = embedding_path(run)
             bench_run = bench_path()
@@ -5494,6 +5663,7 @@ def main() -> int:
     print(json.dumps({"lm": run["lm"]}))
     print(json.dumps({"lm_mesh": run["lm_mesh"]}))
     print(json.dumps({"arch_mesh": run["arch_mesh"]}))
+    print(json.dumps({"dryrun": run["dryrun"]}))
     print(json.dumps({"gnn": run["gnn"]}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"timer": {"floor_ms": floor,

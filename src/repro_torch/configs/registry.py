@@ -10,10 +10,10 @@ Each ``configs/<arch>.py`` module of the port registers an ArchSpec with:
 The port registers every arch of the reference: the recsys family
 (DLRM, Wide&Deep, SASRec, BERT4Rec), the paper's own backbone
 (``lightgcn-baco``, family "cf"), the LM family (gemma2-9b, gemma3-12b,
-qwen1.5-32b and the MoE LMs dbrx-132b and kimi-k2-1t-a32b, on one card)
-and the GNN (schnet). ``UNPORTED_ARCHS`` is empty; ``not_ported`` names
-the ROADMAP item a feature still waits for (``SHARDED_ITEM``: what the
-sharded path still lacks).
+qwen1.5-32b and the MoE LMs dbrx-132b and kimi-k2-1t-a32b) and the GNN
+(schnet), each on one card and over a mesh. ``UNPORTED_ARCHS`` is
+empty; ``not_ported`` makes the error that names the ROADMAP item a
+feature still waits for.
 
 Shape kinds: train | prefill | decode | serve | retrieval.
 """
@@ -24,8 +24,7 @@ import importlib
 from typing import Callable, Dict, Optional, Tuple
 
 __all__ = ["ArchSpec", "ShapeSpec", "register", "get_arch", "list_archs",
-           "all_cells", "UNPORTED_ARCHS", "WAITS_FOR", "SHARDED_ITEM",
-           "not_ported"]
+           "all_cells", "UNPORTED_ARCHS", "WAITS_FOR", "not_ported"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,10 +62,6 @@ _MODULES = ["gemma3_12b", "gemma2_9b", "qwen15_32b", "kimi_k2", "dbrx",
 # and the ROADMAP item each waits for: none
 UNPORTED_ARCHS: Dict[str, str] = {}
 WAITS_FOR: Dict[str, str] = {}
-# what the sharded path still lacks: the data-axis layouts (ZeRO-1,
-# FSDP), Adafactor over a model axis (kimi-k2's train_4k), the "dp"
-# mapping, the dry run
-SHARDED_ITEM = "ROADMAP Queue 1 #7c-ii-c"
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:

@@ -38,15 +38,24 @@ cross-entropy):
     an all-reduce and a slice); backward, the cotangents of every rank's
     rows, all-gathered;
   * :func:`gather_rows`: a row-sharded table whole on every rank, its
-    backward the rank's block of the (replicated) cotangent.
+    backward the rank's block of the (replicated) cotangent;
+  * :func:`gather_param`: a param stored split over data axes (the
+    reference's ZeRO'd serving params, FSDP, the "dp" mapping; a
+    :class:`ParamSplit`) whole just in time, by one all-gather; its
+    backward a reduce-scatter of the cotangent into the rank's block
+    (FSDP's gradient), or the rank's slice where the batch is whole on
+    every rank of the group.
 The row-sharded lookup of the recsys cells built on these is
 ``models.recsys.row_lookup``.
 ``torch.distributed.nn.functional.all_reduce`` is not used: its backward
 all-reduces again, which over-counts a replicated gradient n times.
 
 Every collective passes through :func:`all_reduce`,
-:func:`all_gather_cat` or :func:`ring_exchange`, which count calls and
-bytes in :data:`COUNTS` (``chip_smoke.py`` reads them a step).
+:func:`all_gather_cat`, :func:`reduce_scatter_cat` or
+:func:`ring_exchange`, which count calls and bytes in :data:`COUNTS`
+(``chip_smoke.py`` reads them a step). Over a group of one rank each is
+the identity and issues nothing (nor counts): on a world of 1 no
+collective runs.
 """
 from __future__ import annotations
 
@@ -61,18 +70,19 @@ import torch.distributed as dist
 from repro_torch.distributed.sharding import (_entry_axes, batch_axes,
                                               current_mapping, mesh_shape)
 
-__all__ = ["RankGroups", "rank_groups", "axes_group", "use_groups",
+__all__ = ["RankGroups", "rank_groups", "data_axes", "axes_group", "use_groups",
            "current_groups", "RowBlock", "row_block",
            "COUNTS", "zero_counts", "all_reduce", "all_gather_cat",
            "ring_exchange", "copy_to", "reduce_from", "copy_to_model",
            "reduce_from_model", "mean_over_data", "sum_over_data",
            "vocab_parallel_ce", "gather_over_data", "sum_keep_rows",
-           "gather_rows"]
+           "gather_rows", "reduce_scatter_cat", "ParamSplit", "gather_param",
+           "group_size"]
 
 # collectives issued, and the bytes each kind moved in (all-reduce,
-# all-gather) or sent (ring)
+# all-gather, reduce-scatter: the whole tensor) or sent (ring)
 COUNTS = {"collectives": 0, "all_reduce_bytes": 0, "all_gather_bytes": 0,
-          "p2p_bytes": 0}
+          "reduce_scatter_bytes": 0, "p2p_bytes": 0}
 
 
 def zero_counts() -> None:
@@ -84,8 +94,15 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
+def group_size(group) -> int:
+    """The ranks of ``group`` (1 for None)."""
+    return 1 if group is None else dist.get_world_size(group)
+
+
 def all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     """``t`` reduced over ``group`` in place (counted); returns ``t``."""
+    if group_size(group) == 1:
+        return t
     COUNTS["collectives"] += 1
     COUNTS["all_reduce_bytes"] += _nbytes(t)
     dist.all_reduce(t, op=op, group=group)
@@ -95,7 +112,9 @@ def all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
 def all_gather_cat(t: torch.Tensor, group, dim: int) -> torch.Tensor:
     """Every rank's ``t`` of ``group``, concatenated along ``dim`` in
     group-rank order (counted)."""
-    n = dist.get_world_size(group)
+    n = group_size(group)
+    if n == 1:
+        return t
     t = t.contiguous()
     COUNTS["collectives"] += 1
     COUNTS["all_gather_bytes"] += _nbytes(t) * n
@@ -104,15 +123,38 @@ def all_gather_cat(t: torch.Tensor, group, dim: int) -> torch.Tensor:
     return torch.cat(out.view((n,) + tuple(t.shape)).unbind(0), dim=dim)
 
 
+# torch 2.13 renames reduce_scatter_tensor (same signature)
+_REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", None) or \
+    dist.reduce_scatter_tensor
+
+
+def reduce_scatter_cat(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The sum over ``group`` of every rank's ``t``, of which this rank
+    keeps its block along ``dim`` (the blocks in group-rank order, the
+    inverse of :func:`all_gather_cat`; counted)."""
+    n = group_size(group)
+    if n == 1:
+        return t
+    if t.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split "
+                         f"{n} ways")
+    COUNTS["collectives"] += 1
+    COUNTS["reduce_scatter_bytes"] += _nbytes(t)
+    blocks = torch.stack(t.chunk(n, dim=dim))
+    out = torch.empty(blocks[0].numel(), dtype=t.dtype, device=t.device)
+    _REDUCE_SCATTER(out, blocks.view(-1), group=group)
+    return out.view(blocks.shape[1:])
+
+
 def ring_exchange(x: torch.Tensor, to: int, frm: int) -> torch.Tensor:
     """Send ``x`` to global rank ``to`` and receive a tensor like it from
     ``frm``, as one ``batch_isend_irecv`` pair; a pair with this rank on
     both ends is a local copy (``ppermute``'s ``(i, i)``)."""
-    COUNTS["collectives"] += 1
-    COUNTS["p2p_bytes"] += _nbytes(x)
     me = dist.get_rank()
     if to == me and frm == me:
         return x.clone()
+    COUNTS["collectives"] += 1
+    COUNTS["p2p_bytes"] += _nbytes(x)
     x = x.contiguous()
     buf = torch.empty_like(x)
     for w in dist.batch_isend_irecv([dist.P2POp(dist.isend, x, to),
@@ -133,7 +175,8 @@ class RankGroups:
     the batch, 1 when the cell's batch is replicated over the data axes
     (it does not divide them). ``rows``: the :class:`RowBlock` of each
     row-sharded leaf of a cell, by its name (a recsys table or sketch,
-    LightGCN's edges)."""
+    LightGCN's edges). ``params``: the :class:`ParamSplit` of each LM
+    param stored split over data axes, by its flat key."""
     n_model: int
     model_rank: int
     model_group: Optional[object]
@@ -141,6 +184,8 @@ class RankGroups:
     data_rank: int
     data_group: Optional[object]
     rows: Mapping[str, "RowBlock"] = dataclasses.field(default_factory=dict)
+    params: Mapping[str, "ParamSplit"] = dataclasses.field(
+        default_factory=dict)
 
     def model_peer(self, model_rank: int) -> int:
         """The global rank at ``model_rank`` on this rank's model axis."""
@@ -157,6 +202,22 @@ def axes_group(mesh, axes: tuple):
     return mesh[axes]._flatten().get_group()
 
 
+def data_axes(mesh, batch: Optional[int] = None) -> tuple:
+    """The mesh axes a cell's batch splits over under the current logical
+    mapping ("tp": the batch axes; "dp": every axis), major first; none
+    when they do not divide ``batch`` (it stays whole on every rank)."""
+    sizes = mesh_shape(mesh)
+    daxes = batch_axes(mesh)
+    if current_mapping() != "tp" and "model" in sizes:
+        daxes = daxes + ("model",)
+    n = 1
+    for a in daxes:
+        n *= sizes[a]
+    if batch is not None and batch % n:
+        return ()
+    return daxes
+
+
 def rank_groups(mesh, batch: Optional[int] = None) -> RankGroups:
     """This rank's :class:`RankGroups` on ``mesh`` under the current
     logical mapping ("tp": "model" for tensor parallelism, the batch
@@ -166,16 +227,12 @@ def rank_groups(mesh, batch: Optional[int] = None) -> RankGroups:
     sizes = mesh_shape(mesh)
     coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
     tp = current_mapping() == "tp" and "model" in sizes
-    daxes = batch_axes(mesh)
-    if not tp and "model" in sizes:
-        daxes = daxes + ("model",)
+    daxes = data_axes(mesh, batch)
     n_data = 1
     data_rank = 0
     for a in daxes:
         n_data *= sizes[a]
         data_rank = data_rank * sizes[a] + coord[a]
-    if batch is not None and batch % n_data:
-        daxes, n_data, data_rank = (), 1, 0
     return RankGroups(
         sizes["model"] if tp else 1, coord["model"] if tp else 0,
         mesh.get_group("model") if tp else None, n_data, data_rank,
@@ -406,3 +463,48 @@ def gather_rows(block: torch.Tensor, rows: RowBlock) -> torch.Tensor:
     if rows.group is None:
         return block
     return _GatherRows.apply(block, rows.group)
+
+
+# ---------------------------------------------------------------------------
+# params split over data axes (ZeRO'd serving params, FSDP, "dp")
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class ParamSplit:
+    """A param stored in blocks along ``dim`` over ``group`` (the data
+    axes of its layout). ``partial``: each rank's cotangent of the whole
+    param is its share of the batch's (the batch splits over the
+    group's axes), so the backward sums them; else every rank holds the
+    whole batch's cotangent and keeps its block."""
+    dim: int
+    group: object
+    partial: bool = True
+
+    def at_block(self) -> "ParamSplit":
+        """The split of one block ``p[bi]`` of a block-stacked param
+        whose ``dim`` is not 0."""
+        return dataclasses.replace(self, dim=self.dim - 1)
+
+
+class _GatherParam(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, split):
+        ctx.split = split
+        return all_gather_cat(x, split.group, split.dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        s = ctx.split
+        if s.partial:
+            return reduce_scatter_cat(g, s.group, s.dim), None
+        n = group_size(s.group)
+        b = g.shape[s.dim] // n
+        return g.narrow(s.dim, dist.get_rank(s.group) * b, b), None
+
+
+def gather_param(x: torch.Tensor, split: Optional[ParamSplit]) -> torch.Tensor:
+    """A param block whole over its data axes (``split``; None or a group
+    of one rank: ``x`` itself). Backward: the rank's block of the
+    cotangent, summed over the group when ``split.partial``."""
+    if split is None or group_size(split.group) == 1:
+        return x
+    return _GatherParam.apply(x, split)

@@ -37,6 +37,10 @@ params tree's layouts from a rule a leaf: :func:`recsys_axes` (the
 reference's ``_recsys_param_axes``), :func:`vocab_axes` (the cf tables,
 every sketch), :func:`replicated_axes` (``_gnn_param_axes``); it and
 :meth:`Layout.local_shape` work on an ``AbstractMesh``, with no world.
+The data-axis layouts of the LM cells are the reference's rules on
+logical axes: :func:`zero1_axes` (``_zero1_axes``: one more dim of a
+leaf over "data", or "vocab" under "dp") and :func:`opt_state_axes`
+(``_opt_state_axes``: AdamW's moments, Adafactor's factored moments).
 
 GSPMD has no counterpart here, so nothing takes a sharding constraint:
 :func:`shard` is the identity on a rank's local tensor (the model code
@@ -65,7 +69,7 @@ __all__ = ["world", "entry_world", "cluster_mesh", "data_mesh", "use_mesh",
            "logical_mapping", "current_mapping", "logical_to_spec",
            "fit_spec", "named_sharding", "shard", "mesh_shape", "Layout",
            "is_table", "recsys_axes", "vocab_axes", "replicated_axes", "tree_layouts",
-           "batch_layout"]
+           "batch_layout", "ZERO_DATA_SIZE", "zero1_axes", "opt_state_axes"]
 
 # what torchrun's env:// rendezvous sets for every rank
 _RENDEZVOUS_ENV = ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE")
@@ -399,11 +403,70 @@ def tree_layouts(mesh, tree, axes):
 
 
 def batch_layout(mesh, ndim: int, split: bool) -> Layout:
-    """A batch leaf's layout: dim 0 over the batch axes when ``split``,
-    else replicated (the port splits a cell's batch over all its data
-    axes or none: ``parallel.rank_groups``)."""
-    ba = _one_or_tuple(batch_axes(mesh)) if split else None
+    """A batch leaf's layout: dim 0 over the logical "batch" axes (every
+    axis under "dp") when ``split``, else replicated (the port splits a
+    cell's batch over all its data axes or none:
+    ``parallel.rank_groups``)."""
+    ba = logical_to_spec(mesh, ("batch",))[0] if split else None
     return Layout(mesh, (ba,) + (None,) * (ndim - 1))
+
+
+# the reference's ZeRO-1 rule tests divisibility by a fixed data size of
+# 16 (``_zero1_axes(..., data_size=16)``), whatever the mesh; fit_spec
+# then drops what the real mesh does not divide
+ZERO_DATA_SIZE = 16
+
+
+def _has_data(axes: tuple) -> bool:
+    return any(a in ("data", "vocab") or (isinstance(a, tuple) and "data" in a)
+               for a in axes)
+
+
+def _zero1_leaf(axes: tuple, shape, tag: str, data_size: int) -> tuple:
+    if _has_data(axes):
+        return axes             # already over the data axis (FSDP, "vocab")
+    best, best_dim = None, 0
+    for i, a in enumerate(axes):
+        if a is None and shape[i] % data_size == 0 and shape[i] > best_dim:
+            best, best_dim = i, shape[i]
+    if best is None:
+        return axes
+    return axes[:best] + (tag,) + axes[best + 1:]
+
+
+def zero1_axes(axes, shapes, tag: str = "data",
+               data_size: int = ZERO_DATA_SIZE):
+    """The reference's ZeRO-1 rule (``repro/launch/steps.py:121-152``) on a
+    tree of logical axes (nested dicts, tuple leaves) and the same tree
+    of shapes: a leaf that carries no "data" or "vocab" axis yet takes
+    ``tag`` on its largest replicated dim that ``data_size`` divides (the
+    first such dim on a tie); the rest keep their axes."""
+    if isinstance(axes, dict):
+        return {k: zero1_axes(v, shapes[k], tag, data_size)
+                for k, v in axes.items()}
+    return _zero1_leaf(tuple(axes), tuple(shapes), tag, data_size)
+
+
+def opt_state_axes(name: str, axes: dict, shapes: Optional[dict] = None,
+                   tag: str = "data") -> dict:
+    """The reference's ``_opt_state_axes`` (``repro/launch/steps.py:155-174``)
+    over flat {key: logical axes}: AdamW's ``m`` and ``v`` mirror the
+    params, ZeRO-1'd by :func:`zero1_axes` when ``shapes`` are given;
+    Adafactor's factored moments are ``vr`` = ``axes[:-1]`` and ``vc`` =
+    ``axes[:-2] + axes[-1:]`` of a param of 2 dims or more, ``v`` = its
+    axes for one of 1, one entry a param in sorted-key order (the
+    optimizer's ``fac`` list). The step counter is a scalar."""
+    if name == "adamw":
+        m = axes if shapes is None else zero1_axes(axes, shapes, tag)
+        return {"step": (), "m": dict(m), "v": dict(m)}
+    if name == "adafactor":
+        fac = []
+        for k in sorted(axes):
+            ax = tuple(axes[k])
+            fac.append({"vr": ax[:-1], "vc": ax[:-2] + ax[-1:]}
+                       if len(ax) >= 2 else {"v": ax})
+        return {"step": (), "fac": fac}
+    raise ValueError(name)
 
 
 def shard(x, *axes: Optional[str]):

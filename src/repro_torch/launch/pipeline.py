@@ -11,6 +11,16 @@ computes its chunked cross-entropy; the loss is summed over "model",
 averaged over "data" and divided by ``n_micro * mb_local * seq``, then
 one AdamW update.
 
+The layouts are the reference's: the blocks over "model" on their stage
+dim, the embedding's rows over "data" (where "data" divides them) and
+the untied head's columns, the final norm replicated, and the AdamW
+moments ZeRO-1'd over "data" (``sharding.opt_state_axes``). The
+embedding and the head are all-gathered over "data" once a step
+(``parallel.gather_param``: the reference's GSPMD gathers them once for
+its replicated ``in_specs``), their gradients reduce-scattered back; a
+ZeRO-1'd moment's update runs on the rank's block of the param, then
+all-gathers it.
+
 The reference's ``ppermute`` ring becomes :class:`_Ring`: each tick's
 forward sends the stage's output to ``j + 1`` and receives from ``j - 1``
 as one ``batch_isend_irecv`` pair on every rank, in the reference's
@@ -22,26 +32,27 @@ rank issues the matching exchanges in reverse, also where a received
 tensor is unused (stage 0 embeds instead) or a sent one depends on no
 param: per-rank autograd would otherwise skip them and leave a peer
 waiting. On a world of 1 the ring is ``[(0, 0)]``, a
-local copy by ``ppermute``'s semantics. The replicated params
-(embedding, final norm, head) are read on some stages only: their
-gradients are summed over "model" after the backward, then every
-gradient over "data".
+local copy by ``ppermute``'s semantics. The params not split over
+"model" (embedding, final norm, head) are read on some stages only:
+their gradients are summed over "model" after the backward, then over
+"data" (the embedding's and the head's by their gather's
+reduce-scatter).
 
 Scope, as the reference's: dense LMs whose ``n_blocks`` the stage count
 divides (qwen1.5-32b: 64 blocks); otherwise it raises (kimi-k2's 61).
-The embedding and the head stay replicated (the reference stores them
-over "data", ZeRO-style: ROADMAP Queue 1 #7c-ii-c).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.distributed import parallel as par
-from repro_torch.distributed.sharding import Layout
-from repro_torch.launch.steps import Cell, _cut, _full_batch, _Spec, mesh_norm
+from repro_torch.distributed import sharding as sh
+from repro_torch.launch.steps import (Cell, _cut, _flat, _full_batch,
+                                      _mesh_plan, _nest, _Spec, mesh_norm)
 from repro_torch.models import recsys as R
 from repro_torch.models import transformer as T
 from repro_torch.training import optimizer as opt_lib
@@ -66,24 +77,40 @@ class _Ring(torch.autograd.Function):
 
 
 def _pp_layouts(cfg, mesh) -> dict:
-    """Blocks over "model" on their leading (block) dim; the rest
-    replicated."""
-    def walk(node, stage):
-        if isinstance(node, dict):
-            return {k: walk(v, stage or k == "blocks")
-                    for k, v in node.items()}
-        n = len(node[0])
-        return Layout(mesh, (("model",) if stage else (None,))
-                      + (None,) * (n - 1))
-    return walk(T._param_defs(cfg), False)
+    """{"params", "opt"}: the blocks over "model" on their leading
+    (block) dim, the embedding over ("data", None) where "data" divides
+    its rows, the untied head over (None, "data"), the final norm
+    replicated; the AdamW moments ZeRO-1'd over "data"
+    (``repro/launch/pipeline.py:62-85``)."""
+    shapes = _flat(T.param_shapes(cfg))
+    n_data = sh.mesh_shape(mesh).get("data", 1)
+    axes = {}
+    for k, shp in shapes.items():
+        if k.startswith("blocks/"):
+            axes[k] = ("model",) + (None,) * (len(shp) - 1)
+        elif k == "embed" and shp[0] % n_data == 0:
+            axes[k] = ("data", None)
+        elif k == "lm_head":
+            axes[k] = (None, "data")
+        else:
+            axes[k] = (None,) * len(shp)
+
+    def lay(ax, shp):
+        return sh.Layout(mesh, sh.fit_spec(mesh, sh.logical_to_spec(mesh, ax),
+                                           shp))
+    m = {k: lay(ax, shapes[k]) for k, ax in sh.opt_state_axes(
+        "adamw", axes, shapes)["m"].items()}
+    return {"params": _nest({k: lay(ax, shapes[k]) for k, ax in axes.items()}),
+            "opt": {"step": sh.Layout(mesh, ()), "m": m, "v": dict(m)}}
 
 
 def build_pp_train_cell(cfg: T.TransformerConfig, *, global_batch: int,
                         seq: int, mesh, n_micro: int = 16, device="cuda",
                         args: Optional[tuple] = None) -> Cell:
     """The GPipe train cell of ``cfg`` on this rank of ``mesh``: its stage's
-    blocks, the replicated embedding, final norm and head, AdamW (lr
-    3e-4, clip 1.0, the norm over every stage's blocks) and its rows of
+    blocks, its blocks of the embedding and the head, the final norm,
+    AdamW (lr 3e-4, clip 1.0, the norm over every rank's blocks; its
+    moments ZeRO-1'd over "data") and its rows of
     a global batch of ``global_batch`` sequences of ``seq`` tokens (ids
     uniform over the vocabulary from generator seed 0, params from
     ``init_params`` seed 0), or the whole ``args`` = (params, batch) cut
@@ -104,7 +131,9 @@ def build_pp_train_cell(cfg: T.TransformerConfig, *, global_batch: int,
         raise ValueError(f"a global batch of {global_batch} does not split "
                          f"into {n_data} data ranks x {n_micro} microbatches")
     mb_local = global_batch // (n_data * n_micro)
-    layouts = {"params": _pp_layouts(cfg, mesh)}
+    layouts = _pp_layouts(cfg, mesh)
+    splits, plan = _mesh_plan(mesh, layouts, groups, global_batch)
+    groups = dataclasses.replace(groups, params=splits)
     if args is None:
         params = T.init_params(torch.Generator(device=device).manual_seed(0),
                                cfg, layouts=layouts["params"])
@@ -119,9 +148,10 @@ def build_pp_train_cell(cfg: T.TransformerConfig, *, global_batch: int,
              for k, v in batch.items()}
     flat_layouts = R.flat_params(layouts["params"])
     sharded = {k for k, lay in flat_layouts.items() if "model" in lay.axes}
-    opt = opt_lib.adamw(lr=3e-4, grad_clip=1.0, norm=mesh_norm(groups,
-                                                               sharded))
-    opt_state = opt.init(R.flat_params(params))
+    opt = opt_lib.adamw(lr=3e-4, grad_clip=1.0,
+                        norm=mesh_norm(mesh, plan.state_layouts))
+    opt_state = opt.init({k: plan.block(k, p)
+                          for k, p in R.flat_params(params).items()})
     nxt = groups.model_peer((j + 1) % n_stages)
     prv = groups.model_peer((j - 1) % n_stages)
     n_ticks = n_micro + n_stages - 1
@@ -156,15 +186,16 @@ def build_pp_train_cell(cfg: T.TransformerConfig, *, global_batch: int,
                              else cfg.torch_dtype, device=tk.device)
         token = token0 = torch.zeros((), device=tk.device,
                                      requires_grad=True)
+        top = T._top_params(params, groups)     # whole over "data"
         loss_acc = torch.zeros((), dtype=torch.float32, device=tk.device)
         for t in range(n_ticks):
             m = t - j                       # the microbatch at this stage
             x_out = x_recv
             if 0 <= m < n_micro:
-                x_in = T._embed(params, tk[m], cfg) if j == 0 else x_recv
+                x_in = T._embed(top, tk[m], cfg) if j == 0 else x_recv
                 x_out = stage(params["blocks"], x_in, pos)
                 if j == n_stages - 1:
-                    loss_acc = loss_acc + ce(params, x_out, tg[m])
+                    loss_acc = loss_acc + ce(top, x_out, tg[m])
             x_recv, token = _Ring.apply(x_out, token, nxt, prv)
         return loss_acc, loss_acc / n_data / denom + 0 * token, token0
 
@@ -188,17 +219,22 @@ def build_pp_train_cell(cfg: T.TransformerConfig, *, global_batch: int,
         for k, g in grads.items():
             if k not in sharded:
                 par.all_reduce(g, groups.model_group)
-            if groups.data_group is not None:
-                par.all_reduce(g, groups.data_group)
+            par.all_reduce(g, plan.grad_groups[k])
         loss = par.all_reduce(loss_acc.detach().clone(), groups.model_group)
         if groups.data_group is not None:
             loss = par.all_reduce(loss, groups.data_group)
         loss = loss / n_data / denom
-        opt.update(grads, opt_state, flat)
+        blocks = {k: plan.block(k, p) for k, p in flat.items()}
+        opt.update({k: plan.block(k, g) for k, g in grads.items()},
+                   opt_state, blocks)
+        for k, p in flat.items():
+            plan.regather(k, p, blocks[k])
         return params, opt_state, loss
 
     return Cell(cfg.name, f"gpipe_{global_batch}x{seq}", "train", train_step,
                 (params, opt_state, batch), donate=(0, 1),
                 notes=(f"stages={n_stages},blocks_per_stage={bps},"
-                       f"microbatches={n_micro},data={n_data}"),
+                       f"microbatches={n_micro},data={n_data},"
+                       f"data_split={len(splits)},"
+                       f"moments ZeRO-1 over data: {len(plan.zero1)} leaves"),
                 mesh=mesh, layouts=layouts)

@@ -53,8 +53,18 @@ its blocks, or takes ``args=``, the unsharded cell's args (a fresh
 optimizer state), and cuts them (on a world of 1 the blocks are those
 tensors). The layouts are the reference's logical axes ->
 ``logical_to_spec`` -> ``fit_spec``:
-  * LM cells: ``models.transformer.param_layouts`` (over "model"), the
-    batch over the data axes, the decode cache by batch and K/V heads;
+  * LM cells (:func:`_lm_layouts`, under the shape's logical mapping,
+    "tp" or "dp"): ``models.transformer.param_layouts`` over "model",
+    and over "data" (or "vocab", data x model, under "dp") by the
+    reference's ZeRO-1 rule where the reference ZeRO's them: a serving
+    cell's params, an FSDP train cell's (:func:`lm_fsdp`); a train
+    cell's optimizer state by ``sharding.opt_state_axes`` (AdamW's
+    moments ZeRO-1'd, Adafactor's factored moments); the batch over the
+    data axes; the decode cache by batch and K/V heads. A param stored
+    split over data is all-gathered just in time (a block at a time,
+    ``parallel.gather_param``) and its gradient reduce-scattered; a
+    ZeRO-1'd moment's update runs on the rank's block of the param,
+    which is then all-gathered (:class:`_MeshPlan`);
   * recsys cells: every table and sketch by "vocab" rows
     (``sharding.recsys_axes``), the rest replicated; the batch over the
     data axes; every lookup row-sharded (``models.recsys.row_lookup``);
@@ -63,13 +73,14 @@ tensors). The layouts are the reference's logical axes ->
     over the data axes (``models.lightgcn``);
   * GNN cells: params replicated, nodes and edges over the data axes
     (``models.schnet``).
-A batch splits over all the data axes or none (the reference's
-``fit_spec`` may split it over "pod" alone on the 3-D mesh). The params
-are replicated over the data axes but for the "vocab" rows: the
-reference's ZeRO-1 and FSDP layouts over "data" wait for ROADMAP Queue 1
-#7c-ii-c (the numbers are the same). :func:`rank_bytes` reckons a
-recsys, GNN or cf cell's params, gradients and AdamW moments a rank on
-any mesh, an ``AbstractMesh`` too.
+The reference gives the recsys, cf and GNN families no data-axis layout
+(their moments mirror their params). A batch splits over all the data
+axes or none (the reference's ``fit_spec`` may split it over some of
+them: ROADMAP Queue 3 #13). :func:`cell_layouts`, :func:`cell_args` and
+:func:`arg_bytes` reckon any cell's layouts and argument bytes a rank at
+the full published width on any mesh, an ``AbstractMesh`` too (the dry
+run, ``launch.dryrun``); :func:`rank_bytes` a recsys, GNN or cf cell's
+params, gradients and AdamW moments a rank.
 """
 from __future__ import annotations
 
@@ -81,8 +92,7 @@ from typing import Any, Callable, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.registry import (SHARDED_ITEM, ArchSpec, ShapeSpec,
-                                          get_arch, not_ported)
+from repro_torch.configs.registry import ArchSpec, ShapeSpec, get_arch
 from repro_torch.data.neighbor_sampler import (random_regular_csr,
                                                sample_subgraph)
 from repro_torch.device import resolve_device
@@ -94,7 +104,9 @@ from repro_torch.models import schnet as S
 from repro_torch.models import transformer as T
 from repro_torch.training import optimizer as opt_lib
 
-__all__ = ["Cell", "build_cell", "param_shapes", "cell_layouts", "rank_bytes",
+__all__ = ["Cell", "build_cell", "param_shapes", "cell_layouts", "cell_args",
+           "arg_bytes", "rank_bytes", "lm_fsdp", "lm_acc_dtype",
+           "lm_optimizer_name",
            "LM_ONE_CARD", "GNN_ONE_CARD"]
 
 
@@ -227,43 +239,99 @@ LM_ONE_CARD = {("gemma2-9b", "train_4k"): {"batch": 8, "n_layers": 8},
                                                    "n_layers": 1}}
 
 
-def _lm_optimizer(cfg, groups=None, layouts=None):
+def lm_fsdp(cfg, mesh=None, mapping: str = "tp") -> bool:
+    """The reference's FSDP decision (``repro/launch/steps.py:234-239``):
+    the config's bf16 params over the model shards pass 8e9 bytes, the
+    model shards being the mesh's "model" size under "tp" and 1 under
+    "dp" or with no mesh. An FSDP train cell stores its params split
+    over "data" too and accumulates its gradients in bf16 (f32
+    otherwise: :func:`lm_acc_dtype`)."""
+    shards = (sh.mesh_shape(mesh).get("model", 1)
+              if mesh is not None and mapping == "tp" else 1)
+    return T.count_params(cfg) * 2 / max(shards, 1) > 8e9
+
+
+def lm_acc_dtype(fsdp: bool) -> torch.dtype:
+    """The gradient accumulator's dtype (``repro/launch/steps.py:266``)."""
+    return torch.bfloat16 if fsdp else torch.float32
+
+
+def lm_optimizer_name(cfg) -> str:
     """The reference's choice (``repro/launch/steps.py:194-198``):
     Adafactor for a MoE of 128 experts or more (kimi-k2's 384: full Adam
-    moments would not fit), AdamW otherwise. On a mesh AdamW clips by
-    the norm over every rank's blocks (:func:`mesh_norm`); Adafactor's
-    factored moments of a param split over "model" would need their row
-    and column means over the ranks, which is not ported."""
+    moments would not fit), AdamW otherwise."""
     if cfg.moe is not None and cfg.moe.n_experts >= 128:
-        if groups is not None and groups.n_model > 1:
-            raise not_ported(f"{cfg.name}: Adafactor over a model axis of "
-                             f"{groups.n_model}", SHARDED_ITEM)
-        return "adafactor", opt_lib.adafactor(lr=1e-2)
-    norm = None
-    if groups is not None:
-        sharded = {k for k, lay in R.flat_params(layouts["params"]).items()
-                   if "model" in lay.axes}
-        norm = mesh_norm(groups, sharded)
-    return "adamw", opt_lib.adamw(lr=3e-4, grad_clip=1.0, norm=norm)
+        return "adafactor"
+    return "adamw"
 
 
-def _lm_acc_dtype(cfg) -> torch.dtype:
-    """The gradient accumulator's dtype (``repro/launch/steps.py:234-239``
-    with no mesh): bf16 when the config's bf16 params pass 8e9 bytes (the
-    reference shards those over 'data' too), else f32."""
-    return torch.bfloat16 if T.count_params(cfg) * 2 > 8e9 else torch.float32
+def _lm_optimizer(cfg, plan=None):
+    """(name, optimizer) of :func:`lm_optimizer_name`; on a mesh
+    (``plan``, a :class:`_MeshPlan`) AdamW clips by the norm over every
+    rank's blocks (:func:`mesh_norm`) and Adafactor's means sum over the
+    groups that split their dims."""
+    name = lm_optimizer_name(cfg)
+    if name == "adafactor":
+        return name, opt_lib.adafactor(
+            lr=1e-2, reduce=None if plan is None else plan.factor_groups)
+    norm = None if plan is None else mesh_norm(plan.mesh,
+                                               plan.state_layouts)
+    return name, opt_lib.adamw(lr=3e-4, grad_clip=1.0, norm=norm)
+
+
+@dataclasses.dataclass
+class _MeshPlan:
+    """How a train step on a mesh reduces each gradient (by flat key) and
+    updates each param:
+      * ``grad_groups``: the group a gradient is all-reduced over after
+        the backward (the batch's axes, less those a param stored split
+        over data already summed by its gather's reduce-scatter; None:
+        nothing);
+      * ``zero1``: a param whose optimizer state is split over data axes
+        where the param is not (the reference's ZeRO-1 moments), by the
+        moment's ``Layout``, the dim and its group: the step updates the
+        rank's block of the param and the gradient, then all-gathers the
+        param over that group (reduce-scatter -> sharded update ->
+        all-gather, with the reduce-scatter an all-reduce and a slice);
+      * ``state_layouts``: the layout of the blocks the optimizer sees
+        (its clip norm's);
+      * ``factor_groups``: Adafactor's :class:`optimizer.FactorGroups`."""
+    mesh: Any
+    grad_groups: dict
+    zero1: dict
+    state_layouts: dict
+    factor_groups: dict
+
+    def block(self, key: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's block of a param or gradient the optimizer
+        updates (a view)."""
+        if key not in self.zero1:
+            return t
+        lay, dim, _ = self.zero1[key]
+        start, length = lay._block(dim, t.shape[dim])
+        return t.narrow(dim, start, length)
+
+    def regather(self, key: str, p: torch.Tensor, block) -> None:
+        """The param whole again from every rank's updated block."""
+        if key in self.zero1:
+            _, dim, group = self.zero1[key]
+            if par.group_size(group) > 1:       # else the block is p
+                p.copy_(par.all_gather_cat(block, group, dim))
 
 
 class _LMTrainStep:
     """Loss and grads of every param (summed over ``n_micro`` equal
     microbatches in ``acc_dtype``, then divided), one update in place.
-    On a mesh (``groups``) each rank runs its blocks and its batch rows,
-    and the gradients are summed over the data ranks before the
-    division (the loss's mean over them already divided each)."""
+    On a mesh (``groups``, ``plan``) each rank runs its blocks and its
+    batch rows: each gradient is summed over the data ranks as the plan
+    says before the division (the loss's mean over them already divided
+    each), and the optimizer updates the rank's blocks."""
 
-    def __init__(self, cfg, opt, n_micro: int, acc_dtype, groups=None):
+    def __init__(self, cfg, opt, n_micro: int, acc_dtype, groups=None,
+                 plan: Optional[_MeshPlan] = None, mapping: str = "tp"):
         self.cfg, self.opt, self.n_micro = cfg, opt, n_micro
-        self.acc_dtype, self.groups = acc_dtype, groups
+        self.acc_dtype, self.groups, self.plan = acc_dtype, groups, plan
+        self.mapping = mapping
 
     def value_and_grad(self, params, b):
         """(loss, {flat key: gradient}) of the step, before the update."""
@@ -272,7 +340,7 @@ class _LMTrainStep:
         for p in leaves:
             p.requires_grad_(True)
         n_micro, cfg = self.n_micro, self.cfg
-        with par.use_groups(self.groups):
+        with par.use_groups(self.groups), sh.logical_mapping(self.mapping):
             if n_micro == 1:
                 loss = T.train_loss(params, b, cfg)
                 grads = list(torch.autograd.grad(loss, leaves))
@@ -293,9 +361,9 @@ class _LMTrainStep:
                     loss = loss + lm.detach()
         for p in leaves:
             p.requires_grad_(False)
-        if self.groups is not None and self.groups.data_group is not None:
-            for a in grads:
-                par.all_reduce(a, self.groups.data_group)
+        if self.plan is not None:
+            for k, a in zip(flat, grads):
+                par.all_reduce(a, self.plan.grad_groups[k])
         if n_micro > 1:
             grads = [a.div_(n_micro) for a in grads]
             loss = loss / n_micro
@@ -303,26 +371,43 @@ class _LMTrainStep:
 
     def __call__(self, params, opt_state, b):
         loss, grads = self.value_and_grad(params, b)
-        self.opt.update(grads, opt_state, R.flat_params(params))
+        flat = R.flat_params(params)
+        plan = self.plan
+        if plan is None or not plan.zero1:
+            self.opt.update(grads, opt_state, flat)
+            return params, opt_state, loss
+        blocks = {k: plan.block(k, p) for k, p in flat.items()}
+        self.opt.update({k: plan.block(k, g) for k, g in grads.items()},
+                        opt_state, blocks)
+        for k, p in flat.items():
+            plan.regather(k, p, blocks[k])
         return params, opt_state, loss
 
 
-def mesh_norm(groups, sharded) -> Callable:
-    """The global gradient norm over a mesh (AdamW's clip): each leaf's
-    sum of squares, those of leaves split over "model" (``sharded``, flat
-    keys) summed over the model ranks, the replicated ones taken once;
-    then summed in sorted-key order, as ``optimizer.global_norm`` sums
-    them (on one rank, the same value to the bit)."""
+def mesh_norm(mesh, layouts: dict) -> Callable:
+    """The global gradient norm over a mesh (a clip's): each leaf's sum
+    of squares over this rank's block (``layouts``: flat key ->
+    ``Layout`` of the block), summed over every mesh axis some leaf is
+    split on, a leaf's squares taken once where it is replicated along
+    an axis (kept at coordinate 0 only); then summed in sorted-key
+    order, as ``optimizer.global_norm`` sums them (on one rank, the same
+    value to the bit)."""
+    names = tuple(mesh.mesh_dim_names)
+    coord = dict(zip(names, mesh.get_coordinate()))
+    split = {k: set(lay.axes) for k, lay in layouts.items()}
+    axes = [a for a in names if any(a in s for s in split.values())]
+    groups = [mesh.get_group(a) for a in axes]
+
     def norm(grads: dict) -> torch.Tensor:
         keys = sorted(grads)
         sq = torch.stack([torch.sum(grads[k].to(torch.float32, copy=True)
                                     .square_()) for k in keys])
-        if groups.model_group is not None:
-            if groups.model_rank != 0:
-                split = torch.tensor([k in sharded for k in keys],
-                                     device=sq.device)
-                sq = torch.where(split, sq, 0)
-            par.all_reduce(sq, groups.model_group)
+        keep = [all(coord[a] == 0 for a in axes if a not in split[k])
+                for k in keys]
+        if not all(keep):
+            sq = torch.where(torch.tensor(keep, device=sq.device), sq, 0)
+        for g in groups:
+            par.all_reduce(sq, g)
         return torch.sqrt(sum(sq.unbind()))
     return norm
 
@@ -359,8 +444,7 @@ def _batch_layouts(mesh, batch: dict, groups, rows: int,
 
 def _mesh_notes(mesh, groups, what: str) -> tuple:
     return (f"mesh={dict(zip(mesh.mesh_dim_names, mesh.shape))}",
-            f"data={groups.n_data}: batch rows", what,
-            f"ZeRO-1/FSDP: {SHARDED_ITEM}")
+            f"data={groups.n_data}: batch rows", what)
 
 
 def _own(full: torch.Tensor, block: torch.Tensor) -> torch.Tensor:
@@ -385,6 +469,140 @@ def _local_rows(x: torch.Tensor, groups, n_micro: int = 1) -> torch.Tensor:
     return x.index_select(0, rows.to(x.device))
 
 
+def _flat(tree, prefix: str = "") -> dict:
+    """{"a/b": leaf} of a nested dict whose leaves may be tuples (logical
+    axes, shapes)."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat(v, f"{prefix}{k}/"))
+        return out
+    return {prefix[:-1]: tree}
+
+
+def _lm_layouts(cfg, mesh, kind: str, b: int, seq: int, mapping: str,
+                reference: bool = False) -> dict:
+    """An LM cell's layouts on ``mesh`` (an ``AbstractMesh`` too), under
+    the logical ``mapping`` (the caller enters it): "params" (ZeRO'd over
+    "data", or "vocab" under "dp", for a serving cell or an FSDP train
+    cell: ``repro/launch/steps.py:234-254``), a train cell's "opt" (its
+    optimizer state: :func:`sharding.opt_state_axes`), "batch", and a
+    decode cell's "cache" (the port's head-sharded one,
+    ``transformer.cache_layouts``); "info": the FSDP decision, whether
+    the params are ZeRO'd, the tag, the optimizer. ``reference``: the
+    reference's own layouts, without the port's (wk/wv whole over a model
+    axis their K/V heads do not divide; the cache head-sharded) and
+    without its check that the model axis divides the heads."""
+    tag = "data" if mapping == "tp" else "vocab"
+    fsdp = lm_fsdp(cfg, mesh, mapping)
+    zero = kind != "train" or fsdp
+    out = {"params": T.param_layouts(cfg, mesh, zero, tag, reference),
+           "info": {"fsdp": fsdp, "zero": zero, "tag": tag}}
+    split = bool(par.data_axes(mesh, b))
+    if kind == "train":
+        shapes = _flat(T.param_shapes(cfg))
+        name = lm_optimizer_name(cfg)
+        st = sh.opt_state_axes(name, _flat(T.param_axes(cfg, zero, tag)),
+                               shapes, tag)
+
+        def lay(key, axes, shape):
+            return T.leaf_layout(cfg, mesh, key.split("/")[-1], axes, shape,
+                                 reference)
+        step = sh.Layout(mesh, ())
+        if name == "adamw":
+            m = {k: lay(k, st["m"][k], shapes[k]) for k in shapes}
+            out["opt"] = {"step": step, "m": m, "v": dict(m)}
+        else:
+            fac = []
+            for k, f in zip(sorted(shapes), st["fac"]):
+                shp = shapes[k]
+                fac.append({"vr": lay(k, f["vr"], shp[:-1]),
+                            "vc": lay(k, f["vc"], shp[:-2] + shp[-1:])}
+                           if len(shp) >= 2 else {"v": lay(k, f["v"], shp)})
+            out["opt"] = {"step": step, "fac": fac}
+        out["info"]["optimizer"] = name
+        out["batch"] = {k: sh.batch_layout(mesh, 2, split)
+                        for k in ("tokens", "targets")}
+    elif kind == "prefill":
+        out["batch"] = {"tokens": sh.batch_layout(mesh, 2, split)}
+    else:
+        out["batch"] = {"tokens": sh.batch_layout(mesh, 2, split),
+                        "pos": sh.Layout(mesh, ())}
+        out["cache"] = (T.reference_cache_layouts(cfg, mesh, b, seq)
+                        if reference else T.cache_layouts(cfg, mesh, b))
+    return out
+
+
+def _nest(flat: dict) -> dict:
+    out = {}
+    for key, v in flat.items():
+        node = out
+        parts = key.split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = v
+    return out
+
+
+def _split_dim(lay, axes: set) -> Optional[int]:
+    """The dim of a layout split over any of ``axes`` (None: none; the
+    ZeRO-1 rule tags one dim)."""
+    return next((i for i, part in enumerate(lay.spec)
+                 if set(sh._entry_axes(part)) & axes), None)
+
+
+def _ordered(mesh, axes) -> tuple:
+    return tuple(a for a in mesh.mesh_dim_names if a in axes)
+
+
+def _mesh_plan(mesh, layouts: dict, groups, b: int):
+    """({flat key: ``parallel.ParamSplit``} of the params stored split
+    over data axes, the train step's :class:`_MeshPlan` or None)."""
+    model = {"model"} if groups.model_group is not None else set()
+    batch = par.data_axes(mesh, b)
+    params = R.flat_params(layouts["params"])
+    splits, grad_groups = {}, {}
+    for k, lay in params.items():
+        data = set(lay.axes) - model
+        dim = _split_dim(lay, data)
+        if dim is None:
+            grad_groups[k] = groups.data_group
+            continue
+        # the batch spans every data axis or none, so a split's axes are
+        # all batch axes (its cotangents partial over them) or none are
+        gather = tuple(a for a in sh._entry_axes(lay.spec[dim])
+                       if a not in model)
+        splits[k] = par.ParamSplit(dim, par.axes_group(mesh, gather),
+                                   bool(batch))
+        grad_groups[k] = par.axes_group(mesh, tuple(
+            a for a in batch if a not in gather))
+    if "opt" not in layouts:
+        return splits, None
+    opt = layouts["opt"]
+    zero1, factor = {}, {}
+    if "m" in opt:
+        state = R.flat_params(opt["m"])
+        for k, m in state.items():
+            # ZeRO-1 tags one dim the param leaves whole
+            dim = next((i for i, (a, c) in enumerate(zip(params[k].spec,
+                                                         m.spec)) if a != c),
+                       None)
+            if dim is not None:
+                zero1[k] = (m, dim, par.axes_group(
+                    mesh, sh._entry_axes(m.spec[dim])))
+    else:
+        state = params
+
+        def grp(part):
+            return par.axes_group(mesh, sh._entry_axes(part))
+        for k, lay in params.items():
+            spec = lay.spec
+            factor[k] = opt_lib.FactorGroups(
+                grp(spec[-1]), grp(spec[-2]) if len(spec) >= 2 else None,
+                par.axes_group(mesh, _ordered(mesh, lay.axes)))
+    return splits, _MeshPlan(mesh, grad_groups, zero1, state, factor)
+
+
 def _lm_cell(spec: ArchSpec, shape: ShapeSpec, smoke: bool, lookup_backend,
              device, mesh=None, args=None, batch: Optional[int] = None,
              n_layers: Optional[int] = None) -> Cell:
@@ -404,21 +622,34 @@ def _lm_cell(spec: ArchSpec, shape: ShapeSpec, smoke: bool, lookup_backend,
     if n_layers is not None and n_layers != cfg.n_layers:
         reduced.append(f"n_layers {cfg.n_layers} -> {n_layers}")
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
-    groups = layouts = None
+    mapping = dims.get("mapping", "tp")
+    with sh.logical_mapping(mapping):
+        return _lm_cell_inner(spec, shape, smoke, device, mesh, args, cfg,
+                              seq, b, tuple(reduced), mapping)
+
+
+def _lm_cell_inner(spec, shape, smoke, device, mesh, args, cfg, seq, b,
+                   reduced, mapping) -> Cell:
+    dims = shape.dims
+    groups = layouts = plan = None
     notes = ()
+    fsdp = lm_fsdp(cfg, mesh, mapping)
     if mesh is not None:
-        mapping = dims.get("mapping", "tp")
-        if mapping != "tp":
-            raise not_ported(f"{spec.arch_id}:{shape.name} under the "
-                             f"{mapping!r} mapping", SHARDED_ITEM)
         with par.use_groups(None):
             groups = par.rank_groups(mesh, b)
-            layouts = {"params": T.param_layouts(cfg, mesh)}
+        layouts = _lm_layouts(cfg, mesh, shape.kind, b, seq, mapping)
+        info = layouts.pop("info")
+        splits, plan = _mesh_plan(mesh, layouts, groups, b)
+        groups = dataclasses.replace(groups, params=splits)
+        over = "every axis" if mapping == "dp" else "data"
         notes = (f"mesh={dict(zip(mesh.mesh_dim_names, mesh.shape))}",
+                 f"mapping={mapping}",
                  f"model={groups.n_model}: heads, d_ff, experts and "
                  f"vocabulary rows", f"data={groups.n_data}: batch rows",
-                 "params replicated over data (ZeRO-1/FSDP: "
-                 f"{SHARDED_ITEM})")
+                 (f"params ZeRO'd over {over} (FSDP)" if fsdp else
+                  f"params ZeRO'd over {over}" if info["zero"] else
+                  f"params replicated over {over}"),
+                 f"fsdp={fsdp}", f"data_split={len(splits)}")
     gen = torch.Generator(device=device).manual_seed(0)
     if args is None and layouts is None:
         params = T.init_params(gen, cfg)
@@ -429,27 +660,31 @@ def _lm_cell(spec: ArchSpec, shape: ShapeSpec, smoke: bool, lookup_backend,
     i32 = torch.int32
     tok = lambda shp: _Spec(shp, i32, cfg.vocab_size)  # noqa: E731
     cell = functools.partial(Cell, spec.arch_id, shape.name, shape.kind,
-                             reduced=tuple(reduced), mesh=mesh,
-                             layouts=layouts)
+                             reduced=reduced, mesh=mesh, layouts=layouts)
 
     def local_batch(specs, n_micro=1):
         bt = _draw_batch(specs, smoke, device) if args is None else args[-1]
         return {k: _local_rows(v, groups, n_micro) for k, v in bt.items()}
 
     if shape.kind == "train":
-        # gradient accumulation (the reference's rule), and its f32
-        # accumulator, bf16 where the params would be FSDP-sharded (over 8
-        # GB of bf16 on one model shard, as every uncut full LM config
-        # is). The rule reads the config after a depth cut, so the cut
-        # moves it: gemma2-9b at 8 layers (5.0e9 bytes) accumulates in f32
+        # gradient accumulation (the reference's rule), in f32, or bf16
+        # where the params are FSDP-sharded (lm_fsdp). The rule reads the
+        # config after a depth cut, so the cut moves it: gemma2-9b at 8
+        # layers (5.0e9 bytes) accumulates in f32
         n_micro = dims.get("microbatches") or (
             8 if not smoke and shape.name == "train_4k" else 1)
-        opt_name, opt = _lm_optimizer(cfg, groups, layouts)
-        opt_state = opt.init(R.flat_params(params))
+        opt_name, opt = _lm_optimizer(cfg, plan)
+        flat = R.flat_params(params)
+        opt_state = opt.init(flat if plan is None else
+                             {k: plan.block(k, p) for k, p in flat.items()})
+        if plan is not None and plan.zero1:
+            notes += (f"moments ZeRO-1 over {over}: {len(plan.zero1)} "
+                      f"leaves",)
         bt = local_batch({"tokens": tok((b, seq)),
                           "targets": tok((b, seq))}, n_micro)
-        acc = _lm_acc_dtype(cfg)
-        return cell(_LMTrainStep(cfg, opt, n_micro, acc, groups),
+        acc = lm_acc_dtype(fsdp)
+        return cell(_LMTrainStep(cfg, opt, n_micro, acc, groups, plan,
+                                 mapping),
                     (params, opt_state, bt), donate=(0, 1),
                     notes=",".join((f"optimizer={opt_name}",
                                     f"microbatches={n_micro}",
@@ -461,7 +696,7 @@ def _lm_cell(spec: ArchSpec, shape: ShapeSpec, smoke: bool, lookup_backend,
 
         @torch.inference_mode()
         def prefill_step(params, b):
-            with par.use_groups(groups):
+            with par.use_groups(groups), sh.logical_mapping(mapping):
                 return T.prefill(params, b, cfg, max_seq=seq)
 
         if layouts is not None:
@@ -484,7 +719,6 @@ def _lm_cell(spec: ArchSpec, shape: ShapeSpec, smoke: bool, lookup_backend,
                                     device)["tokens"],
               "pos": torch.tensor(seq - 1, dtype=i32, device=device)}
     if layouts is not None:
-        layouts["cache"] = T.cache_layouts(cfg, mesh, b)
         cache = _cut(layouts["cache"], cache)
         bt = {k: _local_rows(v, groups) for k, v in bt.items()}
         notes += ("KV cache by batch rows and K/V heads (the reference's "
@@ -492,7 +726,7 @@ def _lm_cell(spec: ArchSpec, shape: ShapeSpec, smoke: bool, lookup_backend,
 
     @torch.inference_mode()
     def decode(params, cache, b):
-        with par.use_groups(groups):
+        with par.use_groups(groups), sh.logical_mapping(mapping):
             return T.decode_step(params, cache, b, cfg)
 
     return cell(decode, (params, cache, bt), donate=(1,),
@@ -612,6 +846,23 @@ def _gnn_cfg_dims(spec: ArchSpec, shape: ShapeSpec, smoke: bool,
     return cfg, dims, n, e, tuple(reduced)
 
 
+def _gnn_specs(shape_name: str, dims: dict, n: int, e: int,
+               d_feat: int) -> dict:
+    """The batch specs of a GNN cell (the reference's, in its order)."""
+    i32, f32 = torch.int32, torch.float32
+    specs = {"edge_src": _Spec((e,), i32), "edge_dst": _Spec((e,), i32),
+             "edge_dist": _Spec((e,), f32)}
+    if shape_name == "molecule":
+        specs["z"] = _Spec((n,), i32)
+        specs["graph_id"] = _Spec((n,), i32)
+        specs["targets"] = _Spec((dims["batch"],), f32)
+    else:
+        specs["feat"] = _Spec((n, d_feat), f32)
+        specs["node_targets"] = _Spec((n,), f32)
+        specs["node_mask"] = _Spec((n,), f32)
+    return specs
+
+
 def _gnn_cell(spec: ArchSpec, shape: ShapeSpec, smoke: bool, lookup_backend,
               device, n_edges: Optional[int] = None, mesh=None,
               args=None) -> Cell:
@@ -620,19 +871,8 @@ def _gnn_cell(spec: ArchSpec, shape: ShapeSpec, smoke: bool, lookup_backend,
     molecule = shape.name == "molecule"
     d_feat = cfg.d_feat
     opt = opt_lib.adamw(lr=1e-3)
-    i32, f32 = torch.int32, torch.float32
-    specs = {"edge_src": _Spec((e,), i32), "edge_dst": _Spec((e,), i32),
-             "edge_dist": _Spec((e,), f32)}
-    if molecule:
-        specs["z"] = _Spec((n,), i32)
-        specs["graph_id"] = _Spec((n,), i32)
-        specs["targets"] = _Spec((dims["batch"],), f32)
-        loss = S.train_loss
-    else:
-        specs["feat"] = _Spec((n, d_feat), f32)
-        specs["node_targets"] = _Spec((n,), f32)
-        specs["node_mask"] = _Spec((n,), f32)
-        loss = S.node_train_loss
+    specs = _gnn_specs(shape.name, dims, n, e, d_feat)
+    loss = S.train_loss if molecule else S.node_train_loss
     notes = ()
     if args is not None:
         params, b = args[0], args[-1]
@@ -1002,15 +1242,28 @@ def _family_layouts(family: str, mesh, params, statics=None) -> dict:
     return out
 
 
-def cell_layouts(arch_id: str, shape_name: str, mesh) -> dict:
-    """The layouts of a recsys, GNN or cf cell's params and statics on
-    ``mesh`` (an ``AbstractMesh`` works), reckoned on the meta device at
-    the full published config, and its meta params under "meta_params"."""
+def cell_layouts(arch_id: str, shape_name: str, mesh,
+                 reference: bool = False) -> dict:
+    """A cell's layouts on ``mesh`` (an ``AbstractMesh`` works) at the
+    full published config, reckoned on the meta device. A recsys, GNN or
+    cf cell: "params", "statics", and its meta params under
+    "meta_params" (its meta statics under "meta_statics"). An LM cell:
+    the layouts of :func:`_lm_layouts` ("params", a train cell's "opt",
+    "batch", a decode cell's "cache", and "info"; ``reference``: the
+    reference's own layouts), its meta params under "meta_params"."""
     spec = get_arch(arch_id)
     shape = spec.shape(shape_name)
     cfg = spec.full_config()
     meta = functools.partial(torch.empty, device="meta")
     statics = None
+    if spec.family == "lm":
+        dims = shape.dims
+        mapping = dims.get("mapping", "tp")
+        with sh.logical_mapping(mapping):
+            out = _lm_layouts(cfg, mesh, shape.kind, dims["global_batch"],
+                              dims["seq_len"], mapping, reference)
+        out["meta_params"] = T.init_params(None, cfg, device="meta")
+        return out
     if spec.family == "recsys":
         params = _recsys_init(cfg)(None, cfg, device="meta")
         statics = {k: meta(shp, dtype=torch.int32) for k, (shp, _) in
@@ -1018,20 +1271,108 @@ def cell_layouts(arch_id: str, shape_name: str, mesh) -> dict:
     elif spec.family == "gnn":
         cfg = _gnn_cfg_dims(spec, shape, False, None)[0]
         params = S.init_params(None, cfg, device="meta")
-    elif spec.family == "cf":
+    else:
         params = {"user_table": meta((cfg.k_users or cfg.n_users, cfg.dim)),
                   "item_table": meta((cfg.k_items or cfg.n_items, cfg.dim))}
         e = max(4 * (cfg.n_users + cfg.n_items), 1024)
-        statics = {k: meta((e,)) for k in _CF_EDGES}
+        statics = {k: meta((e,), dtype=torch.int32) for k in _CF_EDGES[:2]}
+        statics["edge_norm"] = meta((e,))
         if cfg.k_users is not None:
-            statics["sketch_u"] = meta((cfg.n_users, cfg.n_hot_users))
-            statics["sketch_v"] = meta((cfg.n_items, 1))
-    else:
-        raise ValueError(f"{arch_id}: cell_layouts covers the recsys, GNN "
-                         f"and cf cells (an LM's: "
-                         f"models.transformer.param_layouts)")
+            statics["sketch_u"] = meta((cfg.n_users, cfg.n_hot_users),
+                                       dtype=torch.int32)
+            statics["sketch_v"] = meta((cfg.n_items, 1), dtype=torch.int32)
     return dict(_family_layouts(spec.family, mesh, params, statics),
-                meta_params=params)
+                meta_params=params, meta_statics=statics)
+
+
+def _meta_batch(specs: dict) -> dict:
+    return {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+            for k, v in specs.items()}
+
+
+def cell_args(arch_id: str, shape_name: str, mesh,
+              reference: bool = False) -> dict:
+    """Every argument of a cell at the full published width on ``mesh``
+    (an ``AbstractMesh`` works), as the reference's cell takes them:
+    {"params" | "opt_state" | "statics" | "cache" | "batch": (tree of
+    layouts, tree of meta tensors)}, and "info" (an LM's FSDP decision,
+    ZeRO, tag, optimizer). The batch splits over the data axes as
+    ``build_cell(mesh=...)`` splits it (all of them or none); the
+    optimizer state is AdamW's (``step``, ``m``, ``v``) or Adafactor's
+    (``step``, ``fac``) over the flat params."""
+    spec = get_arch(arch_id)
+    shape = spec.shape(shape_name)
+    lay = cell_layouts(arch_id, shape_name, mesh, reference)
+    params = lay["meta_params"]
+    out = {"params": (lay["params"], params), "info": lay.get("info", {})}
+    flat = R.flat_params(params)
+    i32 = torch.int32
+    if spec.family == "lm":
+        cfg = spec.full_config()
+        dims = shape.dims
+        b, seq = dims["global_batch"], dims["seq_len"]
+        if shape.kind == "train":
+            opt = (opt_lib.adafactor() if lay["info"]["optimizer"]
+                   == "adafactor" else opt_lib.adamw())
+            out["opt_state"] = (lay["opt"], opt.init(flat))
+            specs = {"tokens": _Spec((b, seq), i32),
+                     "targets": _Spec((b, seq), i32)}
+        elif shape.kind == "prefill":
+            specs = {"tokens": _Spec((b, seq), i32)}
+        else:
+            specs = {"tokens": _Spec((b, 1), i32), "pos": _Spec((), i32)}
+            out["cache"] = (lay["cache"], T.init_cache(cfg, b, seq,
+                                                       device="meta"))
+        out["batch"] = (lay["batch"], _meta_batch(specs))
+        return out
+    cfg = spec.full_config()
+    dims = dict(shape.dims)
+    if spec.family == "gnn":
+        cfg, dims, n, e, _ = _gnn_cfg_dims(spec, shape, False, None)
+        specs = _gnn_specs(shape.name, dims, n, e, cfg.d_feat)
+        rows, replicated = math.gcd(*(v.shape[0] for v in specs.values())), ()
+    elif spec.family == "recsys":
+        specs = _recsys_batch(cfg, shape, dims)
+        rows = (dims["n_candidates"] if shape.kind == "retrieval"
+                and not isinstance(cfg, R.SASRecConfig) else dims["batch"])
+        replicated = ("neg_ids",)
+    else:
+        n = dims["batch"]
+        specs = {k: _Spec((n,), i32) for k in ("user", "pos", "neg")}
+        rows, replicated = n, ()
+    split = bool(par.data_axes(mesh, rows))
+    out["batch"] = ({k: sh.batch_layout(mesh, len(v.shape), split and
+                                        k not in replicated and
+                                        len(v.shape) > 0 and
+                                        (spec.family == "gnn"
+                                         or v.shape[0] == rows))
+                     for k, v in specs.items()}, _meta_batch(specs))
+    if lay.get("statics"):
+        out["statics"] = (lay["statics"], lay["meta_statics"])
+    if shape.kind == "train":
+        m = R.flat_params(lay["params"])
+        out["opt_state"] = ({"step": sh.Layout(mesh, ()), "m": m,
+                             "v": dict(m)}, opt_lib.adamw().init(flat))
+    return out
+
+
+def _leaf_bytes(lay, t) -> int:
+    return math.prod(lay.local_shape(tuple(t.shape))) * t.element_size()
+
+
+def arg_bytes(arch_id: str, shape_name: str, mesh,
+              reference: bool = False) -> dict:
+    """A cell's argument bytes a rank on ``mesh`` (the reference's
+    ``launch/dryrun.py::_arg_bytes_per_device``: every argument leaf's
+    block), by kind (:func:`cell_args`) and in all ("total"); "info"
+    as :func:`cell_args`."""
+    args = cell_args(arch_id, shape_name, mesh, reference)
+    out = {"info": args.pop("info")}
+    for kind, (lay, meta) in args.items():
+        out[kind] = sum(R.flat_params(_map_layouts(_leaf_bytes, lay,
+                                                   meta)).values())
+    out["total"] = sum(v for k, v in out.items() if k != "info")
+    return out
 
 
 def rank_bytes(arch_id: str, shape_name: str, mesh) -> dict:

@@ -71,7 +71,13 @@ and of the batch, Megatron-style:
     gather-sum, then one all-reduce. Where the experts do not divide the
     axis the reference falls back to ``_mlp_moe`` on the global tokens,
     and so does the port, with the experts replicated;
-  * "batch" over the data axes: the loss is the mean over the data ranks.
+  * "batch" over the data axes: the loss is the mean over the data ranks;
+  * a param the cell stores split over data axes (the reference's ZeRO'd
+    serving params, FSDP, the "dp" mapping: ``RankGroups.params``) is
+    all-gathered just in time: a block's weights inside the block (a
+    checkpointed block gathers again in its backward), the embedding,
+    the head and the final norm once a call (:func:`_top_params`); the
+    gather's backward reduce-scatters the gradient into the rank's block.
 The decode cache is head-sharded with the attention (the reference's
 cache spec shards the sequence over "model", flash-decoding style): the
 numbers are the same.
@@ -90,12 +96,15 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distributed import parallel as par
 from repro_torch.distributed.sharding import (Layout, fit_spec,
-                                              logical_to_spec, mesh_shape)
+                                              logical_to_spec, mesh_shape,
+                                              zero1_axes)
 from repro_torch.embedding import embedding_block_lookup, embedding_lookup
 from repro_torch.kernels.embedding_bag import csr_gather_sum
 
 __all__ = ["TransformerConfig", "MoEConfig", "init_params", "count_params",
-           "param_logical_axes", "param_layouts", "cache_layouts",
+           "param_logical_axes", "param_shapes", "param_axes",
+           "param_layouts", "leaf_layout", "check_model_axis",
+           "cache_layouts", "reference_cache_layouts",
            "local_heads", "params_from_numpy", "tensor_from_numpy",
            "rms_norm", "expand_kv", "chunked_attention", "to_kv",
            "train_loss", "init_cache", "prefill", "decode_step", "MoERoute",
@@ -346,15 +355,35 @@ def _model_axis(mesh) -> Tuple[int, int]:
     return n, (mesh.get_local_rank("model") if n > 1 else 0)
 
 
-def param_layouts(cfg: TransformerConfig, mesh) -> dict:
-    """Each param's ``Layout`` on ``mesh``: the reference's logical axes
-    (:func:`param_logical_axes`) through ``logical_to_spec`` and
-    ``fit_spec``, but wk/wv/bk/bv replicated where the K/V heads do not
-    divide the model axis (:class:`LocalHeads`). Raises, naming the
-    config, where the query heads, a dense d_ff or the vocabulary do not
-    divide the model axis. Every param is replicated over the data axes
-    (the reference's ZeRO-1 and FSDP layouts over "data" are not ported:
-    ROADMAP Queue 1 #7c-ii-c)."""
+def param_shapes(cfg: TransformerConfig) -> dict:
+    """Every param's shape, nested as the params."""
+    def walk(node):
+        return {k: walk(v) if isinstance(v, dict) else tuple(v[0])
+                for k, v in node.items()}
+    return walk(_param_defs(cfg))
+
+
+_KV_LEAVES = ("wk", "wv", "bk", "bv")
+
+
+def leaf_layout(cfg: TransformerConfig, mesh, name: str, axes, shape,
+                reference: bool = False) -> Layout:
+    """The ``Layout`` of a param named ``name`` (or of a state leaf
+    derived from it) with logical ``axes``: ``logical_to_spec`` and
+    ``fit_spec``, then no split over "model" for wk/wv/bk/bv where the
+    K/V heads do not divide the model axis (:class:`LocalHeads`; not in
+    the ``reference``'s layout)."""
+    spec = fit_spec(mesh, logical_to_spec(mesh, axes), shape)
+    if (not reference and name in _KV_LEAVES
+            and cfg.n_kv_heads % _model_size(mesh)):
+        spec = tuple(None if p == "model" else p for p in spec)
+    return Layout(mesh, spec)
+
+
+def check_model_axis(cfg: TransformerConfig, mesh) -> None:
+    """Raise, naming the config, where the query heads, a dense d_ff or
+    the vocabulary do not divide the model axis (the port's attention
+    needs whole heads a rank; the reference's GSPMD splits them)."""
     n = _model_size(mesh)
     local_heads(cfg, n)
     split = {"the vocabulary": cfg.vocab_size}
@@ -365,15 +394,35 @@ def param_layouts(cfg: TransformerConfig, mesh) -> dict:
             raise ValueError(f"{cfg.name}: {what} ({size}) does not divide "
                              f"a model axis of {n}")
 
-    def walk(node, name=""):
-        if isinstance(node, dict):
-            return {k: walk(v, k) for k, v in node.items()}
-        shape, axes, _ = node
-        spec = fit_spec(mesh, logical_to_spec(mesh, axes), shape)
-        if name in ("wk", "wv", "bk", "bv") and cfg.n_kv_heads % n:
-            spec = (None,) * len(shape)
-        return Layout(mesh, spec)
-    return walk(_param_defs(cfg))
+
+def param_axes(cfg: TransformerConfig, zero: bool = False,
+               tag: str = "data") -> dict:
+    """The params' logical axes (:func:`param_logical_axes`), each leaf
+    one more dim over ``tag`` by the reference's ZeRO-1 rule
+    (``sharding.zero1_axes``) when ``zero``: the reference ZeRO's the
+    params of a serving cell and of an FSDP train cell."""
+    axes = param_logical_axes(cfg)
+    return zero1_axes(axes, param_shapes(cfg), tag) if zero else axes
+
+
+def param_layouts(cfg: TransformerConfig, mesh, zero: bool = False,
+                  tag: str = "data", reference: bool = False) -> dict:
+    """Each param's ``Layout`` on ``mesh``: the reference's logical axes
+    (:func:`param_axes`, ZeRO'd over ``tag`` when ``zero``) through
+    :func:`leaf_layout`. Raises where the model axis does not divide the
+    heads, a dense d_ff or the vocabulary (:func:`check_model_axis`),
+    but for the ``reference``'s layout (the dry run's account of a cell
+    the port does not build)."""
+    if not reference:
+        check_model_axis(cfg, mesh)
+    axes = param_axes(cfg, zero, tag)
+    shapes = param_shapes(cfg)
+
+    def walk(ax, shp, name=""):
+        if isinstance(ax, dict):
+            return {k: walk(v, shp[k], k) for k, v in ax.items()}
+        return leaf_layout(cfg, mesh, name, ax, shp, reference)
+    return walk(axes, shapes)
 
 
 def cache_layouts(cfg: TransformerConfig, mesh, batch: int) -> dict:
@@ -387,6 +436,26 @@ def cache_layouts(cfg: TransformerConfig, mesh, batch: int) -> dict:
             for kind in _cache_kinds(cfg) for kv in "kv"}
 
 
+def reference_cache_layouts(cfg: TransformerConfig, mesh, batch: int,
+                            max_seq: int) -> dict:
+    """The reference's decode-cache layouts (``repro/launch/steps.py:
+    314-328``): the batch over the batch axes and the sequence over
+    "model", or at batch 1 the sequence over every axis, fitted."""
+    ba = tuple(a for a in ("pod", "data") if a in mesh.mesh_dim_names)
+    if batch == 1:
+        spec = (None, None, None, ba + ("model",), None, None)
+    else:
+        spec = (None, None, ba if len(ba) > 1 else ba[0], "model", None,
+                None)
+    out = {}
+    for kind, per in _cache_kinds(cfg).items():
+        shape = (cfg.n_blocks, per, batch, _cache_length(cfg, kind, max_seq),
+                 cfg.n_kv_heads, cfg.hd)
+        for kv in "kv":
+            out[f"{kv}_{kind}"] = Layout(mesh, fit_spec(mesh, spec, shape))
+    return out
+
+
 class _KVLayout:
     """A cache tensor [nb, per, B, L, Hkv, Dh]: B by the ``batch`` layout,
     the K/V heads by :func:`local_heads` at this rank's model
@@ -394,10 +463,23 @@ class _KVLayout:
 
     def __init__(self, batch, cfg):
         self.batch, self.cfg = batch, cfg
-        self.n_model, self.model_rank = _model_axis(batch.mesh)
+        self.n_model = _model_size(batch.mesh)
+
+    def _heads(self) -> "LocalHeads":
+        rank = (self.batch.mesh.get_local_rank("model") if self.n_model > 1
+                else 0)
+        return local_heads(self.cfg, self.n_model, rank)
+
+    def local_shape(self, shape) -> tuple:
+        """A rank's block of a cache tensor of ``shape`` (the widest
+        rank's K/V heads; no rank needed)."""
+        out = list(self.batch.local_shape(shape))
+        out[4] = max(local_heads(self.cfg, self.n_model, j).kv
+                     for j in range(self.n_model))
+        return tuple(out)
 
     def local_block(self, full):
-        h = local_heads(self.cfg, self.n_model, self.model_rank)
+        h = self._heads()
         return self.batch.local_block(full).narrow(4, h.kv_lo, h.kv)
 
     def gather(self, block):
@@ -862,8 +944,32 @@ def _block(x, blk, cfg, positions, g=None):
     return x
 
 
-def _block_params(params, bi: int) -> dict:
-    return {k: v[bi] for k, v in params["blocks"].items()}
+def _split(g, key: str):
+    return None if g is None else g.params.get(key)
+
+
+def _block_params(params, bi: int, g=None) -> dict:
+    """Block ``bi``'s params, each whole over the data axes it is stored
+    split over (``parallel.gather_param``: one all-gather a leaf, just in
+    time; a leaf split along its block dim is gathered whole, then
+    indexed)."""
+    out = {}
+    for k, v in params["blocks"].items():
+        s = _split(g, f"blocks/{k}")
+        if s is None:
+            out[k] = v[bi]
+        elif s.dim == 0:
+            out[k] = par.gather_param(v, s)[bi]
+        else:
+            out[k] = par.gather_param(v[bi], s.at_block())
+    return out
+
+
+def _top_params(params, g=None) -> dict:
+    """The embedding, the head and the final norm, each whole over the
+    data axes (one all-gather each where it is stored split)."""
+    return {k: par.gather_param(v, _split(g, k))
+            for k, v in params.items() if k != "blocks"}
 
 
 # ---------------------------------------------------------------------------
@@ -877,7 +983,8 @@ def _embed(params, tokens, cfg, g=None):
     """The token embedding, in the residual stream's dtype: gemma's
     ``* np.sqrt(d)`` promotes to f32 (a non-weak float64 scalar). On a
     mesh each rank looks up its own vocabulary rows (other ids give
-    zero rows) and the ranks' rows are summed."""
+    zero rows) and the ranks' rows are summed. ``params["embed"]`` is
+    whole over the data axes (:func:`_top_params`)."""
     table = params["embed"]
     if not _vocab_split(g):
         x = embedding_lookup(table, tokens, backend=cfg.lookup_backend)
@@ -896,21 +1003,32 @@ def _positions(b: int, s: int, device):
     return torch.arange(s, device=device).expand(b, s)
 
 
-def _backbone(params, tokens, cfg, positions, g=None):
-    x = _embed(params, tokens, cfg, g)
+def _gathered_block(x, params, bi, cfg, positions, g):
+    """Block ``bi`` on ``params``' blocks, gathered inside (so a
+    checkpointed block gathers again in its backward, not keeping every
+    block's weights whole)."""
+    return _block(x, _block_params(params, bi, g), cfg, positions, g)
+
+
+def _backbone(params, tokens, cfg, positions, g=None, top=None):
+    """The final-normed hidden states; ``top``: the
+    :func:`_top_params` of ``params`` when the caller has them."""
+    top = _top_params(params, g) if top is None else top
+    x = _embed(top, tokens, cfg, g)
     for bi in range(cfg.n_blocks):
-        blk = _block_params(params, bi)
         if cfg.remat:
-            x = _maybe_checkpoint(_block, x, blk, cfg, positions, g)
+            x = _maybe_checkpoint(_gathered_block, x, params, bi, cfg,
+                                  positions, g)
         else:
-            x = _block(x, blk, cfg, positions, g)
-    return rms_norm(x, params["final_norm"])
+            x = _gathered_block(x, params, bi, cfg, positions, g)
+    return rms_norm(x, top["final_norm"])
 
 
 def _logits(params, h, cfg, g=None):
     """[..., d] -> f32 [..., vocab] (on a mesh, this rank's vocabulary
     slice): the tied table (cast per call to h's promoted dtype) or the
-    untied head, then the final softcap."""
+    untied head, then the final softcap. ``params``' head is whole over
+    the data axes (:func:`_top_params`)."""
     if _vocab_split(g):
         h = par.copy_to_model(h, g)
     if cfg.tie_embed:
@@ -949,12 +1067,14 @@ def train_loss(params, batch, cfg: TransformerConfig):
     g = par.current_groups()
     tokens, targets = batch["tokens"], batch["targets"]
     b, s = tokens.shape
-    h = _backbone(params, tokens, cfg, _positions(b, s, tokens.device), g)
+    top = _top_params(params, g)
+    h = _backbone(params, tokens, cfg, _positions(b, s, tokens.device), g,
+                  top)
     lc = min(cfg.loss_chunk, s)
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(max(1, s // lc)):
         sl = slice(i * lc, (i + 1) * lc)
-        total = total + _maybe_checkpoint(_ce_sum, params, h[:, sl],
+        total = total + _maybe_checkpoint(_ce_sum, top, h[:, sl],
                                           targets[:, sl], cfg, g)
     loss = total / (b * s)
     return loss if g is None else par.mean_over_data(loss, g)
@@ -1010,11 +1130,12 @@ def prefill(params, batch, cfg: TransformerConfig, max_seq: int):
     b, s = tokens.shape
     dev = tokens.device
     positions = _positions(b, s, dev)
-    x = _embed(params, tokens, cfg, g)
+    top = _top_params(params, g)
+    x = _embed(top, tokens, cfg, g)
     hd = _heads(cfg, g)
     cache = init_cache(cfg, b, max_seq, device=dev, kv_heads=hd.kv)
     for bi in range(cfg.n_blocks):
-        blk = _block_params(params, bi)
+        blk = _block_params(params, bi, g)
         counters = {k: 0 for k in _cache_kinds(cfg)}
         for li, kind in enumerate(cfg.block_pattern):
             ci = counters[kind]
@@ -1032,8 +1153,8 @@ def prefill(params, batch, cfg: TransformerConfig, max_seq: int):
                 _bits(cache[f"{name}_{kind}"][bi, ci]).index_copy_(
                     1, slots, _bits(to_kv(val[:, s - take:],
                                           cfg.kv_torch_dtype)))
-    h = rms_norm(x[:, -1:], params["final_norm"])
-    return _whole_logits(_logits(params, h, cfg, g)[:, 0], g), cache
+    h = rms_norm(x[:, -1:], top["final_norm"])
+    return _whole_logits(_logits(top, h, cfg, g)[:, 0], g), cache
 
 
 @_f32_sums
@@ -1055,7 +1176,8 @@ def decode_step(params, cache, batch, cfg: TransformerConfig):
     dev = tokens.device
     pos = torch.as_tensor(pos, device=dev)
     positions = pos.reshape(1, 1).expand(b, 1)
-    x = _embed(params, tokens, cfg, g)
+    top = _top_params(params, g)
+    x = _embed(top, tokens, cfg, g)
     dt, dh = cfg.torch_dtype, cfg.hd
     hd = _heads(cfg, g)
     kv_of_q = (None if hd.kv_of_q is None else
@@ -1063,7 +1185,7 @@ def decode_step(params, cache, batch, cfg: TransformerConfig):
     hkv = hd.kv if kv_of_q is None else hd.hq
     grp = hd.hq // hkv
     for bi in range(cfg.n_blocks):
-        blk = _block_params(params, bi)
+        blk = _block_params(params, bi, g)
         counters = {k: 0 for k in _cache_kinds(cfg)}
         for li, kind in enumerate(cfg.block_pattern):
             ci = counters[kind]
@@ -1092,5 +1214,5 @@ def decode_step(params, cache, batch, cfg: TransformerConfig):
             ve = vc.permute(0, 2, 1, 3).to(dt, memory_format=dense)
             o = torch.matmul(p, ve).reshape(b, 1, hd.hq * dh)
             x = _residual_out(x, o, _mlp(cfg, g), blk, li, cfg, g)
-    h = rms_norm(x, params["final_norm"])
-    return _whole_logits(_logits(params, h, cfg, g)[:, 0], g), cache
+    h = rms_norm(x, top["final_norm"])
+    return _whole_logits(_logits(top, h, cfg, g)[:, 0], g), cache

@@ -12,6 +12,13 @@ buffers) and returns them. Math is in f32 whatever the parameters'
 dtype, as in the reference; ``state["step"]`` is an int32 scalar tensor
 on the parameters' device, so an update never waits on the host.
 
+Over a mesh each rank updates its blocks of the params and state:
+AdamW's update is elementwise (its clip takes the mesh's ``norm``);
+Adafactor's ``reduce`` names, a param, the process groups that split
+the dims its means run over, and each mean becomes a partial sum and
+an all-reduce over that group (on one rank, or with no group, the mean
+itself, so the update is the one-card update to the bit).
+
 Memory: the gradient clip scales one leaf at a time (never a scaled copy
 of every gradient), and AdamW's elementwise update runs over flat slices
 of ``_SLICE`` elements, so its f32 temporaries stay at 256 MB each
@@ -21,11 +28,12 @@ result is the same to the bit.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Mapping, NamedTuple, Optional, Tuple
 
 import torch
 
-__all__ = ["adamw", "adafactor", "sgd", "Optimizer", "global_norm"]
+__all__ = ["adamw", "adafactor", "sgd", "Optimizer", "global_norm",
+           "FactorGroups"]
 
 
 class Optimizer(NamedTuple):
@@ -134,10 +142,40 @@ def adamw(lr: float = 1e-3, b1: float = 0.9, b2: float = 0.999,
     return Optimizer(init, update)
 
 
+class FactorGroups(NamedTuple):
+    """The groups splitting a param's last dim, its second-to-last dim,
+    and any of its dims (None: whole on this rank)."""
+    last: Any = None
+    second: Any = None
+    every: Any = None
+
+
+def _mean(x: torch.Tensor, dim, group, keepdim: bool = False):
+    """``x.mean(dim)`` of a tensor whose ``dim`` (None: every dim) is
+    split over ``group``: the partial sum, all-reduced, over the whole
+    count; ``x.mean`` itself where the group is None or of one rank."""
+    from repro_torch.distributed import parallel as par
+
+    n = par.group_size(group)
+    if n == 1:
+        return x.mean() if dim is None else x.mean(dim=dim, keepdim=keepdim)
+    if dim is None:
+        s, count = x.sum(), x.numel() * n
+    else:
+        s, count = x.sum(dim=dim, keepdim=keepdim), x.shape[dim] * n
+    return par.all_reduce(s, group) / count
+
+
 def adafactor(lr: float = 1e-2, decay: float = 0.8, eps: float = 1e-30,
               clip_threshold: float = 1.0,
-              grad_clip: Optional[float] = None) -> Optimizer:
-    """Factored second moment: O(n+m) state per n x m matrix."""
+              grad_clip: Optional[float] = None, norm=None,
+              reduce: Optional[Mapping[str, FactorGroups]] = None
+              ) -> Optimizer:
+    """Factored second moment: O(n+m) state per n x m matrix. On a mesh,
+    ``reduce[key]`` (:class:`FactorGroups`) gives the groups over which
+    a param's row means, column means and update RMS sum its blocks;
+    ``norm`` the mesh's norm for ``grad_clip``."""
+    none = FactorGroups()
 
     def init(params):
         fac = []
@@ -157,23 +195,26 @@ def adafactor(lr: float = 1e-2, decay: float = 0.8, eps: float = 1e-30,
     @torch.no_grad()
     def update(grads, state, params):
         state["step"].add_(1)
-        scale = _clip_scale(grads, grad_clip)
+        scale = _clip_scale(grads, grad_clip, norm)
         t = state["step"].float()
         beta = 1.0 - torch.pow(t, -decay)
         for (k, p), s in zip(_leaves(params), state["fac"]):
+            grp = none if reduce is None else reduce.get(k, none)
             g32 = _clipped(grads[k], scale).float()
             g2 = torch.square(g32) + eps
             if p.dim() >= 2:
-                s["vr"].copy_(beta * s["vr"] + (1 - beta) * g2.mean(dim=-1))
-                s["vc"].copy_(beta * s["vc"] + (1 - beta) * g2.mean(dim=-2))
-                r = s["vr"] / torch.clamp(s["vr"].mean(dim=-1, keepdim=True),
-                                          min=eps)
+                s["vr"].copy_(beta * s["vr"]
+                              + (1 - beta) * _mean(g2, -1, grp.last))
+                s["vc"].copy_(beta * s["vc"]
+                              + (1 - beta) * _mean(g2, -2, grp.second))
+                r = s["vr"] / torch.clamp(
+                    _mean(s["vr"], -1, grp.second, keepdim=True), min=eps)
                 u = (g32 * torch.rsqrt(r)[..., None]
                      * torch.rsqrt(s["vc"])[..., None, :])
             else:
                 s["v"].copy_(beta * s["v"] + (1 - beta) * g2)
                 u = g32 * torch.rsqrt(s["v"])
-            rms = torch.sqrt(torch.mean(torch.square(u)) + 1e-30)
+            rms = torch.sqrt(_mean(torch.square(u), None, grp.every) + 1e-30)
             u = u / torch.clamp(rms / clip_threshold, min=1.0)
             p.copy_((p.float() - lr * u).to(p.dtype))
         return params, state

@@ -663,7 +663,8 @@ def test_accumulator_dtype_follows_the_reference_rule(arch, n_layers,
                                                       monkeypatch):
     """The gradient accumulator of a full-width train cell: the
     reference's rule (``repro/launch/steps.py:234-239`` with no mesh: bf16
-    above 8e9 bytes of bf16 params, else f32) on the cut config, so the
+    above 8e9 bytes of bf16 params, else f32; ``steps.lm_fsdp``, which
+    also takes the mesh, ``tests/test_torch_dryrun.py``) on the cut config, so the
     depth cut moves it (gemma2-9b at 8 layers: f32); the cell's notes
     name it and its reduced lists the cuts. The cell is built with its
     params on the meta device: no full-width tensor exists."""
@@ -675,7 +676,7 @@ def test_accumulator_dtype_follows_the_reference_rule(arch, n_layers,
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
         cuts["n_layers"] = n_layers
     want = jnp.bfloat16 if RT.count_params(rcfg) * 2 > 8e9 else jnp.float32
-    got = steps._lm_acc_dtype(cfg)
+    got = steps.lm_acc_dtype(steps.lm_fsdp(cfg))
     assert str(got) == f"torch.{jnp.dtype(want).name}"
     orig = T.init_params
     monkeypatch.setattr(T, "init_params",

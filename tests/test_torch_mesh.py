@@ -212,28 +212,39 @@ def test_production_routes(arch):
 
 
 def test_other_families_on_a_mesh_raise_naming_the_roadmap():
-    """The recsys, GNN and cf cells build on a mesh
-    (``tests/test_torch_mesh_cells.py``); what still raises names the
-    ROADMAP: Adafactor over a model axis (kimi-k2's train_4k) and an LM
-    shape under the "dp" mapping."""
+    """What raised ``not_ported`` before the data-axis layouts now builds:
+    kimi-k2's train_4k with Adafactor over a model axis (its full
+    config's layouts on (16, 16): experts over "model", FSDP over
+    "data", the factored moments by ``opt_state_axes``) and an LM shape
+    under the "dp" mapping; the recsys, GNN and cf cells' notes claim no
+    data-axis layout (the reference gives those families none), and no
+    ``SHARDED_ITEM`` is left."""
     kimi = registry.get_arch("kimi-k2-1t-a32b").full_config()
-    two_model_ranks = steps.par.RankGroups(2, 0, None, 1, 0, None)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #7c-ii-c"):
-        steps._lm_optimizer(kimi, two_model_ranks)
+    mesh16 = AbstractMesh((16, 16), ("data", "model"))
+    lay = steps._lm_layouts(kimi, mesh16, "train", 256, 4096, "tp")
+    assert lay["info"] == {"fsdp": True, "zero": True, "tag": "data",
+                           "optimizer": "adafactor"}
+    assert lay["params"]["blocks"]["w_gate"].spec == (
+        None, None, "model", "data", None)
+    fac = lay["opt"]["fac"]
+    assert len(fac) == len(rs.flat_params(lay["params"]))
     dp = registry.ShapeSpec("train_dp", "train", dict(
         seq_len=16, global_batch=4, mapping="dp"))
     with world("cpu"):
         mesh = make_host_mesh(device="cpu")
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1 #7c-ii-c"):
-            steps._lm_cell(registry.get_arch("gemma2-9b"), dp, True, None,
-                           torch.device("cpu"), mesh=mesh)
+        cell = steps._lm_cell(registry.get_arch("gemma2-9b"), dp, True, None,
+                              torch.device("cpu"), mesh=mesh)
+        assert "mapping=dp" in cell.notes
+        cell = steps.build_cell("kimi-k2-1t-a32b", "train_4k", mesh=mesh,
+                                smoke=True, device="cpu")
+        assert cell.notes.startswith("optimizer=adamw,")
         for arch, shape in (("sasrec", "serve_p99"), ("schnet", "molecule"),
                             ("lightgcn-baco", "bpr_train")):
             cell = steps.build_cell(arch, shape, mesh=mesh, smoke=True,
                                     device="cpu")
-            assert cell.mesh is mesh and "ZeRO-1/FSDP: ROADMAP" in cell.notes
-    assert registry.SHARDED_ITEM == "ROADMAP Queue 1 #7c-ii-c"
+            assert cell.mesh is mesh and "ZeRO" not in cell.notes
+            assert "FSDP" not in cell.notes
+    assert not hasattr(registry, "SHARDED_ITEM")
 
 
 # ---------------------------------------------------------------------------
@@ -324,6 +335,49 @@ def test_gpipe_raises_outside_its_scope():
         with pytest.raises(ValueError, match="microbatches"):
             build_pp_train_cell(dense, global_batch=6, seq=8, mesh=mesh,
                                 n_micro=4, device="cpu")
+
+
+def _route_cells(route: str, mesh):
+    """(one-card twin, mesh cell) of a data-axis route: gemma2-9b train
+    under "dp", dbrx-132b train with FSDP forced, kimi-k2's smoke config
+    at 128 experts (Adafactor)."""
+    cpu = torch.device("cpu")
+    if route == "dp":
+        spec, shape = registry.get_arch("gemma2-9b"), worker.dp_shape("train")
+    elif route == "adafactor":
+        spec = worker.adafactor_spec()
+        shape = spec.shape("train_4k")
+    else:
+        spec = registry.get_arch("dbrx-132b")
+        shape = spec.shape("train_4k")
+    one = steps._lm_cell(spec, shape, True, None, cpu)
+    cell = steps._lm_cell(spec, shape, True, None, cpu, mesh=mesh)
+    return one, cell
+
+
+@pytest.mark.parametrize("route", ["dp", "fsdp", "adafactor"])
+def test_world_of_one_data_axis_routes_are_bitwise(route, monkeypatch):
+    """On a world of 1 each data-axis route's train step (the "dp"
+    mapping, FSDP forced at smoke width, Adafactor over the model axis)
+    is bitwise its one-card twin: loss and every updated param."""
+    with world("cpu"):
+        mesh = make_host_mesh(device="cpu")
+        if route == "fsdp":
+            with monkeypatch.context() as m:
+                m.setattr(steps, "lm_fsdp", lambda *a, **k: True)
+                one, cell = _route_cells(route, mesh)
+            assert "fsdp=True" in cell.notes and "FSDP" in cell.notes
+            assert cell.fn.groups.params
+        else:
+            one, cell = _route_cells(route, mesh)
+        if route == "adafactor":
+            assert cell.notes.startswith("optimizer=adafactor,")
+        want = one.fn(_clone(one.args[0]), one.args[1], one.args[2])
+        got = cell.fn(*cell.args)
+    assert torch.equal(got[2], want[2])
+    flat = rs.flat_params(want[0])
+    for k, v in rs.flat_params(got[0]).items():
+        assert torch.equal(v, flat[k]), k
 
 
 # ---------------------------------------------------------------------------
@@ -571,3 +625,69 @@ def test_compressed_mean_over_the_batch_axes(ranks, mesh):
 def worker_grads(rank: int) -> dict:
     import torch_sharded_worker
     return torch_sharded_worker.compress_grads(rank)
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+def test_dp_mapping_equals_the_reference_mesh(ranks, mesh):
+    """gemma2-9b's cells under "dp" (the batch over every rank, the
+    params ZeRO'd over (data, model) to serve, the moments ZeRO-1'd so)
+    equal the reference's run under ``logical_mapping("dp")`` within the
+    tolerances of the "tp" cells; the params after one step, the
+    reference's AdamW on the gathered gradients."""
+    got, want, inputs = ranks
+    g = got[mesh]["dp"]
+    pre = f"{mesh}/dp"
+    for kind in ("prefill", "decode"):
+        assert "mapping=dp" in g[kind]["notes"]
+        _close(g[kind]["logits"], want[f"{pre}/{kind}/logits"], 1e-4, 1e-5,
+               f"{kind} logits")
+        for k, v in g[kind]["cache"].items():
+            _close(v, want[f"{pre}/{kind}/cache/{k}"], 1e-4, 1e-5, k)
+    _close(g["train"]["loss"], want[f"{pre}/train/loss"], 1e-4, 0, "loss")
+    _close(g["train"]["step_loss"], g["train"]["loss"], 0, 0, "step loss")
+    for k, v in g["train"]["grads"].items():
+        _close(v, want[f"{pre}/train/grads/{k}"], 1e-4, 1e-6, k)
+    new = _ref_adamw(rs.flat_params(inputs["gemma2-9b"]["params"]),
+                     g["train"]["grads"])
+    for k, v in g["train"]["params"].items():
+        _close(v, new[k], 1e-4, 1e-6, k)
+    assert "moments ZeRO-1 over every axis" in g["train"]["notes"]
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+@pytest.mark.parametrize("arch", worker.FSDP_ARCHS)
+def test_fsdp_equals_the_replicated_params(ranks, arch, mesh):
+    """FSDP forced at smoke width (params stored split over "data",
+    all-gathered a block at a time, gradients reduce-scattered): the
+    loss, gradients and updated params equal the same cell with its
+    params replicated over "data" within rtol 1e-5 / atol 1e-5."""
+    got, _, _ = ranks
+    f, p = got[mesh]["fsdp"][arch]["fsdp"], got[mesh]["fsdp"][arch]["plain"]
+    assert ("FSDP" in f["notes"]) and ("FSDP" not in p["notes"])
+    assert p["split"] == [] and "blocks/wq" in f["split"]
+    _close(f["loss"], p["loss"], 1e-5, 1e-5, "loss")
+    _close(f["step_loss"], p["step_loss"], 1e-5, 1e-5, "step loss")
+    for k, v in p["grads"].items():
+        _close(f["grads"][k], v, 1e-5, 1e-5, k)
+    for k, v in p["params"].items():
+        _close(f["params"][k], v, 1e-5, 1e-5, k)
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+def test_adafactor_over_the_model_axis_equals_the_reference(ranks, mesh):
+    """kimi-k2's smoke config at 128 experts (the reference's Adafactor
+    route; its experts over "model"): the params after one step equal
+    the reference's ``adafactor`` applied to the gathered params and
+    gradients, within rtol 1e-4 / atol 1e-6."""
+    from repro.training import optimizer as ref_opt
+
+    got, _, _ = ranks
+    a = got[mesh]["adafactor"]
+    assert a["notes"].startswith("optimizer=adafactor,")
+    _close(a["step_loss"], a["loss"], 0, 0, "step loss")
+    opt = ref_opt.adafactor(lr=1e-2)
+    p = {k: jnp.asarray(v) for k, v in a["params0"].items()}
+    new, _ = opt.update({k: jnp.asarray(v) for k, v in a["grads"].items()},
+                        opt.init(p), p)
+    for k, v in a["params"].items():
+        _close(v, np.asarray(new[k]), 1e-4, 1e-6, k)

@@ -361,7 +361,9 @@ def test_mesh_cells_equal_the_reference_mesh(ranks, arch, shape, mesh):
     got, want, inputs = ranks
     g = got[mesh][f"{arch}:{shape}"]
     pre = f"{mesh}/{arch}:{shape}"
-    assert "data=" in g["notes"] and "ZeRO-1" in g["notes"]
+    # the reference gives these families no data-axis layout: their
+    # notes claim none
+    assert "data=" in g["notes"] and "ZeRO" not in g["notes"]
     if "out" in g:
         _close(g["out"], want[f"{pre}/out"], 1e-4, 1e-5, "out")
         return

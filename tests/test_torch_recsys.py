@@ -191,7 +191,8 @@ def test_specs_and_configs_equal_the_reference(arch):
 def test_unported_archs_raise_naming_the_roadmap(arch):
     """The two archs that waited for ROADMAP Queue 1 #7c are ported: their
     specs and configs equal the reference's; an unknown arch raises
-    KeyError, and ``not_ported`` names the item that still waits."""
+    KeyError, and ``not_ported`` names the item it is given (the sharded
+    path waits for nothing: ``SHARDED_ITEM`` is gone)."""
     spec, want = registry.get_arch(arch), ref_registry.get_arch(arch)
     assert spec.family == want.family == "lm"
     assert (dataclasses.asdict(spec.full_config())
@@ -199,9 +200,10 @@ def test_unported_archs_raise_naming_the_roadmap(arch):
     assert spec.full_config().moe is not None
     with pytest.raises(KeyError):
         registry.get_arch("no-such-arch")
-    err = registry.not_ported("a mesh", registry.SHARDED_ITEM)
+    err = registry.not_ported("a feature", "ROADMAP Queue 1 #3")
     assert isinstance(err, NotImplementedError)
-    assert "ROADMAP Queue 1 #7c-ii" in str(err)
+    assert "ROADMAP Queue 1 #3" in str(err)
+    assert not hasattr(registry, "SHARDED_ITEM")
 
 
 def test_embedding_spec_table_rows():

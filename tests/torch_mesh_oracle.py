@@ -82,6 +82,18 @@ def lm_cells(mesh, tag: str, out: dict, archs=MESH_ARCHS) -> None:
             _flat({"loss": loss, "grads": grads}, f"{tag}/{arch}/train", out)
 
 
+def dp_cells(mesh, tag: str, out: dict) -> None:
+    """gemma2-9b's smoke cells (the same args as :func:`lm_cells`) run
+    under the reference's ``logical_mapping("dp")``: the batch over every
+    axis, no tensor parallelism."""
+    from repro.distributed.sharding import logical_mapping
+
+    with logical_mapping("dp"):
+        lm_cells(mesh, f"{tag}/dp", out, archs=("gemma2-9b",))
+    for k in [k for k in out if k.startswith(f"{tag}/dp/gemma2-9b/")]:
+        out[k.replace("/dp/gemma2-9b/", "/dp/")] = out.pop(k)
+
+
 def bf16_prefill(mesh, tag: str, out: dict) -> None:
     """qwen1.5-32b's smoke prefill in bf16 (params ``init_params`` key 0
     cast by the config; tokens ``bf16_tokens``)."""
@@ -280,6 +292,7 @@ def main(argv) -> int:
             mesh_cells(mesh, tag, out)
             continue
         lm_cells(mesh, tag, out)
+        dp_cells(mesh, tag, out)
         pp_step(mesh, tag, out)
         if shape == (2, 2):
             bf16_prefill(mesh, tag, out)

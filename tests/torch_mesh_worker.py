@@ -13,9 +13,13 @@ step; the token embedding on the mesh against the one-card lookup
 (bitwise); ``build_pp_train_cell``'s step; on (2, 2) the bf16 qwen
 prefill and a MoE whose experts do not divide the model axis (the
 reference's fallback) against its one-card loss and gradients; and the
-compressed gradient mean over a 2-D and a 3-D mesh's batch axes. Rank 0
-pickles what it saw, gathered whole, to ``OUT_DIR/rank0.pkl``. Imports
-nothing of JAX.
+compressed gradient mean over a 2-D and a 3-D mesh's batch axes. The
+data-axis layouts: gemma2-9b's cells under the "dp" mapping
+(:func:`dp_cells`), train cells with FSDP forced beside the same cells
+without it (:func:`fsdp_cells`), and a step of kimi-k2's smoke config at
+128 experts, the reference's Adafactor route (:func:`adafactor_step`).
+Rank 0 pickles what it saw, gathered whole, to ``OUT_DIR/rank0.pkl``.
+Imports nothing of JAX.
 """
 import dataclasses
 import pickle
@@ -36,6 +40,32 @@ SHAPES = {"prefill": "prefill_32k", "decode": "decode_32k",
 PP_LAYERS, PP_BATCH, PP_SEQ, PP_MICRO = 4, 8, 16, 4
 # the MoE fallback's experts: 3 do not divide a model axis of 2
 FALLBACK_EXPERTS = 3
+# kimi-k2's smoke config at this many experts takes the reference's
+# Adafactor (128 or more)
+ADAFACTOR_EXPERTS = 128
+# the train cells run with FSDP forced
+FSDP_ARCHS = ("gemma2-9b", "dbrx-132b")
+
+
+def dp_shape(kind: str):
+    """A smoke shape of ``kind`` under the "dp" mapping (no registered
+    shape takes it: the reference's EXPERIMENTS variant)."""
+    from repro_torch.configs.registry import ShapeSpec
+    return ShapeSpec(f"{kind}_dp", kind, dict(seq_len=16, global_batch=4,
+                                              mapping="dp"))
+
+
+def adafactor_spec():
+    """kimi-k2's arch with its smoke config at ``ADAFACTOR_EXPERTS``
+    experts (1.6 M params)."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.transformer import MoEConfig
+
+    spec = get_arch("kimi-k2-1t-a32b")
+    base = spec.smoke_config()
+    cfg = dataclasses.replace(base, moe=MoEConfig(ADAFACTOR_EXPERTS, 2, 1.5),
+                              lookup_backend="gather")
+    return dataclasses.replace(spec, smoke_config=lambda: cfg)
 
 
 def nested(flat: dict) -> dict:
@@ -108,6 +138,98 @@ def lm_cells(mesh, arch: str, inp: dict) -> dict:
     out["train"]["step_loss"] = step_loss
     out["train"]["params"] = R.flat_params(cell.gather("params", local))
     out["train"]["notes"] = cell.notes
+    return out
+
+
+def dp_cells(mesh, inp: dict) -> dict:
+    """gemma2-9b's smoke cells under the "dp" mapping on its inputs:
+    prefill and decode logits and caches, the train loss, gradients and
+    updated params."""
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.steps import _lm_cell
+    from repro_torch.models import recsys as R
+
+    spec = get_arch("gemma2-9b")
+    cpu = torch.device("cpu")
+    out = {}
+    params = inp["params"]
+    for kind, extra in (("prefill", ()), ("decode", ("cache",))):
+        args = (clone(params),) + tuple(clone(inp[kind][k]) for k in extra) \
+            + (clone(inp[kind]["batch"]),)
+        cell = _lm_cell(spec, dp_shape(kind), True, "gather", cpu, mesh=mesh,
+                        args=args)
+        logits, cache = cell.fn(*cell.args)
+        out[kind] = {"logits": logits, "cache": cell.gather("cache", cache),
+                     "notes": cell.notes}
+    cell = _lm_cell(spec, dp_shape("train"), True, "gather", cpu, mesh=mesh,
+                    args=(clone(params), None, clone(inp["train"]["batch"])))
+    loss, grads = cell.fn.value_and_grad(cell.args[0], cell.args[2])
+    layouts = R.flat_params(cell.layouts["params"])
+    out["train"] = {"loss": loss, "grads": {
+        k: layouts[k].gather(g) for k, g in grads.items()},
+        "notes": cell.notes}
+    _, _, out["train"]["step_loss"] = cell.fn(*cell.args)
+    out["train"]["params"] = R.flat_params(cell.gather("params",
+                                                       cell.args[0]))
+    return out
+
+
+def fsdp_cells(mesh, arch: str, inp: dict) -> dict:
+    """The smoke train cell with FSDP forced (the threshold patched, the
+    accumulator held at f32) and without it, on the same inputs: loss,
+    gradients (gathered) and updated params (gathered) of each."""
+    import torch
+
+    from repro_torch.launch import steps
+    from repro_torch.models import recsys as R
+
+    out = {}
+    rule = steps.lm_fsdp
+    for name, forced in (("fsdp", True), ("plain", False)):
+        if forced:
+            steps.lm_fsdp = lambda cfg, mesh=None, mapping="tp": True
+        try:
+            cell = steps.build_cell(
+                arch, SHAPES["train"], mesh=mesh, smoke=True, device="cpu",
+                lookup_backend="gather",
+                args=(clone(inp["params"]), None,
+                      clone(inp["train"]["batch"])))
+        finally:
+            steps.lm_fsdp = rule
+        assert cell.fn.acc_dtype == torch.float32 or forced
+        cell.fn.acc_dtype = torch.float32
+        loss, grads = cell.fn.value_and_grad(cell.args[0], cell.args[2])
+        layouts = R.flat_params(cell.layouts["params"])
+        res = {"loss": loss, "notes": cell.notes,
+               "grads": {k: layouts[k].gather(g) for k, g in grads.items()},
+               "split": sorted(cell.fn.groups.params)}
+        _, _, res["step_loss"] = cell.fn(*cell.args)
+        res["params"] = R.flat_params(cell.gather("params", cell.args[0]))
+        out[name] = res
+    return out
+
+
+def adafactor_step(mesh) -> dict:
+    """One train step of kimi-k2's smoke config at 128 experts on the
+    mesh (Adafactor over the experts' model axis): the params before,
+    the loss and gradients, the params after, all gathered."""
+    import torch
+
+    from repro_torch.launch.steps import _lm_cell
+    from repro_torch.models import recsys as R
+
+    spec = adafactor_spec()
+    cell = _lm_cell(spec, spec.shape("train_4k"), True, "gather",
+                    torch.device("cpu"), mesh=mesh)
+    params0 = R.flat_params(cell.gather("params", clone(cell.args[0])))
+    loss, grads = cell.fn.value_and_grad(cell.args[0], cell.args[2])
+    layouts = R.flat_params(cell.layouts["params"])
+    out = {"params0": params0, "loss": loss, "notes": cell.notes,
+           "grads": {k: layouts[k].gather(g) for k, g in grads.items()}}
+    _, _, out["step_loss"] = cell.fn(*cell.args)
+    out["params"] = R.flat_params(cell.gather("params", cell.args[0]))
     return out
 
 
@@ -227,6 +349,11 @@ def run(rank: int, world: int, inputs: dict) -> dict:
         t0 = time.perf_counter()
         res["pp"] = pp_step(mesh, inputs["pp"])
         out["seconds"][f"{tag}/pp"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res["dp"] = dp_cells(mesh, inputs["gemma2-9b"])
+        res["fsdp"] = {a: fsdp_cells(mesh, a, inputs[a]) for a in FSDP_ARCHS}
+        res["adafactor"] = adafactor_step(mesh)
+        out["seconds"][f"{tag}/data_axes"] = time.perf_counter() - t0
         if shape == (2, 2):
             res["bf16"] = bf16_prefill(mesh, inputs["bf16"])
             res["fallback"] = moe_fallback(mesh)

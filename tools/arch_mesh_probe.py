@@ -21,7 +21,9 @@ variant:
   blocking host read a lookup) made a no-op;
 * ``no_collectives``: the mesh cell with ``parallel.all_reduce`` and
   ``parallel.all_gather_cat`` made the identity, which on a world of 1
-  they are in value (each group holds this rank alone);
+  they are in value (each group holds this rank alone); a collective
+  over a group of one rank now returns at once without being issued, so
+  on a world of 1 this variant is ``mesh``;
 * ``neither``: both.
 
 Every variant's output (a train cell's loss and gradients, before any
