@@ -326,13 +326,35 @@
    --check`` on the store prints its verdicts (a warning fails nothing,
    an exception or an undeclared direction does). It prints a
    ``benches`` JSON line.
+8. The paper's experiments (``repro_torch.launch.paper``, ``paper_path``):
+   four of the suite's modules (``PAPER_MODULES``: Figures 2 and 4,
+   Tables 4 and 6) at ``--fast`` on the card, as ``python -m
+   repro_torch.launch.paper.run`` runs them, in this process through
+   ``main(argv, modules=...)`` into a fresh store (Figures 1 and 3 and
+   Tables 5, 9 and 11 run on the card through ``tools/paper_full.py``).
+   Every experiment runs at d 64 on the reference's datasets
+   (gowalla_s); the trainings are LightGCN + BPR through ``Trainer``
+   (codebook_lookup, the weighted and plain CSR gather-sums). Gates:
+   exit 0 and no module ``FAILED``; one record a module keyed to this
+   card with every metric's direction declared; every row's numbers
+   finite; codebook_lookup and the CSR gather-sum launched over the
+   suite (counts zeroed just before, read just after); table4's BACO at
+   most 0.25 x the full model's params.
+   Then fig2's ``bench(fast=False)`` (the solve sweep up to the
+   84,000-node graph and its gamma grid searched three ways: the three
+   must select one gamma), and fig4's label count at each of its 8
+   iterations on the card equal to the CPU port's. It prints a
+   ``paper`` JSON line: each module's seconds, table4's Recall, NDCG@20
+   and params a method, fig2's build seconds a method and its full-size
+   records, fig4's counts and the launches.
 
 Prints a ``stream`` JSON line, a ``frontdoor`` JSON line, a ``scale``,
 a ``baselines``, an ``arch``, an ``lm``, an ``lm_mesh``, an ``arch_mesh``,
 a ``dryrun`` and a ``gnn`` JSON line, a
 ``kernels`` JSON line (the CSR gather-sum's bf16 instantiation has an
 entry of its own), a ``timer`` line
-(the timer's floor), a ``benches`` JSON line, the ``nvidia-smi``
+(the timer's floor), a ``benches`` and a ``paper`` JSON line, the
+``nvidia-smi``
 name/power line, and as its last
 line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
 result, if there is no CUDA device, if ``repro_torch`` is missing, or if any
@@ -5458,6 +5480,134 @@ def benches_path(workdir: str, device: str = "cuda", bench_args=None,
 
 
 # ---------------------------------------------------------------------------
+# the paper's experiments (repro_torch.launch.paper)
+# ---------------------------------------------------------------------------
+# the modules the smoke runs; Figures 1 and 3 and Tables 5, 9 and 11 run
+# on the card through tools/paper_full.py
+PAPER_MODULES = ("fig2_efficiency", "fig4_convergence", "table4_recall",
+                 "table6_scu")
+PAPER_COMPRESSION = 0.25
+
+
+def parse_row(row: dict) -> dict:
+    """A suite row's derived ``k=v;...`` as numbers where they parse."""
+    out = {}
+    for kv in filter(None, row["derived"].split(";")):
+        k, v = kv.split("=", 1)
+        try:
+            out[k] = float(v)
+        except ValueError:
+            out[k] = v
+    return out
+
+
+def finite_row(row: dict) -> bool:
+    """Every number of a suite row finite."""
+    nums = [v for v in parse_row(row).values() if isinstance(v, float)]
+    return all(math.isfinite(v) for v in nums + [row["us_per_call"]])
+
+
+def paper_path(workdir: str, device: str = "cuda") -> dict:
+    """The paper suite (``python -m repro_torch.launch.paper.run --fast``)
+    on ``PAPER_MODULES`` as a user calls it, in this process through
+    ``main(argv, modules=...)``, into a fresh store under ``workdir``:
+    exit 0 and no module ``FAILED``; one record a module with this card's
+    fingerprint and every metric's direction declared; every row's
+    numbers finite (``finite_row``); codebook_lookup and the CSR
+    gather-sum launched over the suite (counts zeroed just before, read
+    just after); table4's ``baco`` at most ``PAPER_COMPRESSION`` of
+    ``full``'s params. Then fig2's ``bench(fast=False)`` (``SIZES_FULL``,
+    the grid search on the 84k-node graph): the three grid modes must
+    select one gamma. Then fig4's label count at each iteration (on its
+    fast dataset, gowalla_s) must equal the CPU port's."""
+    from repro_torch.launch.paper import fig2_efficiency, fig4_convergence
+    from repro_torch.launch.paper import run as suite
+    from repro_torch.results import ResultsStore
+
+    t_phase = time.perf_counter()
+    store_dir = os.path.join(workdir, "paper_store")
+    zero_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = suite.main(["--fast", "--device", device, "--store",
+                         store_dir], modules=list(PAPER_MODULES))
+    sync(device)
+    launches = {k: v for k, v in launch_counts().items() if v}
+    text = buf.getvalue()
+    for line in text.splitlines():
+        if line.startswith("#"):
+            log(f"  paper {line[2:]}")
+    require(rc == 0 and "FAILED" not in text,
+            f"the paper suite: exit code {rc}; "
+            f"{[ln for ln in text.splitlines() if 'FAILED' in ln]}")
+    recs = ResultsStore(store_dir).records("suite")
+    by_module = {r["payload"]["module"]: r for r in recs}
+    require(len(recs) == len(PAPER_MODULES)
+            and set(by_module) == set(PAPER_MODULES),
+            f"the paper suite recorded {sorted(by_module)} in {len(recs)} "
+            f"records, not one a module of {list(PAPER_MODULES)}")
+    walls = {}
+    for name, rec in by_module.items():
+        fkey = rec["fingerprint_key"]
+        require(device != "cuda" or (fkey.startswith("gpu:")
+                                     and fkey.endswith("W")),
+                f"paper {name}: fingerprint key {fkey!r} is not a card's")
+        require(declared(rec["metrics"]), f"paper {name}: a metric "
+                f"without a declared direction: {rec['metrics']}")
+        bad = [r["name"] for r in rec["payload"]["rows"]
+               if not finite_row(r)]
+        require(not bad, f"paper {name}: rows with a non-finite number: "
+                f"{bad}")
+        walls[name] = rec["metrics"]["wall_s"]["value"]
+    for name in ("codebook_lookup", "embedding_bag"):
+        require(launches.get(name, 0) > 0,
+                f"{name} never ran on the paper suite's path")
+    out = {"wall_s": walls, "launches": launches,
+           "launches_weighted": counted_kernels()[
+               "embedding_bag"].launches_weighted}
+
+    def rows_of(module):
+        return {r["name"].split("/")[-1]: {"us_per_call": r["us_per_call"],
+                                           **parse_row(r)}
+                for r in by_module[module]["payload"]["rows"]}
+
+    t4 = {m: {k: r[k] for k in ("recall20", "ndcg20", "params") if k in r}
+          for m, r in rows_of("table4_recall").items()}
+    require(t4["baco"]["params"] <= PAPER_COMPRESSION * t4["full"]["params"],
+            f"table4: baco's {t4['baco']['params']} params exceed "
+            f"{PAPER_COMPRESSION} x full's {t4['full']['params']}")
+    out["table4"] = t4
+    log(f"  table4 (recall20, ndcg20, params): "
+        f"{ {m: tuple(r.values()) for m, r in t4.items()} }")
+    out["fig2_build_s"] = {m: r["us_per_call"] / 1e6
+                           for m, r in rows_of("fig2_efficiency").items()}
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        records = fig2_efficiency.bench(fast=False, device=device)
+    grid = [r for r in records if r["kind"] == "grid_search"]
+    gammas = {r["gamma"] for r in grid}
+    require(len(grid) == 3 and len(gammas) == 1,
+            f"fig2 at full size: the grid modes select {gammas}")
+    out["fig2_full"] = {"seconds": time.perf_counter() - t0,
+                        "records": records}
+    for r in records:
+        log(f"  fig2 full {r}")
+
+    k_card = [int(r["k"]) for r in rows_of("fig4_convergence").values()]
+    (ds,) = fig4_convergence.datasets(fast=True)
+    _, _, _, train, _ = fig4_convergence.get_dataset(ds)
+    k_cpu = [k for _, _, k in fig4_convergence.label_counts(train, "cpu")]
+    require(k_card == k_cpu, f"fig4 on {ds}: the card's label counts "
+            f"{k_card} differ from the CPU's {k_cpu}")
+    out["fig4_k"] = k_card
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"paper phase: {out['seconds']:.1f} s; modules {walls}; "
+        f"launches {launches}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # where a request's device time goes (torch.profiler, fused scorer, B=64)
 # ---------------------------------------------------------------------------
 def device_times(prof, n: int) -> dict:
@@ -5650,6 +5800,9 @@ def main() -> int:
         with tempfile.TemporaryDirectory(dir=os.path.join(
                 ROOT, "build")) as bench_dir:
             benches = benches_path(bench_dir)
+        with tempfile.TemporaryDirectory(dir=os.path.join(
+                ROOT, "build")) as paper_dir:
+            paper = paper_path(paper_dir)
     except (SmokeFailure, RuntimeError, ValueError, AssertionError,
             subprocess.CalledProcessError) as e:
         log(f"FAIL: {type(e).__name__}: {e}")
@@ -5684,6 +5837,7 @@ def main() -> int:
         "near_tie_ids": emb_run["near_tie_ids"]}}))
     print(json.dumps({"kernel_bench": bench_run}))
     print(json.dumps(benches))
+    print(json.dumps({"paper": paper}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -40,6 +40,7 @@ import sys
 
 import numpy as np
 
+from repro_torch.launch.rows import Row
 from repro_torch.obs import clock
 from repro_torch.results import BenchRun, higher, lower
 
@@ -228,6 +229,28 @@ def bench_rung(rung: str, block_edges: int, inmem_max_edges: int,
         f"fit+query {c['cand_ms']:.2f}ms, total "
         f"{c['minhash_total_ms']:.2f}ms]")
     return rec
+
+
+def run(fast: bool = True, device="cuda"):
+    """The paper suite's entry (``launch.paper.run``): CSV rows for the
+    CI-sized rungs, nothing recorded (the reference's
+    ``cluster_scale_bench.run``)."""
+    rows = Row()
+    for r in (["10k"] if fast else ["10k", "100k"]):
+        rec = bench_rung(r, 1 << 20, INMEM_MAX_EDGES, device)
+        cold = rec.pop("cold")
+        rows.add(f"cluster_scale/{rec['rung']}/streamed",
+                 rec["sweep_ms"] * 1e3,
+                 sweeps=rec["sweeps"], blocks_per_s=rec["blocks_per_s"],
+                 peak_mb=round(rec["peak_device_bytes"] / 1e6, 1),
+                 bitwise=rec.get("bitwise_equal_inmem", "n/a"))
+        rows.add(f"cluster_scale/{rec['rung']}/cold_minhash",
+                 cold["minhash_total_ms"] * 1e3,
+                 cand_ms=cold["cand_ms"],
+                 recall=cold["minhash_recall"],
+                 mean_candidates=cold["mean_candidates"],
+                 n_labels=cold["n_labels"])
+    return rows.emit()
 
 
 def ladder_metrics(rungs) -> dict:

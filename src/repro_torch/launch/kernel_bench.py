@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.launch.rows import Row
 from repro_torch.obs import clock
 from repro_torch.results import BenchRun, higher, lower
 
@@ -52,24 +53,6 @@ FUSED_SHAPES = [                 # (B, n_items, d, k)
     (256, 16384, 64, 100),
 ]
 FUSED_CB_SHAPE = (64, 2048, 64, 20, 512, 2)   # (B, N, d, k, K rows, H)
-
-
-class Row:
-    """CSV row accumulator: name,us_per_call,derived (a copy of
-    ``benchmarks.common.Row``)."""
-
-    def __init__(self):
-        self.rows = []
-
-    def add(self, name: str, us_per_call: float, **derived):
-        d = ";".join(f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
-                     for k, v in derived.items())
-        self.rows.append((name, us_per_call, d))
-        print(f"{name},{us_per_call:.1f},{d}", flush=True)
-        return self
-
-    def emit(self):
-        return self.rows
 
 
 def _time_us(fn, device: torch.device, repeats: int = 1):

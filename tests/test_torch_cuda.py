@@ -65,7 +65,8 @@ The measurement layer: ``host_seed`` (the seed step's ``index_add_``
 propagation) trains on the card within 1e-4 of the CPU's losses;
 ``BenchRun.profile`` on a CUDA run exports a Chrome trace with device
 events, the codebook_lookup and CSR gather-sum kernels among them; the
-card's fingerprint carries its ``power_limit_w``.
+card's fingerprint carries its ``power_limit_w``. The paper's Figure 4
+counts the same labels at each iteration on the card as on the CPU.
 """
 import importlib.util
 import time
@@ -1482,3 +1483,15 @@ def test_optimizer_update_bitwise_the_unsliced_one_on_the_card(dev, name,
         lambda st: [v for f in st["fac"] for _, v in sorted(f.items())])
     for a, b in zip(leaves(state), leaves(old_state)):
         assert torch.equal(a, b)
+
+
+def test_fig4_label_counts_on_the_card_equal_the_cpu(dev):
+    """The paper's Figure 4 (``launch.paper.fig4_convergence``) on
+    gowalla_s: the label count after each of the 8 capped solves on the
+    card equals the CPU port's."""
+    from repro_torch.launch.paper import fig4_convergence
+    (ds,) = fig4_convergence.datasets(fast=True)
+    _, _, _, train, _ = fig4_convergence.get_dataset(ds)
+    card = [k for _, _, k in fig4_convergence.label_counts(train, "cuda")]
+    cpu = [k for _, _, k in fig4_convergence.label_counts(train, "cpu")]
+    assert len(card) == 8 and card == cpu

@@ -1,8 +1,8 @@
 """The port stands alone and runs on the GPU unless told otherwise.
 
   * An AST scan: no module under ``src/repro_torch`` and not
-    ``chip_smoke.py`` imports ``jax`` or ``repro`` (only the tests import
-    both packages).
+    ``chip_smoke.py`` imports ``jax``, ``repro`` or the reference's
+    ``benchmarks`` scripts (only the tests import both packages).
   * Entry points called without ``device`` on a machine without CUDA
     raise instead of running on the CPU (CUDA is hidden from torch here,
     so the test runs on any machine).
@@ -25,7 +25,7 @@ from repro_torch.serve import CompressedArtifact, RecsysSession
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "benchmarks")
 
 
 def _imports(path: pathlib.Path):

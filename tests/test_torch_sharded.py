@@ -441,18 +441,26 @@ def test_train_cli_refuses_the_unread_compress_grads_flag(capsys):
 # ---------------------------------------------------------------------------
 # the CLI under torchrun
 # ---------------------------------------------------------------------------
-def test_train_cli_under_torchrun_two_ranks():
+def test_train_cli_under_torchrun_two_ranks(tmp_path):
+    """Each rank's stdout goes to its own file (``--redirects 1``): on the
+    one pipe they would share, the two ranks' last lines can interleave
+    mid-line (a line's text and its newline are written apart), which
+    broke the parse of one rank's recall now and then."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(REPO / "src"), os.environ.get("PYTHONPATH", "")]))
     r = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
-         "--nproc-per-node", "2", "-m", "repro_torch.launch.train",
+         "--nproc-per-node", "2", "--redirects", "1", "--log-dir",
+         str(tmp_path), "-m", "repro_torch.launch.train",
          "--device", "cpu", "--dataset", "synth_xs", "--steps", "8",
          "--batch-size", "256", "--chunk-size", "4", "--cluster-solver",
          "torch_sharded", "--trainer-backend", "fused_sharded"],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
-    out = r.stdout
+    logs = sorted(tmp_path.rglob("stdout.log"),
+                  key=lambda p: int(p.parent.name))
+    assert [p.parent.name for p in logs] == ["0", "1"]
+    out = "".join(p.read_text() for p in logs)
     for rank in (0, 1):
         assert f"backend=fused_sharded sampler=device chunk=4 device=cpu " \
                f"rank={rank}/2" in out
