@@ -221,11 +221,26 @@
    kernels line.
    Then the dry run (``dryrun``): ``launch.dryrun`` over every cell on
    the (16, 16) and (2, 16, 16) meshes (``--all --both-meshes
-   --include-variants``), in this process on meta tensors; it must
+   --include-variants --args-only``: the compiled half takes ~9 min on
+   the CPU and runs there), in this process on meta tensors; it must
    record no failure and allocate nothing on the card. It prints a
    ``dryrun`` JSON line: the counts and the GB a rank of every LM cell
    (the port's layouts beside the reference's); the lm phase's
    ``lm_not_run`` prints kimi-k2 train_4k's from it.
+   Then the op analysis (``op_analysis``): four one-card steps that
+   other phases build (``OP_STEPS``: lightgcn-baco bpr_train at
+   amazonbook width, dlrm-mlperf-baco serve_p99, dbrx-132b train_4k at 1
+   layer, gemma2-9b decode_32k at B 4), each after a warm-up run once
+   under ``launch.op_analysis.OpAnalysis`` on the card, timed (CUDA
+   events, median), and reckoned on meta tensors
+   (``launch.dryrun.reckon``, the same cut, no world): dot FLOPs by
+   dtype, HBM bytes, kernel calls by name and host reads must be equal,
+   the reckoned temporaries within ``OP_TEMP_RTOL`` / ``OP_TEMP_ATOL`` of
+   the caching allocator's peak over the counted step. It prints an
+   ``op_analysis`` JSON line: each step's ms beside the three roofline
+   terms (``launch.roofline.terms_s``, the H100's published peaks) and
+   ``bound_frac_of_measured`` (the largest term over the measured ms), with
+   ``nvidia-smi``'s name and power limit.
    Then SchNet (``gnn``) at its published widths (d_hidden 64, 300 RBF,
    3 blocks, cutoff 10) through ``build_cell`` (``GNN_CELLS``):
    ``full_graph_sm`` (2,708 nodes, d_feat 1,433), ``minibatch_lg`` (a
@@ -350,7 +365,7 @@
 
 Prints a ``stream`` JSON line, a ``frontdoor`` JSON line, a ``scale``,
 a ``baselines``, an ``arch``, an ``lm``, an ``lm_mesh``, an ``arch_mesh``,
-a ``dryrun`` and a ``gnn`` JSON line, a
+a ``dryrun``, an ``op_analysis`` and a ``gnn`` JSON line, a
 ``kernels`` JSON line (the CSR gather-sum's bf16 instantiation has an
 entry of its own), a ``timer`` line
 (the timer's floor), a ``benches`` and a ``paper`` JSON line, the
@@ -379,12 +394,9 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-# published H100 SXM peaks (NVIDIA data sheet, dense): HBM bandwidth, the
-# f32 rate outside the tensor cores, and the bf16/f16 tensor-core rate with
-# f32 accumulation, used for each kernel's bound
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-F16_OPS_PER_S = 989e12
+# each kernel's bound: its call's bytes and operations from
+# repro_torch.kernels.cost (the same numbers launch.op_analysis reckons a
+# step with) at the H100 SXM's published peaks (NVIDIA data sheet, dense)
 # the JAX package's values on this dataset and seed (CPU run)
 JAX_REFERENCE = {"k_users": 8878, "k_items": 17136, "gamma": 0.0078125,
                  "iters": 1}
@@ -580,16 +592,6 @@ def timer_floor_ms() -> float:
     import torch
     x = torch.zeros(1, device="cuda")
     return time_ms(lambda: x.add_(1.0))
-
-
-def bound(bytes_moved: float, ops: float, ops16: float = 0.0):
-    """(bound_ms, bound_by): the larger of bytes over HBM bandwidth and
-    operations over their type's rate: ``ops`` at the f32 rate, ``ops16``
-    (products of two bf16 or f16 values, exact in f32, summed in f32) at
-    the bf16/f16 tensor rate."""
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = (ops / F32_OPS_PER_S + ops16 / F16_OPS_PER_S) * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def pair_scorer(u, items, scale=None, mask=None):
@@ -1756,7 +1758,7 @@ def segsum_row(values, seg, n: int) -> dict:
     import torch
 
     from repro_torch.core import solver_torch
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import cost as kcost, ref
     got = solver_torch.segment_sum_ordered(values, seg, n)
     want = ref.segment_sum(values, seg, n)
     require(torch.equal(got, want),
@@ -1764,7 +1766,7 @@ def segsum_row(values, seg, n: int) -> dict:
     m = int(seg.shape[0])
     steps = int(torch.bincount(seg, minlength=n).max()) if m else 0
     # values and labels read, sums written; one add per value
-    bms, by = bound(4 * m + 8 * m + 4 * n, m)
+    bms, by = kcost.bound(kcost.Cost(4 * m + 8 * m + 4 * n, m))
     return {"shape": f"M={m} segments={n}", "plain_steps": steps,
             "ms": time_ms(lambda: solver_torch.segment_sum_ordered(
                 values, seg, n)),
@@ -1932,6 +1934,7 @@ def baselines_path(run: dict, workdir: str, device: str = "cuda",
     from repro_torch.core import build_sketch
     from repro_torch.data import paperlike_dataset
     from repro_torch.kernels import codebook_lookup, ref
+    from repro_torch.kernels import cost as kcost
     from repro_torch.serve import CompressedArtifact, RecsysSession
     from repro_torch.training import TrainConfig, Trainer
 
@@ -2042,8 +2045,7 @@ def baselines_path(run: dict, workdir: str, device: str = "cuda",
         require(torch.equal(got, want), "codebook_lookup (items H = 2) is "
                 "not bitwise the plain version")
         b, h = ix.shape
-        bms, by = bound(4 * (ix.numel() + z.numel() + b * z.shape[1]),
-                        b * h * z.shape[1])
+        bms, by = kcost.bound(kcost.codebook_lookup(z, ix, rows=z.shape[0]))
         ixl = ix.long()
         row = {"shape": f"B={b} H={h} K={z.shape[0]} d={z.shape[1]}",
                "ms": time_ms(lambda: codebook_lookup(z, ix, binary=True)),
@@ -2304,6 +2306,7 @@ def arch_kernel_row(name: str, a, kw, out) -> dict:
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.kernels import cost as kcost
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import route
 
@@ -2317,10 +2320,8 @@ def arch_kernel_row(name: str, a, kw, out) -> dict:
                 "path is not bitwise its plain version")
         b, h = idx.shape
         d = z.shape[1]
-        rows = int(torch.unique(idx).numel())
-        es = z.element_size()
-        bms, by = bound(4 * idx.numel() + es * (rows * d + b * d),
-                        b * h * d)
+        bms, by = kcost.bound(kcost.codebook_lookup(
+            z, idx, rows=int(torch.unique(idx).numel())))
         ixl = idx.long()
         wide = z.dtype == torch.float32
         # a 16-bit lookup (the LM token embedding, H = 1): `table[ids]`
@@ -2345,8 +2346,8 @@ def arch_kernel_row(name: str, a, kw, out) -> dict:
             (ptr[1:] - ptr[:-1]).long())
         idl = idx[:nnz].long()
         es = src.element_size()
-        bms, by = bound(es * (nnz * d + n_seg * d) + 4 * nnz
-                        + 8 * (n_seg + 1), nnz * d)
+        bms, by = kcost.bound(kcost.csr_gather_sum(src, idx, ptr, weight, nnz=nnz,
+                                             rows=nnz))
         if src.dtype == torch.float32 or src.shape[0] != nnz:
             acc = torch.zeros_like(out)
             library = lambda: acc.zero_().index_add_(  # noqa: E731
@@ -2370,8 +2371,7 @@ def arch_kernel_row(name: str, a, kw, out) -> dict:
         err = check_close(out, ref.dot_interaction(x), x.dtype,
                           "dot_interaction on the recsys path")
         b, f, d = x.shape
-        p = f * (f - 1) // 2
-        bms, by = bound(4 * (x.numel() + b * p), 2.0 * b * p * d)
+        bms, by = kcost.bound(kcost.dot_interaction(x))
         i, j = torch.tril_indices(f, f, -1, device=x.device)
         row = {"shape": f"B={b} F={f} d={d} float32", "max_abs_err": err,
                "plain_ms": time_ms(lambda: ref.dot_interaction(x),
@@ -2387,8 +2387,7 @@ def arch_kernel_row(name: str, a, kw, out) -> dict:
         err = check_close(out, ref.flash_attention(q, k, v, causal=causal),
                           q.dtype, "flash_attention on the recsys path")
         b, h, sq, d = q.shape
-        bms, by = bound(4 * 4 * q.numel(),
-                        attention_ops(b, h, sq, k.shape[2], d, causal))
+        bms, by = kcost.bound(kcost.flash_attention(q, k, v, causal=causal))
         row = {"shape": f"B={b} H={h} S={sq} d={d} float32 "
                         f"{'causal' if causal else 'full'}",
                "max_abs_err": err,
@@ -2796,6 +2795,7 @@ def lm_cell(arch: str, shape: str, n: int) -> dict:
 
     import torch
 
+    from repro_torch.kernels import cost as kcost
     from repro_torch.launch.steps import LM_ONE_CARD
     from repro_torch.serve import ArchSession
 
@@ -2860,7 +2860,7 @@ def lm_cell(arch: str, shape: str, n: int) -> dict:
            "peak_calls_gb": peak_calls}
     if cell.kind == "decode":
         res["step_bytes"] = lm_step_bytes(cell, cfg)
-        res["step_bytes_ms"] = res["step_bytes"] / HBM_BYTES_PER_S * 1e3
+        res["step_bytes_ms"] = kcost.bound(kcost.Cost(res["step_bytes"]))[0]
         res["profile"] = profile_lm_request(session, label)
         cache = out[1]
         require(all(bool(torch.isfinite(cache[k][:, :, :, -1].float()).all())
@@ -3193,7 +3193,7 @@ def lm_not_run(arch: str, shape: str) -> dict:
     one = dataclasses.replace(cfg, n_layers=cfg.layers_per_block)
     need = T.count_params(one) * 2 * 2
     room = PEAK_SHARE * torch.cuda.get_device_properties(0).total_memory
-    rank = dryrun.run_cell(arch, shape, verbose=False)
+    rank = dryrun.run_cell(arch, shape, verbose=False, args_only=True)
     require(rank["ok"] is True, f"{arch}:{shape}: the dry run failed: "
             f"{rank.get('error')}")
     res = {"cell": f"{arch}:{shape}", "run": False,
@@ -3681,8 +3681,10 @@ def lm_mesh_path() -> dict:
 # ---------------------------------------------------------------------------
 def dryrun_path() -> dict:
     """``launch.dryrun`` over every cell (``--all --both-meshes
-    --include-variants``), in this process on meta tensors: it must
-    record no failure and touch no device. Returns the counts and the
+    --include-variants --args-only``: the arguments' bytes; the compiled
+    half runs on the CPU, ``op_analysis_path`` holds it against the card),
+    in this process on meta tensors: it must record no failure and touch
+    no device. Returns the counts and the
     GB a rank of every LM cell (the port's layouts and the
     reference's)."""
     import torch
@@ -3694,7 +3696,7 @@ def dryrun_path() -> dict:
     before = torch.cuda.memory_allocated()
     results = dryrun.run(all_cells(include_skipped=True,
                                    include_variants=True), [False, True],
-                         verbose=False)
+                         verbose=False, args_only=True)
     n_ok, n_skip, n_fail = dryrun.summary(results)
     require(n_fail == 0, "the dry run failed: " + "; ".join(
         f"{r['arch']}:{r['shape']} {r['mesh']}: {r.get('error')}"
@@ -3715,6 +3717,131 @@ def dryrun_path() -> dict:
     log(f"dryrun: {n_ok} ok / {n_skip} skipped / {n_fail} failed in "
         f"{res['seconds']:.1f} s")
     return res
+
+
+# ---------------------------------------------------------------------------
+# one-card steps counted by launch.op_analysis against their reckoning
+# ---------------------------------------------------------------------------
+# (arch, shape, timed calls): steps other phases build, each at its
+# LM_ONE_CARD cut (dbrx-132b's train_4k at 1 layer, gemma2-9b's decode_32k
+# at B 4) or at full width (lightgcn-baco's bpr_train at amazonbook's
+# width, B 1,024; DLRM-BACO's serve_p99, B 512)
+OP_STEPS = (("lightgcn-baco", "bpr_train", 10),
+            ("dlrm-mlperf-baco", "serve_p99", 10),
+            ("dbrx-132b", "train_4k", 2),
+            ("gemma2-9b", "decode_32k", 5))
+# the counted step's peak temporaries against the caching allocator's
+# peak over it (from a reset, less what was allocated before): the
+# allocator rounds every block up to 512 bytes, and cuBLAS's workspace
+# and a kernel wrapper's own scratch are not counted. On an H100 the
+# allocator's peak lay 2,552 / 0 / 2,028 / 182,776 bytes above the
+# reckoning for the four steps in order, so 1 MiB and a thousandth
+OP_TEMP_RTOL = 1e-3
+OP_TEMP_ATOL = 1 << 20
+OP_EXACT = ("hbm_bytes", "kernels", "host_reads")
+
+
+def op_step(arch: str, shape: str, n: int) -> dict:
+    """One step of a cell on the card, once more after a warm-up under
+    ``launch.op_analysis.OpAnalysis``, then ``n`` timed calls (CUDA
+    events around each, median), and its reckoning on meta tensors
+    (``launch.dryrun.reckon``: the same cut, no world). The counts must
+    equal: dot FLOPs by dtype, HBM bytes, kernel calls by name, host
+    reads; the peak temporaries the reckoning gives must lie within
+    ``OP_TEMP_RTOL`` / ``OP_TEMP_ATOL`` of the allocator's peak over the
+    counted step. The three roofline terms (``launch.roofline.terms_s``,
+    the H100's published peaks) beside the measured ms, and
+    ``bound_frac_of_measured`` = the largest term / the measured ms (not
+    ``launch.roofline``'s ``roofline_frac``, the compute term's share of
+    the largest)."""
+    import gc
+
+    import torch
+
+    from repro_torch.launch import dryrun, op_analysis, roofline, steps
+
+    label = f"{arch}:{shape}"
+    cuts = steps.LM_ONE_CARD.get((arch, shape), {})
+    gc.collect()
+    torch.cuda.empty_cache()
+    cell = steps.build_cell(arch, shape, device="cuda", **cuts)
+    out = cell.fn(*cell.args)                  # warm-up
+    del out
+    sync("cuda")
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    oa = op_analysis.OpAnalysis().arguments(cell.args)
+    with oa:
+        out = cell.fn(*cell.args)
+    sync("cuda")
+    alloc_peak = torch.cuda.max_memory_allocated() - base
+    oa.finish(out)
+    del out
+    got, got_mem = oa.metrics(), oa.memory()
+    ms = []
+    for _ in range(n):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = cell.fn(*cell.args)
+        b.record()
+        del out
+        torch.cuda.synchronize()
+        ms.append(a.elapsed_time(b))
+    ms = sorted(ms)[len(ms) // 2]
+    del cell
+    gc.collect()
+    torch.cuda.empty_cache()
+    want, want_mem = dryrun.reckon(arch, shape, **cuts)
+    dots = {k: v for k, v in got.items() if k.startswith("dot_flops")}
+    require(dots == {k: v for k, v in want.items()
+                     if k.startswith("dot_flops")},
+            f"op analysis {label}: the card's dot FLOPs {dots} differ from "
+            f"the reckoning's")
+    for key in OP_EXACT:
+        require(got[key] == want[key],
+                f"op analysis {label}: {key} on the card {got[key]} differs "
+                f"from the reckoning's {want[key]}")
+    temp = want_mem["temp_size_in_bytes"]
+    for what, v in (("the allocator's peak", alloc_peak),
+                    ("the counted peak", got_mem["temp_size_in_bytes"])):
+        require(abs(v - temp) <= OP_TEMP_RTOL * temp + OP_TEMP_ATOL,
+                f"op analysis {label}: {what} {v} bytes is not within "
+                f"{OP_TEMP_RTOL} + {OP_TEMP_ATOL} bytes of the reckoned "
+                f"temporaries {temp}")
+    t = roofline.terms_s(got)
+    row = {"step": label, "cuts": cuts, "ms": ms,
+           "compute_ms": t["compute_s"] * 1e3,
+           "memory_ms": t["memory_s"] * 1e3,
+           "collective_ms": t["collective_s"] * 1e3,
+           "bottleneck": t["bottleneck"],
+           "bound_frac_of_measured": t["bound_s"] * 1e3 / ms,
+           "dot_flops": dots, "hbm_bytes": got["hbm_bytes"],
+           "kernels": got["kernels"], "host_reads": got["host_reads"],
+           "branches": want.get("branches", []),
+           "temp_bytes": {"reckoned": temp,
+                          "counted": got_mem["temp_size_in_bytes"],
+                          "allocator": alloc_peak},
+           "argument_bytes": want_mem["argument_size_in_bytes"]}
+    log(f"op analysis {label}: {ms:.3f} ms; compute {row['compute_ms']:.3f} "
+        f"/ memory {row['memory_ms']:.3f} / collective "
+        f"{row['collective_ms']:.3f} ms ({t['bottleneck']}), "
+        f"bound_frac_of_measured {row['bound_frac_of_measured']:.4f}; "
+        f"counts equal the reckoning")
+    return row
+
+
+def op_analysis_path() -> dict:
+    """Each of ``OP_STEPS`` through :func:`op_step`, with no
+    ``torch.distributed`` world open (the reckoning opens none either)."""
+    import torch.distributed as dist
+
+    require(not dist.is_initialized(),
+            "a torch.distributed world is still open before the op analysis")
+    t0 = time.perf_counter()
+    rows = [op_step(*c) for c in OP_STEPS]
+    return {"gpu": gpu_line(), "steps": rows,
+            "seconds": time.perf_counter() - t0}
 
 
 # ---------------------------------------------------------------------------
@@ -4385,6 +4512,7 @@ def check_codebook_lookup(run: dict) -> dict:
     import torch
 
     from repro_torch.kernels import codebook_lookup, ref
+    from repro_torch.kernels import cost as kcost
 
     dev = torch.device("cuda")
     params = run["loaded"].params
@@ -4402,8 +4530,7 @@ def check_codebook_lookup(run: dict) -> dict:
                 f"codebook_lookup ({side}) is not bitwise the plain version")
         max_err = max(max_err, float((got - want).abs().max()))
         b, h = ix.shape
-        bytes_moved = 4 * (ix.numel() + z.numel() + b * z.shape[1])
-        bms, by = bound(bytes_moved, b * h * z.shape[1])
+        bms, by = kcost.bound(kcost.codebook_lookup(z, ix, rows=z.shape[0]))
         ixl = ix.long()
         rows[side] = {
             "shape": f"B={b} H={h} K={z.shape[0]} d={z.shape[1]}",
@@ -4515,6 +4642,7 @@ def check_fused_topk(run: dict) -> dict:
     import torch
 
     from repro_torch.embedding import dequantize_params
+    from repro_torch.kernels import cost as kcost
     from repro_torch.kernels import fused_topk, ref
     from repro_torch.models import lightgcn as L
 
@@ -4554,8 +4682,7 @@ def check_fused_topk(run: dict) -> dict:
         one, two = fused_topk(u, v_all, k), fused_topk(u, v_all, k)
         require(torch.equal(one[0], two[0]) and torch.equal(one[1], two[1]),
                 f"fused_topk B={b}: two calls differ")
-        bytes_moved = 4 * (u.numel() + v_all.numel() + 2 * b * k)
-        bms, by = bound(bytes_moved, 2.0 * b * n * d)
+        bms, by = kcost.bound(kcost.fused_topk(u, v_all, k))
         zeros = torch.zeros(n, device=dev)
         per_b[b] = {
             "ms": time_ms(lambda: fused_topk(u, v_all, k)),
@@ -4608,8 +4735,7 @@ def check_fused_topk(run: dict) -> dict:
         compare(u_all[:64].contiguous(), v_all, kk=kk)
     u512 = u_all[:512].contiguous()
     zeros = torch.zeros(n, device=dev)
-    bms, by = bound(4 * (u512.numel() + v_all.numel() + 2 * 512 * 100),
-                    2.0 * 512 * n * d)
+    bms, by = kcost.bound(kcost.fused_topk(u512, v_all, 100))
     k100 = {"shape": f"B=512 N={n} d={d} k=100",
             "ms": time_ms(lambda: fused_topk(u512, v_all, 100)),
             "plain_ms": time_ms(lambda: ref.fused_topk(u512, v_all, 100)),
@@ -4676,6 +4802,7 @@ def check_nan_order(u, items, sketch=None) -> None:
 def check_fused_topk_codebook(run: dict, emb_run: dict) -> dict:
     import torch
 
+    from repro_torch.kernels import cost as kcost
     from repro_torch.kernels import fused_topk_codebook, ref
 
     emb = emb_run["emb"]
@@ -4711,10 +4838,8 @@ def check_fused_topk_codebook(run: dict, emb_run: dict) -> dict:
                               float((got[0] - want[0]).abs().max()))
                 if quant:
                     continue
-                z_bytes = z.numel() * z.element_size()
-                bytes_moved = (4 * u.numel() + z_bytes + 4 * sk.numel()
-                               + 4 * n + 8 * b * k)
-                bms, by = bound(bytes_moved, 2.0 * b * n * d + n * h * d)
+                bms, by = kcost.bound(kcost.fused_topk_codebook(u, z, sk, k,
+                                                          mask=mask))
                 per_b[b] = {
                     "ms": time_ms(lambda: fused_topk_codebook(
                         u, z, sk, k, mask=mask)),
@@ -4807,13 +4932,13 @@ def csr_row(src, idx, ptr) -> dict:
     ``zeros(S, d).index_add_(0, row_of_each_value, src[idx])``."""
     import torch
 
+    from repro_torch.kernels import cost as kcost
     from repro_torch.kernels import csr_gather_sum, ref
 
     n_seg = ptr.numel() - 1
     n, d = src.shape
     nnz = idx.numel()
-    bytes_moved = 4 * src.numel() + 4 * nnz + 8 * (n_seg + 1) + 4 * n_seg * d
-    bms, by = bound(bytes_moved, nnz * d)
+    bms, by = kcost.bound(kcost.csr_gather_sum(src, idx, ptr, rows=n))
     seg = torch.repeat_interleave(torch.arange(n_seg, device=src.device),
                                   ptr[1:] - ptr[:-1])
     idl = idx.long()
@@ -4975,14 +5100,13 @@ def weighted_row(src, idx, w, ptr) -> dict:
     ``cumsum_ms`` the previous cumsum route."""
     import torch
 
+    from repro_torch.kernels import cost as kcost
     from repro_torch.kernels import csr_gather_sum, ref
 
     n_seg = ptr.numel() - 1
     n, d = src.shape
     nnz = idx.numel()
-    bytes_moved = (4 * src.numel() + 8 * nnz + 8 * (n_seg + 1)
-                   + 4 * n_seg * d)
-    bms, by = bound(bytes_moved, 2 * nnz * d)
+    bms, by = kcost.bound(kcost.csr_gather_sum(src, idx, ptr, w, rows=n))
     seg = torch.repeat_interleave(torch.arange(n_seg, device=src.device),
                                   ptr[1:] - ptr[:-1])
     idl = idx.long()
@@ -5112,6 +5236,7 @@ def check_dot_interaction(bench_run: dict, run: dict,
                           device: str = "cuda") -> dict:
     import torch
 
+    from repro_torch.kernels import cost as kcost
     from repro_torch.kernels import dot_interaction, ref
 
     g = torch.Generator(device=device).manual_seed(4)
@@ -5127,11 +5252,7 @@ def check_dot_interaction(bench_run: dict, run: dict,
                            device=device).to(dt)
         require(torch.equal(dot_interaction(xi), ref.dot_interaction(xi)),
                 f"dot_interaction {shape} not exact on integer inputs")
-        p = f * (f - 1) // 2
-        ops = 2.0 * b * p * d
-        bms, by = (bound((x.numel() + b * p) * x.element_size(), ops)
-                   if dt == torch.float32 else
-                   bound((x.numel() + b * p) * x.element_size(), 0.0, ops))
+        bms, by = kcost.bound(kcost.dot_interaction(x))
         i, j = torch.tril_indices(f, f, -1, device=x.device)
         rows[shape] = {
             "ms": time_ms(lambda: dot_interaction(x)),
@@ -5179,19 +5300,12 @@ FLASH_SHAPES = [(1, 40, 4096, 4096, 128, "bfloat16", True, True),
                 (1, 4, 512, 512, 256, "bfloat16", True, False)]
 
 
-def attention_ops(b, h, sq, skv, d, causal) -> float:
-    """Multiply-adds x 2 of q·kᵀ and P·V over the (query, key) pairs the
-    mask keeps (key position <= query position when causal)."""
-    pairs = (sum(min(i + 1, skv) for i in range(sq)) if causal
-             else sq * skv)
-    return 4.0 * b * h * pairs * d
-
-
 def check_flash_attention(bench_run: dict, run: dict,
                           device: str = "cuda") -> dict:
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.kernels import cost as kcost
     from repro_torch.kernels import flash_attention, ref
     from repro_torch.kernels.flash_attention import route
 
@@ -5220,10 +5334,7 @@ def check_flash_attention(bench_run: dict, run: dict,
         # f32: every operation at the f32 rate; 16-bit: every product at
         # the tensor rate (q·kᵀ multiplies two inputs, and the kernel runs
         # P·V on the tensor cores too, P split in two 16-bit halves)
-        ops = attention_ops(b, h, sq, skv, d, causal)
-        bms, by = (bound(4 * q.numel() * q.element_size(), ops)
-                   if dt == torch.float32 else
-                   bound(4 * q.numel() * q.element_size(), 0.0, ops))
+        bms, by = kcost.bound(kcost.flash_attention(q, k, v, causal=causal))
         rows[shape] = {
             "route": want_route,
             "ms": time_ms(lambda: flash_attention(q, k, v, causal=causal)),
@@ -5784,6 +5895,7 @@ def main() -> int:
             run["lm_mesh"] = lm_mesh_path()
             run["arch_mesh"] = arch_mesh_path()
             run["dryrun"] = dryrun_path()
+            run["op_analysis"] = op_analysis_path()
             run["gnn"] = gnn_path()
             emb_run = embedding_path(run)
             bench_run = bench_path()
@@ -5817,6 +5929,7 @@ def main() -> int:
     print(json.dumps({"lm_mesh": run["lm_mesh"]}))
     print(json.dumps({"arch_mesh": run["arch_mesh"]}))
     print(json.dumps({"dryrun": run["dryrun"]}))
+    print(json.dumps({"op_analysis": run["op_analysis"]}))
     print(json.dumps({"gnn": run["gnn"]}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"timer": {"floor_ms": floor,

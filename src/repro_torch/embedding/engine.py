@@ -262,14 +262,16 @@ class EmbeddingEngine:
 
     def resolve(self, kind: str, device: torch.device) -> LookupBackend:
         """The override (which must support ``kind``), else "cuda" on a
-        CUDA device, else "gather"."""
+        CUDA device (and on the meta device, which stands for the card in
+        a reckoning: ``launch.op_analysis``), else "gather"."""
         if self.explicit:
             be = get_backend(self.backend)
             if not be.supports(kind):
                 raise ValueError(
                     f"backend {be.name!r} does not support {kind!r} lookups")
             return be
-        return get_backend("cuda" if device.type == "cuda" else "gather")
+        return get_backend("cuda" if device.type in ("cuda", "meta")
+                           else "gather")
 
     def full_lookup(self, table, ids):
         """table [N, d], ids int [...] -> [..., d]."""

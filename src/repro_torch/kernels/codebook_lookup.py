@@ -6,7 +6,9 @@ tensor it runs the plain version, ``ref.codebook_lookup``, which the
 kernel equals bit for bit. f32 codebooks go to ``codebook_lookup_launch``,
 bf16 and f16 ones (the LM token embedding) to ``codebook_lookup16_launch``;
 the output has the codebook's dtype. ``codebook_lookup.launches`` counts
-kernel launches.
+kernel launches. On meta tensors it returns the output's shape, and
+under a ``launch.op_analysis`` count the call is counted once at its
+``cost.codebook_lookup`` (whichever branch runs).
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ import functools
 
 import torch
 
-from . import platform, ref
+from . import cost, platform, ref
 
 __all__ = ["codebook_lookup"]
 
@@ -54,8 +56,14 @@ def codebook_lookup(codebook: torch.Tensor, idx: torch.Tensor, *,
     if codebook.dim() != 2 or idx.dim() != 2:
         raise ValueError(f"codebook [K, d] and idx [B, H] expected, got "
                          f"{tuple(codebook.shape)} and {tuple(idx.shape)}")
+    if cost.observer is not None:
+        return cost.observe(_NAME, cost.codebook_lookup(codebook, idx),
+                            codebook_lookup, codebook, idx, binary=binary)
     if codebook.device.type == "cpu":
         return ref.codebook_lookup(codebook, idx, binary=binary)
+    if codebook.device.type == idx.device.type == "meta":
+        return torch.empty(idx.shape[0], codebook.shape[1],
+                           dtype=codebook.dtype, device="meta")
     if codebook.device.type != "cuda" or idx.device != codebook.device:
         raise ValueError(f"codebook_lookup needs codebook and idx on one "
                          f"CUDA device, got {codebook.device} and "

@@ -5,7 +5,9 @@ per example the strictly-lower triangle of X·Xᵀ, compacted in
 ``np.tril_indices(F, -1)`` order, without the [B, F, F] tensor. On a
 CUDA tensor the wrapper launches the kernel (or raises); on a CPU tensor
 it runs the plain version, ``ref.dot_interaction``.
-``dot_interaction.launches`` counts kernel launches.
+``dot_interaction.launches`` counts kernel launches. On meta tensors it
+returns the output's shape; under a ``launch.op_analysis`` count the call
+is counted once at its ``cost.dot_interaction``.
 """
 from __future__ import annotations
 
@@ -13,7 +15,7 @@ import ctypes
 
 import torch
 
-from . import platform, ref
+from . import cost, platform, ref
 
 __all__ = ["dot_interaction", "smem_bytes", "max_smem"]
 
@@ -66,8 +68,14 @@ def dot_interaction(x: torch.Tensor) -> torch.Tensor:
     (:func:`smem_bytes`, :func:`max_smem`), or it raises ValueError."""
     if x.dim() != 3:
         raise ValueError(f"x [B, F, d] expected, got {tuple(x.shape)}")
+    if cost.observer is not None:
+        return cost.observe(_NAME, cost.dot_interaction(x), dot_interaction,
+                            x)
     if x.device.type == "cpu":
         return ref.dot_interaction(x)
+    if x.device.type == "meta":
+        b, f, _ = x.shape
+        return torch.empty(b, f * (f - 1) // 2, dtype=x.dtype, device="meta")
     if x.device.type != "cuda":
         raise ValueError(f"dot_interaction needs a CUDA or CPU tensor, got "
                          f"{x.device}")

@@ -13,7 +13,10 @@ raises); on a CPU tensor it runs the plain version,
 ``ref.csr_gather_sum``, which the kernel equals bit for bit.
 ``csr_gather_sum.launches`` counts kernel launches, of every kind;
 ``csr_gather_sum.launches_weighted`` and ``.launches_16`` the weighted
-and the 16-bit ones alone.
+and the 16-bit ones alone. On meta tensors :func:`csr_gather_sum` returns
+the output's shape; under a ``launch.op_analysis`` count each call is
+counted once at its ``cost.csr_gather_sum``, and :func:`embedding_bag`
+takes the card's route (the stable sort, then the kernel) on the CPU too.
 """
 from __future__ import annotations
 
@@ -23,7 +26,7 @@ from typing import Optional
 
 import torch
 
-from . import platform, ref
+from . import cost, platform, ref
 
 __all__ = ["csr_gather_sum", "embedding_bag", "scatter_rows"]
 
@@ -65,8 +68,15 @@ def csr_gather_sum(src: torch.Tensor, idx: torch.Tensor, ptr: torch.Tensor,
     if weight is not None and src.dtype in (torch.bfloat16, torch.float16):
         raise TypeError(f"the weighted csr_gather_sum takes f32 src, not "
                         f"{src.dtype}")
+    if cost.observer is not None:
+        return cost.observe(_NAME, cost.csr_gather_sum(src, idx, ptr, weight),
+                            csr_gather_sum, src, idx, ptr, weight)
     if src.device.type == "cpu":
         return ref.csr_gather_sum(src, idx, ptr, weight)
+    if all(t.device.type == "meta" for t in (src, idx, ptr, weight)
+           if t is not None):
+        return torch.empty(ptr.shape[0] - 1, src.shape[1], dtype=src.dtype,
+                           device="meta")
     dev = src.device
     if dev.type != "cuda" or idx.device != dev or ptr.device != dev or (
             weight is not None and weight.device != dev):
@@ -150,7 +160,7 @@ def embedding_bag(table: torch.Tensor, values: torch.Tensor,
             raise ValueError(f"embedding_bag: values must lie in "
                              f"[0, {table.shape[0]}) and segment_ids in "
                              f"[0, {num_segments})")
-    if table.device.type == "cpu":
+    if table.device.type == "cpu" and cost.observer is None:
         return ref.embedding_bag(table, values, segment_ids, num_segments)
     if unsorted:
         seg, perm = torch.sort(seg, stable=True)

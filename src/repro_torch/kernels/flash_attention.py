@@ -11,7 +11,9 @@ bf16 or f16 inputs with d <= 128 run on the tensor cores (``wgmma``
 on the 16-bit values, f32 accumulation, P split in two 16-bit halves);
 f32 inputs, and 16-bit inputs with 128 < d <= 256, run on the CUDA cores
 in f32. ``flash_attention.launches`` counts launches of both routes,
-``launches_tc`` and ``launches_cc`` each route's own.
+``launches_tc`` and ``launches_cc`` each route's own. On meta tensors it
+returns the output's shape; under a ``launch.op_analysis`` count the call
+is counted once at its ``cost.flash_attention``.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ import ctypes
 
 import torch
 
-from . import platform, ref
+from . import cost, platform, ref
 
 __all__ = ["flash_attention", "route"]
 
@@ -57,8 +59,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"q [B, H, Sq, d] and k, v [B, H, Skv, d] expected, "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
+    if cost.observer is not None:
+        return cost.observe(_NAME, cost.flash_attention(q, k, v,
+                                                        causal=causal),
+                            flash_attention, q, k, v, causal=causal)
     if q.device.type == "cpu" and k.device == q.device == v.device:
         return ref.flash_attention(q, k, v, causal=causal)
+    if q.device.type == "meta" and k.device == q.device == v.device:
+        return torch.empty_like(q)
     if q.device.type != "cuda" or k.device != q.device \
             or v.device != q.device:
         raise ValueError(f"flash_attention needs q, k, v on one CUDA device, "

@@ -10,7 +10,9 @@ Both give ``lax.top_k``'s order (highest value first, lowest id among
 equals, NaN first) without the [B, N] score matrix. On a CUDA tensor a
 wrapper launches its kernel (or raises); on a CPU tensor it runs the
 plain version, ``ref.fused_topk``. ``fused_topk.launches`` and
-``fused_topk_codebook.launches`` count kernel launches.
+``fused_topk_codebook.launches`` count kernel launches. On meta tensors a
+wrapper returns the result's shapes; under a ``launch.op_analysis`` count
+each call is counted once at its ``cost`` function.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ import weakref
 
 import torch
 
-from . import platform, ref
+from . import cost, platform, ref
 
 __all__ = ["fused_topk", "fused_topk_codebook", "exclusion_csr",
            "plan_chunk"]
@@ -205,11 +207,17 @@ def _check_sketch(sketch: torch.Tensor, k_rows: int) -> None:
         raise ValueError(f"sketch entries must lie in [0, {k_rows})")
 
 
-def _empty(u, k):
-    """The result of an empty batch, as the plain version gives it:
-    values f32 [0, k] and ids int32 [0, k]; no kernel is launched."""
-    return (torch.empty(0, k, dtype=torch.float32, device=u.device),
-            torch.empty(0, k, dtype=torch.int32, device=u.device))
+def _on_meta(*tensors) -> bool:
+    """Every tensor given (None skipped) on the meta device."""
+    return all(t.device.type == "meta" for t in tensors if t is not None)
+
+
+def _empty(u, k, rows: int = 0):
+    """Uninitialized values f32 [rows, k] and ids int32 [rows, k]: the
+    result of an empty batch (rows 0), as the plain version gives it, and
+    the result's shape on meta tensors; no kernel is launched."""
+    return (torch.empty(rows, k, dtype=torch.float32, device=u.device),
+            torch.empty(rows, k, dtype=torch.int32, device=u.device))
 
 
 def _shapes(u, items, k, n):
@@ -241,9 +249,16 @@ def fused_topk(u: torch.Tensor, items: torch.Tensor, k: int, *, sketch=None,
     k = int(k)
     n = int(items.shape[0])
     _shapes(u, items, k, n)
+    if cost.observer is not None:
+        return cost.observe(_NAME, cost.fused_topk(u, items, k, scale=scale,
+                                                   mask=mask),
+                            fused_topk, u, items, k, scale=scale, mask=mask,
+                            exclude=exclude, block=block)
     if u.device.type == "cpu":
         return ref.fused_topk(u, items, k, scale=scale, mask=mask,
                               exclude=exclude)
+    if _on_meta(u, items, scale, mask):
+        return _empty(u, k, u.shape[0])
     _check(u, items, k, n, scale, mask, n)
     if u.shape[0] == 0:
         return _empty(u, k)
@@ -276,9 +291,16 @@ def fused_topk_codebook(u: torch.Tensor, codebook: torch.Tensor,
         raise ValueError(f"sketch must be [N, H], got {tuple(sketch.shape)}")
     n = int(sketch.shape[0])
     _shapes(u, codebook, k, n)
+    if cost.observer is not None:
+        return cost.observe("fused_topk_codebook", cost.fused_topk_codebook(
+            u, codebook, sketch, k, scale=scale, mask=mask),
+            fused_topk_codebook, u, codebook, sketch, k, scale=scale,
+            mask=mask, exclude=exclude, block=block)
     if u.device.type == "cpu":
         return ref.fused_topk(u, codebook, k, sketch=sketch, scale=scale,
                               mask=mask, exclude=exclude)
+    if _on_meta(u, codebook, sketch, scale, mask):
+        return _empty(u, k, u.shape[0])
     _check(u, codebook, k, n, scale, mask, int(codebook.shape[0]))
     if sketch.device != u.device or sketch.dtype != torch.int32:
         raise TypeError(f"sketch must be int32 on {u.device}, got "

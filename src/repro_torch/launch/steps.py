@@ -180,10 +180,25 @@ def _materialize(batch: dict, device, seed: int = 0, rng=None) -> dict:
     return {k: out[k] for k in batch}
 
 
+def _generator(device, seed: int = 0):
+    """A seeded generator on ``device``; None on the meta device, where
+    nothing is drawn (a reckoning's stand-in for the card)."""
+    if torch.device(device).type == "meta":
+        return None
+    return torch.Generator(device=device).manual_seed(seed)
+
+
 def _full_batch(batch: dict, device, seed: int = 0) -> dict:
     """Full-width batches on the device: ids uniform in [0, high) (a
     field's vocabulary, a sequence's positions), floats standard normal,
-    labels in {0, 1}."""
+    labels in {0, 1}; uninitialized tensors of those shapes and dtypes on
+    the meta device."""
+    if torch.device(device).type == "meta":
+        return {k: torch.empty(spec.shape, device=device,
+                               dtype=(torch.float32 if
+                                      spec.dtype.is_floating_point
+                                      else torch.int32))
+                for k, spec in batch.items()}
     g = torch.Generator(device=device).manual_seed(seed)
     out = {}
     for key, spec in batch.items():
@@ -650,11 +665,13 @@ def _lm_cell_inner(spec, shape, smoke, device, mesh, args, cfg, seq, b,
                   f"params ZeRO'd over {over}" if info["zero"] else
                   f"params replicated over {over}"),
                  f"fsdp={fsdp}", f"data_split={len(splits)}")
-    gen = torch.Generator(device=device).manual_seed(0)
+    gen = None if args is not None else _generator(device)
+    on_meta = {} if gen is not None else {"device": device}
     if args is None and layouts is None:
-        params = T.init_params(gen, cfg)
+        params = T.init_params(gen, cfg, **on_meta)
     elif args is None:
-        params = T.init_params(gen, cfg, layouts=layouts["params"])
+        params = T.init_params(gen, cfg, layouts=layouts["params"],
+                               **on_meta)
     else:
         params = _cut(layouts["params"], args[0])
     i32 = torch.int32
@@ -1057,8 +1074,7 @@ def _recsys_cell(spec: ArchSpec, shape: ShapeSpec, smoke: bool,
         params, statics, batch = args[0], args[-2], args[-1]
     else:
         statics = _recsys_statics(cfg, device)
-        gen = torch.Generator(device=device).manual_seed(0)
-        params = _recsys_init(cfg)(gen, cfg)
+        params = _recsys_init(cfg)(_generator(device), cfg, device=device)
         batch = _draw_batch(_recsys_batch(cfg, shape, dims), smoke, device)
     groups = layouts = None
     notes = ()
@@ -1166,11 +1182,16 @@ def _cf_cut(statics: dict, layouts: dict, cfg) -> dict:
     """This rank's cf statics: its blocks of the sketches, and the
     sorted-edge statics of its block of the (user-sorted) edges, rebuilt
     on the host (the unsharded statics themselves when the block is all
-    of them)."""
+    of them; on the meta device, statics of the block's shapes)."""
     cut = _cut(layouts, {k: statics[k] for k in layouts})
     out = dict(statics)
     out.update({k: cut[k] for k in layouts if k not in _CF_EDGES})
-    if cut["edge_u"].shape != statics["edge_u"].shape:
+    if cut["edge_u"].shape == statics["edge_u"].shape:
+        return out
+    if cut["edge_u"].device.type == "meta":       # a reckoning: shapes only
+        out.update(LG.edge_statics_like(cut["edge_u"].shape[0], cfg.n_users,
+                                        cfg.n_items))
+    else:
         edges = [cut[k].cpu().numpy() for k in _CF_EDGES]
         out.update(LG.sorted_edge_statics(*edges, cfg.n_users, cfg.n_items,
                                           device=statics["edge_u"].device))

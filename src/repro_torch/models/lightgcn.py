@@ -176,6 +176,22 @@ def _base_embeddings(params, statics, cfg: LightGCNConfig):
     return params["user_table"], params["item_table"]
 
 
+def edge_statics_like(n_edges: int, n_users: int, n_items: int,
+                      device="meta") -> dict:
+    """Uninitialized statics with the keys, shapes and dtypes
+    :func:`sorted_edge_statics` gives ``n_edges`` edges (on the meta
+    device: a reckoning's stand-in, ``launch.dryrun``)."""
+    def e(n, dtype):
+        return torch.empty(n, dtype=dtype, device=device)
+    i64, i32, f32 = torch.int64, torch.int32, torch.float32
+    return {"edge_u": e(n_edges, i64), "edge_v": e(n_edges, i64),
+            "edge_norm": e(n_edges, f32), "edge_u_byitem": e(n_edges, i64),
+            "edge_norm_byitem": e(n_edges, f32),
+            "indptr_u": e(n_users + 1, i64), "indptr_v": e(n_items + 1, i64),
+            "edge_v_idx32": e(n_edges, i32),
+            "edge_u_byitem_idx32": e(n_edges, i32)}
+
+
 def kernel_edge_ids(edge_v, edge_u_byitem) -> dict:
     """``{"edge_v_idx32", "edge_u_byitem_idx32"}``: int32 copies (host
     numpy) of the statics' edge ids, as the propagation kernel reads

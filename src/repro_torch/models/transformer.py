@@ -157,6 +157,17 @@ class TransformerConfig:
     lookup_backend: Optional[str] = None    # EmbeddingEngine override for
                                             # the token-embedding lookup
 
+    def __post_init__(self):
+        # the reference's "gspmd" dispatch (repro/models/transformer.py:352)
+        # gives the same numbers over other traffic; the port has one
+        # expert-parallel dispatch and no GSPMD (ROADMAP Queue 3 #19)
+        if self.moe_impl != "local":
+            raise ValueError(
+                f"{self.name}: moe_impl={self.moe_impl!r} is not ported: the "
+                f"port has one expert-parallel MoE dispatch (\"local\") and "
+                f"no GSPMD to lower the reference's \"gspmd\" scatter "
+                f"dispatch, which gives the same numbers over other traffic")
+
     @property
     def hd(self) -> int:
         return self.head_dim or self.d_model // self.n_heads

@@ -1,7 +1,5 @@
 """repro_torch.results — the port's content-keyed, append-only results
-store and regression gate (port of ``repro.results``, less its
-``legacy`` importer of the TPU/CPU ``BENCH_*.json`` files, which the
-port's store never takes as a baseline).
+store and regression gate (port of ``repro.results``).
 
 ``record``   Record schema. ``config_hash(bench, config)`` content-keys
              a configuration (equal to the reference's for the same
@@ -14,6 +12,12 @@ port's store never takes as a baseline).
              lines).
 ``gate``     ``check_store()`` — newest record per (bench, config_hash,
              fingerprint) group against the median of its last N.
+``legacy``   the loose TPU/CPU ``BENCH_*.json`` files' headline metrics
+             and the name-suffix direction heuristic, for
+             ``launch.migrate_store`` (imported records, fingerprint key
+             "imported": never a trajectory of the card, never the
+             skip-if-measured cache, advisory gate notes only) and
+             ``launch.bench_summary --dir/--against``.
 ``runner``   :class:`BenchRun` — the one API the port's benches emit
              through: flags, store append, ``--out`` mirror,
              skip-if-measured, ``torch.profiler`` capture and the obs

@@ -1,5 +1,7 @@
 """Trajectory-aware perf-regression gate (a copy of
-``repro.results.gate``: the same records give the same verdict lines).
+``repro.results.gate``: the same records give the same verdict lines,
+except that an advisory note against imported records names the
+platform they were measured on).
 
 For every configuration group in the store — (bench, config_hash,
 fingerprint_key) — the newest record is the candidate and its baseline
@@ -79,6 +81,14 @@ def compare_metrics(cand: dict, baseline: list, threshold: float,
     return warnings
 
 
+def _platforms(records: list) -> str:
+    """The platforms imported records name ("cpu", "tpu", ...)."""
+    names = sorted({str((r.get("fingerprint") or {}).get("platform")
+                        or r.get("payload", {}).get("platform") or "?")
+                    for r in records})
+    return "platform " + ", ".join(names)
+
+
 def check_store(store: ResultsStore, threshold: float = 0.20,
                 last_n: int = 5) -> tuple:
     """Gate every configuration group's newest record against its
@@ -105,17 +115,20 @@ def check_store(store: ResultsStore, threshold: float = 0.20,
             if not baseline and imported:
                 # advisory only: the legacy records never recorded
                 # their invocation, so config mismatch is likely and
-                # a delta here must not fail CI
+                # a delta here must not fail CI; each note names the
+                # platform the imported records were measured on
+                where = _platforms(imported[-last_n:])
                 notes.append(
                     f"{bench}[{chash[:8]}@{fkey}]: no same-fingerprint "
                     f"history yet; advisory compare against "
                     f"{min(len(imported), last_n)} imported legacy "
-                    f"record(s)")
+                    f"record(s) measured on {where}")
                 notes += compare_metrics(
                     cand, imported[-last_n:], threshold,
                     label=f"{bench}[{chash[:8]}@{fkey}]",
-                    note=(" [vs imported legacy baseline: config may "
-                          "differ, directions were heuristic]"))
+                    note=(f" [vs imported legacy baseline measured on "
+                          f"{where}: config may differ, directions were "
+                          f"heuristic]"))
                 continue
             if not baseline:
                 notes.append(

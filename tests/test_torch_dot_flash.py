@@ -279,10 +279,18 @@ def test_wrappers_take_the_plain_version_only_for_cpu_tensors(monkeypatch,
         fn, args = flash_kernel, tuple(torch.randn(1, 2, 16, 8)
                                        for _ in range(3))
     before = fn.launches
-    fn(*args)
+    want = fn(*args)
     assert fn.launches == before
-    with pytest.raises(ValueError):
-        fn(*(a.to("meta") for a in args))
+    # meta tensors (a reckoning's, launch.op_analysis) get the output's
+    # shape: neither a launch nor the plain version
+    monkeypatch.setattr(ref, kernel, refuse)
+    got = fn(*(a.to("meta") for a in args))
+    assert got.device.type == "meta" and got.shape == want.shape
+    assert fn.launches == before
+    if kernel == "flash_attention":
+        # tensors on two devices never fall back to the plain version
+        with pytest.raises(ValueError):
+            fn(args[0].to("meta"), *args[1:])
 
 
 # ---------------------------------------------------------------------------

@@ -26,12 +26,31 @@ world and no device.
   projections (Queue 3 #14), each pinned (``PINNED``); kimi-k2's
   train_4k reads 8.199 GB on the reference's layouts.
 * The CLI's summary line and exit code.
+* The compiled half (``launch.op_analysis`` over a fake world): op
+  metrics and memory analysis of a cell on both production meshes, none
+  for a cell that does not build; on a (2, 2) mesh at smoke width (a
+  dense LM's train_4k, DLRM-BACO's serve_p99) the reckoning on meta
+  tensors equals 4 gloo ranks counted as they run (FLOPs, bytes,
+  collectives by kind, temporaries: exact), and its dot FLOPs equal the
+  reference's compiled ``hlo_metrics`` (``tests/torch_hlo_oracle.py``,
+  Auto axes) but for DLRM's dense interaction product (Queue 3 #19).
+* ``launch.roofline``'s ``model_flops`` equals the reference's for every
+  cell, its terms and table; ``launch.perf_iterations``' DLRM group and
+  the variants it cannot build (kimi's ``moe_impl="gspmd"``, qwen's 40
+  heads on a model axis of 16); any ``moe_impl`` but "local" raises.
 """
+import dataclasses
 import importlib
 import inspect
+import json
+import math
 import os
+import subprocess
+import sys
+import time
 
 import pytest
+import torch.distributed as dist
 
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
@@ -43,6 +62,8 @@ from repro_torch.distributed import sharding  # noqa: E402
 from repro_torch.launch import dryrun, steps  # noqa: E402
 from repro_torch.launch.mesh import AbstractMesh  # noqa: E402
 from repro_torch.models import recsys as rs  # noqa: E402
+
+import torch_op_analysis_worker as op_worker  # noqa: E402
 
 for _m in ref_registry._MODULES:
     importlib.import_module(f"repro.configs.{_m}")
@@ -283,7 +304,8 @@ def test_fsdp_and_accumulator_follow_the_reference(arch, mapping):
 def dry():
     cells = ref_registry.all_cells(include_skipped=True,
                                    include_variants=True)
-    return cells, dryrun.run(cells, [False, True], verbose=False)
+    return cells, dryrun.run(cells, [False, True], verbose=False,
+                             args_only=True)
 
 
 def test_dry_run_bytes_equal_the_reference(dry):
@@ -328,7 +350,7 @@ def test_dry_run_bytes_equal_the_reference(dry):
 def test_dry_run_cli_summary_and_exit_code(capsys, tmp_path, monkeypatch):
     out = tmp_path / "dry.json"
     assert dryrun.main(["--arch", "gemma2-9b", "--shape", "train_4k",
-                        "--out", str(out)]) == 0
+                        "--args-only", "--out", str(out)]) == 0
     lines = capsys.readouterr().out.strip().splitlines()
     assert lines[-2] == "[dryrun] 1 ok / 0 skipped / 0 failed of 1"
     assert lines[-1] == f"[dryrun] wrote {out}"
@@ -348,3 +370,185 @@ def test_dry_run_cli_summary_and_exit_code(capsys, tmp_path, monkeypatch):
     assert "FAILED: RuntimeError: no account" in text
     with pytest.raises(SystemExit):
         dryrun.main([])
+
+
+# ---------------------------------------------------------------------------
+# the compiled half: op metrics a rank, the roofline, perf_iterations
+# ---------------------------------------------------------------------------
+def test_compiled_half_records_op_metrics_and_memory(capsys, tmp_path):
+    out = tmp_path / "dry.json"
+    assert dryrun.main(["--arch", "schnet", "--shape", "molecule",
+                        "--both-meshes", "--out", str(out)]) == 0
+    assert not dist.is_initialized()
+    with open(out) as f:
+        recs = json.load(f)
+    assert [r["mesh"] for r in recs] == ["16x16", "2x16x16"]
+    for rec in recs:
+        assert rec["ok"] is True and rec["builds"] and rec["rank"] == 0
+        om, ma = rec["op_metrics"], rec["memory_analysis"]
+        assert "cost_analysis" not in rec
+        assert om["dot_flops"] > 0 and om["hbm_bytes"] > 0
+        assert om["dot_flops"] == sum(v for k, v in om.items()
+                                      if k.startswith("dot_flops/"))
+        kinds = [k for k in om if k.startswith("coll_bytes/")
+                 and k.split("/")[1] not in ("nvlink", "network")]
+        assert om["coll_bytes_total"] == sum(om[k] for k in kinds) > 0
+        assert om["coll_bytes_total"] == (om.get("coll_bytes/nvlink", 0)
+                                          + om.get("coll_bytes/network", 0))
+        assert set(ma) == {"argument_size_in_bytes", "output_size_in_bytes",
+                           "temp_size_in_bytes"}
+        assert ma["temp_size_in_bytes"] > 0
+        assert om["kernels"]["embedding_bag"] > 0
+    assert "dotTF/dev=" in capsys.readouterr().out
+
+
+def test_unbuilt_cells_get_no_compiled_half():
+    rec = dryrun.run_cell("qwen1.5-32b", "train_4k", verbose=False)
+    assert rec["ok"] is True and rec["builds"] is False
+    assert "op_metrics" not in rec and "query heads" in rec["why"]
+
+
+@pytest.mark.parametrize("arch,shape", ref_registry.all_cells(
+    include_skipped=True, include_variants=True))
+def test_model_flops_equal_the_reference(arch, shape):
+    from benchmarks import roofline as ref_roofline
+    from repro_torch.launch import roofline
+
+    kind = registry.get_arch(arch).shape(shape).kind
+    got = roofline.model_flops(arch, shape, kind)
+    want = ref_roofline.model_flops(arch, shape, kind)
+    assert got == want or (math.isnan(got) and math.isnan(want))
+
+
+def test_roofline_terms_and_table(tmp_path, capsys):
+    from repro_torch.launch import roofline
+
+    om = {"dot_flops": 67e12 + 989e12, "dot_flops/f32": 67e12,
+          "dot_flops/bf16": 989e12, "hbm_bytes": 3.35e12,
+          "kernel_ops/f32": 0.0, "kernel_ops/16": 0.0,
+          "coll_bytes/nvlink": 450e9, "coll_bytes/network": 100e9,
+          "coll_bytes_total": 550e9}
+    rec = {"arch": "gemma2-9b", "shape": "train_4k", "kind": "train",
+           "mesh": "16x16", "ok": True, "builds": True, "op_metrics": om,
+           "memory_analysis": {"temp_size_in_bytes": 5e9}}
+    t = roofline.roofline_terms(rec)
+    assert (t["compute_s"], t["memory_s"], t["collective_s"]) == \
+        pytest.approx((2.0, 1.0, 3.0))
+    assert t["bottleneck"] == "collective"
+    assert t["roofline_frac"] == pytest.approx(2.0 / 3.0)
+    mf = roofline.model_flops("gemma2-9b", "train_4k", "train")
+    assert t["model_flops_per_dev"] == mf / 256
+    assert t["useful_ratio"] == pytest.approx(mf / 256 / om["dot_flops"])
+    results = [rec, dict(rec, ok="skipped", skip="no reason"),
+               dict(rec, ok=False), {k: v for k, v in rec.items()
+                                     if k != "op_metrics"}]
+    path = tmp_path / "dry.json"
+    path.write_text(json.dumps(results))
+    assert roofline.main(["--results", str(path)]) == 0
+    text = capsys.readouterr().out
+    assert "collective" in text and "skipped: no reason" in text
+    assert "FAILED" in text and "arguments only" in text
+
+
+def test_perf_iterations_dlrm_and_the_unbuilt_variants(tmp_path, capsys):
+    from repro_torch.launch import perf_iterations as pi
+
+    out = tmp_path / "pi.json"
+    assert pi.main(["--cell", "dlrm", "--out", str(out)]) == 0
+    with open(out) as f:
+        recs = json.load(f)
+    assert [r["label"][:3] for r in recs] == ["it0", "it1", "it2"]
+    assert all(r["built"] and r["terms"]["bottleneck"] for r in recs)
+    args = [r["memory_analysis"]["argument_size_in_bytes"] for r in recs]
+    assert args[0] > args[1] > args[2]         # full tables, 1/4, 1/8
+    gspmd = pi.run_variant("kimi-k2-1t-a32b", "train_4k", "it0: gspmd",
+                           cfg_update={"moe_impl": "gspmd"})
+    assert gspmd["built"] is False and "moe_impl" in gspmd["why"]
+    qwen = pi.run_variant("qwen1.5-32b", "train_4k", "it0: TP16")
+    assert qwen["built"] is False and "query heads" in qwen["why"]
+    assert registry.get_arch("kimi-k2-1t-a32b").full_config().moe_impl \
+        == "local"
+    text = capsys.readouterr().out
+    assert text.count("NOT BUILT") == 2
+
+
+def test_moe_impl_other_than_local_raises():
+    cfg = registry.get_arch("dbrx-132b").smoke_config()
+    with pytest.raises(ValueError, match="no GSPMD"):
+        dataclasses.replace(cfg, moe_impl="gspmd")
+
+
+# the smoke cells on a (2, 2) mesh: 4 gloo ranks counted, the reckoning
+# on a fake world of 4, and the reference's compiled per-device metrics
+@pytest.fixture(scope="module")
+def mesh_counts(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("op_mesh")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(repo, "src"), os.environ.get("PYTHONPATH", "")]))
+    env.pop("XLA_FLAGS", None)
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(repo, "tests", "torch_hlo_oracle.py"),
+         str(tmp / "hlo.json")], cwd=repo, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)]
+    procs += [subprocess.Popen(
+        [sys.executable, os.path.join(repo, "tests",
+                                      "torch_op_analysis_worker.py"),
+         str(r), "4", str(tmp / "store"), str(tmp / "gloo.json")],
+        cwd=repo, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for r in range(4)]
+    errs = []
+    try:
+        with dryrun.fake_world(4, 0):
+            meta = {f"{a}:{s}": op_worker.count_cell(a, s, "meta")
+                    for a, s in op_worker.CELLS}
+        deadline = time.monotonic() + 300
+        for p in procs:
+            try:
+                _, err = p.communicate(
+                    timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                _, err = p.communicate()
+            errs.append((p.returncode, err[-3000:]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    assert all(rc == 0 for rc, _ in errs), errs
+    with open(tmp / "gloo.json") as f:
+        gloo = json.load(f)
+    with open(tmp / "hlo.json") as f:
+        hlo = json.load(f)
+    return gloo, meta, hlo
+
+
+@pytest.mark.parametrize("cell", [f"{a}:{s}" for a, s in op_worker.CELLS])
+def test_mesh_reckoning_equals_four_gloo_ranks(mesh_counts, cell):
+    gloo, meta, _ = mesh_counts
+    got, want = meta[cell], gloo[cell]
+    for key in set(got["metrics"]) | set(want["metrics"]):
+        if key in ("host_reads", "branches"):
+            continue        # a CPU tensor's read is no host read
+        assert got["metrics"].get(key) == want["metrics"].get(key), key
+    assert got["memory"] == want["memory"]
+    assert got["metrics"]["coll_bytes_total"] > 0
+
+
+@pytest.mark.parametrize("cell", [f"{a}:{s}" for a, s in op_worker.CELLS])
+def test_mesh_dot_flops_beside_the_references_compiled_hlo(mesh_counts,
+                                                           cell):
+    """The port's dot FLOPs a rank equal the reference's compiled
+    ``hlo_metrics`` exactly, but for DLRM's dot interaction: the
+    reference computes the dense [B, F, F] product as a dot, the port's
+    kernel the strictly-lower triangle (counted under ``kernel_ops``;
+    ROADMAP Queue 3 #19)."""
+    _, meta, hlo = mesh_counts
+    got = meta[cell]["metrics"]["dot_flops"]
+    if cell.startswith("dlrm"):
+        cfg = registry.get_arch("dlrm-mlperf-baco").smoke_config()
+        f = cfg.n_sparse + 1
+        rows = 8 // 2                  # the smoke batch over data = 2
+        got += 2 * rows * f * f * cfg.embed_dim
+    assert got == hlo[cell]["dot_flops"]
