@@ -5288,12 +5288,18 @@ def check_dot_interaction(bench_run: dict, run: dict,
 
 # (B, H, Sq, Skv, d, dtype, causal, timed): one layer of qwen1.5-32b (40
 # heads of 128) at train_4k's sequence, batch 1 (the row of the kernels
-# line); the kernel bench's --full shape, causal and not; SASRec's d 50
+# line); the kernel bench's --full shape, causal and not; the paths'
+# attention (``models/recsys.py``): SASRec train and serve (-baco
+# published config: d 50, one head, 49 or 50 positions, causal) and
+# BERT4Rec serve (d 64 over 2 heads, 200 positions, full); SASRec's d 50
 # with Sq != Skv, f16, and bf16 at d 256 (the CUDA-core route), checked
 # only
 FLASH_SHAPES = [(1, 40, 4096, 4096, 128, "bfloat16", True, True),
                 (2, 8, 2048, 2048, 128, "float32", True, True),
                 (2, 8, 2048, 2048, 128, "float32", False, True),
+                (65536, 1, 49, 49, 50, "float32", True, True),
+                (512, 1, 50, 50, 50, "float32", True, True),
+                (512, 2, 200, 200, 32, "float32", False, True),
                 (4, 2, 200, 328, 50, "float32", True, False),
                 (1, 8, 1024, 1024, 128, "float16", True, False),
                 (2, 4, 200, 328, 50, "bfloat16", True, False),

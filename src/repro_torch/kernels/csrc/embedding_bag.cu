@@ -45,8 +45,13 @@
 // (kernels/ref.py), so the result equals it bit for bit; only the loads
 // and the scheduling are free. One grid, no host sync, no sort:
 // - Short rows (at most kLongRow values): a warp takes a strip of
-//   kRowsPerWarp consecutive rows. It reads their pointers in one load,
-//   then walks the strip's values in batches of 32: one coalesced index
+//   kRowsPerWarp consecutive rows and one column tile of them (32 lane
+//   words): a wide row's tiles are dealt to as many warps
+//   (column_split), so a few wide rows spread over the card (the MoE
+//   decode combine, 8 tokens of 4 bf16 rows of d 6,144, runs 48 warps,
+//   where one warp walking a strip's 24 tiles in turn left 2). It reads
+//   the strip's pointers in one load, then walks the strip's values in
+//   batches of 32: one coalesced index
 //   load, broadcast with __shfl_sync, then gathered rows in steps of
 //   kStepFloats / V per lane, all of a step's loads in flight before
 //   they are folded. A lane owns V consecutive columns (float4 / float2 /
@@ -71,7 +76,13 @@
 //   column's fold stays serial, as parity requires.
 // Rows wider than 512 floats are done in column tiles. The strip, the
 // threshold, the ring's depth and size and the long-row blocks per SM
-// were chosen by sweeps on an H100 80GB HBM3 at 700 W (PERF.md).
+// were chosen by sweeps on an H100 80GB HBM3 at 700 W (PERF.md). What
+// holds it back now (the same card): a few wide rows are one gather
+// batch a warp, so the dbrx-132b decode combine (8 tokens of 4 bf16 rows
+// of 6,144) takes ~0.010 ms, under index_add_'s ~0.016 but far above its
+// 0.00015 ms of bytes and near the timer's 0.005 ms floor; the LM token
+// gradient (256,000 rows of 3,584 bf16, 4,096 of them summed) is 1.1x
+// its bytes, most of them the zero rows written.
 //
 // 16-bit rows (bf16, f16: the LM token embedding's gradient, a bf16
 // cotangent [B x S, 3,584] summed into 256,000 rows) run the same kernel
@@ -220,14 +231,17 @@ template <typename E_, int V> struct Lane16 {
   }
 };
 
-// One warp: the short rows of the strip [r0, r0 + kRowsPerWarp).
+// One warp: the short rows of the strip [r0, r0 + kRowsPerWarp), column
+// tiles g, g + split, g + 2 split, ... of 32 lane vectors each (split 1:
+// every tile). Each tile is the same fold, so how the tiles are dealt
+// to warps does not change a bit of the result.
 template <typename L, bool W>
 __device__ void warp_strip(const void* __restrict__ src,
                            const int32_t* __restrict__ idx,
                            const float* __restrict__ wt,
                            const int64_t* __restrict__ ptr,
                            void* __restrict__ out, int64_t rows, int dim,
-                           int64_t r0, int lane) {
+                           int64_t r0, int g, int split, int lane) {
   using raw = typename L::raw;
   using acc_t = typename L::acc;
   // row loads a lane keeps in flight: 128 bytes (at most 32 loads)
@@ -245,7 +259,7 @@ __device__ void warp_strip(const void* __restrict__ src,
   const int cols = dim / L::kV;
   const raw* s = static_cast<const raw*>(src);
   raw* o = static_cast<raw*>(out);
-  for (int c0 = 0; c0 < cols; c0 += 32) {
+  for (int c0 = 32 * g; c0 < cols; c0 += 32 * split) {
     const int c = c0 + lane;
     const bool active = c < cols;
     acc_t acc = L::zero();
@@ -514,7 +528,7 @@ __global__ void __launch_bounds__(kThreads)
                           const float* __restrict__ wt,
                           const int64_t* __restrict__ ptr,
                           typename L::E* __restrict__ out, int64_t rows,
-                          int dim, int long_blocks) {
+                          int dim, int long_blocks, int split) {
   static_assert(!W || std::is_same<typename L::E, float>::value,
                 "the weighted kernel is f32 only");
   if (static_cast<int>(blockIdx.x) < long_blocks) {
@@ -522,14 +536,33 @@ __global__ void __launch_bounds__(kThreads)
                                     long_blocks);
     return;
   }
-  const int64_t strip =
+  const int64_t w =
       static_cast<int64_t>(blockIdx.x - long_blocks) * kWarps +
       threadIdx.x / 32;
+  // split > 1 only while the warps fit 32 bits (column_split)
+  int64_t strip = w;
+  int g = 0;
+  if (split > 1) {
+    strip = static_cast<int>(w) / split;
+    g = static_cast<int>(w) % split;
+  }
   const int64_t r0 = strip * kRowsPerWarp;
   if (r0 < rows) {
-    warp_strip<L, W>(src, idx, wt, ptr, out, rows, dim, r0,
+    warp_strip<L, W>(src, idx, wt, ptr, out, rows, dim, r0, g, split,
                      threadIdx.x % 32);
   }
+}
+
+// Warps a strip's column tiles are dealt to: one a tile (so 8 tokens of
+// a d 6,144 MoE combine run 48 warps, not 2), while the warps fit a
+// 32-bit index. Measured on the H100 against dealing them only while the
+// strips leave the card idle: as fast on the decode combines and faster
+// where the strips already fill it (the LM token gradient, the prefill
+// and train combines; PERF.md).
+int column_split(int64_t strips, int cols) {
+  const int64_t tiles = (cols + 31) / 32;
+  return tiles > 1 && strips * tiles <= INT32_MAX ? static_cast<int>(tiles)
+                                                  : 1;
 }
 
 template <typename L, int VL, bool W>
@@ -546,12 +579,14 @@ void launch(const void* src, const int32_t* idx, const float* wt,
   }
   const int long_blocks = static_cast<int>(
       lesser<int64_t>(rows, static_cast<int64_t>(kLongBlocksPerSm) * sms));
-  const int64_t per_block = static_cast<int64_t>(kWarps) * kRowsPerWarp;
-  const int64_t blocks = long_blocks + (rows + per_block - 1) / per_block;
+  const int64_t strips = (rows + kRowsPerWarp - 1) / kRowsPerWarp;
+  const int split = column_split(strips, dim / L::kV);
+  const int64_t warps = strips * split;
+  const int64_t blocks = long_blocks + (warps + kWarps - 1) / kWarps;
   csr_gather_sum_kernel<L, VL, W>
       <<<static_cast<unsigned>(blocks), kThreads, kSmemBytes<W>, stream>>>(
           static_cast<const E*>(src), idx, wt, ptr, static_cast<E*>(out),
-          rows, dim, long_blocks);
+          rows, dim, long_blocks, split);
 }
 
 int sm_count(int dev) {

@@ -49,16 +49,42 @@
 //   pass, 257.7 GFLOP issued); its 168 MB of q/k/v/out take 0.050 ms.
 //
 // * CUDA cores (flash_attention_launch): f32 inputs at any d <= 256, and
-//   bf16/f16 inputs with 128 < d <= 256. One block (256 threads, a 16 x 16
-//   grid) per (b*h, 64-row query tile); the query tile and each 64-key K
-//   and V tile are staged in f32 shared memory (rows padded so different
-//   rows fall in different banks); each thread computes a 4 x 4 tile of
-//   scores; the 16 threads of a row reduce its max and sum with warp
-//   shuffles; the running max, denominator and a 4 x d/16 slice of the
-//   output accumulator stay in f32 registers; P goes to shared memory (over
-//   the spent K tile) and each thread adds P V into its slice. d pads to
-//   64, 128 or 256. Bound: operations at the 67 TFLOP/s f32 rate (the bench
-//   shape B 2, H 8, S 2,048, d 128, causal: 17.2 GFLOP, 0.257 ms).
+//   bf16/f16 inputs with 128 < d <= 256, all math in f32. One block of NW
+//   warps per (b*h, query tile), the tiles aligned to the last row (the
+//   first may start before row 0: under the causal mask the short tile is
+//   the cheap one) and dealt heaviest first. The tile's rows are slabs of
+//   4 TM rows; a warp owns one slab, or two (SL 2: slabs w and 2 NW - 1 -
+//   w, so every warp does about the same causal work). Lane (rg, x) =
+//   (lane / 8, lane % 8) owns rows rg + 4 i of its slab, keys x + 8 c of a
+//   tile and output columns 4 x + 32 t .. + 3. Q, K and V are staged in
+//   f32 shared memory by cp.async (16, 8 or 4 bytes as d and the pointers
+//   allow; 16-bit inputs widened in registers), Q and K rows an odd
+//   number of 16-byte words apart so a warp's float4 loads along d hit 8
+//   different bank groups; with more than one key tile the next tile's K
+//   and V are copied while the block computes the current one (one wait
+//   and one barrier a tile), with one (a short sequence) a single K and V
+//   buffer keeps a block at 47 KB, four to an SM (blocks that walked
+//   several sequences, prefetching the next, held two buffers each, ran
+//   two to an SM and measured slower). q k^T: TM + 4 float4 loads for
+//   16 TM FMAs, over the keys the slab's rows can see, in steps of 16
+//   (qk_chunk); the
+//   online softmax on the lanes' registers (expf, row max and sum over the
+//   8 lanes of a row, l kept a lane's share until the store); P through
+//   the warp's 32-key slice of shared memory (one TM-float word a key)
+//   into P V, 1 + DP / 32 loads for 4 TM DP / 32 FMAs a key; the store
+//   writes 16-, 8- or 4-byte words. Instances (D; TM, NW, keys a tile,
+//   SL, blocks an SM asked of the register allocator): 32 (4, 4, 64, 1,
+//   4), 52 for SASRec's 50 (2, 4, 64, 2, 4), 64 (2, 4, 64, 2, 4), 128 (4,
+//   4, 32, 1, -), 256 (2, 8, 32, 1, -), chosen by timing on an H100 80GB
+//   HBM3 at 700 W (PERF.md). Bound: the paths' short sequences
+//   are bytes (SASRec train, B 65,536 x S 49 x d 50: 2.57 GB of q, k, v
+//   and out, 0.767 ms at 3.35 TB/s), the longer ones operations at the 67
+//   TFLOP/s f32 rate (BERT4Rec serve, B 512 x H 2 x S 200 x d 32, full:
+//   5.24 GFLOP, 0.078 ms; the bench's B 2 x H 8 x S 2,048 x d 128,
+//   causal: 17.2 GFLOP, 0.257 ms). What holds it back now: instructions
+//   around the multiply-adds (masking, softmax, staging, the store) and
+//   the padding of a short causal tile (49 rows in 64, d 50 in 52 and 64
+//   columns), at most 16 warps an SM.
 //
 // C interface (loaded with ctypes): each launch runs on the caller's
 // stream, allocates nothing, and returns cudaGetLastError().
@@ -66,198 +92,459 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <tuple>
+
 #include "f32_convert.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;                  // query rows per block
-constexpr int kBK = 64;                  // keys per tile
-constexpr int kThreads = 256;            // 16 x 16
+constexpr int kBK = 64;                  // keys per tile (tensor-core route)
 constexpr float kNegFill = -1e30f;       // the causal fill and the initial max
 
-// reduce over the 16 lanes of a half warp (one row's threads)
-__device__ __forceinline__ float row_max(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+// ---------------------------------------------------------------------------
+// CUDA-core route: f32, and bf16/f16 with 128 < d <= 256
+// ---------------------------------------------------------------------------
+namespace cc {
+
+
+// One instance: head width D (d <= D, D % 4 == 0), TM query rows a lane,
+// NW warps a block, BK keys a tile (a multiple of 32). Lane (rg, x) =
+// (lane / 8, lane % 8) of warp w owns the query rows w * 4 TM + rg + 4 i
+// (i < TM), the keys x + 8 c of a tile (c < BK / 8) and the output
+// columns 4 x + 32 t .. + 3 (t < DP / 32).
+template <int D, int TM, int NW, int BK, int SL>
+struct Plan {
+  static_assert(D % 4 == 0 && BK % 32 == 0 && (TM == 2 || TM == 4) &&
+                    (SL == 1 || SL == 2),
+                "plan");
+  static_assert(D <= 32 * NW, "a row's copies fit one pass of the threads");
+  // Q and K rows: an odd number of 16-byte words, so the 8 consecutive
+  // rows of one float4 load fall in 8 different bank groups
+  static constexpr int kS = (D / 4) % 2 ? D : D + 4;
+  static constexpr int kDP = (D + 31) / 32 * 32;   // P V's columns
+  static constexpr int kRows = 4 * TM;             // a slab's query rows
+  static constexpr int kBQ = kRows * NW * SL;
+  static constexpr int kThreads = 32 * NW;
+  static constexpr int kQ = kBQ * kS;              // floats of a Q buffer
+  static constexpr int kK = BK * kS;
+  static constexpr int kV = BK * kDP;
+  static constexpr int kP = 32 * kRows;            // a warp's P, 32 keys
+  static constexpr size_t bytes(int kv_bufs) {
+    return (static_cast<size_t>(kQ) + kv_bufs * (kK + kV) + NW * kP) * 4;
+  }
+};
+
+template <int TM> struct RowVec;                 // TM floats, one word
+template <> struct RowVec<4> {
+  using T = float4;
+  static __device__ __forceinline__ float get(const float4& v, int i) {
+    return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+  }
+  static __device__ __forceinline__ float4 make(const float (&a)[4]) {
+    return make_float4(a[0], a[1], a[2], a[3]);
+  }
+};
+template <> struct RowVec<2> {
+  using T = float2;
+  static __device__ __forceinline__ float get(const float2& v, int i) {
+    return i == 0 ? v.x : v.y;
+  }
+  static __device__ __forceinline__ float2 make(const float (&a)[2]) {
+    return make_float2(a[0], a[1]);
+  }
+};
+
+template <int BYTES>
+__device__ __forceinline__ void cp_async(float* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  if constexpr (BYTES == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                 "l"(gmem));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
+                 "l"(gmem), "n"(BYTES));
+  }
 }
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-template <int D>
-constexpr size_t smem_bytes() {
-  // Q [kBQ][D+1], K [kBK][D+1] (later P [kBQ][kBK+1]), V [kBK][D]
-  return (static_cast<size_t>(kBQ) * (D + 1) + kBK * (D + 1) + kBK * D) *
-         sizeof(float);
+// A thread's share of staging a tile: row `row` of every pass of `rpp`
+// rows, elements [col, col + vec) of it (idle where row >= rpp).
+struct Copier {
+  int row, col, rpp, vec;
+  __device__ Copier(int tid, int threads, int dim, int vec_) : vec(vec_) {
+    const int chunks = dim / vec;          // <= threads (D <= threads)
+    rpp = threads / chunks;
+    row = tid / chunks;
+    col = tid % chunks * vec;
+  }
+};
+
+// Rows [r0, r1) of the [*, dim] matrix g into shared rows r - base of
+// stride ss: cp.async of vec floats (f32), or loads widened in registers
+// (16-bit). Columns past dim are never written.
+template <typename T>
+__device__ __forceinline__ void stage_rows(float* dst, int ss,
+                                           const T* __restrict__ g, int dim,
+                                           int r0, int r1, int base,
+                                           const Copier& cp) {
+  if (cp.row >= cp.rpp) return;
+  if constexpr (sizeof(T) == 4) {
+    const float* gf = reinterpret_cast<const float*>(g);
+    if (cp.vec == 4) {
+      for (int r = r0 + cp.row; r < r1; r += cp.rpp)
+        cp_async<16>(dst + (r - base) * ss + cp.col,
+                     gf + static_cast<int64_t>(r) * dim + cp.col);
+    } else if (cp.vec == 2) {
+      for (int r = r0 + cp.row; r < r1; r += cp.rpp)
+        cp_async<8>(dst + (r - base) * ss + cp.col,
+                    gf + static_cast<int64_t>(r) * dim + cp.col);
+    } else {
+      for (int r = r0 + cp.row; r < r1; r += cp.rpp)
+        cp_async<4>(dst + (r - base) * ss + cp.col,
+                    gf + static_cast<int64_t>(r) * dim + cp.col);
+    }
+  } else {
+#pragma unroll 8
+    for (int r = r0 + cp.row; r < r1; r += cp.rpp)
+      dst[(r - base) * ss + cp.col] =
+          to_f32(g[static_cast<int64_t>(r) * dim + cp.col]);
+  }
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ out,
-                           int sq, int skv, int dim, int causal, float scale) {
-  static_assert(kBQ * (kBK + 1) <= kBK * (D + 1), "P must fit over K");
-  constexpr int NC = D / 16;             // output columns per thread
-  extern __shared__ float smem[];
-  float* sQ = smem;
-  float* sK = sQ + kBQ * (D + 1);
-  float* sP = sK;
-  float* sV = sK + kBK * (D + 1);
+// out[col, col + 4) of one row (columns past dim not written), as one
+// 4-element word, two 2-element words or single elements (vec 4, 2, 1).
+template <typename T>
+__device__ __forceinline__ void store4(T* __restrict__ o, int col,
+                                       const float (&a)[4], int dim,
+                                       int vec) {
+  if (vec == 4 && col + 4 <= dim) {
+    if constexpr (sizeof(T) == 4) {
+      *reinterpret_cast<float4*>(o + col) = make_float4(a[0], a[1], a[2], a[3]);
+    } else {
+      T h[4] = {from_f32<T>(a[0]), from_f32<T>(a[1]), from_f32<T>(a[2]),
+                from_f32<T>(a[3])};
+      *reinterpret_cast<uint2*>(o + col) = *reinterpret_cast<const uint2*>(h);
+    }
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < 4; e += 2) {
+    if (vec >= 2 && col + e + 2 <= dim) {
+      if constexpr (sizeof(T) == 4) {
+        *reinterpret_cast<float2*>(o + col + e) = make_float2(a[e], a[e + 1]);
+      } else {
+        T h[2] = {from_f32<T>(a[e]), from_f32<T>(a[e + 1])};
+        *reinterpret_cast<uint32_t*>(o + col + e) =
+            *reinterpret_cast<const uint32_t*>(h);
+      }
+    } else {
+      if (col + e < dim) o[col + e] = from_f32<T>(a[e]);
+      if (col + e + 1 < dim) o[col + e + 1] = from_f32<T>(a[e + 1]);
+    }
+  }
+}
+
+// A unit of work: the query tile of one (b, h). Tiles are aligned to the
+// last row (the first may start before row 0), so under the causal mask
+// the short tile is the cheap one, and units are dealt heaviest first.
+struct Unit {
+  int64_t bh;
+  int q0;          // absolute row of the tile's first row (may be < 0)
+  int n_tiles;     // key tiles it reads
+};
+
+template <int BQ, int BK>
+__device__ __forceinline__ Unit unit_of(int64_t u, int64_t bh_count, int sq,
+                                        int skv, int causal) {
+  Unit w;
+  w.bh = u % bh_count;
+  const int rank = static_cast<int>(u / bh_count);   // 0: the last tile
+  w.q0 = sq - (rank + 1) * BQ;
+  const int kv_end = causal ? min(skv, w.q0 + BQ) : skv;
+  w.n_tiles = max(1, (kv_end + BK - 1) / BK);
+  return w;
+}
+
+// s[i][c0 + c] += q_i . k_(x + 8 c) of a slab's rows, for the keys x + 8 c
+// (c < NC) of the chunk at Kt: float4 loads along d, 4 NC TM multiply-adds
+// for every TM + NC loads.
+template <int D, int TM, int NC, int kS, int kC>
+__device__ __forceinline__ void qk_chunk(const float* __restrict__ Qs,
+                                         const float* __restrict__ Kt,
+                                         float (&s)[TM][kC], int c0) {
+#pragma unroll 4
+  for (int kk = 0; kk < D; kk += 4) {
+    float4 a[TM], b[NC];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+      a[i] = *reinterpret_cast<const float4*>(Qs + 4 * i * kS + kk);
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      b[c] = *reinterpret_cast<const float4*>(Kt + 8 * c * kS + kk);
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        float& t = s[i][c0 + c];
+        t = fmaf(a[i].x, b[c].x, t);
+        t = fmaf(a[i].y, b[c].y, t);
+        t = fmaf(a[i].z, b[c].z, t);
+        t = fmaf(a[i].w, b[c].w, t);
+      }
+  }
+}
+
+// One slab (4 TM query rows of one warp) against key tile k0: q k^T on
+// the keys its rows can see (the causal bound, in steps of 16), the online
+// softmax on the lanes' registers (l keeps each lane's share of the sum),
+// P through the warp's 32-key slice of shared memory, P V into acc.
+template <int D, int TM, int BK, int kS, int kDP>
+__device__ __forceinline__ void slab_tile(
+    const float* __restrict__ Qs, const float* __restrict__ Kt,
+    const float* __restrict__ Vt, float* __restrict__ Pw, int row0, int k0,
+    int skv, int causal, float scale, float (&m)[TM], float (&l)[TM],
+    float (&acc)[TM][(kDP / 32) * 4], int rg, int x) {
+  using RV = RowVec<TM>;
+  constexpr int kC = BK / 8;             // keys a lane a tile
+  constexpr int kNT = kDP / 32;          // float4 columns a lane
+  constexpr int kRows = 4 * TM;
+  const int row1 = row0 + kRows - 1;
+  const int kmax = row1 < 0 ? -1 : causal ? min(skv - 1, row1) : skv - 1;
+  if (kmax < k0) return;                 // no key of the tile is seen
+  float s[TM][kC];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int c = 0; c < kC; ++c) s[i][c] = 0.0f;
+#pragma unroll
+  for (int cc = 0; cc < BK / 32; ++cc) {
+    if (k0 + 32 * cc + 16 <= kmax) {
+      qk_chunk<D, TM, 4, kS>(Qs, Kt + 32 * cc * kS, s, 4 * cc);
+    } else if (k0 + 32 * cc <= kmax) {   // the chunk's first 16 keys
+      qk_chunk<D, TM, 2, kS>(Qs, Kt + 32 * cc * kS, s, 4 * cc);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int row = row0 + rg + 4 * i;
+    float mx = -INFINITY;
+#pragma unroll
+    for (int c = 0; c < kC; ++c) {
+      if (k0 + 16 * (c / 2) > kmax) break;   // keys q k^T left out
+      const int key = k0 + x + 8 * c;
+      float val = s[i][c] * scale;
+      if (key >= skv) val = -INFINITY;
+      else if (causal && key > row) val = kNegFill;
+      s[i][c] = val;
+      mx = fmaxf(mx, val);
+    }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+    const float m_cur = fmaxf(m[i], mx);
+    const float alpha = expf(m[i] - m_cur);
+    float sum = 0.0f;
+#pragma unroll
+    for (int c = 0; c < kC; ++c) {
+      if (k0 + 16 * (c / 2) > kmax) break;
+      s[i][c] = expf(s[i][c] - m_cur);
+      sum += s[i][c];
+    }
+    l[i] = l[i] * alpha + sum;
+#pragma unroll
+    for (int c = 0; c < 4 * kNT; ++c) acc[i][c] *= alpha;
+    m[i] = m_cur;
+  }
+  const int kend = kmax + 1 - k0;        // keys to add
+#pragma unroll
+  for (int h = 0; h < BK / 32; ++h) {
+    if (32 * h < kend) {
+      __syncwarp();
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        float col[TM];
+#pragma unroll
+        for (int i = 0; i < TM; ++i) col[i] = s[i][4 * h + c];
+        *reinterpret_cast<typename RV::T*>(Pw + (x + 8 * c) * kRows +
+                                           rg * TM) = RV::make(col);
+      }
+      __syncwarp();
+      const int jn = min(32, kend - 32 * h);
+      const float* Vh = Vt + 32 * h * kDP;
+#pragma unroll 4
+      for (int j = 0; j < jn; ++j) {
+        const typename RV::T p =
+            *reinterpret_cast<const typename RV::T*>(Pw + j * kRows + rg * TM);
+#pragma unroll
+        for (int t = 0; t < kNT; ++t) {
+          const float4 vv =
+              *reinterpret_cast<const float4*>(Vh + j * kDP + 32 * t);
+#pragma unroll
+          for (int i = 0; i < TM; ++i) {
+            const float pi = RV::get(p, i);
+            acc[i][4 * t + 0] = fmaf(pi, vv.x, acc[i][4 * t + 0]);
+            acc[i][4 * t + 1] = fmaf(pi, vv.y, acc[i][4 * t + 1]);
+            acc[i][4 * t + 2] = fmaf(pi, vv.z, acc[i][4 * t + 2]);
+            acc[i][4 * t + 3] = fmaf(pi, vv.w, acc[i][4 * t + 3]);
+          }
+        }
+      }
+    }
+  }
+}
+
+// The CUDA-core kernel: one block a unit. It walks the unit's key tiles;
+// with more than one (kv_bufs 2) the next tile's K and V are copied into
+// the other buffer while the block computes the current one: one wait and
+// one barrier a tile. Within a tile each warp works alone on its slabs
+// (slab_tile). With two slabs a warp (SL 2), warp w takes slabs w and
+// 2 NW - 1 - w, so under the causal mask every warp has about the same
+// work.
+template <typename T, int D, int TM, int NW, int BK, int SL, int MINB>
+__global__ void __launch_bounds__(32 * NW, MINB)
+    cc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, T* __restrict__ out,
+              int64_t bh_count, int sq, int skv, int dim, int causal,
+              float scale, int kv_bufs, int in_vec, int out_vec) {
+  using P = Plan<D, TM, NW, BK, SL>;
+  constexpr int kNT = P::kDP / 32;       // float4 columns a lane
+  extern __shared__ __align__(16) float smem[];
+  float* sK = smem;                      // [kv_bufs][BK][kS]
+  float* sV = sK + kv_bufs * P::kK;      // [kv_bufs][BK][kDP]
+  float* sP = sV + kv_bufs * P::kV;      // [NW][32][kRows]
+  float* sQ = sP + NW * P::kP;           // [kBQ][kS]
 
   const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
-  const int64_t bh = blockIdx.x;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;   // heavy tiles first
-  const int q_rows = min(kBQ, sq - q0);
-  const T* qb = q + (bh * sq + q0) * dim;
-  const T* kb = k + bh * skv * dim;
-  const T* vb = v + bh * skv * dim;
+  const int warp = tid / 32, lane = tid % 32;
+  const int rg = lane / 8, x = lane % 8;
+  const Copier cp(tid, P::kThreads, dim, in_vec);
+  int slab[SL];                          // this warp's slabs
+  slab[0] = warp;
+  if constexpr (SL == 2) slab[1] = 2 * NW - 1 - warp;
+  const Unit w = unit_of<P::kBQ, BK>(blockIdx.x, bh_count, sq, skv, causal);
+  const T* kb = k + w.bh * skv * static_cast<int64_t>(dim);
+  const T* vb = v + w.bh * skv * static_cast<int64_t>(dim);
 
-  for (int e = tid; e < kBQ * D; e += kThreads) {
-    const int r = e / D, c = e % D;
-    sQ[r * (D + 1) + c] =
-        (r < q_rows && c < dim) ? to_f32(qb[r * dim + c]) : 0.0f;
+  auto issue = [&](int tile, int buf) {
+    const int k0 = tile * BK;
+    const int k1 = min(skv, k0 + BK);
+    stage_rows<T>(sK + buf * P::kK, P::kS, kb, dim, k0, k1, k0, cp);
+    stage_rows<T>(sV + buf * P::kV, P::kDP, vb, dim, k0, k1, k0, cp);
+    cp_async_commit();
+  };
+  stage_rows<T>(sQ, P::kS, q + w.bh * sq * static_cast<int64_t>(dim), dim,
+                max(w.q0, 0), w.q0 + P::kBQ, w.q0, cp);
+  issue(0, 0);
+  // zeros in the columns [dim, D) of every Q and K row, which q k^T reads
+  // and no copy writes (other rows and columns no kept result reads); the
+  // first tile's barrier orders them before any read
+  for (int r = tid; r < kv_bufs * BK + P::kBQ && dim < D; r += P::kThreads) {
+    float* row = r < kv_bufs * BK ? sK + r * P::kS
+                                  : sQ + (r - kv_bufs * BK) * P::kS;
+    for (int c = dim; c < D; ++c) row[c] = 0.0f;
   }
 
-  float m[4], l[4], acc[4][NC];
+  float m[SL][TM], l[SL][TM], acc[SL][TM][4 * kNT];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegFill;
-    l[i] = 0.0f;
+  for (int sl = 0; sl < SL; ++sl)
 #pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.0f;
+    for (int i = 0; i < TM; ++i) {
+      m[sl][i] = kNegFill;
+      l[sl][i] = 0.0f;
+#pragma unroll
+      for (int c = 0; c < 4 * kNT; ++c) acc[sl][i][c] = 0.0f;
+    }
+  for (int tile = 0; tile < w.n_tiles; ++tile) {
+    const int buf = tile & 1;
+    cp_async_wait_all();
+    __syncthreads();       // this tile landed; the last tile's buffer free
+    if (tile + 1 < w.n_tiles) issue(tile + 1, buf ^ 1);
+#pragma unroll
+    for (int sl = 0; sl < SL; ++sl) {
+      slab_tile<D, TM, BK, P::kS, P::kDP>(
+          sQ + (slab[sl] * P::kRows + rg) * P::kS,
+          sK + buf * P::kK + x * P::kS, sV + buf * P::kV + 4 * x,
+          sP + warp * P::kP, w.q0 + slab[sl] * P::kRows, tile * BK, skv,
+          causal, scale, m[sl], l[sl], acc[sl], rg, x);
+    }
   }
 
-  // keys up to the last query row's position (causal), else all
-  const int kv_end = causal ? min(skv, q0 + q_rows) : skv;
-  for (int k0 = 0; k0 < kv_end; k0 += kBK) {
-    const int k_rows = min(kBK, skv - k0);
-    __syncthreads();                     // the last tile's P and V are spent
-    for (int e = tid; e < kBK * D; e += kThreads) {
-      const int r = e / D, c = e % D;
-      const bool in = r < k_rows && c < dim;
-      const int64_t g = static_cast<int64_t>(k0 + r) * dim + c;
-      sK[r * (D + 1) + c] = in ? to_f32(kb[g]) : 0.0f;
-      sV[r * D + c] = in ? to_f32(vb[g]) : 0.0f;
-    }
-    __syncthreads();
-
-    float s[4][4];
+  T* ob = out + w.bh * sq * static_cast<int64_t>(dim);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int sl = 0; sl < SL; ++sl)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) s[i][c] = 0.0f;
-#pragma unroll 4
-    for (int kk = 0; kk < dim; ++kk) {
-      float a[4], b[4];
+    for (int i = 0; i < TM; ++i) {
+      float den = l[sl][i];
+      den += __shfl_xor_sync(0xffffffffu, den, 1);
+      den += __shfl_xor_sync(0xffffffffu, den, 2);
+      den += __shfl_xor_sync(0xffffffffu, den, 4);
+      const float inv = 1.0f / fmaxf(den, 1e-30f);
+      const int row = w.q0 + slab[sl] * P::kRows + rg + 4 * i;
+      if (row < 0 || row >= sq) continue;
+      T* orow = ob + static_cast<int64_t>(row) * dim;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = sQ[(ty + 16 * i) * (D + 1) + kk];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) b[c] = sK[(tx + 16 * c) * (D + 1) + kk];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) s[i][c] = fmaf(a[i], b[c], s[i][c]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty + 16 * i;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int kpos = k0 + tx + 16 * c;
-        float val = s[i][c] * scale;
-        if (kpos >= skv) val = -INFINITY;            // no such key: weight 0
-        else if (causal && kpos > qpos) val = kNegFill;
-        s[i][c] = val;
-        mx = fmaxf(mx, val);
+      for (int t = 0; t < kNT; ++t) {
+        const float a[4] = {
+            acc[sl][i][4 * t] * inv, acc[sl][i][4 * t + 1] * inv,
+            acc[sl][i][4 * t + 2] * inv, acc[sl][i][4 * t + 3] * inv};
+        store4<T>(orow, 4 * x + 32 * t, a, dim, out_vec);
       }
-      const float m_cur = fmaxf(m[i], row_max(mx));  // finite: key k0 exists
-      const float alpha = expf(m[i] - m_cur);
-      float sum = 0.0f;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        s[i][c] = expf(s[i][c] - m_cur);
-        sum += s[i][c];
-      }
-      l[i] = l[i] * alpha + row_sum(sum);
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[i][c] *= alpha;
-      m[i] = m_cur;
     }
-    __syncthreads();                     // every read of this K tile is done
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        sP[(ty + 16 * i) * (kBK + 1) + tx + 16 * c] = s[i][c];
-    __syncthreads();
-
-    for (int j = 0; j < k_rows; ++j) {
-      float p[4], vv[NC];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = sP[(ty + 16 * i) * (kBK + 1) + j];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) vv[c] = sV[j * D + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < NC; ++c) acc[i][c] = fmaf(p[i], vv[c], acc[i][c]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    if (r >= q_rows) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
-    T* o = out + (bh * sq + q0 + r) * dim;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int col = tx + 16 * c;
-      if (col < dim) o[col] = from_f32<T>(acc[i][c] / denom);
-    }
-  }
 }
 
-template <typename T, int D>
+template <typename T, int D, int TM, int NW, int BK, int SL, int MINB>
 int launch(const void* q, const void* k, const void* v, void* out,
            int64_t bh, int sq, int skv, int dim, int causal, float scale,
            cudaStream_t stream) {
-  const size_t smem = smem_bytes<D>();
+  using P = Plan<D, TM, NW, BK, SL>;
+  auto* kernel = cc_kernel<T, D, TM, NW, BK, SL, MINB>;
+  const int kv_bufs = skv > BK ? 2 : 1;  // one tile: nothing to prefetch
+  const size_t smem = P::bytes(kv_bufs);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T, D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>(bh),
-                  static_cast<unsigned>((sq + kBQ - 1) / kBQ));
-  flash_attention_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+  const int64_t units = bh * ((sq + P::kBQ - 1) / P::kBQ);
+  const uintptr_t in_bits = reinterpret_cast<uintptr_t>(q) |
+                            reinterpret_cast<uintptr_t>(k) |
+                            reinterpret_cast<uintptr_t>(v);
+  const uintptr_t out_bits = reinterpret_cast<uintptr_t>(out);
+  const int es = static_cast<int>(sizeof(T));
+  auto width = [&](uintptr_t bits, int most) {
+    for (int w = most; w > 1; w /= 2)
+      if (dim % w == 0 && bits % (w * es) == 0) return w;
+    return 1;
+  };
+  const int in_vec = es == 4 ? width(in_bits, 4) : 1;
+  const int out_vec = width(out_bits, 4);
+  kernel<<<static_cast<unsigned>(units), P::kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), sq, skv, dim, causal,
-      scale);
+      static_cast<const T*>(v), static_cast<T*>(out), bh, sq, skv, dim,
+      causal, scale, kv_bufs, in_vec, out_vec);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The instance for head width dim: D 32, 52 (SASRec's d 50), 64, 128, 256.
 template <typename T>
 int launch_dim(const void* q, const void* k, const void* v, void* out,
                int64_t bh, int sq, int skv, int dim, int causal, float scale,
                cudaStream_t stream) {
-  if (dim <= 64)
-    return launch<T, 64>(q, k, v, out, bh, sq, skv, dim, causal, scale,
-                         stream);
-  if (dim <= 128)
-    return launch<T, 128>(q, k, v, out, bh, sq, skv, dim, causal, scale,
-                          stream);
-  if (dim <= 256)
-    return launch<T, 256>(q, k, v, out, bh, sq, skv, dim, causal, scale,
-                          stream);
+  const auto a = std::make_tuple(q, k, v, out, bh, sq, skv, dim, causal,
+                                 scale, stream);
+  if (dim <= 32) return std::apply(launch<T, 32, 4, 4, 64, 1, 4>, a);
+  if (dim <= 52) return std::apply(launch<T, 52, 2, 4, 64, 2, 4>, a);
+  if (dim <= 64) return std::apply(launch<T, 64, 2, 4, 64, 2, 4>, a);
+  if (dim <= 128) return std::apply(launch<T, 128, 4, 4, 32, 1, 1>, a);
+  if (dim <= 256) return std::apply(launch<T, 256, 2, 8, 32, 1, 1>, a);
   return static_cast<int>(cudaErrorInvalidValue);
 }
+
+}  // namespace cc
 
 // ---------------------------------------------------------------------------
 // tensor-core route: bf16/f16, d <= 128
@@ -762,14 +1049,14 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     return static_cast<int>(cudaGetLastError());
   switch (dtype) {
     case 0:
-      return launch_dim<float>(q, k, v, out, bh, sq, skv, dim, causal, scale,
-                               stream);
+      return cc::launch_dim<float>(q, k, v, out, bh, sq, skv, dim, causal,
+                                   scale, stream);
     case 1:
-      return launch_dim<__nv_bfloat16>(q, k, v, out, bh, sq, skv, dim, causal,
-                                       scale, stream);
+      return cc::launch_dim<__nv_bfloat16>(q, k, v, out, bh, sq, skv, dim,
+                                           causal, scale, stream);
     case 2:
-      return launch_dim<__half>(q, k, v, out, bh, sq, skv, dim, causal, scale,
-                                stream);
+      return cc::launch_dim<__half>(q, k, v, out, bh, sq, skv, dim, causal,
+                                    scale, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -32,7 +32,9 @@ over F (every F mod 4, one tile per lane and lanes looping) and d (scalar
 tails, 16-byte staging); an input not 16-byte aligned gives the aligned
 copy's results bitwise; its shared-memory cap comes from the build;
 flash_attention (an online softmax against the one-pass plain version)
-within 2e-4 / 2e-5 in f32 and 2e-2 in bf16 and f16, and its tensor-core
+within 2e-4 / 2e-5 in f32 and 2e-2 in bf16 and f16, also where a block
+walks several short sequences (B 4,099) and at the paths' S 49, 50 and
+200, and its tensor-core
 route at a long causal sequence within one rounding step of the type
 (rtol 1.5 x eps, atol 1e-4). The fused top-k redesign is held bitwise
 (values and ids) on integer-valued inputs over k, row counts either side
@@ -55,7 +57,8 @@ decode; the MoE LMs too) equal the CPU's within rtol 1e-4 / atol 1e-5,
 and a bf16 prefill within rtol 2e-2 / atol 4e-2. The MoE's token
 combine and dispatch-gather gradient (the 16-bit CSR gather-sum, k rows
 a token, d 6,144 and 7,168) are bitwise their plain version at the MoE
-LMs' shapes, and the MoE FFN makes no host sync. The sliced AdamW update
+LMs' shapes, as are few f32 rows wider than one column tile, and the
+MoE FFN makes no host sync. The sliced AdamW update
 and the per-leaf clip are bitwise the update before them on CUDA leaves.
 The streamed LP solve gives the in-memory solve's labels on the card (and
 the CPU's) at the 10k rung, with a lower peak of device memory, and the
@@ -513,7 +516,8 @@ def test_fused_topk_empty_batch_launches_nothing(dev, variant):
 @pytest.mark.parametrize("dtype", ["f32", "bf16", "f16"])
 @pytest.mark.parametrize("d", [32, 50, 128, 256])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("sq,skv", [(200, 328), (256, 256), (64, 1)])
+@pytest.mark.parametrize("sq,skv", [(200, 328), (256, 256), (64, 1),
+                                    (49, 49), (50, 50), (200, 200)])
 def test_flash_attention_kernel(dev, dtype, d, causal, sq, skv):
     g = torch.Generator().manual_seed(d + sq + skv)
     q, k, v = (torch.randn(2, 3, s, d, generator=g).to(FLOATS[dtype]).to(dev)
@@ -523,6 +527,24 @@ def test_flash_attention_kernel(dev, dtype, d, causal, sq, skv):
     assert flash_attention.launches == before + 1
     assert got.shape == q.shape
     _close(got, ref.flash_attention(q, k, v, causal=causal), dtype)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,sq,skv,d", [(4099, 49, 49, 50), (4099, 50, 50, 32),
+                                        (300, 20, 49, 50), (300, 49, 20, 50),
+                                        (300, 49, 20, 32), (300, 1, 1, 50)])
+def test_flash_attention_kernel_many_short_sequences(dev, causal, b, sq, skv,
+                                                     d):
+    """Short sequences (Skv within one key tile): each block walks several
+    (b, h) sequences, the next one's copies in flight; B 4,099 is not a
+    multiple of any grid. Sq != Skv keeps the top-left causal mask."""
+    g = torch.Generator().manual_seed(b + sq + skv + d)
+    q, k, v = (torch.randn(b, 1, s, d, generator=g).to(dev)
+               for s in (sq, skv, skv))
+    before = flash_attention.launches_cc
+    got = flash_attention(q, k, v, causal=causal)
+    assert flash_attention.launches_cc == before + 1
+    _close(got, ref.flash_attention(q, k, v, causal=causal), "f32")
 
 
 def test_flash_attention_kernel_strided_inputs_and_refusals(dev):
@@ -1423,6 +1445,28 @@ def test_csr_gather_sum_16bit_at_the_moe_shapes(dev, t, k, d):
         else:
             assert csr_gather_sum.launches_16 == before + 1
             assert torch.equal(x.grad, want)
+
+
+@pytest.mark.parametrize("rows,d", [(1, 6144), (8, 1000), (8, 4100),
+                                    (64, 7168)])
+def test_csr_gather_sum_f32_few_wide_rows(dev, rows, d):
+    """f32 rows wider than one column tile (d > 128) in few strips: the
+    column tiles of a strip are dealt to several warps, each the same
+    fold, so the result is bitwise the plain version's; one launch a
+    call. 0-40 values a row, one of 40 (a long row); d 1,000 and 4,100
+    are not a multiple of 32 lane words."""
+    g = torch.Generator().manual_seed(rows + d)
+    lens = torch.randint(0, 41, (rows,), generator=g)
+    lens[rows // 2] = 40
+    ptr = torch.cat([torch.zeros(1, dtype=torch.int64),
+                     torch.cumsum(lens, 0)]).to(dev)
+    idx = torch.randint(0, 300, (int(lens.sum()),), generator=g,
+                        dtype=torch.int32).to(dev)
+    src = torch.randn(300, d, generator=g).to(dev)
+    before = csr_gather_sum.launches
+    got = csr_gather_sum(src, idx, ptr)
+    assert csr_gather_sum.launches == before + 1
+    assert torch.equal(got, ref.csr_gather_sum(src, idx, ptr))
 
 
 def test_moe_ffn_makes_no_host_sync(dev):

@@ -94,7 +94,10 @@ def _qkv(seed, b, h, sq, skv, d):
 
 @pytest.mark.parametrize("b,h,s,d,bq,bk", [
     (1, 1, 128, 64, 64, 64), (2, 2, 256, 64, 64, 128),
-    (1, 2, 256, 128, 128, 64), (2, 1, 512, 32, 128, 128)])
+    (1, 2, 256, 128, 128, 64), (2, 1, 512, 32, 128, 128),
+    # the paths' attention at B 2: SASRec (S 49, d 50, one Pallas block)
+    # and BERT4Rec (2 heads, S 200, d 32)
+    (2, 1, 49, 50, 128, 128), (2, 2, 200, 32, 40, 40)])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 def test_flash_attention_matches_reference(b, h, s, d, bq, bk, causal,

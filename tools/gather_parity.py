@@ -13,7 +13,8 @@ in one call (a check made when the kernels are rewritten).
 (Copy the commit's ``gather.cuh`` and ``f32_convert.cuh`` there too: a
 source's own directory is searched for its headers first.) The other
 sources must have the same C interfaces (``csr_gather_sum_launch``,
-``csr_gather_sum_weighted_launch``, ``codebook_lookup_launch``). Both
+``csr_gather_sum_weighted_launch``, ``csr_gather_sum16_launch``,
+``codebook_lookup_launch``). Both
 builds fold every output column with __fadd_rn in value order from
 +0.0f, so they must agree bit for bit on any input. The cases:
 
@@ -28,13 +29,18 @@ builds fold every output column with __fadd_rn in value order from
   the weighted LightGCN propagation of both sides (547,067 edges,
   ``csr_gather_sum_weighted_launch``), the ordered W(k) sum (800,000
   weights into 1,000,000 labels, d 1), SASRec's item-table backward
-  (3,211,264 values into 250,112 rows, d 50) and Wide&Deep's wide table
-  (65,536 values into 250,112 rows, d 1);
-- the 16-bit instantiation (``csr_gather_sum16_launch``; this build
-  only) against its plain version: bf16 and f16 at the ``cuda`` tests'
-  shapes and the LM token embedding's gradient (a Zipf-skewed draw of
+  (3,211,264 values into 250,112 rows, d 50), Wide&Deep's wide table
+  (65,536 values into 250,112 rows, d 1) and SchNet's segment sums at
+  ogb_products' (1/8 of its edges) and minibatch_lg's sizes;
+- the 16-bit instantiation (``csr_gather_sum16_launch``) against the
+  other build and its plain version: bf16 and f16 at the ``cuda`` tests'
+  shapes, the LM token embedding's gradient (a Zipf-skewed draw of
   4,096 token ids over 256,000 rows, d 3,584, one microbatch of
-  gemma2-9b's train_4k), timed beside ``index_add_`` in f32;
+  gemma2-9b's train_4k) and the MoE token combines (``MOE_SHAPES``:
+  dbrx-132b's and kimi-k2's decode and prefill, dbrx-132b's train
+  microbatch), timed in turns beside ``index_add_`` in f32;
+- few wide rows (``wide_inputs``), bf16 and f32 at d 1,000 to 7,168:
+  1, 8 and 64 rows of 0-40 values, one long row among them;
 - bags of one length each (``synthetic_inputs``), timed too: one row
   of 100,000 values, 132 rows of 20,000 (the long-row blocks), 52,643
   rows of 0, 1, 4, 16 (the short-row warps);
@@ -69,8 +75,11 @@ LOOKUP_HS = (1, 2, 3, 5)
 
 def bind(path: str):
     """(csr_gather_sum, codebook_lookup) callables of the libraries
-    ``path % name``, each allocating its output like the wrappers."""
+    ``path % name``, each allocating its output like the wrappers; the
+    gather-sum takes f32 (plain or weighted), bf16 and f16 rows."""
     import torch
+
+    from repro_torch.kernels import platform
 
     bag = parity_build.entry(
         path % "embedding_bag", "csr_gather_sum_launch",
@@ -80,6 +89,10 @@ def bind(path: str):
         path % "embedding_bag", "csr_gather_sum_weighted_launch",
         [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_int,
                                  ctypes.c_void_p])
+    bag16 = parity_build.entry(
+        path % "embedding_bag", "csr_gather_sum16_launch",
+        [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                                 ctypes.c_void_p])
     cb = parity_build.entry(
         path % "codebook_lookup", "codebook_lookup_launch",
         [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int, ctypes.c_int,
@@ -87,9 +100,14 @@ def bind(path: str):
 
     def gather_sum(src, idx, ptr, weight=None):
         rows = ptr.numel() - 1
-        out = torch.empty(rows, src.shape[1], device=src.device)
+        out = torch.empty(rows, src.shape[1], device=src.device,
+                          dtype=src.dtype)
         stream = torch.cuda.current_stream().cuda_stream
-        if weight is None:
+        if src.dtype != torch.float32:
+            status = bag16(src.data_ptr(), idx.data_ptr(), ptr.data_ptr(),
+                           out.data_ptr(), rows, src.shape[1],
+                           platform.DTYPES[src.dtype], stream)
+        elif weight is None:
             status = bag(src.data_ptr(), idx.data_ptr(), ptr.data_ptr(),
                          out.data_ptr(), rows, src.shape[1], stream)
         else:
@@ -179,12 +197,74 @@ def more_inputs(train):
     for what, nnz, rows, n_src, d in (
             ("ordered W(k) sum", 800_000, 1_000_000, 800_000, 1),
             ("SASRec items backward", 3_211_264, 250_112, 3_211_264, 50),
-            ("Wide&Deep wide backward", 65_536, 250_112, 65_536, 1)):
+            ("Wide&Deep wide backward", 65_536, 250_112, 65_536, 1),
+            ("SchNet ogb_products-sized segment sum", 7_732_480, 2_449_152,
+             2_449_152, 64),
+            ("SchNet minibatch_lg-sized segment sum", 168_960, 169_984,
+             169_984, 64)):
         dest = torch.randint(0, rows, (nnz,), generator=g)
         dest_sorted, perm = torch.sort(dest, stable=True)
+        src_ids = perm if n_src == nnz else torch.randint(
+            0, n_src, (nnz,), generator=g)
         out[what] = (torch.randn(n_src, d, generator=g).to(dev),
-                     perm.int().to(dev),
+                     src_ids.int().to(dev),
                      chip_smoke.csr_ptr(dest_sorted.to(dev), rows), None)
+    return out
+
+
+# (what, tokens, rows a token, d): the MoE token combine of
+# ``transformer._Combine`` at the MoE LMs' shapes
+MOE_SHAPES = (("dbrx-132b decode", 8, 4, 6144),
+              ("kimi-k2 decode", 64, 8, 7168),
+              ("dbrx-132b train_4k", 4096, 4, 6144),
+              ("dbrx-132b prefill", 32768, 4, 6144),
+              ("kimi-k2 prefill", 32768, 8, 7168))
+
+
+def moe_inputs():
+    """(what, rows bf16 [t k, d], perm, ptr, tok) of the MoE combines: t
+    tokens of k expert rows each in a random expert-sorted order, as in
+    ``tests/test_torch_cuda.py::test_csr_gather_sum_16bit_at_the_moe_shapes``;
+    ``tok`` is each row's token (``index_add_``'s index)."""
+    import torch
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    out = []
+    for what, t, k, d in MOE_SHAPES:
+        tok = torch.randperm(t * k, generator=g, device=dev) // k
+        perm = torch.sort(tok, stable=True).indices.int()
+        ptr = torch.arange(0, t * k + 1, k, device=dev)
+        rows = torch.randn(t * k, d, generator=g, device=dev).to(
+            torch.bfloat16)
+        out.append((what, rows, perm, ptr, tok))
+    return out
+
+
+WIDE_DS = (1000, 1024, 3584, 4100, 6144, 7168)
+
+
+def wide_inputs():
+    """(what, src, idx, ptr) of few wide rows, bf16 and f32: 1, 8 and 64
+    rows of 0-40 values each (from 8 rows on one of 40, a long row),
+    over a [500, d] source; d 1,000 and 4,100 are not a multiple of 32
+    lane words."""
+    import torch
+    dev = torch.device("cuda")
+    g = torch.Generator(device="cpu").manual_seed(41)
+    out = []
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        for d in WIDE_DS:
+            src = torch.randn(500, d, generator=g).to(dev, dtype)
+            for rows in (1, 8, 64):
+                lens = torch.randint(0, 41, (rows,), generator=g)
+                if rows >= 8:
+                    lens[rows // 2] = 40
+                ptr = torch.cat([torch.zeros(1, dtype=torch.int64),
+                                 torch.cumsum(lens, 0)]).to(dev)
+                idx = torch.randint(0, 500, (int(lens.sum()),), generator=g,
+                                    dtype=torch.int32).to(dev)
+                out.append((f"{name} d={d} rows={rows}", src, idx, ptr))
     return out
 
 
@@ -287,6 +367,7 @@ def main(other_dir: str) -> int:
     import torch
 
     from repro_torch.kernels import codebook_lookup, csr_gather_sum, ref
+    from repro_torch.kernels import cost as kcost
 
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -326,7 +407,17 @@ def main(other_dir: str) -> int:
     cases16 = inputs16()
     for what, src, idx, ptr in cases16:
         tally("embedding_bag 16-bit", what, csr_gather_sum(src, idx, ptr),
-              ref.csr_gather_sum(src, idx, ptr))
+              old_bag(src, idx, ptr), ref.csr_gather_sum(src, idx, ptr))
+    moe = moe_inputs()
+    for what, rows, perm, ptr, _ in moe:
+        tally("embedding_bag 16-bit", f"MoE combine {what}",
+              csr_gather_sum(rows, perm, ptr), old_bag(rows, perm, ptr),
+              ref.csr_gather_sum(rows, perm, ptr))
+    for what, src, idx, ptr in wide_inputs():
+        name = ("embedding_bag" if src.dtype == torch.float32
+                else "embedding_bag 16-bit")
+        tally(name, f"wide {what}", csr_gather_sum(src, idx, ptr),
+              old_bag(src, idx, ptr), ref.csr_gather_sum(src, idx, ptr))
     for what, (src, idx, ptr) in synthetic.items():
         tally("embedding_bag", what, csr_gather_sum(src, idx, ptr),
               old_bag(src, idx, ptr))
@@ -360,11 +451,26 @@ def main(other_dir: str) -> int:
     ids[idx.long()] = torch.repeat_interleave(      # each row's token id
         torch.arange(ptr.numel() - 1, device=ptr.device), ptr[1:] - ptr[:-1])
     times[f"embedding_bag 16-bit {what}"] = {
-        "new_ms": t(lambda: csr_gather_sum(src, idx, ptr)),
+        "old_ms": [t(lambda: old_bag(src, idx, ptr))],
+        "new_ms": [t(lambda: csr_gather_sum(src, idx, ptr))
+                   for _ in range(2)],
         "plain_ms": t(lambda: ref.csr_gather_sum(src, idx, ptr), iters=5),
         "library_ms": t(lambda: torch.zeros(
             ptr.numel() - 1, src.shape[1], device=src.device).index_add_(
                 0, ids, src.float()).to(src.dtype))}
+    times[f"embedding_bag 16-bit {what}"]["old_ms"].append(
+        t(lambda: old_bag(src, idx, ptr)))
+    for what, rows, perm, ptr, tok in moe:
+        row = {"old_ms": [t(lambda: old_bag(rows, perm, ptr))]}
+        row["new_ms"] = [t(lambda: csr_gather_sum(rows, perm, ptr))
+                         for _ in range(2)]
+        row["old_ms"].append(t(lambda: old_bag(rows, perm, ptr)))
+        row["library_ms"] = t(lambda: torch.zeros(
+            ptr.numel() - 1, rows.shape[1], device=rows.device).index_add_(
+                0, tok, rows.float()).to(rows.dtype))
+        row["bound_ms"] = kcost.bound(kcost.csr_gather_sum(
+            rows, perm, ptr, rows=rows.shape[0]))[0]
+        times[f"embedding_bag 16-bit MoE combine {what}"] = row
     for what, (src, idx, ptr) in synthetic.items():
         row = {"old_ms": t(lambda: old_bag(src, idx, ptr)),
                "new_ms": t(lambda: csr_gather_sum(src, idx, ptr))}
