@@ -131,29 +131,34 @@
    generator seed 0, bf16; tokens uniform over the vocabulary; a decode
    cell's cache drawn standard normal in the cache dtype at ``pos =
    seq_len - 1``, so every step reads the full 32k cache) through
-   ``ArchSession`` (``LM_CELLS``): gemma2-9b ``prefill_32k`` (B 1 of 32,
-   2 requests) and ``decode_32k`` (B 4 of 128), gemma3-12b
-   ``decode_32k`` (B 8), qwen1.5-32b ``decode_32k`` (B 2, 32 of its 64
-   layers, fp8 cache), each after one untimed warm-up whose token lookup
+   ``ArchSession`` (``LM_CELLS``): ``prefill_32k`` of gemma2-9b and
+   gemma3-12b (B 1 of 32, all their layers) and of qwen1.5-32b (B 1, 32
+   of its 64 layers, fp8 cache), 2 requests each; ``decode_32k`` of
+   gemma2-9b (B 4 of 128), gemma3-12b (B 8) and qwen1.5-32b (B 2, 32
+   layers), each after one untimed warm-up whose token lookup
    (codebook_lookup's bf16 instantiation, at H = 1) is held bitwise
    against its plain version and timed (``first_calls``). Launch counts
    are zeroed just before each cell and read just after; the lookup must
-   launch once a request. Logits must be finite f32 [B, vocab]. p50/p99,
+   launch once a request. Logits must be finite f32 [B, vocab], and a
+   prefill's cache finite (``finite_cache``). p50/p99,
    tokens/s and peak device bytes (from a reset after the warm-up) are
    printed, and each decode cell's arch runs the decode-after-prefill
    check on its full-width params (``lm_decode_after_prefill``: 64
    prompt tokens, 8 rows; tolerance by cache dtype, and two planted
    position faults that must fail it). bf16 GEMMs sum in
    f32: the model's entries turn cuBLAS's reduced-precision reduction off.
-   Then gemma2-9b ``train_4k`` at full width through ``build_cell`` at
-   its one-card cut (8 of 42 layers, 8 sequences of 4,096 tokens, one a
-   microbatch, the f32 gradient accumulator; ``LM_TRAIN_CELL``): one
-   warm-up and 2 timed steps on a fixed batch; the bf16 CSR gather-sum
-   (the token lookup's backward) must launch once a microbatch, the
-   loss must be finite and fall at every step, and the peak (from a
-   reset after the warm-up) must leave 15% of the card free; the
-   warm-up's first backward call is held bitwise against its plain
-   version and timed beside ``index_add_`` into f32. The smoke cells
+   Then the dense LMs' ``train_4k`` at full width through ``build_cell``
+   at their one-card cuts (``LM_TRAIN_CELLS``; 8 sequences of 4,096
+   tokens, one a microbatch): gemma2-9b at 8 of 42 layers and gemma3-12b
+   at 6 of 48 (one 5:1 local:global block) with the f32 gradient
+   accumulator, one timed step each; qwen1.5-32b at 5 of 64 with the
+   bf16 one, 2 timed steps; each after one warm-up step on a fixed
+   batch; the token lookup and the bf16 CSR gather-sum (its backward)
+   must launch once a microbatch, the loss must be finite and fall at
+   every step, and the peak must leave 15% of the card free; the
+   warm-up's first lookup and first backward call are held bitwise
+   against their plain versions and timed beside ``index_add_`` into
+   f32 once the cell is freed. The smoke cells
    (f32, bf16 variants of gemma2's and qwen's prefill, and one bf16
    train step of each LM: loss rtol 1e-2, gradients within 8 bf16 ulps
    of max |g|) then run on the card against the port's CPU path. It
@@ -317,10 +322,10 @@
 7. The benches (``repro_torch.launch``), each ``main(argv)`` as a user
    calls it, into a fresh results store in a temporary directory (never
    the default root), in ``BENCH_ARGS``: ``train_bench`` (amazonbook, d
-   64, batch 2,048: host_seed, host, fused at chunks 1/8/32; 10 rounds),
+   64, batch 2,048: host_seed, host, fused at chunks 1/8/32; 5 rounds),
    ``serve_bench`` (amazonbook, d 64: every lookup backend x both
-   scorers x buckets 1/8/64, 200 requests a row), ``stream_bench``
-   (52,643 x 91,599, k_true 300, d 64, 32 steps: 32 swaps),
+   scorers x buckets 1/8/64, 100 requests a row), ``stream_bench``
+   (52,643 x 91,599, k_true 300, d 64, 16 steps: 16 swaps),
    ``load_bench`` (amazonbook, d 64, 120 qps for 4 s), ``cluster_scale
    --rungs 100k`` and ``kernel_bench --json --repeats 100``. Each must
    append exactly one record keyed to this card
@@ -483,21 +488,23 @@ BASELINE_TRAIN_STEPS = 200
 # d 64, training batch 2,048); the stream bench at the stream phase's
 # 52,643 x 91,599 with k_true 300; one rate of 120 qps for 4 s; the 100k
 # rung. Departures from the reference benches' defaults, so that each
-# tail and each gated time rests on enough samples: 200 requests a
+# tail and each gated time rests on enough samples: 100 requests a
 # serving row (the reference's 20 make p99 the largest of 20), a stream
-# of 32 steps (32 swaps and 31 warm cold-assigns, not 4 and 3) at a drift
-# of 0.0064 a step (the same share of users moved over the stream as 4
-# steps at 0.05), 10 interleaved training rounds (not 5) and 100 calls a
-# kernel-sweep row (not 3).
+# of 16 steps (16 swaps and 15 warm cold-assigns, not 4 and 3) at a drift
+# of 0.0064 a step (half the share of users moved over the stream as 4
+# steps at 0.05) and 100 calls a kernel-sweep row (not 3); the
+# reference's 5 interleaved training rounds (the smoke ran 200 requests
+# a row, 32 stream steps and 10 rounds until its LM cells needed the
+# time: the onehot backend's rows take ~40 ms a request).
 BENCH_ARGS = {
     "train_pipeline": ("train_bench", ["--dataset", "amazonbook", "--dim",
                                        "64", "--batch", "2048", "--rounds",
-                                       "10"]),
+                                       "5"]),
     "serve_session": ("serve_bench", ["--dataset", "amazonbook", "--dim",
-                                      "64", "--n-requests", "200"]),
+                                      "64", "--n-requests", "100"]),
     "stream": ("stream_bench", ["--n-users", "52643", "--n-items", "91599",
                                 "--k-true", "300", "--dim", "64", "--steps",
-                                "32", "--drift", "0.0064"]),
+                                "16", "--drift", "0.0064"]),
     "server": ("load_bench", ["--dataset", "amazonbook", "--dim", "64",
                               "--qps", "120", "--duration", "4"]),
     "cluster_scale": ("cluster_scale", ["--rungs", "100k"]),
@@ -2610,6 +2617,8 @@ def arch_path() -> dict:
 # (launch.steps.LM_ONE_CARD), with the requests each serves after its
 # warm-up: the dense LMs, gemma's long_500k decode, the MoE LMs
 LM_CELLS = (("gemma2-9b", "prefill_32k", 1),
+            ("gemma3-12b", "prefill_32k", 1),
+            ("qwen1.5-32b", "prefill_32k", 1),
             ("gemma2-9b", "decode_32k", 5),
             ("gemma3-12b", "decode_32k", 5),
             ("qwen1.5-32b", "decode_32k", 5),
@@ -2778,6 +2787,15 @@ def lm_step_bytes(cell, cfg) -> int:
     return total
 
 
+def finite_cache(cache: dict) -> bool:
+    """Every K/V entry of a cache finite, read a block at a time (an f32
+    copy of a whole fp8 cache would be four times its size)."""
+    import torch
+
+    return all(bool(torch.isfinite(t[i].float()).all())
+               for t in cache.values() for i in range(t.shape[0]))
+
+
 def lm_cell(arch: str, shape: str, n: int) -> dict:
     """One LM cell at full width on the card through ``ArchSession`` (one
     card's cut): counts zeroed just before the warm-up and read just
@@ -2787,7 +2805,9 @@ def lm_cell(arch: str, shape: str, n: int) -> dict:
     other time; the warm-up's first token lookup and first combine held
     bitwise against their plain versions and timed (:func:`first_calls`);
     p50/p99, tokens/s, peak device bytes from a reset after the warm-up
-    (at most ``PEAK_SHARE`` of the card). A decode cell reports the
+    (at most ``PEAK_SHARE`` of the card). A prefill cell's cache must be
+    finite (for qwen's fp8 cache, no K/V past the cast's NaN bound,
+    ``transformer.to_kv``). A decode cell reports the
     bytes one step must read (:func:`lm_step_bytes`) and that time at
     the HBM rate beside its p50, and runs :func:`lm_decode_after_prefill`
     on its params."""
@@ -2858,6 +2878,9 @@ def lm_cell(arch: str, shape: str, n: int) -> dict:
                                  for k, v in launches.items()},
            "kernels": kernels, **session.stats(),
            "peak_calls_gb": peak_calls}
+    if cell.kind == "prefill":
+        require(finite_cache(out[1]),
+                f"{label}: the cache prefill wrote is not finite")
     if cell.kind == "decode":
         res["step_bytes"] = lm_step_bytes(cell, cfg)
         res["step_bytes_ms"] = kcost.bound(kcost.Cost(res["step_bytes"]))[0]
@@ -2878,9 +2901,11 @@ def lm_cell(arch: str, shape: str, n: int) -> dict:
 
 
 # the full-width LM train cells (their LM_ONE_CARD cuts), and the timed
-# steps after one untimed warm-up: a dense LM and a MoE
-LM_TRAIN_CELL = ("gemma2-9b", "train_4k", 2)
-LM_MOE_TRAIN_CELL = ("dbrx-132b", "train_4k", 4)
+# steps after one untimed warm-up: the dense LMs (one timed step of
+# gemma's 15-19 s) and a MoE
+LM_TRAIN_CELLS = (("gemma2-9b", "train_4k", 1), ("gemma3-12b", "train_4k", 1),
+                  ("qwen1.5-32b", "train_4k", 2))
+LM_MOE_TRAIN_CELL = ("dbrx-132b", "train_4k", 2)
 # the cell one card cannot hold, with the reckoning chip_smoke prints
 LM_NOT_RUN = ("kimi-k2-1t-a32b", "train_4k")
 # the share of the card's memory a full-width cell's peak may take
@@ -2918,9 +2943,10 @@ def require_peak(label: str, peak_bytes: float) -> None:
 def lm_train_cell(arch: str, shape: str, n: int,
                   every_step: bool = True) -> dict:
     """An LM's train cell at full width through ``build_cell`` at its
-    one-card cut (``LM_ONE_CARD``: gemma2-9b at 8 of 42 layers with the
-    f32 gradient accumulator, dbrx-132b at 1 of 40 with the bf16 one; 8
-    sequences of 4,096 tokens, one a microbatch), on a fixed batch: one
+    one-card cut (``LM_ONE_CARD``: gemma2-9b at 8 of 42 layers and
+    gemma3-12b at 6 of 48 with the f32 gradient accumulator, qwen1.5-32b
+    at 5 of 64 and dbrx-132b at 1 of 40 with the bf16 one; 8 sequences of
+    4,096 tokens, one a microbatch), on a fixed batch: one
     warm-up step and ``n`` timed steps. Counts zeroed just before the
     warm-up and read just after the last step: the token lookup must
     launch once a microbatch, and the CSR gather-sum's bf16
@@ -2938,10 +2964,12 @@ def lm_train_cell(arch: str, shape: str, n: int,
     backward call
     of the lookup (the first microbatch's cotangent and token ids), first
     lookup, first combine and first dispatch-gather gradient are kept,
-    then held bitwise against their plain versions and timed after the
-    run (L2 flushed; a gather-sum beside ``zeros(S, d, f32).index_add_(0,
-    ids, g.float()).to(bf16)``). Step ms, tokens/s and the peak GB from a
-    reset after the warm-up, which must leave 15% of the card free."""
+    then held bitwise against their plain versions and timed once the
+    cell's tensors are freed (L2 flushed; a gather-sum beside ``zeros(S,
+    d, f32).index_add_(0, ids, g.float()).to(bf16)``, 4.03 GB of f32 at
+    gemma3's 262,144 x 3,840). Step ms, tokens/s and the peak GB from the
+    build on and from a reset after the warm-up, which must both leave
+    15% of the card free."""
     import gc
 
     import torch
@@ -3214,7 +3242,7 @@ def lm_path() -> dict:
     """The LM family through its entry points at the published widths
     on the card (:func:`lm_cell` each, ``LM_CELLS``: the dense LMs,
     gemma's long_500k, the MoE LMs), the full-width train cells
-    (:func:`lm_train_cell`: ``LM_TRAIN_CELL``, ``LM_MOE_TRAIN_CELL``),
+    (:func:`lm_train_cell`: ``LM_TRAIN_CELLS``, ``LM_MOE_TRAIN_CELL``),
     the train cell one card cannot hold (:func:`lm_not_run`), then the
     smoke cells on the card against the CPU path. The token lookup's
     kernel must run once a request in every cell."""
@@ -3224,12 +3252,12 @@ def lm_path() -> dict:
     res = {"cells": [lm_cell(a, s, n) for a, s, n in LM_CELLS]}
     res["serve_s"] = time.perf_counter() - t0
     t1 = time.perf_counter()
-    res["train"] = lm_train_cell(*LM_TRAIN_CELL)
+    res["train"] = [lm_train_cell(a, s, n) for a, s, n in LM_TRAIN_CELLS]
     res["train_moe"] = lm_train_cell(*LM_MOE_TRAIN_CELL, every_step=False)
     res["train_s"] = time.perf_counter() - t1
     res["not_run"] = lm_not_run(*LM_NOT_RUN)
     total = {}
-    for c in res["cells"] + [res["train"], res["train_moe"]]:
+    for c in res["cells"] + res["train"] + [res["train_moe"]]:
         for k, v in c["launches"].items():
             total[k] = total.get(k, 0) + v
     res["launches"] = total
@@ -4630,8 +4658,8 @@ def check_codebook_lookup(run: dict) -> dict:
             "items_h2": run["baselines"]["codebook_items_h2"],
             "arch_path": arch_rows(run, "codebook_lookup"),
             "lm_path": {c["cell"]: c["kernels"]["codebook_lookup"]
-                        for c in run["lm"]["cells"] + [
-                            run["lm"]["train"], run["lm"]["train_moe"]]},
+                        for c in run["lm"]["cells"] + run["lm"]["train"]
+                        + [run["lm"]["train_moe"]]},
             "gnn_path": {c["cell"]: c["kernels"]["codebook_lookup"]
                          for c in run["gnn"]["cells"]
                          if "codebook_lookup" in c["kernels"]}}
@@ -5060,9 +5088,8 @@ def check_embedding_bag16(run: dict) -> dict:
     tests' shapes are held by ``tests/test_torch_cuda.py`` and
     ``tools/gather_parity.py``."""
     lm = run["lm"]
-    train = lm["train"]
-    row = train["kernels"]["embedding_bag"]
-    cells = lm["cells"] + [train, lm["train_moe"]]
+    row = lm["train"][0]["kernels"]["embedding_bag"]
+    cells = lm["cells"] + lm["train"] + [lm["train_moe"]]
     by_path = {c["cell"]: c["launches_bf16_gather_sum"] for c in cells
                if c["launches_bf16_gather_sum"]}
     mesh = run["lm_mesh"]

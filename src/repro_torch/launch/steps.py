@@ -238,12 +238,35 @@ def _full_batch(batch: dict, device, seed: int = 0) -> dict:
 # and 4.70 GB of embedding and head, so 1 layer; decode at B 64 (K/V
 # 117 MB a row and its f32 K copy 117 MB). kimi's train_4k does not fit:
 # one layer's params and gradients alone are 77.5 GB.
+# gemma3-12b and qwen1.5-32b prefill_32k and train_4k, reckoned on meta
+# tensors (``launch.dryrun.reckon``: arguments, outputs and the peak of
+# the step's temporaries) against 72.26 GB (85% of the card's 85.02 GB):
+# gemma3 prefill B 1 uncut: 23.53 GB of params, 2.48 of cache (8 global
+# layers, 40 local windows), 13.89 of temporaries (its f32 residual
+# stream, the tied head cast to f32) = 39.91. qwen prefill B 1 at the
+# decode's 32 of 64 layers: 36.75 of params, 10.74 of fp8 cache, 20.60 of
+# temporaries (a query chunk's 40 x 512 x 32,768 f32 scores) = 68.10; a
+# layer more adds 1.72, so 34 would leave 0.72 GB. gemma3 train_4k at 6
+# of 48 layers (one block of its 5:1 local:global pattern, the smallest
+# cut ``n_blocks`` takes): 2.35e9 params, 1.01e9 of them the tied table,
+# 4.70 GB in bf16, so the f32 accumulator: 23.52 of params and AdamW
+# moments, 35.67 of temporaries (the accumulator, a microbatch's
+# gradients, the table's f32 casts) = 59.18, and 4.03 more where a caller
+# keeps the first lookup's table and gradient (chip_smoke); 12 layers
+# reckon 84.10. qwen train_4k at 5 of 64 layers: 4.19e9 params, 1.56e9
+# of them the untied embedding and head, 8.37 GB in bf16, so the bf16
+# accumulator: 41.85 + 20.33 = 62.18 (+3.11 kept); 4 layers with the f32
+# one 61.67, 6 layers 70.43 (+3.11). The card's peaks: PERF.md §4.
 LM_ONE_CARD = {("gemma2-9b", "train_4k"): {"batch": 8, "n_layers": 8},
                ("gemma2-9b", "prefill_32k"): {"batch": 1},
                ("gemma2-9b", "decode_32k"): {"batch": 4},
                ("gemma2-9b", "long_500k"): {"batch": 1, "n_layers": 22},
+               ("gemma3-12b", "train_4k"): {"batch": 8, "n_layers": 6},
+               ("gemma3-12b", "prefill_32k"): {"batch": 1},
                ("gemma3-12b", "decode_32k"): {"batch": 8},
                ("gemma3-12b", "long_500k"): {"batch": 1},
+               ("qwen1.5-32b", "train_4k"): {"batch": 8, "n_layers": 5},
+               ("qwen1.5-32b", "prefill_32k"): {"batch": 1, "n_layers": 32},
                ("qwen1.5-32b", "decode_32k"): {"batch": 2, "n_layers": 32},
                ("dbrx-132b", "train_4k"): {"batch": 8, "n_layers": 1},
                ("dbrx-132b", "prefill_32k"): {"batch": 1, "n_layers": 6},

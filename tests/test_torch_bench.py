@@ -244,7 +244,7 @@ HASH_CASES = [
     ("scale", []), ("scale", ["--rungs", "100k"]),
     ("scale", ["--rungs", "10k,1m", "--block-edges", "4096"]),
     ("kernel", ["--json"]), ("kernel", ["--json", "--full"]),
-    # the sample counts chip_smoke.py's BENCH_ARGS ask for
+    # sample counts above the benches' defaults
     ("train", ["--dataset", "amazonbook", "--dim", "64", "--batch", "2048",
                "--rounds", "10"]),
     ("serve", ["--dataset", "amazonbook", "--dim", "64", "--n-requests",

@@ -40,7 +40,9 @@ token lookup on its "gather" backend.
 import dataclasses
 import functools
 import importlib
+import importlib.util
 import math
+import os
 
 import numpy as np
 import pytest
@@ -137,7 +139,10 @@ def _close(got, want, rtol, atol, what=""):
 def test_full_width_params_equal_eval_shape(arch):
     """The published configs' param tree (shapes and dtypes) equals
     ``jax.eval_shape`` of the reference's init, reckoned on the meta
-    device; the one-card cuts fit an 80 GB H100."""
+    device; the one-card cuts fit an 80 GB H100: a serving cut's bf16
+    params and cache, a train cut's bf16 params, its gradient
+    accumulator (at the reference's rule on the cut config), one
+    microbatch's bf16 gradients and its optimizer's state."""
     cfg = registry.get_arch(arch).full_config()
     want = jax.eval_shape(
         functools.partial(RT.init_params,
@@ -156,10 +161,20 @@ def test_full_width_params_equal_eval_shape(arch):
             continue
         c = dataclasses.replace(cfg, n_layers=cut.get("n_layers",
                                                       cfg.n_layers))
-        seq = registry.get_arch(a).shape(shape).dims["seq_len"]
-        cache = T.init_cache(c, cut["batch"], seq, device="meta")
-        nbytes = T.count_params(c) * 2 + sum(
-            t.numel() * t.element_size() for t in cache.values())
+        n = T.count_params(c)
+        if shape == "train_4k":
+            acc = steps.lm_acc_dtype(steps.lm_fsdp(c))
+            _, opt = steps._lm_optimizer(c)
+            state = opt.init(rs.flat_params(
+                T.init_params(None, c, device="meta")))
+            nbytes = n * (2 + acc.itemsize + 2) + sum(
+                t.numel() * t.element_size() for t in
+                jax.tree_util.tree_leaves(state) if torch.is_tensor(t))
+        else:
+            seq = registry.get_arch(a).shape(shape).dims["seq_len"]
+            cache = T.init_cache(c, cut["batch"], seq, device="meta")
+            nbytes = n * 2 + sum(t.numel() * t.element_size()
+                                 for t in cache.values())
         assert nbytes < 65e9, (a, shape, nbytes)
 
 
@@ -614,8 +629,8 @@ def test_16bit_lookup_gradient_rounds_once(dtype):
         assert abs(exact[0, 0] - 37.50198) < 1e-5
 
 
-@pytest.mark.parametrize("arch", ["gemma2-9b", "qwen1.5-32b", "dbrx-132b",
-                                  "kimi-k2-1t-a32b"])
+@pytest.mark.parametrize("arch", ["gemma2-9b", "gemma3-12b", "qwen1.5-32b",
+                                  "dbrx-132b", "kimi-k2-1t-a32b"])
 def test_bf16_train_step_equals_jax_value_and_grad(arch):
     """A bf16 smoke train step (the token lookup's backward on the CSR
     gather-sum's plain version) against one jitted ``jax.value_and_grad``
@@ -648,6 +663,10 @@ def test_bf16_train_step_equals_jax_value_and_grad(arch):
                                rtol=1e-2)
     assert grads["embed"].dtype == torch.bfloat16
     held = ["embed", sorted(k for k in flat if k.startswith("blocks/"))[0]]
+    if cfg.qk_norm:
+        held += ["blocks/q_norm", "blocks/k_norm"]
+    if cfg.post_norm:
+        held += ["blocks/attn_post_norm", "blocks/mlp_post_norm"]
     if cfg.moe is not None:
         held += ["blocks/router", "blocks/w_gate", "blocks/w_down"]
     for k in held:
@@ -655,19 +674,30 @@ def test_bf16_train_step_equals_jax_value_and_grad(arch):
         _close(grads[k], want_g[k], 0, 8 * 2.0 ** -8 * scale, k)
 
 
+# the dense LMs' one-card train_4k cuts (steps.LM_ONE_CARD), by depth, and
+# the accumulator the reference's rule gives each
+ONE_CARD_TRAIN = {("gemma2-9b", 8): torch.float32,
+                  ("gemma3-12b", 6): torch.float32,
+                  ("qwen1.5-32b", 5): torch.bfloat16}
+
+
 @pytest.mark.parametrize("arch,n_layers", [("gemma2-9b", 8),
                                            ("gemma2-9b", None),
+                                           ("gemma3-12b", 6),
                                            ("gemma3-12b", None),
+                                           ("qwen1.5-32b", 5),
                                            ("qwen1.5-32b", 32)])
 def test_accumulator_dtype_follows_the_reference_rule(arch, n_layers,
                                                       monkeypatch):
     """The gradient accumulator of a full-width train cell: the
     reference's rule (``repro/launch/steps.py:234-239`` with no mesh: bf16
     above 8e9 bytes of bf16 params, else f32; ``steps.lm_fsdp``, which
-    also takes the mesh, ``tests/test_torch_dryrun.py``) on the cut config, so the
-    depth cut moves it (gemma2-9b at 8 layers: f32); the cell's notes
-    name it and its reduced lists the cuts. The cell is built with its
-    params on the meta device: no full-width tensor exists."""
+    also takes the mesh, ``tests/test_torch_dryrun.py``) on the cut
+    config, so the depth cut moves it (gemma2-9b at 8 layers and
+    gemma3-12b at 6: f32; qwen1.5-32b at 5: bf16); the cell's notes name
+    it and its reduced lists the cuts; each one-card cut is
+    ``LM_ONE_CARD``'s. The cell is built with its params on the meta
+    device: no full-width tensor exists."""
     rcfg = ref_registry.get_arch(arch).full_config()
     cfg = registry.get_arch(arch).full_config()
     cuts = {"batch": 8}
@@ -686,9 +716,42 @@ def test_accumulator_dtype_follows_the_reference_rule(arch, n_layers,
     assert "microbatches=8" in cell.notes
     assert cell.args[0]["embed"].device.type == "meta"
     assert "global_batch 256 -> 8" in cell.reduced
-    if arch == "gemma2-9b" and n_layers == 8:
+    if (arch, n_layers) in ONE_CARD_TRAIN:
         assert steps.LM_ONE_CARD[(arch, "train_4k")] == cuts
-        assert got == torch.float32 and "n_layers 42 -> 8" in cell.reduced
+        assert got == ONE_CARD_TRAIN[(arch, n_layers)]
+        full = registry.get_arch(arch).full_config().n_layers
+        assert f"n_layers {full} -> {n_layers}" in cell.reduced
+
+
+def _chip_smoke():
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_every_lm_cell_runs_on_the_card_or_is_recorded_as_not_run():
+    """Every LM cell of the port's registry that is not skipped either
+    has a one-card cut (``steps.LM_ONE_CARD``) that ``chip_smoke.py``'s
+    lm phase runs once (``LM_CELLS``, ``LM_TRAIN_CELLS``,
+    ``LM_MOE_TRAIN_CELL``), or is the cell it records as not run with its
+    reckoning (``LM_NOT_RUN``); the dense LMs' train cuts are
+    ``ONE_CARD_TRAIN``'s."""
+    cs = _chip_smoke()
+    cells = {(a, s) for a, s in registry.all_cells(include_skipped=False)
+             if registry.get_arch(a).family == "lm"}
+    run = [(a, s) for a, s, _ in
+           cs.LM_CELLS + cs.LM_TRAIN_CELLS + (cs.LM_MOE_TRAIN_CELL,)]
+    assert len(run) == len(set(run))
+    assert set(run) == set(steps.LM_ONE_CARD)
+    assert cs.LM_NOT_RUN not in steps.LM_ONE_CARD
+    assert cells == set(steps.LM_ONE_CARD) | {cs.LM_NOT_RUN}
+    dense = {(a, cut["n_layers"]) for (a, s), cut in steps.LM_ONE_CARD.items()
+             if s == "train_4k"
+             and registry.get_arch(a).full_config().moe is None}
+    assert dense == set(ONE_CARD_TRAIN)
 
 
 # ---------------------------------------------------------------------------
