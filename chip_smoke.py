@@ -4753,25 +4753,32 @@ def check_fused_topk(run: dict) -> dict:
     uq, vq = L.all_embeddings(dequantize_params(qp), statics, loaded.mcfg())
     compare(uq[:512].contiguous(), vq)
     # k above one key a lane (lists of 64 and 128 keys): exact on integer
-    # inputs, with < k finite scores and with exclusions, near-ties on the
-    # main path's embeddings; k = 100 timed at B = 512
+    # inputs, with < k finite scores and with exclusions (the rows' shared
+    # bounds at 64 rows and k 100, 128, not at 5 rows), near-ties on the
+    # main path's embeddings at B 64 and 512 (bounds shared); k 64, 100 and
+    # 128 timed at B = 512
     for kk in (33, 64, 100, 128):
         compare(ui, vi, exact=True, kk=kk)
         compare(ui, vi, exact=True, kk=kk, block=37, mask=mask)
         compare(ui, vi, exact=True, kk=kk, exclude=excl)
         compare(ui, q, exact=True, kk=kk, scale=pow2)
+        compare(ui[:5].contiguous(), vi, exact=True, kk=kk, block=37)
         compare(u_all[:64].contiguous(), v_all, kk=kk)
+        compare(u_all[:512].contiguous(), v_all, block=None, kk=kk)
     u512 = u_all[:512].contiguous()
     zeros = torch.zeros(n, device=dev)
-    bms, by = kcost.bound(kcost.fused_topk(u512, v_all, 100))
-    k100 = {"shape": f"B=512 N={n} d={d} k=100",
-            "ms": time_ms(lambda: fused_topk(u512, v_all, 100)),
-            "plain_ms": time_ms(lambda: ref.fused_topk(u512, v_all, 100)),
+    long_k = {}
+    for kk in (64, 100, 128):
+        bms, by = kcost.bound(kcost.fused_topk(u512, v_all, kk))
+        long_k[str(kk)] = {
+            "shape": f"B=512 N={n} d={d} k={kk}",
+            "ms": time_ms(lambda: fused_topk(u512, v_all, kk)),
+            "plain_ms": time_ms(lambda: ref.fused_topk(u512, v_all, kk)),
             "library_ms": time_ms(
-                lambda: torch.topk(u512 @ v_all.T + zeros, 100)),
+                lambda: torch.topk(u512 @ v_all.T + zeros, kk)),
             "bound_ms": bms, "bound_by": by}
-    log(f"fused_topk k=33..128: agrees (exact on integer inputs); k=100 "
-        f"{k100}")
+    log(f"fused_topk k=33..128: agrees (exact on integer inputs); B=512 "
+        f"k=64, 100, 128: {long_k}")
     # k above the cap is refused
     try:
         fused_topk(ui, vi, 129)
@@ -4798,7 +4805,8 @@ def check_fused_topk(run: dict) -> dict:
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
             "shape": f"B=512 N={n} d={d} k={k}",
-            "by_batch": {str(b): per_b[b] for b in per_b}, "k100": k100}
+            "by_batch": {str(b): per_b[b] for b in per_b},
+            "long_k": long_k}
 
 
 def check_nan_order(u, items, sketch=None) -> None:

@@ -32,19 +32,45 @@
 //   stride over the items: at the serving shapes a warp has one or two.
 //
 // 16-bit codebooks (bf16, f16; the LM token embedding, 256,000 x 3,584
-// bf16 for gemma2-9b, read at H = 1) run the same kernel with another
-// lane policy (Lane16): the output has the codebook's type and every
-// partial sum is rounded to the type once (the reference's
-// `out_ref[r, :] += contrib` in the output dtype). Each add widens both
-// operands to f32 exactly, adds with __fadd_rn and rounds to nearest even:
-// f32 holds more than twice the 16-bit significand plus two bits, so that
-// is the correctly rounded 16-bit sum, what the plain version's
-// `out + rows` gives. A lane owns 8, 4, 2 or 1 consecutive elements (16,
-// 8, 4 or 2 bytes, vec_width16); at d = 3,584 one 16-byte load a lane, and
-// decode's few rows spread over 14 passes, so 14 warps. (A first build
-// whose one warp walked all 14 passes of a strip took 0.0328 ms for 4
-// rows, chip_smoke.py's lm phase on an H100 80GB HBM3 at 700 W; PERF.md
-// has this build's time.)
+// bf16 for gemma2-9b, read at H = 1) have a kernel of their own,
+// lookup16_kernel: the output has the codebook's type and every partial
+// sum is rounded to the type once (the reference's `out_ref[r, :] +=
+// contrib` in the output dtype). Each add widens both operands to f32
+// exactly, adds with __fadd_rn and rounds to nearest even: f32 holds more
+// than twice the 16-bit significand plus two bits, so that is the
+// correctly rounded 16-bit sum, what the plain version's `out + rows`
+// gives (also at H = 1: +0 + -0 is +0, and a NaN comes out canonical).
+// What bounds it: bytes, B x d x 2 written and the distinct rows read
+// (gemma2-9b's prefill, B 32,768: ~456 MB, 0.136 ms at 3.35 TB/s); a
+// decode's few rows (B 2-64) take one trip for the indices and one for the
+// rows, so latency. Its schedule is sized to the call:
+// - A unit is one (row, V-element column word), V = 8, 4, 2 or 1 (16, 8,
+//   4 or 2 bytes, gather::copy_width16: the widest that divides d and the
+//   pointers' alignment). A grid of T threads deals units t, t + T, ... to
+//   thread t: neighbouring lanes read neighbouring words of a row.
+// - While the units fit on the card at once (decode: B 4 x 448 words at d
+//   3,584 is 1,792 threads, 14 blocks of 128 on 14 SMs), one a thread:
+//   each row load in one round, right after its index. Beyond that
+//   (prefill, train: 14.7M and 2.0M units), kWide16 = 4 a thread, T a
+//   quarter of the units: the four index loads, then the four row loads
+//   in flight at once, then streaming stores (st.global.cs: the output is
+//   not read back here). The row and column of a thread's next unit follow
+//   from the last by adding T / cols and T % cols, computed on the host.
+//   (A grid of the card's resident threads striding 4 units a round, with
+//   no partial last wave, was slower at the prefills side by side.)
+// - H > 1 (tests, multi-hot 16-bit tables) folds the H rows of a unit in h
+//   order, a duplicate under binary skipped (the first occurrence wins).
+// Times (chip_smoke.py's kernels line, the LM cells' first lookups, H100
+// 80GB HBM3, 700.00 W): gemma2-9b prefill B 32,768 0.1695 ms, 0.80 of its
+// bound (`table[ids]` 0.1731); decode B 4 0.00630 ms, kimi-k2 B 64
+// 0.00742 (`table[ids]` 0.00614, 0.00717; the timer's floor ~0.0054);
+// gemma3-12b's train microbatch B 4,096 0.0338 ms (0.0334), 0.55 of its
+// bound: the timer's L2 flush leaves dirty lines that this call writes
+// back (with the L2 flushed by reads, a seeded draw takes 0.0232 ms, 0.81
+// of its bound, as `table[ids]`: tools/gather_parity.py).
+// The first 16-bit route ran the f32 kernel's warp-a-strip schedule with
+// 16-bit lanes: 0.1836, 0.00762, 0.0120 and 0.0349 ms at those shapes,
+// slower than `table[ids]` at each.
 //
 // C interface (loaded with ctypes): each launch runs on the caller's
 // stream, allocates nothing, and returns cudaGetLastError().
@@ -66,24 +92,11 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kStripElems = 16;   // indices a strip holds, <= 32
 static_assert(kStripElems >= 1 && kStripElems <= 32, "strip of 1..32 indices");
 
-// A lane's V consecutive f32 columns, summed with __fadd_rn.
-template <int V> struct LaneF32 {
-  using vec = typename gather::Vec<V>::T;
-  static constexpr int kV = V;
-  static constexpr int kStep = gather::kStepFloats / V;   // row loads a step
-  static __device__ __forceinline__ vec zero() { return vzero(vec()); }
-  static __device__ __forceinline__ vec add(vec a, vec b) {
-    return vadd(a, b);
-  }
-};
-
-// A lane's V consecutive 16-bit columns of type E (__nv_bfloat16 or
+// A thread's V consecutive 16-bit columns of type E (__nv_bfloat16 or
 // __half), loaded as one V x 2-byte word; each element adds in f32 and
 // rounds back to E.
 template <typename E, int V> struct Lane16 {
   using vec = typename gather::Bits16<V>::T;
-  static constexpr int kV = V;
-  static constexpr int kStep = V == 1 ? 32 : 64 / V;   // 128 B in flight
   static __device__ __forceinline__ vec zero() {
     vec z;
     unsigned short* p = reinterpret_cast<unsigned short*>(&z);
@@ -102,19 +115,21 @@ template <typename E, int V> struct Lane16 {
   }
 };
 
-template <typename L>
+// The f32 route: a lane owns V consecutive columns (a vector of V floats),
+// summed with __fadd_rn.
+template <int V>
 __global__ void __launch_bounds__(kThreads)
-    codebook_lookup_kernel(const void* __restrict__ codebook,
+    codebook_lookup_kernel(const float* __restrict__ codebook,
                            const int32_t* __restrict__ idx,
-                           void* __restrict__ out, int64_t rows, int n_hot,
+                           float* __restrict__ out, int64_t rows, int n_hot,
                            int dim, int binary, int strip_rows) {
-  using vec = typename L::vec;
-  constexpr int kStep = L::kStep;
+  using vec = typename gather::Vec<V>::T;
+  constexpr int kStep = gather::kStepFloats / V;   // row loads a step
   const int lane = threadIdx.x % 32;
-  const int cols = dim / L::kV;
+  const int cols = dim / V;
   const int passes = (cols + 31) / 32;
-  const vec* z = static_cast<const vec*>(codebook);
-  vec* o = static_cast<vec*>(out);
+  const vec* z = reinterpret_cast<const vec*>(codebook);
+  vec* o = reinterpret_cast<vec*>(out);
   const int64_t strips = (rows + strip_rows - 1) / strip_rows;
   const int64_t items = strips * passes;
   const int64_t warps = static_cast<int64_t>(gridDim.x) * kWarps;
@@ -127,7 +142,7 @@ __global__ void __launch_bounds__(kThreads)
     const int nr = static_cast<int>(lesser<int64_t>(strip_rows, rows - r0));
     const int32_t* ix_row0 = idx + r0 * n_hot;
     const int n_el = nr * n_hot;
-    vec acc = L::zero();
+    vec acc = vzero(vec());
     int row = 0;
     int h = 0;
     for (int e0 = 0; e0 < n_el; e0 += 32) {
@@ -153,16 +168,16 @@ __global__ void __launch_bounds__(kThreads)
           const int32_t r = __shfl_sync(kFull, ix, t & 31);
           buf[u] = (active && t < n && !((skip >> (t & 31)) & 1u))
                        ? z[static_cast<int64_t>(r) * cols + c]
-                       : L::zero();
+                       : vzero(vec());
         }
 #pragma unroll
         for (int u = 0; u < kStep; ++u) {
           const int t = t0 + u;
           if (t < n) {
-            if (!((skip >> t) & 1u)) acc = L::add(acc, buf[u]);
+            if (!((skip >> t) & 1u)) acc = vadd(acc, buf[u]);
             if (++h == n_hot) {
               if (active) o[(r0 + row) * cols + c] = acc;
-              acc = L::zero();
+              acc = vzero(vec());
               h = 0;
               ++row;
             }
@@ -171,59 +186,174 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
     if (n_hot == 0 && active) {
-      for (int r = 0; r < nr; ++r) o[(r0 + r) * cols + c] = L::zero();
+      for (int r = 0; r < nr; ++r) o[(r0 + r) * cols + c] = vzero(vec());
     }
   }
 }
 
-template <typename L>
-void launch(const void* codebook, const int32_t* idx, void* out,
-            int64_t rows, int n_hot, int dim, int binary,
-            cudaStream_t stream) {
-  static int resident[64] = {0};   // blocks per SM, by device
+// Blocks of a kernel one multiprocessor holds and the card's
+// multiprocessors, asked once per device: each launch function keeps its
+// kernel's in a static array by device.
+struct Card {
+  int per_sm = 0;
+  int sms = 0;
+};
+
+template <typename Kernel>
+const Card& card(Card (&cards)[64], Kernel kernel, int threads) {
   int dev = 0;
   cudaGetDevice(&dev);
-  int& per_sm = resident[dev & 63];
-  if (per_sm == 0) {
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, codebook_lookup_kernel<L>, kThreads, 0);
-    if (per_sm < 1) per_sm = 1;
+  Card& c = cards[dev & 63];
+  if (c.sms == 0) {
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&c.per_sm, kernel, threads,
+                                                  0);
+    if (c.per_sm < 1) c.per_sm = 1;
+    int sms = 1;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    c.sms = sms;
   }
-  int sms = 1;
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return c;
+}
+
+template <int V>
+void launch(const float* codebook, const int32_t* idx, float* out,
+            int64_t rows, int n_hot, int dim, int binary,
+            cudaStream_t stream) {
+  static Card cards[64];
+  const Card& c = card(cards, codebook_lookup_kernel<V>, kThreads);
   const int strip_rows =
       n_hot == 0 ? kStripElems
                  : (n_hot < kStripElems ? kStripElems / n_hot : 1);
   const int64_t items = (rows + strip_rows - 1) / strip_rows *
-                        ((dim / L::kV + 31) / 32);
+                        ((dim / V + 31) / 32);
   const int64_t blocks = lesser<int64_t>(
-      (items + kWarps - 1) / kWarps, static_cast<int64_t>(sms) * per_sm);
-  codebook_lookup_kernel<L><<<static_cast<unsigned>(blocks), kThreads, 0,
+      (items + kWarps - 1) / kWarps, static_cast<int64_t>(c.sms) * c.per_sm);
+  codebook_lookup_kernel<V><<<static_cast<unsigned>(blocks), kThreads, 0,
                               stream>>>(codebook, idx, out, rows, n_hot, dim,
                                         binary, strip_rows);
+}
+
+// The 16-bit route (see the head of the file): units of one (row, word),
+// U a thread, kThreads16 threads a block.
+constexpr int kThreads16 = 128;
+
+template <typename E, int V, int U>
+__global__ void __launch_bounds__(kThreads16)
+    lookup16_kernel(const typename Lane16<E, V>::vec* __restrict__ z,
+                    const int32_t* __restrict__ idx,
+                    typename Lane16<E, V>::vec* __restrict__ o, int64_t rows,
+                    int n_hot, int cols, int binary, int64_t step_rows,
+                    int step_cols, int narrow) {
+  using L = Lane16<E, V>;
+  using vec = typename L::vec;
+  // this thread's units: its first, then T on (T the grid's threads:
+  // step_rows = T / cols rows and step_cols = T % cols columns); narrow:
+  // the first fits in 32 bits (a cheap division)
+  int64_t r[U];
+  int c[U];
+  if (narrow) {
+    const unsigned first = blockIdx.x * kThreads16 + threadIdx.x;
+    r[0] = first / static_cast<unsigned>(cols);
+    c[0] = static_cast<int>(first % static_cast<unsigned>(cols));
+  } else {
+    const int64_t first = static_cast<int64_t>(blockIdx.x) * kThreads16 +
+                          threadIdx.x;
+    r[0] = first / cols;
+    c[0] = static_cast<int>(first % cols);
+  }
+#pragma unroll
+  for (int u = 1; u < U; ++u) {
+    c[u] = c[u - 1] + step_cols;
+    r[u] = r[u - 1] + step_rows;
+    if (c[u] >= cols) {
+      c[u] -= cols;
+      ++r[u];
+    }
+  }
+  vec acc[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) acc[u] = L::zero();
+  for (int h = 0; h < n_hot; ++h) {
+    int32_t ix[U];
+    bool take[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      take[u] = r[u] < rows;
+      ix[u] = take[u] ? __ldg(idx + r[u] * n_hot + h) : 0;
+    }
+    if (binary && h > 0) {
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        for (int j = 0; j < h && take[u]; ++j)
+          take[u] = __ldg(idx + r[u] * n_hot + j) != ix[u];
+    }
+    vec buf[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      buf[u] = take[u] ? __ldg(z + static_cast<int64_t>(ix[u]) * cols + c[u])
+                       : L::zero();
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (take[u]) acc[u] = L::add(acc[u], buf[u]);
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+    if (r[u] < rows) __stcs(o + r[u] * cols + c[u], acc[u]);
+}
+
+// Units a thread of a call with more units than the card holds threads at
+// once: kWide16 apart, their row loads in flight together.
+constexpr int kWide16 = 4;
+
+template <typename E, int V, int U>
+void launch16_u(const void* codebook, const int32_t* idx, void* out,
+                int64_t rows, int n_hot, int cols, int binary,
+                cudaStream_t stream) {
+  using vec = typename Lane16<E, V>::vec;
+  const int64_t units = rows * cols;
+  const int64_t blocks =
+      (units + int64_t{kThreads16} * U - 1) / (int64_t{kThreads16} * U);
+  const int64_t total = blocks * kThreads16;
+  lookup16_kernel<E, V, U><<<static_cast<unsigned>(blocks), kThreads16, 0,
+                             stream>>>(
+      static_cast<const vec*>(codebook), idx, static_cast<vec*>(out), rows,
+      n_hot, cols, binary, total / cols, static_cast<int>(total % cols),
+      total <= 0xffffffffll);
+}
+
+template <typename E, int V>
+void launch16(const void* codebook, const int32_t* idx, void* out,
+              int64_t rows, int n_hot, int dim, int binary,
+              cudaStream_t stream) {
+  static Card cards[64];
+  const Card& c = card(cards, lookup16_kernel<E, V, 1>, kThreads16);
+  const int cols = dim / V;
+  if (rows * cols <= int64_t{c.sms} * c.per_sm * kThreads16) {
+    launch16_u<E, V, 1>(codebook, idx, out, rows, n_hot, cols, binary,
+                        stream);
+  } else {
+    launch16_u<E, V, kWide16>(codebook, idx, out, rows, n_hot, cols, binary,
+                              stream);
+  }
 }
 
 template <typename E>
 void dispatch16(const void* codebook, const int32_t* idx, void* out,
                 int64_t rows, int n_hot, int dim, int binary,
                 cudaStream_t stream) {
-  switch (gather::vec_width16(dim, reinterpret_cast<uintptr_t>(codebook) |
-                               reinterpret_cast<uintptr_t>(out))) {
+  switch (gather::copy_width16(dim, reinterpret_cast<uintptr_t>(codebook) |
+                                        reinterpret_cast<uintptr_t>(out))) {
     case 8:
-      launch<Lane16<E, 8>>(codebook, idx, out, rows, n_hot, dim, binary,
-                           stream);
+      launch16<E, 8>(codebook, idx, out, rows, n_hot, dim, binary, stream);
       break;
     case 4:
-      launch<Lane16<E, 4>>(codebook, idx, out, rows, n_hot, dim, binary,
-                           stream);
+      launch16<E, 4>(codebook, idx, out, rows, n_hot, dim, binary, stream);
       break;
     case 2:
-      launch<Lane16<E, 2>>(codebook, idx, out, rows, n_hot, dim, binary,
-                           stream);
+      launch16<E, 2>(codebook, idx, out, rows, n_hot, dim, binary, stream);
       break;
     default:
-      launch<Lane16<E, 1>>(codebook, idx, out, rows, n_hot, dim, binary,
-                           stream);
+      launch16<E, 1>(codebook, idx, out, rows, n_hot, dim, binary, stream);
   }
 }
 
@@ -237,16 +367,13 @@ extern "C" int codebook_lookup_launch(const float* codebook,
     switch (gather::vec_width(dim, reinterpret_cast<uintptr_t>(codebook) |
                                        reinterpret_cast<uintptr_t>(out))) {
       case 4:
-        launch<LaneF32<4>>(codebook, idx, out, rows, n_hot, dim, binary,
-                           stream);
+        launch<4>(codebook, idx, out, rows, n_hot, dim, binary, stream);
         break;
       case 2:
-        launch<LaneF32<2>>(codebook, idx, out, rows, n_hot, dim, binary,
-                           stream);
+        launch<2>(codebook, idx, out, rows, n_hot, dim, binary, stream);
         break;
       default:
-        launch<LaneF32<1>>(codebook, idx, out, rows, n_hot, dim, binary,
-                           stream);
+        launch<1>(codebook, idx, out, rows, n_hot, dim, binary, stream);
     }
   }
   return static_cast<int>(cudaGetLastError());

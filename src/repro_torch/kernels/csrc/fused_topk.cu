@@ -31,14 +31,22 @@
 // 3.35 TB/s), which bounds B = 1 and 8. The codebook variant reads the
 // codebook (4.4 MB for K = 17,136 at f32) and the sketch instead.
 //
+// Times (chip_smoke.py's kernels line, H100 80GB HBM3, 700.00 W): B 512,
+// k 20: 0.3940 ms; k 64 / 100 / 128 (lists of 64 and 128 keys): 0.4167 /
+// 0.4806 / 0.4815 ms, against 1.296 ms at k 100 before the long lists'
+// redesign and torch.topk(u @ v.T + mask, k) at 1.08 ms. The k 100 score
+// kernel was two waves of 136 blocks on 132 slots at one block an SM, each
+// chunk admitting ~500 keys a row: 1.26 of its 1.29 ms
+// (tools/fused_topk_parity.py's profile split; now 0.45 of 0.48).
+//
 // Design:
-//  * score_chunks_kernel: grid (item chunks, groups of kRows = 64 query
-//    rows), 256 threads. The block's query rows sit in shared memory; the
+//  * score_chunks_kernel: grid (item chunks, groups of 64 query rows, 48 at
+//    R = 4), 256 threads. The block's query rows sit in shared memory; the
 //    chunk's items are staged kItems = 64 at a time, kSlice = 32 columns
 //    per step, double-buffered (cp.async for dense f32 rows; the int8 and
 //    codebook loaders dequantize and expand on the way in). Each thread
-//    holds a 4 rows x 4 items register tile: per 4 columns it reads 4 + 4
-//    float4 from shared memory for 64 FMAs.
+//    holds a 4 rows x 4 items register tile (3 x 4 at R = 4): per 4 columns
+//    it reads 4 + 4 float4 from shared memory for 64 FMAs.
 //    Selection: a candidate is an order key, value and id in one 64-bit
 //    integer whose integer order is the total order below. Each row keeps
 //    its best 32 R keys, sorted (R = 1, 2 or 4 keys a lane: the smallest
@@ -47,7 +55,7 @@
 //    below the threshold's value is dropped with one float compare, one
 //    whose key does not beat the threshold with one more; a survivor goes
 //    to the row's candidate buffer (a shared-memory atomic counter). Once a
-//    row holds more than kCap - kItems candidates, and at the chunk's end,
+//    row holds more than merge_at(R) candidates, and at the chunk's end,
 //    a warp merges the buffer into the row's list, R keys per lane (key i
 //    of the list in register i / 32 of lane i % 32): up to insert_max(R)
 //    survivors of a batch of 32 one at a time (ballots find the slot,
@@ -55,9 +63,34 @@
 //    registers, a max of the reversed batch against the list's last 32 and
 //    a bitonic merge of all 32 R (across registers, then across lanes).
 //    No runtime-indexed local arrays. The chunk's top-k goes to scratch.
+//  * Long lists (R = 2, 4: k 33-128) share a bound across a row's chunks.
+//    A chunk's own threshold rises only once k of its items have arrived,
+//    so each chunk admits about k (1 + ln(chunk / k)) keys: ~500 a row at
+//    k 100, each merged at R = 4. Every chunk c of a row publishes its
+//    list's pub-th key, pub = ceil(k / n_chunks), into bounds[row][c]
+//    (atomicMax: a list's keys only rise) after each merge. Each chunk
+//    holds pub keys at or above its published key, so the n_chunks chunks
+//    hold at least k keys at or above the least published key: the least
+//    never exceeds the row's final k-th key, and unpublished chunks (0)
+//    keep it at 0 until every chunk has one. After tiles 1, 2, 4, 8, ...
+//    a warp reads the least for each of its rows (one L2 trip, past L1)
+//    and the row's filter becomes max(own k-th, least): after its first
+//    tile a chunk then admits about pub keys a row for each doubling of
+//    its tiles. A key equal to the least is that of the item that set it,
+//    which already sits in its chunk's list, so the filter stays strict
+//    ("beats") and the result is the same set, bitwise: the bound only
+//    drops keys that cannot be in the top-k. It is used where the caller
+//    passes the bounds scratch (kernels/fused_topk.py::shares_bounds:
+//    where rows x R reaches 256): for a few rows its memset and L2 trips
+//    cost more than the merges they save (PERF.md, section 6, from
+//    tools/fused_topk_parity.py's sweep).
+//  * Occupancy: at R = 2 and 4 the candidate buffer keeps 88 slots a row
+//    (cap), and an R = 4 block holds 48 query rows, so two blocks share a
+//    multiprocessor at d <= 64, as at R = 1.
 //  * merge_chunks_kernel: one block per row; each warp filters and merges a
 //    share of the chunks' lists the same way, then warp 0 merges the
-//    warps' lists.
+//    warps' lists. At R > 1 the row's final least bound drops every chunk
+//    key below it at once (keys equal to it are kept: its item is here).
 //  Candidates are ordered by (NaN first, value desc, id asc), a total order
 //  on distinct ids, so the result does not depend on arrival order or block
 //  scheduling: it is deterministic.
@@ -67,8 +100,9 @@
 //  from the tiling and occupancy that fused_topk_tiling reports.
 //
 // C interface (loaded with ctypes): the launch runs on the caller's stream,
-// allocates nothing (the caller passes the chunk scratch), and returns
-// cudaGetLastError().
+// allocates nothing (the caller passes the chunk scratch and, at k > 32,
+// the bounds scratch or null; the launch zeroes the bounds with
+// cudaMemsetAsync), and returns cudaGetLastError().
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -77,12 +111,9 @@ namespace {
 
 constexpr int kMaxK = 128;          // 32 keys a lane x R = 4
 constexpr int kMaxDim = 256;
-constexpr int kRows = 64;           // query rows per block
 constexpr int kItems = 64;          // items per tile
 constexpr int kSlice = 32;          // columns staged per step
-constexpr int kThreads = 256;       // 16 x 16, 4 rows x 4 items each
-constexpr int kCap = 96;            // candidate slots per row
-constexpr int kMergeAt = kCap - kItems;   // merge a row holding more
+constexpr int kThreads = 256;       // 16 x 16, tile_rows x 4 items each
 constexpr int kVLd = kSlice + 4;    // staged item row stride (floats)
 constexpr int32_t kNoId = 0x7fffffff;
 constexpr unsigned kFull = 0xffffffffu;
@@ -191,12 +222,14 @@ __device__ __forceinline__ void insert(uint64_t (&list)[R], uint64_t x,
   }
 }
 
-// Take the keys c (one per lane, kNone where absent) that beat thr, the
-// list's k-th key, into the list: one by one when few survive, else as one
-// bitonic merge. thr follows the list.
+// Take the keys c (one per lane, kNone where absent) that beat thr into
+// the list: one by one when few survive, else as one bitonic merge. thr
+// follows the list: its k-th key, or floor where that is higher (a key no
+// candidate that matters can be at or below; 0 when there is none).
 template <int R>
 __device__ __forceinline__ void absorb(uint64_t (&list)[R], uint64_t& thr,
-                                       uint64_t c, int k, int lane) {
+                                       uint64_t c, int k, int lane,
+                                       uint64_t floor) {
   unsigned m = __ballot_sync(kFull, c > thr);
   if (m == 0) return;
   if (__popc(m) <= insert_max<R>()) {
@@ -205,12 +238,14 @@ __device__ __forceinline__ void absorb(uint64_t (&list)[R], uint64_t& thr,
       m &= m - 1;
       if (x > thr) {
         insert(list, x, lane);
-        thr = kth(list, k);
+        const uint64_t t = kth(list, k);
+        thr = t > floor ? t : floor;
       }
     }
   } else {
     merge_into(list, c > thr ? c : kNone, lane);
-    thr = kth(list, k);
+    const uint64_t t = kth(list, k);
+    thr = t > floor ? t : floor;
   }
 }
 
@@ -332,28 +367,71 @@ __device__ __forceinline__ void stage(const Rows& load, float* vs, int base,
 
 // One warp merges a row's candidate buffer into its list (32 R keys in
 // shared memory, in list order) and refreshes its threshold (the list's k-th
-// key).
+// key, or floor where that is higher). Returns the list's pub-th key.
 template <int R>
-__device__ __forceinline__ void merge_row(uint64_t* list, const uint64_t* cand,
-                                          int cnt, int k, uint64_t* thr,
-                                          int lane) {
+__device__ __forceinline__ uint64_t merge_row(uint64_t* list,
+                                              const uint64_t* cand, int cnt,
+                                              int k, uint64_t* thr,
+                                              uint64_t floor, int pub,
+                                              int lane) {
   uint64_t l[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) l[r] = list[r * 32 + lane];
   uint64_t t = *thr;
   for (int base = 0; base < cnt; base += 32)
-    absorb(l, t, base + lane < cnt ? cand[base + lane] : kNone, k, lane);
+    absorb(l, t, base + lane < cnt ? cand[base + lane] : kNone, k, lane,
+           floor);
 #pragma unroll
   for (int r = 0; r < R; ++r) list[r * 32 + lane] = l[r];
   if (lane == 0) *thr = t;
+  if constexpr (R > 1) return kth(l, pub);
+  return 0;
 }
 
+// Raise floor[r] to the least of row (row0 + r)'s published chunk keys
+// (bounds[row][0, n_chunks)) for the warp's rows r = warp + 8 i, i < N (8
+// warps a block): no greater than the row's k-th key (see the head of the
+// file), 0 while a chunk has published nothing. Read past L1 (other
+// blocks write them), every row's loads in flight at once.
+template <int N>
+__device__ __forceinline__ void raise_floors(uint64_t* floor,
+                                             const uint64_t* bounds,
+                                             int row0, int rows, int n_chunks,
+                                             int warp, int lane) {
+  uint64_t m[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) m[i] = ~0ull;
+#pragma unroll 4
+  for (int c = lane; c < n_chunks; c += 32)
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int row = row0 + warp + (kThreads / 32) * i;
+      if (row < rows) {
+        const uint64_t b = *reinterpret_cast<const volatile uint64_t*>(
+            bounds + static_cast<int64_t>(row) * n_chunks + c);
+        m[i] = b < m[i] ? b : m[i];
+      }
+    }
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+#pragma unroll
+    for (int j = 16; j > 0; j >>= 1) {
+      const uint64_t o = __shfl_xor_sync(kFull, m[i], j);
+      m[i] = o < m[i] ? o : m[i];
+    }
+    const int r = warp + (kThreads / 32) * i;
+    if (lane == 0 && row0 + r < rows && m[i] > floor[r]) floor[r] = m[i];
+  }
+}
+
+// A block's query rows: kRows = block_rows(R) (see below)
 struct Smem {
   float* us;        // [kRows][ud]
   float* vs;        // [2][kItems][kVLd]
-  uint64_t* cand;   // [kRows][kCap]
+  uint64_t* cand;   // [kRows][cap(R)]
   uint64_t* list;   // [kRows][32 R]
   uint64_t* thr;    // [kRows]
+  uint64_t* floor;  // [kRows] when R > 1: the rows' least bounds
   int* cnt;         // [kRows]
 };
 
@@ -366,11 +444,26 @@ __host__ __device__ constexpr int lane_keys(int k) {
   return k <= 32 ? 1 : (k <= 64 ? 2 : 4);
 }
 
+// The query rows a thread scores (its register tile's height) and a
+// block's rows at R keys a lane: 4 and 64, or 3 and 48 at R = 4.
+__host__ __device__ constexpr int tile_rows(int r) { return r == 4 ? 3 : 4; }
+__host__ __device__ constexpr int block_rows(int r) {
+  return 16 * tile_rows(r);
+}
+
+// Candidate slots a row at R keys a lane: a tile's kItems beside the
+// merge_at(R) a row may hold before it merges. 88 at R > 1 (and 48 rows at
+// R = 4) lets two blocks share a multiprocessor at d <= 64: 114,944 bytes
+// each at R = 2, 115,392 at R = 4.
+__host__ __device__ constexpr int cap(int r) { return r == 1 ? 96 : 88; }
+__host__ __device__ constexpr int merge_at(int r) { return cap(r) - kItems; }
+
 __host__ __device__ inline size_t smem_bytes(int d, int r) {
   const int ud = padded_dim(d) + 4;
-  return sizeof(float) * (static_cast<size_t>(kRows) * ud +
-                          2 * kItems * kVLd) +
-         sizeof(uint64_t) * kRows * (kCap + 32 * r + 1) + sizeof(int) * kRows;
+  const size_t rows = block_rows(r);
+  return sizeof(float) * (rows * ud + 2 * kItems * kVLd) +
+         sizeof(uint64_t) * rows * (cap(r) + 32 * r + (r > 1 ? 2 : 1)) +
+         sizeof(int) * rows;
 }
 
 template <class Rows, int R>
@@ -380,7 +473,12 @@ score_chunks_kernel(const float* __restrict__ u, const Rows load,
                     const int32_t* __restrict__ ex_ptr,
                     const int32_t* __restrict__ ex_ids, int rows, int n, int d,
                     int k, int chunk, int n_chunks, float* __restrict__ part_v,
-                    int32_t* __restrict__ part_i) {
+                    int32_t* __restrict__ part_i, uint64_t* bounds) {
+  constexpr int kCap = cap(R);
+  constexpr int TR = tile_rows(R);
+  constexpr int kRows = block_rows(R);
+  constexpr bool kShare = R > 1;       // chunks may share the rows' bounds
+  const bool share = kShare && bounds != nullptr;
   extern __shared__ __align__(16) float smem[];
   const int dp = padded_dim(d);
   const int ud = dp + 4;
@@ -390,7 +488,8 @@ score_chunks_kernel(const float* __restrict__ u, const Rows load,
   sm.cand = reinterpret_cast<uint64_t*>(sm.vs + 2 * kItems * kVLd);
   sm.list = sm.cand + kRows * kCap;
   sm.thr = sm.list + kRows * 32 * R;
-  sm.cnt = reinterpret_cast<int*>(sm.thr + kRows);
+  sm.floor = sm.thr + kRows;
+  sm.cnt = reinterpret_cast<int*>(sm.floor + (kShare ? kRows : 0));
 
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
@@ -401,6 +500,8 @@ score_chunks_kernel(const float* __restrict__ u, const Rows load,
   const int hi = min(n, lo + chunk);
   const int n_slices = dp / kSlice;
   const int n_steps = (hi - lo + kItems - 1) / kItems * n_slices;
+  // the rank of the key a chunk publishes: n_chunks chunks x pub keys >= k
+  const int pub = (k + n_chunks - 1) / n_chunks;
 
   for (int t = tid; t < kRows * ud; t += kThreads) {
     const int r = t / ud, col = t % ud;
@@ -412,14 +513,15 @@ score_chunks_kernel(const float* __restrict__ u, const Rows load,
   if (tid < kRows) {
     sm.thr[tid] = kNone;
     sm.cnt[tid] = 0;
+    if constexpr (kShare) sm.floor[tid] = 0;   // raised only when share
   }
   // this thread's rows ty + 16 i and items tx + 16 j of each tile; each
   // row's threshold as a key and as a value (for a one-compare reject)
-  uint64_t tk[4];
-  float tv[4];
-  int ex_lo[4], ex_hi[4];
+  uint64_t tk[TR];
+  float tv[TR];
+  int ex_lo[TR], ex_hi[TR];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < TR; ++i) {
     tk[i] = kNone;
     tv[i] = -INFINITY;
     const int row = row0 + ty + 16 * i;
@@ -430,7 +532,7 @@ score_chunks_kernel(const float* __restrict__ u, const Rows load,
     }
   }
 
-  float acc[4][4];
+  float acc[TR][4];
   if (n_steps > 0) stage(load, sm.vs, lo, hi, 0, d, tid);
   cp_async_commit();
   for (int step = 0; step < n_steps; ++step) {
@@ -446,7 +548,7 @@ score_chunks_kernel(const float* __restrict__ u, const Rows load,
     __syncthreads();
     if (slice == 0) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < TR; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
     }
@@ -454,16 +556,16 @@ score_chunks_kernel(const float* __restrict__ u, const Rows load,
     const float* ur = sm.us + slice * kSlice;
 #pragma unroll
     for (int kk = 0; kk < kSlice; kk += 4) {
-      float4 a[4], b[4];
+      float4 a[TR], b[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < TR; ++i)
         a[i] = *reinterpret_cast<const float4*>(ur + (ty + 16 * i) * ud + kk);
 #pragma unroll
       for (int j = 0; j < 4; ++j)
         b[j] = *reinterpret_cast<const float4*>(vs + (tx + 16 * j) * kVLd +
                                                 kk);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < TR; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           acc[i][j] = fmaf(a[i].x, b[j].x, acc[i][j]);
@@ -480,7 +582,7 @@ score_chunks_kernel(const float* __restrict__ u, const Rows load,
         if (it >= hi) continue;
         const float mk = mask != nullptr ? mask[it] : 0.0f;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < TR; ++i) {
           const int r = ty + 16 * i;
           if (row0 + r >= rows) continue;
           float s = acc[i][j];
@@ -499,16 +601,32 @@ score_chunks_kernel(const float* __restrict__ u, const Rows load,
       const bool final_tile = step == n_steps - 1;
       for (int r = warp; r < kRows; r += kThreads / 32) {
         const int cnt = sm.cnt[r];
-        if (cnt > kMergeAt || (final_tile && cnt > 0)) {
-          merge_row<R>(sm.list + r * 32 * R, sm.cand + r * kCap, cnt, k,
-                       sm.thr + r, lane);
-          if (lane == 0) sm.cnt[r] = 0;
+        if (cnt > merge_at(R) || (final_tile && cnt > 0)) {
+          const uint64_t b = merge_row<R>(
+              sm.list + r * 32 * R, sm.cand + r * kCap, cnt, k, sm.thr + r,
+              kShare ? sm.floor[r] : 0, pub, lane);
+          if (lane == 0) {
+            sm.cnt[r] = 0;
+            if (share && row0 + r < rows)
+              atomicMax(reinterpret_cast<unsigned long long*>(bounds) +
+                            static_cast<int64_t>(row0 + r) * n_chunks + c,
+                        static_cast<unsigned long long>(b));
+          }
         }
       }
+      // the rows' least bounds, after tiles 1, 2, 4, 8, ... (one trip to
+      // L2 each: the bound rises fastest early)
+      if (share && !final_tile && ((tile + 1) & tile) == 0)
+        raise_floors<kRows / (kThreads / 32)>(sm.floor, bounds, row0, rows,
+                                               n_chunks, warp, lane);
       __syncthreads();
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < TR; ++i) {
         tk[i] = sm.thr[ty + 16 * i];
+        if constexpr (kShare) {
+          const uint64_t f = sm.floor[ty + 16 * i];
+          if (f > tk[i]) tk[i] = f;
+        }
         tv[i] = value_of(tk[i]);
       }
     }
@@ -526,20 +644,41 @@ score_chunks_kernel(const float* __restrict__ u, const Rows load,
 }
 
 // One block per row: each warp filters and merges a strided share of the
-// row's n_cand chunk candidates, then warp 0 merges the warps' lists.
+// row's n_chunks x k chunk candidates, then warp 0 merges the warps' lists.
+// With the rows' bounds (R > 1) a candidate below the row's least bound is
+// dropped by the first compare. (A variant that read only each sorted
+// chunk list's keys above the bound was slower side by side.)
 template <int R>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 merge_chunks_kernel(const float* __restrict__ part_v,
-                    const int32_t* __restrict__ part_i, int n_cand, int k,
+                    const int32_t* __restrict__ part_i, int n_chunks, int k,
+                    const uint64_t* __restrict__ bounds,
                     float* __restrict__ out_v, int32_t* __restrict__ out_i) {
   constexpr int kWarps = kThreads / 32;
   constexpr int kAhead = 4;            // batches loaded before filtering
   __shared__ uint64_t lists[kWarps * 32 * R];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int64_t row = blockIdx.x;
+  const int n_cand = n_chunks * k;
   const float* pv = part_v + row * n_cand;
   const int32_t* pi = part_i + row * n_cand;
-  uint64_t list[R], thr = kNone;
+  // keys at or above the least bound: it is the key of a candidate that
+  // may be the row's k-th
+  uint64_t floor = 0;
+  if (R > 1 && bounds != nullptr) {
+    uint64_t m = ~0ull;
+    for (int c = lane; c < n_chunks; c += 32) {
+      const uint64_t b = bounds[row * n_chunks + c];
+      m = b < m ? b : m;
+    }
+#pragma unroll
+    for (int j = 16; j > 0; j >>= 1) {
+      const uint64_t o = __shfl_xor_sync(kFull, m, j);
+      m = o < m ? o : m;
+    }
+    floor = m > 0 ? m - 1 : 0;
+  }
+  uint64_t list[R], thr = kNone > floor ? kNone : floor;
 #pragma unroll
   for (int r = 0; r < R; ++r) list[r] = kNone;
   for (int base = warp * 32; base < n_cand; base += kAhead * kThreads) {
@@ -550,7 +689,7 @@ merge_chunks_kernel(const float* __restrict__ part_v,
       c[a] = j < n_cand ? key_of(pv[j], pi[j]) : kNone;
     }
 #pragma unroll
-    for (int a = 0; a < kAhead; ++a) absorb(list, thr, c[a], k, lane);
+    for (int a = 0; a < kAhead; ++a) absorb(list, thr, c[a], k, lane, floor);
   }
 #pragma unroll
   for (int r = 0; r < R; ++r) lists[(warp * R + r) * 32 + lane] = list[r];
@@ -559,7 +698,7 @@ merge_chunks_kernel(const float* __restrict__ part_v,
   for (int w = 1; w < kWarps; ++w)
 #pragma unroll
     for (int r = 0; r < R; ++r)
-      absorb(list, thr, lists[(w * R + r) * 32 + lane], k, lane);
+      absorb(list, thr, lists[(w * R + r) * 32 + lane], k, lane, floor);
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int j = r * 32 + lane;
@@ -602,18 +741,23 @@ template <class Rows, int R>
 int launch_r(const float* u, const Rows& load, const float* mask,
              const int32_t* ex_ptr, const int32_t* ex_ids, int rows, int n,
              int d, int k, int chunk, float* part_v, int32_t* part_i,
-             float* out_v, int32_t* out_i, cudaStream_t stream) {
+             uint64_t* bounds, float* out_v, int32_t* out_i,
+             cudaStream_t stream) {
   const int n_chunks = (n + chunk - 1) / chunk;
-  const dim3 grid(n_chunks, (rows + kRows - 1) / kRows);
+  const dim3 grid(n_chunks, (rows + block_rows(R) - 1) / block_rows(R));
   cudaError_t err = allow_smem<Rows, R>(d);
+  if (err == cudaSuccess && R > 1 && bounds != nullptr)   // 0: unpublished
+    err = cudaMemsetAsync(
+        bounds, 0, sizeof(uint64_t) * static_cast<size_t>(rows) * n_chunks,
+        stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   score_chunks_kernel<Rows, R><<<grid, kThreads, smem_bytes(d, R), stream>>>(
       u, load, mask, ex_ptr, ex_ids, rows, n, d, k, chunk, n_chunks, part_v,
-      part_i);
+      part_i, bounds);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   merge_chunks_kernel<R><<<rows, kThreads, 0, stream>>>(
-      part_v, part_i, n_chunks * k, k, out_v, out_i);
+      part_v, part_i, n_chunks, k, bounds, out_v, out_i);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -621,7 +765,8 @@ template <class Rows>
 int launch(const float* u, const Rows& load, const float* mask,
            const int32_t* ex_ptr, const int32_t* ex_ids, int rows, int n,
            int d, int k, int chunk, float* part_v, int32_t* part_i,
-           float* out_v, int32_t* out_i, cudaStream_t stream) {
+           uint64_t* bounds, float* out_v, int32_t* out_i,
+           cudaStream_t stream) {
   if (k < 1 || k > kMaxK || d < 1 || d > kMaxDim || chunk < 1 || k > n) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -629,13 +774,16 @@ int launch(const float* u, const Rows& load, const float* mask,
   switch (lane_keys(k)) {
     case 1:
       return launch_r<Rows, 1>(u, load, mask, ex_ptr, ex_ids, rows, n, d, k,
-                               chunk, part_v, part_i, out_v, out_i, stream);
+                               chunk, part_v, part_i, bounds, out_v, out_i,
+                               stream);
     case 2:
       return launch_r<Rows, 2>(u, load, mask, ex_ptr, ex_ids, rows, n, d, k,
-                               chunk, part_v, part_i, out_v, out_i, stream);
+                               chunk, part_v, part_i, bounds, out_v, out_i,
+                               stream);
     default:
       return launch_r<Rows, 4>(u, load, mask, ex_ptr, ex_ids, rows, n, d, k,
-                               chunk, part_v, part_i, out_v, out_i, stream);
+                               chunk, part_v, part_i, bounds, out_v, out_i,
+                               stream);
   }
 }
 
@@ -654,7 +802,7 @@ extern "C" int fused_topk_tiling(int d, int codebook, int quantized, int k,
                                  int* blocks) {
   if (d < 1 || d > kMaxDim || k < 1 || k > kMaxK)
     return static_cast<int>(cudaErrorInvalidValue);
-  *rows_per_block = kRows;
+  *rows_per_block = block_rows(lane_keys(k));
   *items_per_tile = kItems;
   if (codebook)
     return quantized ? blocks_per_sm_k<CodebookRows<true>>(d, k, blocks)
@@ -666,23 +814,25 @@ extern "C" int fused_topk_tiling(int d, int codebook, int quantized, int k,
 // u f32 [rows, d]; items f32 or int8 [n, d] (quantized != 0: int8 with
 // scale f32 [n]); mask f32 [n] or null; ex_ptr int32 [rows + 1] and ex_ids
 // (per-row ascending item ids) or null; part_v/part_i scratch
-// [rows, n_chunks, k]; out_v/out_i [rows, k].
+// [rows, n_chunks, k]; bounds scratch of rows x n_chunks 64-bit words, or
+// null (no shared bound; unused at k <= 32); out_v/out_i [rows, k].
 extern "C" int fused_topk_launch(const float* u, const void* items,
                                  const float* scale, const float* mask,
                                  const int32_t* ex_ptr, const int32_t* ex_ids,
                                  int rows, int n, int d, int k, int chunk,
                                  int quantized, float* part_v,
-                                 int32_t* part_i, float* out_v,
-                                 int32_t* out_i, cudaStream_t stream) {
+                                 int32_t* part_i, uint64_t* bounds,
+                                 float* out_v, int32_t* out_i,
+                                 cudaStream_t stream) {
   if (quantized) {
     const DenseRowsInt8 load{static_cast<const int8_t*>(items), scale};
     return launch(u, load, mask, ex_ptr, ex_ids, rows, n, d, k, chunk,
-                  part_v, part_i, out_v, out_i, stream);
+                  part_v, part_i, bounds, out_v, out_i, stream);
   }
   const int vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(items) % 16 == 0;
   const DenseRows load{static_cast<const float*>(items), vec};
   return launch(u, load, mask, ex_ptr, ex_ids, rows, n, d, k, chunk, part_v,
-                part_i, out_v, out_i, stream);
+                part_i, bounds, out_v, out_i, stream);
 }
 
 // As fused_topk_launch, with items implicit: codebook f32 or int8 [K, d]
@@ -693,16 +843,16 @@ extern "C" int fused_topk_codebook_launch(
     const int32_t* sketch, int n_hot, const float* mask,
     const int32_t* ex_ptr, const int32_t* ex_ids, int rows, int n, int d,
     int k, int chunk, int quantized, float* part_v, int32_t* part_i,
-    float* out_v, int32_t* out_i, cudaStream_t stream) {
+    uint64_t* bounds, float* out_v, int32_t* out_i, cudaStream_t stream) {
   if (n_hot < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (quantized) {
     const CodebookRows<true> load{codebook, scale, sketch, n_hot};
     return launch(u, load, mask, ex_ptr, ex_ids, rows, n, d, k, chunk,
-                  part_v, part_i, out_v, out_i, stream);
+                  part_v, part_i, bounds, out_v, out_i, stream);
   }
   const CodebookRows<false> load{codebook, scale, sketch, n_hot};
   return launch(u, load, mask, ex_ptr, ex_ids, rows, n, d, k, chunk, part_v,
-                part_i, out_v, out_i, stream);
+                part_i, bounds, out_v, out_i, stream);
 }
 
 extern "C" const char* kernel_error_string(int code) {

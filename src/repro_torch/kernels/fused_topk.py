@@ -24,10 +24,17 @@ import torch
 from . import cost, platform, ref
 
 __all__ = ["fused_topk", "fused_topk_codebook", "exclusion_csr",
-           "plan_chunk"]
+           "plan_chunk", "shares_bounds"]
 
 _NAME = "fused_topk"
 _MIN_CHUNK = 256
+# list slots of a row's chunks at most (chunks x 32 x lane_keys(k)): one
+# block merges a row's chunk lists, so a batch of a few rows waits on it
+# at k 65-128 (``tools/fused_topk_parity.py`` times the chunk sizes)
+_MERGE_SLOTS = 16384
+# rows x keys a lane from which a call's chunks share the rows' bounds
+# (see :func:`shares_bounds`)
+_SHARE_WORK = 256
 _MAX_GRID_Y = 65535
 _ENTRIES: dict = {}             # the loaded library's caps and entry points
 # (device index, d, codebook, quantized, keys a lane) -> (rows per block,
@@ -36,20 +43,19 @@ _TILING: dict = {}
 
 
 def _entries() -> dict:
-    """{"max_k", "max_dim", "dense", "codebook", "tiling"} of the build of
-    ``csrc/fused_topk.cu``, loaded on first use: its caps (compile-time
-    constants of the source) and its C entry points."""
+    """{"max_k", "max_dim", "dense", "codebook", "tiling"} of the build of ``csrc/fused_topk.cu``, loaded on first use: its caps
+    (compile-time constants of the source) and its C entry points."""
     if not _ENTRIES:
         lib = platform.load(_NAME)
         dense = lib.fused_topk_launch
         dense.restype = ctypes.c_int
         dense.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-                          + [ctypes.c_void_p] * 5)
+                          + [ctypes.c_void_p] * 6)
         codebook = lib.fused_topk_codebook_launch
         codebook.restype = ctypes.c_int
         codebook.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int]
                              + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
-                             + [ctypes.c_void_p] * 5)
+                             + [ctypes.c_void_p] * 6)
         tiling = lib.fused_topk_tiling
         tiling.restype = ctypes.c_int
         tiling.argtypes = ([ctypes.c_int] * 4
@@ -99,19 +105,39 @@ def exclusion_csr(exclude, rows: int, n: int, device):
     return ptr.to(torch.int32), (key % n).to(torch.int32)
 
 
+def shares_bounds(rows: int, k: int) -> bool:
+    """Whether a call of ``rows`` query rows at top-``k`` passes the
+    kernel its bounds scratch, so that a row's chunks share a lower bound
+    on its k-th key (lists of 64 and 128 keys, k 33-128; see the head of
+    ``csrc/fused_topk.cu``). Only where rows x :func:`lane_keys` reaches
+    ``_SHARE_WORK``: for fewer rows the scratch's memset and each block's
+    trips to L2 for the bound cost more than the merges it saves
+    (``tools/fused_topk_parity.py`` times both settings)."""
+    r = lane_keys(int(k))
+    return r > 1 and int(rows) * r >= _SHARE_WORK
+
+
 def plan_chunk(rows: int, n: int, *, rows_per_block: int,
-               items_per_tile: int, slots: int, block=None) -> int:
+               items_per_tile: int, slots: int, block=None,
+               k: int = 1) -> int:
     """Items one thread block scores (its chunk). ``block``, when given,
     is the caller's choice. Otherwise the chunks are sized so that the
     grid (chunks x groups of ``rows_per_block`` rows) fills the ``slots``
-    blocks the card holds at once, in whole tiles of ``items_per_tile``
+    blocks the card holds at once without passing them (a block more
+    would wait for a second wave, nearly doubling the call: 136 blocks
+    on 132 slots at B 512, k 100), in whole tiles of ``items_per_tile``
     and at least 256 items: small batches spread over the card, and large
-    ones keep few chunk lists to merge. An empty batch (``rows`` 0) is
-    planned as one group; its call launches nothing."""
+    ones keep few chunk lists to merge. A row's chunk lists hold at most
+    ``_MERGE_SLOTS`` list slots at top-``k`` (32 x :func:`lane_keys`
+    slots a chunk: fewer, larger chunks at k 65-128 when the batch is
+    small). Where the groups alone pass the slots, each group takes one
+    chunk. An empty batch (``rows`` 0) is planned as one group; its call
+    launches nothing."""
     if block is not None:
         return max(1, int(block))
     groups = max(1, -(-int(rows) // rows_per_block))
-    want = max(1, -(-int(slots) // groups))
+    want = max(1, min(int(slots) // groups,
+                      _MERGE_SLOTS // (32 * lane_keys(max(1, int(k))))))
     chunk = -(-int(n) // want)
     chunk = -(-chunk // items_per_tile) * items_per_tile
     return max(_MIN_CHUNK, chunk)
@@ -159,10 +185,13 @@ def _run(variant, lead, u, k, n, scale, mask, exclude, block):
     if exclude is not None and len(exclude[0]):
         ex_ptr, ex_ids = exclusion_csr(exclude, rows, n, dev)
     chunk = plan_chunk(rows, n, rows_per_block=per_block,
-                       items_per_tile=per_tile, slots=slots, block=block)
+                       items_per_tile=per_tile, slots=slots, block=block,
+                       k=k)
     n_chunks = -(-n // chunk)
     part_v = torch.empty(rows, n_chunks, k, dtype=torch.float32, device=dev)
     part_i = torch.empty(rows, n_chunks, k, dtype=torch.int32, device=dev)
+    bounds = (torch.empty(rows * n_chunks, dtype=torch.int64, device=dev)
+              if shares_bounds(rows, k) else None)
     out_v = torch.empty(rows, k, dtype=torch.float32, device=dev)
     out_i = torch.empty(rows, k, dtype=torch.int32, device=dev)
     args = [u.contiguous(), *lead,
@@ -174,7 +203,7 @@ def _run(variant, lead, u, k, n, scale, mask, exclude, block):
     status = _entries()[variant](
         *map(arg, args), rows, n, d, k, chunk,
         int(scale is not None), part_v.data_ptr(), part_i.data_ptr(),
-        out_v.data_ptr(), out_i.data_ptr(),
+        arg(bounds), out_v.data_ptr(), out_i.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     platform.check(status, _NAME)
     return out_v, out_i

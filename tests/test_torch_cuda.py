@@ -638,10 +638,12 @@ def test_fused_topk_tiling_from_the_build(dev, codebook, quantized):
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     assert _tiling(dev, 64, codebook, quantized, 20) == (64, 64, 2 * sms)
     assert _tiling(dev, 256, codebook, quantized, 20) == (64, 64, sms)
-    # a list of 128 keys a row (k 65..128): ~148 KB at d 64, ~196 KB at
-    # d 256, one block per SM
-    for d in (64, 256):
-        assert _tiling(dev, d, codebook, quantized, 100) == (64, 64, sms)
+    # a list of 64 keys a row (k 33..64) in 64-row blocks, and of 128 keys
+    # (k 65..128) in 48-row blocks, with 88 candidate slots a row: two
+    # blocks per SM at d 64 (~115 KB each), one at d 256
+    for k, rows in ((64, 64), (100, 48)):
+        assert _tiling(dev, 64, codebook, quantized, k) == (rows, 64, 2 * sms)
+        assert _tiling(dev, 256, codebook, quantized, k) == (rows, 64, sms)
 
 
 @pytest.mark.parametrize("variant", ["dense", "codebook"])
@@ -804,6 +806,96 @@ def test_fused_topk_large_k_never_calls_torch_topk(dev, monkeypatch):
     assert fused_topk.launches == before + 1
     monkeypatch.undo()
     assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+
+
+@pytest.mark.parametrize("variant", ["dense", "int8", "codebook"])
+@pytest.mark.parametrize("k", [33, 64, 100, 128])
+@pytest.mark.parametrize("rows", [1, 8, 130])
+@pytest.mark.parametrize("block", [None, 37, 300])
+def test_fused_topk_long_lists_many_chunks_exact(dev, variant, k, rows,
+                                                 block):
+    """Lists of 64 and 128 keys over many chunks (37- and 300-item chunks:
+    136 and 17 a row) and the plan's own: bitwise the plain version on
+    integer inputs, with the rows' shared bounds (where rows x keys a lane
+    reach 256: 130 rows) and without (1 and 8 rows), over 48-row groups at k
+    above 64 (130 rows: three groups, the last of 34 rows); with fewer
+    than k finite scores and with exclusions of each row's best items."""
+    g = torch.Generator().manual_seed(k * 7 + rows + (block or 0))
+    u, items, kw = _topk_case(variant, rows, 4999, 64, g)
+    n = 4999
+    cases = [{}]
+    mask = torch.full((n,), float("-inf"))
+    mask[torch.randperm(n, generator=g)[:k // 2]] = 0.0   # < k finite
+    cases.append({"mask": mask})
+    _, top = ref.fused_topk(u, items, 8, **kw)
+    cases.append({"exclude": (torch.arange(rows).repeat_interleave(8),
+                              top.reshape(-1).long())})
+    u, items = u.to(dev), items.to(dev)
+    kw = {key: val.to(dev) for key, val in kw.items()}
+    for extra in cases:
+        extra = {key: (tuple(t.to(dev) for t in val) if key == "exclude"
+                       else val.to(dev)) for key, val in extra.items()}
+        got = fused_topk(u, items, k, block=block, **kw, **extra)
+        want = ref.fused_topk(u, items, k, **kw, **extra)
+        assert torch.equal(got[1], want[1])
+        assert torch.equal(got[0], want[0])
+
+
+@pytest.mark.parametrize("variant", ["dense", "codebook"])
+@pytest.mark.parametrize("k", [33, 64, 100, 128])
+@pytest.mark.parametrize("block", [None, 61])
+def test_fused_topk_long_lists_ties_at_the_bound(dev, variant, k, block):
+    """130 rows (the shared bounds on at every long list): ascending item
+    scores (every item beats every chunk's list, so each published key is
+    overtaken), descending ones, and all-equal scores, where the bound's
+    key ties the k-th key by value and only the id orders them."""
+    n, d = 5003, 64
+    u = torch.zeros(130, d)
+    u[:, 0] = 1.0
+    u[1::2, 0] = -1.0
+    table = torch.zeros(n, d)
+    table[:, 0] = torch.arange(n, dtype=torch.float32)
+    kw = {}
+    if variant == "codebook":
+        kw["sketch"] = torch.arange(n, dtype=torch.int32)[:, None].to(dev)
+    u, table = u.to(dev), table.to(dev)
+    got = fused_topk(u, table, k, block=block, **kw)
+    want = ref.fused_topk(u, table, k, **kw)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+    assert torch.equal(got[1][0].cpu(), torch.arange(
+        n - 1, n - 1 - k, -1, dtype=torch.int32))
+    assert torch.equal(got[1][1].cpu(), torch.arange(k, dtype=torch.int32))
+    flat = fused_topk(torch.zeros_like(u), table, k, block=block, **kw)
+    assert torch.equal(flat[1].cpu(), torch.arange(
+        k, dtype=torch.int32).expand(130, k))
+    assert torch.equal(flat[0], torch.zeros(130, k, device=dev))
+
+
+@pytest.mark.parametrize("k", [33, 64, 100, 128])
+@pytest.mark.parametrize("rows", [8, 64])
+def test_fused_topk_shared_bounds_on_and_off(dev, monkeypatch, k, rows):
+    """At the serving shape (N 91,599, d 64) in 704-item chunks (131 a
+    row), with the rows' shared bounds forced on and off
+    (``_SHARE_WORK``), ten calls each: integer inputs bitwise the plain
+    version, seeded float rows bitwise alike across all twenty calls."""
+    mod = importlib.import_module("repro_torch.kernels.fused_topk")
+    g = torch.Generator().manual_seed(k + rows)
+    u, items, _ = _topk_case("dense", rows, 91599, 64, g)
+    u, items = u.to(dev), items.to(dev)
+    want = ref.fused_topk(u, items, k)
+    gf = torch.Generator(device=dev).manual_seed(k)
+    uf = torch.randn(rows, 64, generator=gf, device=dev)
+    vf = torch.randn(91599, 64, generator=gf, device=dev)
+    first = None
+    for work in (0, 1 << 62):
+        monkeypatch.setattr(mod, "_SHARE_WORK", work)
+        for _ in range(10):
+            got = fused_topk(u, items, k, block=704)
+            assert torch.equal(got[1], want[1])
+            assert torch.equal(got[0], want[0])
+            f = fused_topk(uf, vf, k, block=704)
+            first = f if first is None else first
+            assert torch.equal(f[1], first[1]) and torch.equal(f[0], first[0])
 
 
 def _to_device(tree, dev):
@@ -1340,6 +1432,54 @@ def test_codebook_lookup_16bit_at_the_lm_shapes(dev, rows):
                               torch.searchsorted(order.values, torch.arange(
                                   256001, device=dev)))
     assert torch.equal(table.grad, want)
+
+
+@pytest.mark.parametrize("rows", [1, 2, 4, 8, 64, 4096, 32768])
+@pytest.mark.parametrize("d", [3584, 5120, 7168])
+def test_codebook_lookup_16bit_schedules_bitwise(dev, rows, d):
+    """The 16-bit lookup at the LM widths, from decode's few rows (a unit
+    a thread) to the prefill's 32,768 (four units a thread): bitwise the
+    plain version, word for word, on a table holding a -0.0 row (+0
+    comes out) and a NaN row (the canonical NaN comes out) among the
+    looked-up rows."""
+    g = torch.Generator(device=dev).manual_seed(rows + d)
+    table = torch.randn(4096, d, generator=g, device=dev).to(torch.bfloat16)
+    ids = torch.randint(0, 4096, (rows, 1), generator=g, device=dev,
+                        dtype=torch.int32)
+    table[ids[0, 0]] = -0.0
+    table[ids[-1, 0]] = float("nan")
+    got = codebook_lookup(table, ids)
+    want = ref.codebook_lookup(table, ids)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    if rows > 1:
+        assert torch.equal(got[-1].view(torch.int16),
+                           want[-1].view(torch.int16))
+        assert bool(torch.isnan(got[-1]).all())
+    if ids[0, 0] != ids[-1, 0]:
+        assert not bool(torch.signbit(got[0].float()).any())
+
+
+@pytest.mark.parametrize("h", [1, 2, 3])
+@pytest.mark.parametrize("binary", [False, True])
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_codebook_lookup_16bit_wide_schedule_multi_hot(dev, dtype, h, binary,
+                                                       aligned):
+    """Four units a thread (4,099 rows x 3,584 / 8 words: more than the
+    card holds at once) with H 1-3, duplicates under binary, and a table
+    2 bytes off alignment (one element a word): bitwise the plain
+    version."""
+    g = torch.Generator().manual_seed(h * 10 + binary)
+    d = 3584
+    flat = (torch.randn(97 * d + 1, generator=g) * 4).to(dtype).to(dev)
+    z = (flat[:97 * d] if aligned else flat[1:]).view(97, d)
+    idx = torch.randint(0, 97, (4099, h), generator=g, dtype=torch.int32)
+    if h > 1:
+        idx[::3, -1] = idx[::3, 0]
+    idx = idx.to(dev)
+    got = codebook_lookup(z, idx, binary=binary)
+    want = ref.codebook_lookup(z, idx, binary=binary)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
 
 
 @pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k"])

@@ -24,7 +24,8 @@ from repro_torch.core import solver_torch
 from repro_torch.embedding import (EmbeddingEngine, EmbeddingSpec,
                                    quantize_int8_rows)
 from repro_torch.kernels import codebook_lookup, fused_topk
-from repro_torch.kernels.fused_topk import exclusion_csr, plan_chunk
+from repro_torch.kernels.fused_topk import (exclusion_csr, plan_chunk,
+                                           shares_bounds)
 
 
 def _idx(b, h, k, seed, dup_every=3):
@@ -181,6 +182,53 @@ def test_plan_chunk_covers_the_card(rows, want):
     assert 132 - 64 <= -(-n // one) * groups < 132 + groups
     assert plan_chunk(rows, n, **tile, slots=264, block=61) == 61
     assert plan_chunk(1, 300, **tile, slots=264) == 256   # >= 256 items
+
+
+@pytest.mark.parametrize("slots", [132, 264])
+@pytest.mark.parametrize("rows_per_block", [48, 64])
+@pytest.mark.parametrize("rows", [1, 8, 64, 65, 130, 192, 320, 512, 1000])
+def test_plan_chunk_fills_one_wave(rows, rows_per_block, slots):
+    """The grid (chunks x row groups) never passes the card's block slots
+    while the groups alone fit: a block more would run in a second wave
+    (136 blocks on 132 slots at B 512 was two)."""
+    n = 91599
+    chunk = plan_chunk(rows, n, rows_per_block=rows_per_block,
+                       items_per_tile=64, slots=slots)
+    groups = -(-rows // rows_per_block)
+    blocks = -(-n // chunk) * groups
+    assert chunk % 64 == 0 and chunk >= 256
+    assert blocks <= slots
+    assert blocks > slots // 2 or chunk == 256   # and fills at least half
+
+
+@pytest.mark.parametrize("k", [1, 20, 32, 33, 64, 100, 128])
+@pytest.mark.parametrize("rows", [1, 64, 512])
+def test_plan_chunk_bounds_a_rows_chunk_keys(k, rows):
+    """A row's chunk lists hold at most 16,384 list slots (32, 64 or 128
+    a chunk; one block merges them); the bound binds only for lists of
+    128 keys at small batches, so the k <= 64 plans are those without
+    it."""
+    n, tile = 91599, {"rows_per_block": 64, "items_per_tile": 64}
+    chunk = plan_chunk(rows, n, **tile, slots=264, k=k)
+    slots = 32 if k <= 32 else (64 if k <= 64 else 128)
+    assert -(-n // chunk) * slots <= 16384 or chunk == 256
+    if k <= 64:
+        assert chunk == plan_chunk(rows, n, **tile, slots=264)
+    if rows == 1 and k >= 100:
+        assert chunk > plan_chunk(rows, n, **tile, slots=264)
+
+
+@pytest.mark.parametrize("k,rows,want", [
+    (1, 512, False), (20, 4096, False), (32, 512, False),    # lists of 32
+    (33, 1, False), (64, 64, False), (33, 127, False), (64, 128, True),
+    (33, 512, True), (65, 1, False), (100, 8, False), (128, 63, False),
+    (100, 64, True), (128, 512, True)])
+def test_shares_bounds_from_rows_times_lane_keys(k, rows, want):
+    """The wrapper passes the bounds scratch (the chunks of a row share a
+    bound on its k-th key) only for lists of 64 and 128 keys, and only
+    where rows x keys a lane reach 256: from 128 rows at k 33-64, from 64
+    at k 65-128."""
+    assert shares_bounds(rows, k) is want
 
 
 @pytest.mark.parametrize("slots", [132, 264])

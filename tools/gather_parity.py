@@ -47,7 +47,12 @@ builds fold every output column with __fadd_rn in value order from
 - the ``cuda`` tests' shapes: skewed bags (``chip_smoke.skewed_csr``) at
   d 1, 3, 50, 64, 128, 129 and 256, aligned and 4 bytes off, no values,
   no rows; codebook_lookup at d 1, 3, 50, 64, 129, 256 x H 1, 2, 3, 5,
-  binary on and off, aligned and not, B 1,001 and 0.
+  binary on and off, aligned and not, B 1,001 and 0, in f32 and bf16;
+- the 16-bit codebook_lookup (``codebook_lookup16_launch``) at the LM
+  token lookups' shapes (``LM_SHAPES``: seeded bf16 tables, B uniform
+  token ids, a -0.0 row and a NaN row among them), against the other
+  build and the plain version word for word, timed beside ``table[ids]``,
+  both also with the L2 flushed by reads (``time_clean_ms``).
 
 The path shapes are timed with ``chip_smoke.time_ms`` (L2 flushed, a
 device spin before the start event) in turns: plain version, other
@@ -68,6 +73,19 @@ import chip_smoke  # noqa: E402  (puts src/ on the path)
 import parity_build  # noqa: E402
 
 NAMES = ("embedding_bag", "codebook_lookup")
+# (what, B, K, d) of the LM token lookups: decode, train microbatch, prefill
+LM_SHAPES = (("gemma2-9b decode", 4, 256_000, 3584),
+             ("gemma3-12b decode", 8, 262_144, 3840),
+             ("qwen1.5-32b decode", 2, 152_064, 5120),
+             ("dbrx-132b decode", 8, 100_352, 6144),
+             ("kimi-k2 decode", 64, 163_840, 7168),
+             ("gemma3-12b train microbatch", 4096, 262_144, 3840),
+             ("qwen1.5-32b train microbatch", 4096, 152_064, 5120),
+             ("gemma2-9b prefill", 32768, 256_000, 3584),
+             ("gemma3-12b prefill", 32768, 262_144, 3840),
+             ("qwen1.5-32b prefill", 32768, 152_064, 5120),
+             ("dbrx-132b prefill", 32768, 100_352, 6144),
+             ("kimi-k2 prefill", 32768, 163_840, 7168))
 BAG_DS = (1, 3, 50, 64, 128, 129, 256)
 LOOKUP_DS = (1, 3, 50, 64, 129, 256)
 LOOKUP_HS = (1, 2, 3, 5)
@@ -93,10 +111,6 @@ def bind(path: str):
         path % "embedding_bag", "csr_gather_sum16_launch",
         [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_int, ctypes.c_int,
                                  ctypes.c_void_p])
-    cb = parity_build.entry(
-        path % "codebook_lookup", "codebook_lookup_launch",
-        [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-                                 ctypes.c_int, ctypes.c_void_p])
 
     def gather_sum(src, idx, ptr, weight=None):
         rows = ptr.numel() - 1
@@ -118,17 +132,61 @@ def bind(path: str):
             raise RuntimeError(f"{path % 'embedding_bag'}: launch {status}")
         return out
 
-    def lookup(z, ix, binary):
-        out = torch.empty(ix.shape[0], z.shape[1], device=z.device)
-        status = cb(z.data_ptr(), ix.data_ptr(), out.data_ptr(),
-                    ix.shape[0], ix.shape[1], z.shape[1], int(binary),
-                    torch.cuda.current_stream().cuda_stream)
+    return gather_sum, bind_lookup(path % "codebook_lookup")
+
+
+def bind_lookup(path: str):
+    """codebook_lookup(z, ix, binary) of the library at ``path``: f32
+    tables through ``codebook_lookup_launch``, bf16 and f16 through
+    ``codebook_lookup16_launch``; allocates its output like the
+    wrapper."""
+    import torch
+
+    from repro_torch.kernels import platform
+
+    head = [ctypes.c_void_p] * 3 + [ctypes.c_int64] + [ctypes.c_int] * 3
+    wide = parity_build.entry(path, "codebook_lookup_launch",
+                              head + [ctypes.c_void_p])
+    narrow = parity_build.entry(path, "codebook_lookup16_launch",
+                                head + [ctypes.c_int, ctypes.c_void_p])
+
+    def lookup(z, ix, binary=False):
+        out = torch.empty(ix.shape[0], z.shape[1], device=z.device,
+                          dtype=z.dtype)
+        args = (z.data_ptr(), ix.data_ptr(), out.data_ptr(), ix.shape[0],
+                ix.shape[1], z.shape[1], int(binary))
+        stream = torch.cuda.current_stream().cuda_stream
+        status = (wide(*args, stream) if z.dtype == torch.float32
+                  else narrow(*args, platform.DTYPES[z.dtype], stream))
         if status:
-            raise RuntimeError(f"{path % 'codebook_lookup'}: launch "
-                               f"{status}")
+            raise RuntimeError(f"{path}: launch {status}")
         return out
 
-    return gather_sum, lookup
+    return lookup
+
+
+def time_clean_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """``chip_smoke.time_ms`` with the L2 flushed by reading 64 MB rather
+    than writing it: the timed call then evicts clean lines and pays no
+    write-back of the flush's dirty ones."""
+    import torch
+    flush = torch.ones(64 << 20, dtype=torch.uint8, device="cuda")
+    spin = chip_smoke.spin_cycles()
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        flush.max()
+        torch.cuda._sleep(spin)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        times.append((a, b))
+    torch.cuda.synchronize()
+    ms = sorted(a.elapsed_time(b) for a, b in times)
+    return ms[len(ms) // 2]
 
 
 def path_inputs():
@@ -346,21 +404,39 @@ def edge_inputs():
                  torch.zeros(9, dtype=torch.int64, device=dev)))
     bags.append(("no rows", src, none,
                  torch.zeros(1, dtype=torch.int64, device=dev)))
-    for d in LOOKUP_DS:
-        flat = torch.randn(501 * d + 1, generator=g).to(dev)
-        for h in LOOKUP_HS:
-            ix = torch.randint(0, 501, (1001, h), generator=g,
-                               dtype=torch.int32)
-            if h > 1:
-                ix[::2, -1] = ix[::2, 0]
-            ix = ix.to(dev)
-            for off in (0, 1):
-                z = flat[off:off + 501 * d].view(501, d)
-                for binary in (False, True):
-                    lookups.append((f"d={d} H={h} off={off} "
-                                    f"binary={binary}", z, ix, binary))
-    lookups.append(("B=0", flat[:501 * d].view(501, d), ix[:0], True))
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        for d in LOOKUP_DS:
+            flat = torch.randn(501 * d + 1, generator=g).to(dev, dtype)
+            for h in LOOKUP_HS:
+                ix = torch.randint(0, 501, (1001, h), generator=g,
+                                   dtype=torch.int32)
+                if h > 1:
+                    ix[::2, -1] = ix[::2, 0]
+                ix = ix.to(dev)
+                for off in (0, 1):
+                    z = flat[off:off + 501 * d].view(501, d)
+                    for binary in (False, True):
+                        lookups.append((f"{name} d={d} H={h} off={off} "
+                                        f"binary={binary}", z, ix, binary))
+        lookups.append((f"{name} B=0", flat[:501 * d].view(501, d), ix[:0],
+                        True))
     return bags, lookups
+
+
+def lm_lookups():
+    """(what, z bf16 [K, d], ix int32 [B, 1]) at ``LM_SHAPES``, one at a
+    time (a table is up to 2.3 GB): a -0.0 row and a NaN row among the
+    looked-up rows."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for what, b, k, d in LM_SHAPES:
+        z = torch.randn(k, d, generator=g, device="cuda").to(torch.bfloat16)
+        ix = torch.randint(0, k, (b, 1), generator=g, device="cuda",
+                           dtype=torch.int32)
+        z[ix[0, 0]] = -0.0
+        z[ix[-1, 0]] = float("nan")
+        yield what, z, ix
 
 
 def main(other_dir: str) -> int:
@@ -385,11 +461,16 @@ def main(other_dir: str) -> int:
     synthetic = synthetic_inputs()
     edge_bags, edge_lookups = edge_inputs()
     counts = {n: {"cases": 0, "bitwise": 0}
-              for n in NAMES + ("embedding_bag 16-bit",)}
+              for n in NAMES + ("embedding_bag 16-bit",
+                                "codebook_lookup 16-bit")}
     unequal = []
 
+    def words(x):                      # NaN compares by its bits
+        return x.view(torch.int16) if x.element_size() == 2 else x
+
     def tally(name, what, *results):
-        same = all(torch.equal(results[0], r) for r in results[1:])
+        same = all(torch.equal(words(results[0]), words(r))
+                   for r in results[1:])
         counts[name]["cases"] += 1
         counts[name]["bitwise"] += bool(same)
         if not same:
@@ -425,7 +506,9 @@ def main(other_dir: str) -> int:
         tally("codebook_lookup", side, codebook_lookup(z, ix, binary=True),
               old_lookup(z, ix, True), ref.codebook_lookup(z, ix, True))
     for what, z, ix, binary in edge_lookups:
-        tally("codebook_lookup", what, codebook_lookup(z, ix, binary=binary),
+        name = ("codebook_lookup" if z.dtype == torch.float32
+                else "codebook_lookup 16-bit")
+        tally(name, what, codebook_lookup(z, ix, binary=binary),
               old_lookup(z, ix, binary))
 
     t = chip_smoke.time_ms
@@ -482,6 +565,20 @@ def main(other_dir: str) -> int:
                          for _ in range(2)]
         row["old_ms"].append(t(lambda: old_lookup(z, ix, True)))
         times[f"codebook_lookup {side}"] = row
+    for what, z, ix in lm_lookups():
+        tally("codebook_lookup 16-bit", what, codebook_lookup(z, ix),
+              old_lookup(z, ix), ref.codebook_lookup(z, ix))
+        ixl = ix[:, 0].long()
+        row = {"old_ms": [t(lambda: old_lookup(z, ix))]}
+        row["new_ms"] = [t(lambda: codebook_lookup(z, ix)) for _ in range(2)]
+        row["old_ms"].append(t(lambda: old_lookup(z, ix)))
+        row["library_ms"] = t(lambda: z[ixl])
+        row["clean_l2_ms"] = time_clean_ms(lambda: codebook_lookup(z, ix))
+        row["clean_l2_library_ms"] = time_clean_ms(lambda: z[ixl])
+        row["bound_ms"] = kcost.bound(kcost.codebook_lookup(
+            z, ix, rows=int(torch.unique(ix).numel())))[0]
+        times[f"codebook_lookup 16-bit {what}"] = row
+        del z
     print(json.dumps({"gather_parity": {
         "other": other_dir, "counts": counts,
         "unequal": unequal[:20], "times": times,
